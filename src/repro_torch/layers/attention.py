@@ -1,0 +1,228 @@
+"""Attention for the dense decode path: counterpart of
+``repro/layers/attention.py`` (causal self-attention with GQA; prefill
+attention; KV-cache decode, int8 KV included).  The reference's other
+flavours (QKV bias, qk-norm, logit softcap, sliding window, cross
+attention) are not ported; ``models/lm.py`` rejects configs that set them.
+
+Layouts are the reference's: q (B, S, H, hd), caches (B, S, K, hd).  Unlike
+the functional reference, the KV cache is updated in place (no copy of the
+cache per step); ``update_kv_cache`` and ``decode_attend`` return the same
+dict they were given.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.layers.rope import apply_rope
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+
+
+def init_attention(generator: torch.Generator, cfg: AttentionConfig,
+                   dtype=torch.float32, device="cpu") -> dict:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def draw(shape, scale):
+        return (torch.randn(shape, generator=generator, device=device)
+                * scale).to(dtype)
+    return {
+        "wq": draw((d, h * hd), d ** -0.5),
+        "wk": draw((d, kvh * hd), d ** -0.5),
+        "wv": draw((d, kvh * hd), d ** -0.5),
+        "wo": draw((h * hd, d), (h * hd) ** -0.5),
+    }
+
+
+def _project_qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig):
+    b = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, -1, h, hd)
+    k = (x @ params["wk"].to(x.dtype)).reshape(b, -1, kvh, hd)
+    v = (x @ params["wv"].to(x.dtype)).reshape(b, -1, kvh, hd)
+    return q, k, v
+
+
+def flash_attention(q, k, v, q_positions: torch.Tensor,
+                    k_positions: torch.Tensor) -> torch.Tensor:
+    """Causal softmax attention in float32 over the whole sequence (the
+    reference chunks it with a running max/sum; the result is the same up
+    to float rounding).  q: (B, Sq, H, hd); k, v: (B, Sk, K, hd)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, sq, kvh, rep, hd).float()
+    s = torch.einsum("bqkrh,btkh->bkrqt", qg, k.float()) * (hd ** -0.5)
+    mask = q_positions[:, None] >= k_positions[None, :]
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrqt,btkh->bqkrh", p, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+           positions: torch.Tensor, return_kv: bool = False):
+    """Prefill self-attention.  x: (B, S, d).  ``return_kv`` also returns
+    the roped K/V for seeding the decode cache."""
+    q, k, v = _project_qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, positions, positions)
+    b, s = x.shape[0], x.shape[1]
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ \
+        params["wo"].to(x.dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------- decode ---
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttentionConfig,
+                  dtype=torch.bfloat16, device="cpu") -> dict:
+    """KV cache; int8 storage carries per-(B, S, K) bfloat16 scales that
+    factor out of the attention products."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(B, S, K, hd) -> int8 values (round half to even) + per-(B, S, K)
+    bfloat16 scale."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                    index) -> dict:
+    """Write (B, S_new, K, hd) at sequence offset ``index`` in place:
+    a scalar (one offset for every slot) or (B,) per-slot offsets."""
+    idx = torch.as_tensor(index, device=cache["k"].device).long()
+    if cache["k"].dtype == torch.int8:
+        (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
+        upd = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        upd = {"k": k_new, "v": v_new}
+    s_new = k_new.shape[1]
+    for name, val in upd.items():
+        buf = cache[name]
+        val = val.to(buf.dtype)
+        if idx.ndim == 0:
+            i = int(idx)
+            buf[:, i:i + s_new] = val
+        else:
+            pos = idx[:, None] + torch.arange(s_new, device=buf.device)
+            rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+            buf[rows, pos] = val
+    return cache
+
+
+def _as_compute(t: torch.Tensor) -> torch.Tensor:
+    """Cache operand of a decode product as float32: int8 values are read
+    as bfloat16, as the reference multiplies them (exact either way)."""
+    if t.dtype == torch.int8:
+        return t.to(torch.bfloat16).float()
+    return t.float()
+
+
+def decode_scores(q, cache_k, cfg: AttentionConfig):
+    """q (B, 1, H, hd) vs cache (B, S, K, hd) -> float32 scores
+    (B, K, rep, S), unmasked.
+
+    The reference multiplies in the cache's dtype (bfloat16 for an int8
+    cache) with float32 accumulation; here both operands are rounded to that
+    dtype and multiplied in float32, where their products are exact, so the
+    two differ only in summation order."""
+    b, _, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    op_dtype = torch.bfloat16 if cache_k.dtype == torch.int8 \
+        else cache_k.dtype
+    qg = q.reshape(b, kvh, h // kvh, hd).to(op_dtype).float()
+    return torch.einsum("bkrh,btkh->bkrt", qg,
+                        _as_compute(cache_k)) * (hd ** -0.5)
+
+
+def decode_attend_partial(q, cache_k, cache_v, cfg: AttentionConfig,
+                          kv_positions: torch.Tensor, q_position,
+                          k_scale=None, v_scale=None):
+    """Unnormalized decode attention over the cache: (o, l, m).
+    ``kv_positions`` (S,) or (B, S); ``q_position`` scalar or (B,).
+    int8 caches pass their scales, applied to the scores and folded into p.
+    """
+    s = decode_scores(q, cache_k, cfg)                        # (B,K,rep,S)
+    if k_scale is not None:
+        s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
+    q_pos = torch.as_tensor(q_position, device=s.device)
+    if q_pos.ndim:
+        q_pos = q_pos[:, None]
+    mask = kv_positions <= q_pos
+    if mask.ndim == 2:                                        # (B, S)
+        mask = mask[:, None, None, :]
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    if v_scale is not None:
+        pv = p * v_scale.float().transpose(1, 2)[:, :, None, :]
+        o = torch.einsum("bkrt,btkh->bkrh", pv.to(torch.bfloat16).float(),
+                         _as_compute(cache_v))
+    else:
+        o = torch.einsum("bkrt,btkh->bkrh", p.to(cache_v.dtype).float(),
+                         cache_v.float())
+    return o, l, m
+
+
+def finalize_decode(o, l, params: dict, x_dtype, cfg: AttentionConfig):
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    b = out.shape[0]
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_dtype)
+    return out @ params["wo"].to(x_dtype)
+
+
+def q_pos_sentinel(s_max: int, cache_len: torch.Tensor) -> torch.Tensor:
+    return s_max + cache_len + 1
+
+
+def decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+                  cache: dict, cache_len,
+                  kv_positions: Optional[torch.Tensor] = None) -> tuple:
+    """Single-token decode.  x: (B, 1, d); ``cache_len`` scalar or (B,)
+    per-slot lengths.  Returns (out (B, 1, d), cache updated in place)."""
+    cl = torch.as_tensor(cache_len, device=x.device).long()
+    per_slot = cl.ndim == 1
+    pos = cl[:, None] if per_slot else cl.reshape(1)[None]
+    q, k, v = _project_qkv(params, x, cfg)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    cache = update_kv_cache(cache, k, v, cl)
+    s_max = cache["k"].shape[1]
+    if kv_positions is None:
+        kv_positions = torch.arange(s_max, device=x.device)
+    cmp = cl[:, None] if per_slot else cl
+    live = kv_positions <= cmp
+    sent = q_pos_sentinel(s_max, cl)
+    kvp = torch.where(live, kv_positions, sent[:, None] if per_slot else sent)
+    o, l, _ = decode_attend_partial(q, cache["k"], cache["v"], cfg, kvp, cl,
+                                    cache.get("k_scale"),
+                                    cache.get("v_scale"))
+    return finalize_decode(o, l, params, x.dtype, cfg), cache

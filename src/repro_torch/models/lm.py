@@ -1,0 +1,197 @@
+"""Decoder-only LM, dense family: counterpart of ``repro/models/lm.py``.
+
+Params are dicts of tensors; the layer stack is a list of per-layer block
+dicts (the reference stacks them along a leading axis for ``lax.scan``; a
+Python loop over layers takes the scan's place).  Caches are
+``{"blocks": [per-layer {"k", "v"[, "k_scale", "v_scale"]}]}``.
+
+Public API: init_lm, init_caches, prefill, decode_step, prepare_sparse.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sparse_mlp as SM
+from repro_torch.layers import attention as A
+from repro_torch.layers import embeddings as E
+from repro_torch.layers.mlp import init_mlp, mlp_apply
+from repro_torch.models import common as C
+
+
+# ModelConfig flavours the port does not run yet (they arrive with the
+# archs that use them): a config that sets one is rejected, not run wrong
+_UNPORTED = ("qkv_bias", "qk_norm", "attn_softcap", "final_softcap",
+             "window", "local_global_period", "embed_scale",
+             "post_block_norm", "first_dense_layers")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    unported = [f for f in _UNPORTED if getattr(cfg, f)]
+    if cfg.family != "dense" or cfg.norm != "rmsnorm" or unported:
+        raise NotImplementedError(
+            f"{cfg.name}: only the plain dense family is ported (ROADMAP "
+            f"Queue A, other model families); unported settings "
+            f"{unported or [cfg.family, cfg.norm]}")
+
+
+def _mlp_sparse_cfg(cfg: ModelConfig) -> SM.SparseInferConfig:
+    act = cfg.sparse.activation if cfg.sparse.enabled else cfg.activation
+    return dataclasses.replace(cfg.sparse, activation=act)
+
+
+def _alphas(cfg: ModelConfig) -> np.ndarray:
+    return cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    pd = C.param_dtype(cfg)
+    return {
+        "ln1": C.norm_init(cfg, device),
+        "attn": A.init_attention(gen, C.attn_cfg(cfg), pd, device),
+        "ln2": C.norm_init(cfg, device),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, pd,
+                        device),
+    }
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+    """Random weights drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (the draws differ from the reference's
+    ``jax.random``; tests carry the reference's weights over with
+    ``repro_torch.bridge``)."""
+    _check_family(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pd = C.param_dtype(cfg)
+    params: dict[str, Any] = {
+        "embed": E.init_embedding(gen, cfg.vocab_padded, cfg.d_model, pd,
+                                  device),
+        "final_norm": C.norm_init(cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = E.init_unembed(gen, cfg.vocab_padded,
+                                           cfg.d_model, pd, device)
+    params["blocks"] = [_init_block(gen, cfg, device)
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+def _head_table(params: dict) -> torch.Tensor:
+    return params.get("unembed", params["embed"])["table"]
+
+
+def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    return E.embed(params["embed"], tokens, C.compute_dtype(cfg))
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device="cpu") -> dict:
+    """Zero decode caches, one KV dict per layer."""
+    _check_family(cfg)
+    kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
+    return {"blocks": [A.init_kv_cache(batch, max_len, C.attn_cfg(cfg),
+                                       kv_dt, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor):
+    """One transformer block over a prompt (dense MLP).  Returns (x, kv)."""
+    h = C.norm_apply(cfg, blk["ln1"], x)
+    h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg), positions,
+                     return_kv=True)
+    x = x + h
+    h = C.norm_apply(cfg, blk["ln2"], x)
+    return x + mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg)), kv
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int):
+    """Prompt pass building decode caches.  tokens (B, S) -> (next-token
+    logits (B, V) float32, caches)."""
+    _check_family(cfg)
+    dev = tokens.device
+    x = _embed_in(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=dev)
+    kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
+    caches = []
+    for blk in params["blocks"]:
+        x, (k, v) = _block_fwd(blk, x, cfg, positions)
+        cache = A.init_kv_cache(tokens.shape[0], max_len, C.attn_cfg(cfg),
+                                kv_dt, dev)
+        caches.append(A.update_kv_cache(cache, k, v, 0))
+    x = C.norm_apply(cfg, params["final_norm"], x)
+    logits = C.head_logits(x[:, -1], _head_table(params))
+    return logits, {"blocks": caches}
+
+
+def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+                  cache_len, alpha, collect_stats: bool = False):
+    """One block, single-token decode.  Returns (x, cache, stats or None)."""
+    h = C.norm_apply(cfg, blk["ln1"], x)
+    h, cache = A.decode_attend(blk["attn"], h, C.attn_cfg(cfg), cache,
+                               cache_len)
+    x = x + h
+    h = C.norm_apply(cfg, blk["ln2"], x)
+    out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), decode=True,
+                    alpha=alpha, return_stats=collect_stats)
+    if collect_stats:
+        h, stats = out
+        return x + h, cache, stats
+    return x + out, cache, None
+
+
+def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                        caches: dict, cache_len, alphas=None,
+                        collect_stats: bool = False):
+    """Decode through every layer.  ``alphas`` overrides the static
+    schedule: (n_layers,) per layer or (n_layers, B) per layer and slot."""
+    alphas = torch.as_tensor(_alphas(cfg) if alphas is None else alphas,
+                             dtype=torch.float32, device=x.device)
+    if alphas.shape[0] != cfg.n_layers:
+        raise ValueError(f"alphas {tuple(alphas.shape)}: need n_layers="
+                         f"{cfg.n_layers} rows")
+    new, stats = [], []
+    for i, (blk, cache) in enumerate(zip(params["blocks"],
+                                         caches["blocks"])):
+        x, cache, st = _block_decode(blk, x, cfg, cache, cache_len,
+                                     alphas[i], collect_stats=collect_stats)
+        new.append(cache)
+        stats.append(st)
+    if collect_stats:
+        return x, {"blocks": new}, {k: torch.stack([s[k] for s in stats])
+                                    for k in SM.MLP_STAT_KEYS}
+    return x, {"blocks": new}, None
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                caches: dict, cache_len, *, alphas=None,
+                collect_stats: bool = False):
+    """One decode step.  token (B, 1) -> (logits (B, V) float32, caches
+    [, stats]).  ``cache_len``: scalar shared length or (B,) per-slot
+    lengths.  With ``collect_stats`` the stats are a dict over
+    ``MLP_STAT_KEYS`` of (L, B) float32 tensors."""
+    _check_family(cfg)
+    x = _embed_in(params, cfg, token)
+    x, caches, stats = _dense_stack_decode(params, x, cfg, caches, cache_len,
+                                           alphas, collect_stats)
+    x = C.norm_apply(cfg, params["final_norm"], x)
+    logits = C.head_logits(x[:, 0], _head_table(params))
+    if collect_stats:
+        return logits, caches, stats
+    return logits, caches
+
+
+def prepare_sparse(params: dict, sparse: Optional[SM.SparseInferConfig] = None
+                   ) -> dict:
+    """Offline step for serving: pack each layer's gate-weight sign bits."""
+    out = dict(params)
+    out["blocks"] = [dict(blk, mlp=SM.prepare_sparse_params(blk["mlp"],
+                                                            sparse))
+                     for blk in params["blocks"]]
+    return out

@@ -1,0 +1,69 @@
+"""The port stands alone: importing every ``repro_torch`` module (and
+``chip_smoke.py``) loads neither JAX nor the reference package; and its
+entry points never fall back to the CPU on their own."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              'repro_torch.')]
+for m in mods:
+    importlib.import_module(m)
+sys.path.insert(0, {repo!r})
+import chip_smoke
+leaked = sorted(k for k in sys.modules
+                if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+print(len(mods), leaked)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE.format(repo=REPO)],
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout
+    assert leaked == "[]", out.stdout
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+
+
+def test_server_without_device_raises_without_gpu():
+    _no_gpu()
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+    cfg = reduced_config("prosparse-llama2-7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(lm, cfg, ServeConfig(), lm.init_lm(cfg, 0))
+
+
+def test_serve_cli_without_device_raises_without_gpu():
+    _no_gpu()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "prosparse-llama2-7b", "--reduced"])
+
+
+def test_serve_cli_on_cpu_reports(capsys):
+    from repro_torch.launch import serve
+    rep = serve.main(["--arch", "prosparse-llama2-7b", "--reduced",
+                      "--device", "cpu", "--strategy", "pallas",
+                      "--requests", "3", "--batch", "2", "--max-new", "3",
+                      "--sla-mix", "latency:1,balanced:1,quality:1"])
+    assert rep["completed"] == 3 and rep["tokens"] == 9
+    assert rep["sla_mix"] == {"latency": 1, "balanced": 1, "quality": 1}
+    assert '"tok_per_s"' in capsys.readouterr().out
