@@ -6,19 +6,30 @@
 Phases, in order; any failure exits non-zero:
   1. build   nvcc-compile every kernel source in src/repro_torch/csrc/.
   2. kernels each CUDA kernel against its plain PyTorch version on the card
-             at prosparse-llama2-7b's full width (d=4096, k=11008, G=8),
-             B in {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead
-             slot}; timed beside its bound, its plain version and a library
-             yardstick.
+             at prosparse-llama2-7b's full width (d=4096, k=11008, G=8,
+             C=288, int8 quant groups of 128): the decode kernels at B in
+             {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead slot};
+             the chunk kernels at S in {17, 64, 128} rows with pad rows; the
+             int8 decode kernel at B in {1, 4, 16}; small-shape edge cases;
+             a decode batch of 24 through the ops layer.  Each is timed at
+             the main path's shape beside its bound, its plain version and
+             a library yardstick where one PyTorch call computes it.
   3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
              and KV cache: 8 teacher-forced decode steps on the card against
              the same weights on the CPU (plain kernel versions), logits and
              stats.
-  4. serve   prosparse-llama2-7b at full width and all 32 layers through
+  4. prefill the same 2 layers: a 160-token prompt in chunks of 64 through
+             sparse prefill on the card against the CPU, with float32 and
+             with int8 MLP weights.
+  5. serve   prosparse-llama2-7b at full width and all 32 layers through
              Server.serve (strategy pallas, batch 4, 8 requests, mixed SLA
              tiers); the kernel launch counters must show two launches per
              sparse MLP per decode step.
-  5. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+  6. serve-chunked  the same model with chunked sparse prefill (chunks of
+             64, 96-192-token prompts), once with float32 and once with int8
+             MLP weights; the counters must show two launches per sparse MLP
+             per decode step and per prefill chunk.
+  7. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 """
@@ -39,8 +50,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 D, K, G = 4096, 11008, 8
+QG = 128                  # int8 quant group width
 BATCHES = (1, 4, 16)
+CHUNK_ROWS = (17, 64, 128)
 MAIN_BATCH = 4            # the serve phase's batch: the main path's shape
+MAIN_CHUNK = 64           # the chunked serve phase's prefill chunk
 
 
 def fail(msg: str) -> None:
@@ -288,11 +302,13 @@ def phase_kernel_edges() -> None:
 def _check_telemetry(tel, tel_r, x, wg, sel_idx, count, tag) -> None:
     """Telemetry is equal, except that ``actual`` / ``false_neg`` may be off
     by the number of computed rows whose gate pre-activation lies within
-    float rounding of 0 (there the two sums may disagree on its sign)."""
+    float rounding of 0 (there the two sums may disagree on its sign).
+    ``wg``: the (k, d) float gate weights (the dequantized view for int8)."""
     import torch
     if torch.equal(tel, tel_r):
         return
-    rows = wg.reshape(K // G, G, D)[sel_idx[:count].long()].reshape(-1, D)
+    k, d = wg.shape
+    rows = wg.reshape(k // G, G, d)[sel_idx[:count].long()].reshape(-1, d)
     g = x.float() @ rows.T
     scale = (x.float().abs() @ rows.abs().T)
     near = ((g.abs() <= 1e-5 * scale).sum(-1)).to(torch.int32)   # (B,)
@@ -304,6 +320,469 @@ def _check_telemetry(tel, tel_r, x, wg, sel_idx, count, tag) -> None:
             and bool((diff[:, :2] <= near[:, None]).all())):
         fail(f"fused_sparse_mlp telemetry {tag}: {tel.tolist()} vs "
              f"{tel_r.tolist()}")
+
+
+def _chunk_alphas(s: int, device):
+    """Per-row alphas of a prefill chunk: the schedule's two values, and
+    dead pad rows at the end (a padded last chunk)."""
+    import torch
+    from repro_torch.core.sparse_mlp import DEAD_SLOT_ALPHA
+    a = torch.full((s,), 1.0, device=device)
+    a[1::3] = 1.03
+    a[s - max(1, s // 8):] = DEAD_SLOT_ALPHA
+    return a
+
+
+QNAMES = ("wg_q", "wg_s", "wu_q", "wu_s", "wd_q", "wd_s")
+
+
+def phase_chunk_kernels(results: dict) -> None:
+    """The chunk predictor (bitwise, and per row equal to the decode one),
+    the chunk MLP and the two int8 MLP kernels against their plain
+    versions at full width; timings at the main path's shapes."""
+    import torch
+    from repro_torch.core import quantize as Q
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wu = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wd = torch.randn((K, D), generator=gen, device=dev) * K ** -0.5
+    qn = Q.quantize_mlp_node({"wg_t": wg, "wu_t": wu, "wd_t": wd}, QG, G)
+    qargs = [qn[n] for n in QNAMES]
+    wg_deq = Q.dense_view(qn)["wg_t"]
+    sign_wg = qn["sign_wg"]
+    w = sign_wg.shape[1]
+    cap = SparseInferConfig().capacity(K)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def check_y(name, tag, y, y0, y_r, rtol):
+        scale = float(y_r.abs().max()) or 1.0
+        err = float((y - y_r).abs().max())
+        if err > rtol * scale or not torch.equal(y, y0):
+            fail(f"{name} {tag}: max abs err {err:.3e} > {rtol} x max|y| "
+                 f"{scale:.3e}, or y differs with/without telemetry")
+        results.setdefault("err", {})[name] = max(
+            err, results.get("err", {}).get(name, 0.0))
+        return err
+
+    cases = [(s, True) for s in CHUNK_ROWS] + [(b, False) for b in BATCHES]
+    for xdt in (torch.bfloat16, torch.float32):
+        for rows, chunk in cases:
+            x = torch.randn((rows, D), generator=gen, device=dev).to(xdt)
+            alpha = _chunk_alphas(rows, dev) if chunk else \
+                torch.linspace(0.9, 1.1, rows, device=dev)
+            tag = f"{'S' if chunk else 'B'}={rows} x={str(xdt)[6:]}"
+            gm, cnt = KP.predict_chunk_group_margins(
+                sign_wg, x, alpha, d_valid=D, group_size=G)
+            if chunk:
+                gm_r, cnt_r = ref.predict_chunk_group_margins_ref(
+                    sign_wg, x, D, alpha, G)
+                # the decode kernel's outputs on each row alone
+                one = [KP.predict_group_margins(
+                    sign_wg, x[i:i + 1], alpha[i:i + 1], d_valid=D,
+                    group_size=G) for i in range(rows)]
+                gm_1 = torch.cat([o[0] for o in one])
+                cnt_1 = torch.cat([o[1] for o in one])
+                torch.cuda.synchronize()
+                if not (torch.equal(gm, gm_r) and torch.equal(cnt, cnt_r)
+                        and torch.equal(gm, gm_1)
+                        and torch.equal(cnt, cnt_1)):
+                    fail(f"predict_chunk_group_margins {tag}: differs from "
+                         "its plain version or from the decode kernel")
+            sel, _ = S.capacity_select_with_stats(S.union_margin(gm), cap)
+            full = int(sel.count)
+            for count in sorted({full, full // 3}):
+                cnt_t = torch.tensor(count, dtype=torch.int32, device=dev)
+                ctag = f"{tag} count={count}"
+                if chunk:
+                    y, tel = KF.fused_sparse_mlp_chunk(
+                        x, wg, wu, wd, sel.indices, cnt_t, gm, group_size=G,
+                        collect_stats=True)
+                    y0 = KF.fused_sparse_mlp_chunk(x, wg, wu, wd,
+                                                   sel.indices, cnt_t,
+                                                   group_size=G)
+                    y_r, tel_r = ref.fused_sparse_mlp_chunk_ref(
+                        x, wg, wu, wd, sel.indices, cnt_t, gm, group_size=G,
+                        collect_stats=True)
+                    torch.cuda.synchronize()
+                    # as phase 2's fused_sparse_mlp: h rounded to bf16
+                    check_y("fused_sparse_mlp_chunk", ctag, y, y0, y_r,
+                            2e-3 if xdt == torch.bfloat16 else 1e-4)
+                    _check_telemetry(tel, tel_r, x, wg, sel.indices, count,
+                                     ctag)
+                qname = "fused_sparse_mlp_chunk_q" if chunk \
+                    else "fused_sparse_mlp_q"
+                y, tel = getattr(KF, qname)(x, *qargs, sel.indices, cnt_t,
+                                            gm, group_size=G,
+                                            collect_stats=True)
+                y0 = getattr(KF, qname)(x, *qargs, sel.indices, cnt_t,
+                                        group_size=G)
+                y_r, tel_r = ref.fused_sparse_mlp_q_ref(
+                    x, *qargs, sel.indices, cnt_t, gm, group_size=G,
+                    collect_stats=True)
+                torch.cuda.synchronize()
+                # tolerance: float32 products summed in another order (and
+                # scaled per product, not per quant group); h stays float32
+                check_y(qname, ctag, y, y0, y_r, 1e-4)
+                _check_telemetry(tel, tel_r, x, wg_deq, sel.indices, count,
+                                 ctag)
+            main = (rows == MAIN_CHUNK and chunk) or \
+                (rows == MAIN_BATCH and not chunk)
+            if not main or xdt != torch.bfloat16:
+                continue
+            # ---- timings at the main path's shapes (bf16 activations)
+            xbytes = 2
+            count = full
+            sel_rows = sel.indices[:count].long()
+            q_rows = int(torch.unique(sel_rows // (QG // G)).numel())
+            io = rows * D * xbytes + cap * 4 + 4 + rows * D * 4
+            flops = 6 * rows * count * G * D
+            q_bytes = (3 * count * G * D + 2 * count * G * (D // QG) * 4
+                       + q_rows * D * 4 + io)
+            qname = "fused_sparse_mlp_chunk_q" if chunk \
+                else "fused_sparse_mlp_q"
+            t_q = cuda_ms(lambda: getattr(KF, qname)(
+                x, *qargs, sel.indices, sel.count, group_size=G),
+                flush=flush)
+            t_q_plain = cuda_ms(lambda: ref.fused_sparse_mlp_q_ref(
+                x, *qargs, sel.indices, sel.count, group_size=G), iters=5,
+                flush=flush)
+            qb = bound_ms(q_bytes, flops)
+            print(f"[kernels] {qname} {tag} count={count}/{cap}: max_abs_err"
+                  f" {results['err'][qname]:.3e} kernel {t_q:.4f} ms plain "
+                  f"{t_q_plain:.4f} ms bound {qb[0]:.4f} ms ({qb[1]})",
+                  flush=True)
+            results[qname] = dict(
+                max_abs_err=results["err"][qname], ms=t_q,
+                plain_ms=t_q_plain, bound_ms=qb[0], bound_by=qb[1],
+                library_ms=None)
+            if not chunk:
+                continue
+            t_pred = cuda_ms(lambda: KP.predict_chunk_group_margins(
+                sign_wg, x, alpha, d_valid=D, group_size=G), flush=flush)
+            t_pred_plain = cuda_ms(
+                lambda: ref.predict_chunk_group_margins_ref(
+                    sign_wg, x, D, alpha, G), iters=5, flush=flush)
+            pb = bound_ms(K * w * 4 + rows * D * xbytes + rows * 4
+                          + rows * (K // G) * 4 + rows * 4, 3 * rows * K * w)
+            t_mlp = cuda_ms(lambda: KF.fused_sparse_mlp_chunk(
+                x, wg, wu, wd, sel.indices, sel.count, group_size=G),
+                flush=flush)
+            t_mlp_plain = cuda_ms(lambda: ref.fused_sparse_mlp_chunk_ref(
+                x, wg, wu, wd, sel.indices, sel.count, group_size=G),
+                iters=5, flush=flush)
+            xf = x.float()
+            t_dense = cuda_ms(lambda: (torch.relu(xf @ wg.T) * (xf @ wu.T))
+                              @ wd, flush=flush)
+            mb = bound_ms(3 * count * G * D * 4 + io, flops)
+            print(f"[kernels] predict_chunk_group_margins {tag}: "
+                  f"max_abs_err 0 (bitwise, and per row equal to "
+                  f"predict_group_margins) kernel {t_pred:.4f} ms plain "
+                  f"{t_pred_plain:.4f} ms bound {pb[0]:.4f} ms ({pb[1]})",
+                  flush=True)
+            print(f"[kernels] fused_sparse_mlp_chunk {tag} count={count}/"
+                  f"{cap}: max_abs_err "
+                  f"{results['err']['fused_sparse_mlp_chunk']:.3e} kernel "
+                  f"{t_mlp:.4f} ms plain {t_mlp_plain:.4f} ms bound "
+                  f"{mb[0]:.4f} ms ({mb[1]}) dense-3-matmul {t_dense:.4f} ms",
+                  flush=True)
+            results["predict_chunk_group_margins"] = dict(
+                max_abs_err=0.0, ms=t_pred, plain_ms=t_pred_plain,
+                bound_ms=pb[0], bound_by=pb[1], library_ms=None)
+            results["fused_sparse_mlp_chunk"] = dict(
+                max_abs_err=results["err"]["fused_sparse_mlp_chunk"],
+                ms=t_mlp, plain_ms=t_mlp_plain, bound_ms=mb[0],
+                bound_by=mb[1], library_ms=t_dense)
+    # the errors over every case, not only those before the timed one
+    for name in ("fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
+                 "fused_sparse_mlp_chunk_q"):
+        results[name]["max_abs_err"] = results["err"][name]
+    print("[kernels] chunk and int8 kernels agree with their plain versions"
+          f" at S in {CHUNK_ROWS}, B in {BATCHES}, bf16 and float32 x, full"
+          " and cut-short counts", flush=True)
+    del wg, wu, wd, qn, qargs, wg_deq, flush_buf
+    torch.cuda.empty_cache()
+    phase_chunk_edges()
+    phase_big_decode_batch()
+
+
+def phase_chunk_edges() -> None:
+    """The chunk and int8 kernels' other paths at small shapes: rows not a
+    multiple of the 16-row block, padded d, a partial column tile,
+    G in {1, 8, 16}, quant groups narrower than 4 columns, ungated,
+    fatrelu, a zero count."""
+    import torch
+    from repro_torch.core import quantize as Q
+    from repro_torch.core import selection as S
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 0
+    for d, k, g, qg, s, gated, act, thr in [
+            (100, 500, 1, 4, 3, True, "relu", 0.0),
+            (128, 512, 8, 32, 37, True, "relu", 0.0),
+            (192, 768, 16, 64, 20, False, "fatrelu", 0.05),
+            (64, 256, 1, 2, 5, True, "fatrelu", 0.0)]:
+        w = {m: torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+             for m in ("wg", "wu", "wd")}
+        wu = w["wu"] if gated else None
+        qn = Q.quantize_mlp_node({"wg_t": w["wg"], "wu_t": wu,
+                                  "wd_t": w["wd"]}, qg, g)
+        qargs = [qn.get(m) for m in QNAMES]
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((s, d), generator=gen, device=dev).to(xdt)
+            alpha = _chunk_alphas(s, dev)
+            gm, cnt = ops.predict_chunk_group_margins(qn["sign_wg"], x, d,
+                                                      alpha, group_size=g)
+            gm_r, cnt_r = ref.predict_group_margins_ref(qn["sign_wg"], x, d,
+                                                        alpha, g)
+            if not (torch.equal(gm, gm_r) and torch.equal(cnt, cnt_r)):
+                fail(f"predict_chunk_group_margins d={d} k={k} G={g} S={s} "
+                     f"{xdt}: differs from its plain version")
+            sel = S.capacity_select(S.union_margin(gm), max(1, k // g // 4))
+            kw = dict(group_size=g, activation=act, fatrelu_threshold=thr,
+                      collect_stats=True)
+            for count in (sel.count, torch.zeros((), dtype=torch.int32,
+                                                 device=dev)):
+                for name, out, want in [
+                        ("fused_sparse_mlp_chunk",
+                         ops.fused_sparse_mlp_chunk(
+                             x, w["wg"], wu, w["wd"], sel.indices, count,
+                             gm, **kw),
+                         ref.fused_sparse_mlp_chunk_ref(
+                             x, w["wg"], wu, w["wd"], sel.indices, count,
+                             gm, **kw)),
+                        ("fused_sparse_mlp_chunk_q",
+                         ops.fused_sparse_mlp_chunk_q(
+                             x, *qargs, sel.indices, count, gm, **kw),
+                         ref.fused_sparse_mlp_q_ref(
+                             x, *qargs, sel.indices, count, gm, **kw))]:
+                    (y, tel), (y_r, tel_r) = out, want
+                    scale = float(y_r.abs().max()) or 1.0
+                    err = float((y - y_r).abs().max())
+                    rtol = 2e-3 if (xdt == torch.bfloat16
+                                    and not name.endswith("_q")) else 1e-4
+                    if err > rtol * scale or not torch.equal(tel, tel_r):
+                        fail(f"{name} d={d} k={k} G={g} qg={qg} S={s} {xdt} "
+                             f"gated={gated} {act} count={int(count)}: err "
+                             f"{err:.3e}, telemetry {tel.tolist()} vs "
+                             f"{tel_r.tolist()}")
+                    n += 1
+    print(f"[kernels] {n} small-shape cases of the chunk and int8 kernels "
+          "(rows not a multiple of 16, padded d, partial column tile, G in "
+          "{1, 8, 16}, qg in {2, 4, 32, 64}, ungated, fatrelu, zero count) "
+          "agree with the plain versions", flush=True)
+
+
+def phase_big_decode_batch() -> None:
+    """A decode batch of 24 with sparse_max_batch=32 through the ops layer:
+    the decode kernels take 16 rows, so the predictor and the MLP launch
+    their chunk twins; the result must match the CPU's plain versions."""
+    import torch
+    from repro_torch.core import sparse_mlp as SM
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    mlp = SM.init_gated_mlp(gen, D, K, device=dev)
+    b = 24
+    x = torch.randn((b, D), generator=gen, device=dev)
+    alpha = torch.linspace(0.95, 1.05, b, device=dev)
+    for weights in ("", "int8"):
+        cfg = SM.SparseInferConfig(enabled=True, strategy="pallas",
+                                   sparse_max_batch=32, weight_dtype=weights,
+                                   quant_group_size=QG)
+        params = SM.prepare_sparse_params(mlp, cfg)
+        ops.reset_launch_counts()
+        y, st = SM.pallas_mlp(params, x, cfg, alpha, return_stats=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        fused = "fused_sparse_mlp_chunk_q" if weights \
+            else "fused_sparse_mlp_chunk"
+        want = {n: int(n in ("predict_chunk_group_margins", fused))
+                for n in counts}
+        if counts != want:
+            fail(f"decode batch of {b}: launches {counts}, want {want}")
+        cpu = {kk: v.cpu() for kk, v in params.items()}
+        y_c, st_c = SM.pallas_mlp(cpu, x.cpu(), cfg, alpha.cpu(),
+                                  return_stats=True)
+        err = float((y.cpu() - y_c).abs().max())
+        scale = float(y_c.abs().max())
+        same = [kk for kk in ("predicted_density", "realized_density",
+                              "union_demand_frac")
+                if not torch.equal(st[kk].cpu(), st_c[kk])]
+        if err > 1e-4 * scale or same:
+            fail(f"decode batch of {b} ({weights or 'float32'} weights): "
+                 f"err {err:.3e} of max|y| {scale:.3e}; stats differ {same}")
+        print(f"[kernels] decode batch of {b} (sparse_max_batch=32, "
+              f"{weights or 'float32'} weights): launched {counts}; y within "
+              f"{err:.3e} of the CPU, selection stats equal", flush=True)
+    del mlp, params
+    torch.cuda.empty_cache()
+
+
+def phase_prefill() -> None:
+    """Two full-width float32 layers, sparse prefill of a 160-token prompt
+    in chunks of 64: card (CUDA kernels) vs CPU (plain versions), with
+    float32 and with int8 MLP weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    base = get_config("prosparse-llama2-7b")
+    plen, chunk, max_len = 160, MAIN_CHUNK, 256
+    n_chunks = -(-plen // chunk)
+    rng = np.random.default_rng(5)
+    tokens = np.zeros((1, n_chunks * chunk), np.int64)
+    tokens[0, :plen] = rng.integers(0, base.vocab, size=plen)
+    fp = lm.init_lm(base.replace(n_layers=2), 0, "cuda")
+    for weights in ("", "int8"):
+        cfg = base.replace(
+            n_layers=2, dtype="float32", kv_cache_dtype="float32",
+            sparse=dataclasses.replace(
+                base.sparse, strategy="pallas", enabled=True,
+                sparse_prefill=True, weight_dtype=weights,
+                quant_group_size=QG))
+        params = {"cuda": lm.prepare_sparse(fp, cfg.sparse)}
+        params["cpu"] = _to(params["cuda"], "cpu")
+        alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ops.reset_launch_counts()
+            caches = lm.init_caches(cfg, 1, max_len, dev)
+            logits, stats = [], []
+            with torch.inference_mode():
+                for off in range(0, n_chunks * chunk, chunk):
+                    lg, caches, st = lm.prefill_chunk(
+                        params[dev], cfg,
+                        torch.as_tensor(tokens[:, off:off + chunk],
+                                        device=dev),
+                        caches, off, plen, alphas=alphas,
+                        collect_stats=True)
+                    logits.append(lg.float().cpu())
+                    stats.append({k: v.cpu() for k, v in st.items()})
+            out[dev] = (torch.stack(logits), stats, ops.launch_counts())
+        counts = out["cuda"][2]
+        fused = "fused_sparse_mlp_chunk_q" if weights \
+            else "fused_sparse_mlp_chunk"
+        want = {n: (cfg.n_layers * n_chunks
+                    if n in ("predict_chunk_group_margins", fused) else 0)
+                for n in counts}
+        if counts != want:
+            fail(f"prefill: launches {counts}, want {want}")
+        lg_c, lg_p = out["cuda"][0], out["cpu"][0]
+        if not bool(torch.isfinite(lg_c).all()):
+            fail("prefill: non-finite logits on the card")
+        # the logits of the chunk that holds the last prompt token
+        diff = (lg_c[-1] - lg_p[-1]).abs()
+        n_diff = sum(int((a[k] != b[k]).sum())
+                     for a, b in zip(out["cuda"][1], out["cpu"][1])
+                     for k in MLP_STAT_KEYS)
+        n_all = len(MLP_STAT_KEYS) * cfg.n_layers * n_chunks
+        worst = max(float((a[k] - b[k]).abs().max())
+                    for a, b in zip(out["cuda"][1], out["cpu"][1])
+                    for k in MLP_STAT_KEYS)
+        tol = 1e-3
+        print(f"[prefill] {weights or 'float32'} weights, {plen} tokens in "
+              f"{n_chunks} chunks of {chunk}: logits max abs diff "
+              f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} "
+              f"(tolerance {tol}); {n_diff} of {n_all} stat entries differ, "
+              f"by at most {worst:.3e}; launches {counts}", flush=True)
+        stat_tol = 2 * cfg.sparse.group_size / cfg.d_ff
+        if float(diff.max()) > tol or worst > stat_tol:
+            fail(f"prefill: logits differ by {float(diff.max())} or a stat "
+                 f"by {worst} (tolerance {stat_tol})")
+        del params
+    del fp
+    torch.cuda.empty_cache()
+
+
+def phase_serve_chunked(results: dict) -> None:
+    """All 32 full-width layers through the slot-refill server with chunked
+    sparse prefill, with float32 and with int8 MLP weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config("prosparse-llama2-7b")
+    tiers = ("latency", "balanced", "quality")
+    for weights in ("", "int8"):
+        cfg = base.replace(sparse=dataclasses.replace(
+            base.sparse, strategy="pallas", enabled=True,
+            sparse_prefill=True, weight_dtype=weights, quant_group_size=QG,
+            prefill_max_tokens=max(base.sparse.prefill_max_tokens,
+                                   MAIN_CHUNK)))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, 0, "cuda")
+        srv = Server(lm, cfg, ServeConfig(
+            batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+            prefill_chunk=MAIN_CHUNK), params, device="cuda")
+        del params        # int8: the server keeps only the quantized MLPs
+        torch.cuda.synchronize()
+        kind = weights or "float32"
+        print(f"[serve-chunked] {kind} MLP weights, prefill chunks of "
+              f"{MAIN_CHUNK}, sparse prefill; init "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rng = np.random.default_rng(6)
+        plens = [int(p) for p in rng.integers(96, 193, size=8)]
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=p),
+                        max_new=16, sla=tiers[i % 3])
+                for i, p in enumerate(plens)]
+        ops.reset_launch_counts()
+        steps0, chunks0 = srv.decode_steps, srv.prefill_chunks_run
+        done = srv.serve(reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        steps = srv.decode_steps - steps0
+        chunks = srv.prefill_chunks_run - chunks0
+        rep = throughput_report(done)
+        rep["prefill_chunks_run"] = chunks
+        rep["prefill_chunks_skipped"] = srv.prefill_chunks_skipped
+        print(f"[serve-chunked] {kind} throughput_report {json.dumps(rep)}",
+              flush=True)
+        print(f"[serve-chunked] {kind} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; decode "
+              f"steps {steps}; prefill chunks {chunks}; launches {counts}",
+              flush=True)
+        if len(done) != 8 or any(
+                r.outcome != "completed" or len(r.out) != 16
+                or not ((r.out >= 0) & (r.out < cfg.vocab)).all()
+                for r in done):
+            fail(f"serve-chunked ({kind}): not every request completed with "
+                 "16 valid tokens")
+        fused = "fused_sparse_mlp_q" if weights else "fused_sparse_mlp"
+        L = cfg.n_layers
+        want = {n: 0 for n in counts}
+        want.update({"predict_group_margins": L * steps, fused: L * steps,
+                     "predict_chunk_group_margins": L * chunks,
+                     fused.replace("mlp", "mlp_chunk"): L * chunks})
+        if steps == 0 or chunks != sum(-(-p // MAIN_CHUNK) for p in plens) \
+                or counts != want:
+            fail(f"serve-chunked ({kind}): launches {counts}, want {want} "
+                 f"(2 per sparse MLP x {L} layers x {steps} decode steps "
+                 f"and x {chunks} prefill chunks)")
+        results[f"launches_chunked_{kind}"] = counts
+        profile_prefill_chunk(srv, cfg, kind)
+        del srv
+        torch.cuda.empty_cache()
 
 
 def phase_decode() -> None:
@@ -449,8 +928,9 @@ def phase_serve(results: dict) -> None:
                              for r in done):
         fail("serve: not every request completed with 16 valid tokens")
     want = cfg.n_layers * steps
-    if steps == 0 or counts != {"predict_group_margins": want,
-                                "fused_sparse_mlp": want}:
+    if steps == 0 or counts != {
+            n: want if n in ("predict_group_margins", "fused_sparse_mlp")
+            else 0 for n in counts}:
         fail(f"serve: launches {counts}, want {want} of each kernel "
              f"(2 per sparse MLP x {cfg.n_layers} layers x {steps} steps)")
     results["launches"] = counts
@@ -459,39 +939,75 @@ def phase_serve(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_decode(srv, cfg, steps: int = 3) -> None:
-    """Where one full-depth decode step's time goes: host wall time against
-    device busy time (torch.profiler), and the largest kernels by name."""
+def profile_decode(srv, cfg) -> None:
+    """Where one full-depth decode step's time goes."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
 
     b = srv.scfg.batch
     caches = lm.init_caches(cfg, b, srv.scfg.max_len, "cuda")
     tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
     lengths = torch.full((b,), 64, device="cuda")
+    profile_step(f"decode step (B={b}, {cfg.n_layers} layers)",
+                 lambda: lm.decode_step(srv.params, cfg, tok, caches,
+                                        lengths))
+
+
+def profile_prefill_chunk(srv, cfg, kind: str) -> None:
+    """Where one full-depth sparse prefill chunk's time goes, for a
+    balanced-tier request (with random weights the latency tier's lower
+    alpha predicts no group active, and its MLP kernel has no work)."""
+    import torch
+    from repro_torch.models import lm
+
+    pc = srv.scfg.prefill_chunk
+    caches = lm.init_caches(cfg, 1, srv.scfg.max_len, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (1, pc), generator=gen,
+                         device="cuda")
+    alphas = srv._prefill_alphas(srv._tier_index["balanced"])
+    profile_step(f"prefill chunk (S={pc}, {cfg.n_layers} layers, {kind} "
+                 "MLP weights)",
+                 lambda: lm.prefill_chunk(srv.params, cfg, toks, caches, 0,
+                                          pc, alphas=alphas))
+
+
+def profile_step(label: str, fn, steps: int = 3) -> None:
+    """Host wall time of ``fn`` against device busy time (torch.profiler),
+    and the largest kernels by name.  The profiler's count of the port's
+    kernels is held against the launch counters: a run in which it missed
+    launches reports no device busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
     with torch.inference_mode():
-        lm.decode_step(srv.params, cfg, tok, caches, lengths)
+        fn()
         torch.cuda.synchronize()
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                lm.decode_step(srv.params, cfg, tok, caches, lengths)
+                fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / steps * 1e3
+    launched = sum(ops.launch_counts().values())
     # device-side rows only: a CPU op's row repeats its kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
+    seen = sum(e.count for e in events
+               if e.key.startswith(("void mlp::", "void predict::")))
     busy = sum(e.self_device_time_total for e in events) / steps / 1e3
-    if not events:
-        print(f"[profile] decode step {wall:.2f} ms host wall; device time "
-              "not measured (the profiler saw no device events)", flush=True)
-        return
-    print(f"[profile] decode step (B={b}, {cfg.n_layers} layers): "
-          f"{wall:.3f} ms host wall, {busy:.3f} ms device busy, idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}", flush=True)
+    if not events or seen != launched:
+        print(f"[profile] {label}: {wall:.3f} ms host wall; device busy not "
+              f"measured (the profiler recorded {seen} of {launched} "
+              "launches of the port's kernels)", flush=True)
+    else:
+        print(f"[profile] {label}: {wall:.3f} ms host wall, {busy:.3f} ms "
+              f"device busy, idle share {max(0.0, 1 - busy / wall):.3f}",
+              flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} ms"
               f"/step  x{e.count // steps:<4d} {e.key[:90]}", flush=True)
@@ -517,22 +1033,31 @@ def main() -> None:
     results: dict = {}
     phase_build()
     phase_kernels(results)
+    phase_chunk_kernels(results)
     phase_decode()
+    phase_prefill()
     phase_serve(results)
+    phase_serve_chunked(results)
     print(f"[done] all phases in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    kernels = [
-        {"name": "predict_group_margins", "route": "cuda",
-         "source": "src/repro_torch/csrc/predict_group_margins.cu",
-         "replaces": "src/repro/kernels/predict.py:240",
-         "launches": results["launches"]["predict_group_margins"],
-         **results["predict_group_margins"]},
-        {"name": "fused_sparse_mlp", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_sparse_mlp.cu",
-         "replaces": "src/repro/kernels/sparse_mlp_fused.py:221",
-         "launches": results["launches"]["fused_sparse_mlp"],
-         **results["fused_sparse_mlp"]},
-    ]
+    src_of = "src/repro_torch/csrc/{}.cu".format
+    launches = {
+        **results["launches"],
+        **{n: results["launches_chunked_float32"][n]
+           for n in ("predict_chunk_group_margins", "fused_sparse_mlp_chunk")},
+        **{n: results["launches_chunked_int8"][n]
+           for n in ("fused_sparse_mlp_q", "fused_sparse_mlp_chunk_q")}}
+    replaces = {
+        "predict_group_margins": "src/repro/kernels/predict.py:263",
+        "fused_sparse_mlp": "src/repro/kernels/sparse_mlp_fused.py:300",
+        "predict_chunk_group_margins": "src/repro/kernels/predict.py:216",
+        "fused_sparse_mlp_chunk": "src/repro/kernels/sparse_mlp_fused.py:499",
+        "fused_sparse_mlp_q": "src/repro/kernels/sparse_mlp_fused.py:397",
+        "fused_sparse_mlp_chunk_q":
+            "src/repro/kernels/sparse_mlp_fused.py:597"}
+    kernels = [{"name": n, "route": "cuda", "source": src_of(n),
+                "replaces": r, "launches": launches[n], **results[n]}
+               for n, r in replaces.items()]
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

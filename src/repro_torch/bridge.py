@@ -6,6 +6,9 @@ The JAX package's ``init_lm`` stacks every layer's leaves along a leading
 with ``jax.tree.map(np.asarray, params)``) and returns the port's params.
 It imports nothing of JAX: a bfloat16 leaf arrives as an ``ml_dtypes``
 numpy array and is widened to float32 (exactly) before the cast back.
+A quantized MLP node (the reference's ``prepare_sparse`` with int8 weights:
+int8 leaves, float32 scales and the int32 ``sign_wg``) carries over leaf
+for leaf, in its own dtypes.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,11 +33,13 @@ def _convert(node, device, index=None):
     return _tensor(node if index is None else np.asarray(node)[index], device)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference params (numpy leaves, layer-stacked ``blocks``) -> the
-    port's params on ``device`` with a per-layer ``blocks`` list."""
+    port's params on ``device`` with a per-layer ``blocks`` list.  Raises
+    without a GPU unless ``device`` is ``"cpu"``."""
     if cfg.family != "dense" or "first_blocks" in tree:
         raise NotImplementedError("only the dense family is ported")
+    device = resolve_device(device)
     out = {k: _convert(v, device) for k, v in tree.items() if k != "blocks"}
     n = np.asarray(tree["blocks"]["ln1"]["scale"]).shape[0]
     if n != cfg.n_layers:

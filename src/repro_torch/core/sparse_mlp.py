@@ -2,14 +2,16 @@
 
 Ported strategies:
 
-``dense``   the baseline gated MLP (and the prefill path).
+``dense``   the baseline gated MLP (and the monolithic prefill path).
 ``pallas``  the two-kernel pipeline: the fused predictor kernel, a batch-
             union top-C selection, then the fused sparse-MLP kernel with
-            in-kernel telemetry.  The name is the reference's own config
-            string; here it names the two CUDA kernels in ``csrc/``.
+            in-kernel telemetry; a prefill chunk runs the chunk kernels and
+            int8 weights the int8 kernels.  The name is the reference's own
+            config string; here it names the CUDA kernels in ``csrc/``.
 
 ``masked`` and ``gather`` are not ported yet and raise.
-Weights are neuron-major: ``wg_t, wu_t, wd_t`` are (k, d).
+Weights are neuron-major: ``wg_t, wu_t, wd_t`` are (k, d), or their int8
+leaves and scales (``core/quantize.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import predictor as P
+from repro_torch.core import quantize as Q
 from repro_torch.core import selection as S
 from repro_torch.core.relufication import get_activation, is_sparsifiable
 
@@ -97,11 +100,15 @@ def init_gated_mlp(generator: torch.Generator, d: int, k: int,
 
 def prepare_sparse_params(params: dict,
                           cfg: Optional[SparseInferConfig] = None) -> dict:
-    """Offline step (paper Fig. 1): pack the gate weights' sign bits."""
+    """Offline step (paper Fig. 1): pack the gate weights' sign bits.  With
+    ``cfg.weight_dtype == "int8"`` the float matrices are replaced by int8
+    leaves and scales (``core/quantize.py``); the sign pack comes from the
+    float weights either way."""
     if cfg is not None and cfg.weight_dtype:
-        raise NotImplementedError(
-            f"weight_dtype={cfg.weight_dtype!r}: int8 weights are not ported "
-            "yet (ROADMAP Queue A, int8 weights)")
+        if cfg.weight_dtype != "int8":
+            raise ValueError(f"unknown weight_dtype {cfg.weight_dtype!r}")
+        return Q.quantize_mlp_node(params, cfg.quant_group_size,
+                                   cfg.group_size)
     out = dict(params)
     out["sign_wg"] = P.pack_signs(params["wg_t"])
     return out
@@ -144,7 +151,9 @@ def _stats(shape: tuple, device, **kw) -> dict:
 
 def dense_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
               return_stats: bool = False):
-    """Baseline gated MLP: (act(x Wg) * (x Wu)) Wd (paper eq. 1)."""
+    """Baseline gated MLP: (act(x Wg) * (x Wu)) Wd (paper eq. 1); a
+    quantized node multiplies its dequantized view."""
+    params = Q.dense_view(params)
     g1 = _act(cfg)(x @ params["wg_t"].to(x.dtype).T)
     h1 = g1
     if "wu_t" in params:
@@ -162,32 +171,45 @@ def pallas_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
                alpha=1.0, return_stats: bool = False):
     """Two-kernel sparse MLP: the fused predictor emits per-token per-group
     margins, a batch-union top-C selection picks the groups, and the fused
-    MLP kernel computes only those (with per-token telemetry in-kernel)."""
+    MLP kernel computes only those (with per-token telemetry in-kernel).
+
+    More than ``cfg.sparse_max_batch`` rows (a prefill chunk) run the
+    chunk kernels: the rows form one union selection, as a decode batch's
+    slots do.  A quantized node runs the int8 kernels."""
     from repro_torch.kernels import ops as kops
     squeeze = x.ndim == 1
     xb = x[None] if squeeze else x
     b, d = xb.shape
-    k = params["wg_t"].shape[0]
+    quantized = Q.is_quantized(params)
+    k = Q.mlp_hidden_rows(params)
     g = cfg.group_size
     cap = cfg.capacity(k)
     sign_wg = params.get("sign_wg")
     if sign_wg is None:
         sign_wg = P.pack_signs(params["wg_t"])
-    if b > cfg.sparse_max_batch:
-        raise NotImplementedError(
-            "chunk-sized sparse batches need the chunked kernels (ROADMAP "
-            "Queue B)")
+    chunked = b > cfg.sparse_max_batch
     a = torch.as_tensor(alpha, dtype=torch.float32,
                         device=xb.device).broadcast_to((b,))
-    gm_tok, pred_cnt = kops.predict_group_margins(sign_wg, xb, d, a,
-                                                  group_size=g)
+    predict = (kops.predict_chunk_group_margins if chunked
+               else kops.predict_group_margins)
+    gm_tok, pred_cnt = predict(sign_wg, xb, d, a, group_size=g)
     gm = S.union_margin(gm_tok)
     sel, sstats = S.capacity_select_with_stats(gm, cap)
-    out = kops.fused_sparse_mlp(
-        xb, params["wg_t"], params.get("wu_t"), params["wd_t"], sel.indices,
-        sel.count, gm_tok if return_stats else None, group_size=g,
-        activation=cfg.activation, fatrelu_threshold=cfg.fatrelu_threshold,
-        collect_stats=return_stats)
+    kw = dict(group_size=g, activation=cfg.activation,
+              fatrelu_threshold=cfg.fatrelu_threshold,
+              collect_stats=return_stats)
+    tail = (sel.indices, sel.count, gm_tok if return_stats else None)
+    if quantized:
+        fused = (kops.fused_sparse_mlp_chunk_q if chunked
+                 else kops.fused_sparse_mlp_q)
+        out = fused(xb, params["wg_q"], params["wg_s"], params.get("wu_q"),
+                    params.get("wu_s"), params["wd_q"], params["wd_s"],
+                    *tail, **kw)
+    else:
+        fused = (kops.fused_sparse_mlp_chunk if chunked
+                 else kops.fused_sparse_mlp)
+        out = fused(xb, params["wg_t"], params.get("wu_t"), params["wd_t"],
+                    *tail, **kw)
     if not return_stats:
         return out[0] if squeeze else out
     y, tel = out

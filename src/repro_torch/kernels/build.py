@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` source has a plain C interface and compiles, on its own
 ``nvcc`` process (all started together), into a shared library under
 ``build/repro_torch_kernels/`` at the repository root.  A library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is reused.  Nothing is built at import: the first
-kernel call builds, and the CPU tests never get there.
+name carries a hash of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built at import: the first kernel call builds, and the CPU tests
+never get there.
 """
 from __future__ import annotations
 
@@ -24,18 +25,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PREDICT = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_MLP_PLAN = [_I, _I, _I, _I, _P]
+_MLP = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P]
 # C signatures of the exported functions, per source
 SIGNATURES = {
-    "predict_group_margins": {
-        "predict_group_margins": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                  _P],
-    },
-    "fused_sparse_mlp": {
-        "fused_sparse_mlp_plan": [_I, _I, _I, _I, _P],
-        "fused_sparse_mlp": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                             _I, _P],
-    },
+    "predict_group_margins": {"predict_group_margins": _PREDICT},
+    "predict_chunk_group_margins": {"predict_chunk_group_margins": _PREDICT},
+    **{name: {f"{name}_plan": _MLP_PLAN, name: _MLP}
+       for name in ("fused_sparse_mlp", "fused_sparse_mlp_chunk",
+                    "fused_sparse_mlp_q", "fused_sparse_mlp_chunk_q")},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,6 +52,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's content
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,10 +1,14 @@
 """Kernel wrappers with device dispatch: the counterpart of
-``repro/kernels/ops.py`` for the kernels this slice ports.
+``repro/kernels/ops.py`` for the kernels the port has.
 
 A CPU tensor runs the plain PyTorch version (``kernels/ref.py``).  A CUDA
 tensor launches the CUDA kernel or raises: there is no fallback.  Each
 wrapper counts its launches (``launch_counts``), so a run can show that its
 path went through the kernels.
+
+A decode batch larger than a decode kernel takes (``MAX_BATCH`` rows) goes
+to the chunk kernel of the same family, which computes the same function
+row by row, and counts as a launch of that chunk kernel.
 """
 from __future__ import annotations
 
@@ -15,7 +19,10 @@ from repro_torch.kernels import predict as _predict
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse_mlp_fused as _fused
 
-_LAUNCHES = {"predict_group_margins": 0, "fused_sparse_mlp": 0}
+_LAUNCHES = dict.fromkeys(
+    ("predict_group_margins", "predict_chunk_group_margins",
+     "fused_sparse_mlp", "fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
+     "fused_sparse_mlp_chunk_q"), 0)
 
 
 def launch_counts() -> dict:
@@ -28,22 +35,59 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
+def _alpha(alpha, b: int, device) -> torch.Tensor:
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    return a.broadcast_to((b,)).contiguous()
+
+
+def _predict_launch(chunked: bool, packed_w, x, d_valid: int, a,
+                    group_size: int):
+    chunked = chunked or x.shape[0] > _predict.MAX_BATCH
+    pad = packed_w.shape[1] * _predict.PACK - x.shape[-1]
+    xp = F.pad(x, (0, pad)) if pad else x
+    launch = (_predict.predict_chunk_group_margins if chunked
+              else _predict.predict_group_margins)
+    out = launch(packed_w, xp, a, d_valid=d_valid, group_size=group_size)
+    _LAUNCHES["predict_chunk_group_margins" if chunked
+              else "predict_group_margins"] += 1
+    return out
+
+
 def predict_group_margins(packed_w: torch.Tensor, x: torch.Tensor,
                           d_valid: int, alpha=1.0, *, group_size: int = 8):
     """Fused predictor: x (B, d) -> per-token per-group margins (B, k/G)
     float32 and per-token counts of kept groups (B,) int32."""
-    k, w = packed_w.shape
-    b = x.shape[0]
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
-    a = a.broadcast_to((b,)).contiguous()
+    a = _alpha(alpha, x.shape[0], x.device)
     if not x.is_cuda:
         return ref.predict_group_margins_ref(packed_w, x, d_valid, a,
                                              group_size)
-    pad = w * _predict.PACK - x.shape[-1]
-    xp = F.pad(x, (0, pad)) if pad else x
-    out = _predict.predict_group_margins(packed_w, xp, a, d_valid=d_valid,
-                                         group_size=group_size)
-    _LAUNCHES["predict_group_margins"] += 1
+    return _predict_launch(False, packed_w, x, d_valid, a, group_size)
+
+
+def predict_chunk_group_margins(packed_w: torch.Tensor, x: torch.Tensor,
+                                d_valid: int, alpha=1.0, *,
+                                group_size: int = 8):
+    """Token-tiled predictor for prefill chunks (S rows): the contract of
+    :func:`predict_group_margins`, row for row bitwise equal to it."""
+    a = _alpha(alpha, x.shape[0], x.device)
+    if not x.is_cuda:
+        return ref.predict_chunk_group_margins_ref(packed_w, x, d_valid, a,
+                                                   group_size)
+    return _predict_launch(True, packed_w, x, d_valid, a, group_size)
+
+
+def _mlp(name: str, plain, x, weights: tuple, sel_indices, sel_count,
+         gm_tok, **kw):
+    """The plain version on a CPU tensor; on a CUDA tensor the launch of
+    ``name``, or of its chunk twin for more rows than a decode launch
+    takes."""
+    args = (*weights, sel_indices, sel_count, gm_tok)
+    if not x.is_cuda:
+        return plain(x, *args, **kw)
+    if x.shape[0] > _fused.MAX_BATCH and "chunk" not in name:
+        name = name.replace("fused_sparse_mlp", "fused_sparse_mlp_chunk")
+    out = getattr(_fused, name)(x, *args, **kw)
+    _LAUNCHES[name] += 1
     return out
 
 
@@ -53,17 +97,51 @@ def fused_sparse_mlp(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
                      collect_stats: bool = False):
     """Capacity-gathered fused sparse gated MLP: (B, d) -> (B, d) float32,
     plus the (B, 3) int32 telemetry with ``collect_stats``."""
-    kw = dict(group_size=group_size, activation=activation,
-              fatrelu_threshold=fatrelu_threshold)
-    if not x.is_cuda:
-        y = ref.fused_sparse_mlp_ref(x, wg_t, wu_t, wd_t, sel_indices,
-                                     sel_count, **kw)
-        if not collect_stats:
-            return y
-        return y, ref.fused_mlp_telemetry_ref(x, wg_t, sel_indices,
-                                              sel_count, gm_tok, **kw)
-    out = _fused.fused_sparse_mlp(x, wg_t, wu_t, wd_t, sel_indices,
-                                  sel_count, gm_tok,
-                                  collect_stats=collect_stats, **kw)
-    _LAUNCHES["fused_sparse_mlp"] += 1
-    return out
+    return _mlp("fused_sparse_mlp", ref.fused_sparse_mlp_stats_ref, x,
+                (wg_t, wu_t, wd_t), sel_indices, sel_count, gm_tok,
+                group_size=group_size, activation=activation,
+                fatrelu_threshold=fatrelu_threshold,
+                collect_stats=collect_stats)
+
+
+def fused_sparse_mlp_chunk(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
+                           gm_tok=None, *, group_size: int = 8,
+                           activation: str = "relu",
+                           fatrelu_threshold: float = 0.0,
+                           collect_stats: bool = False):
+    """Row-tiled fused sparse MLP for prefill chunks: one chunk-union
+    selection drives every row block; the contract of
+    :func:`fused_sparse_mlp`."""
+    return _mlp("fused_sparse_mlp_chunk", ref.fused_sparse_mlp_chunk_ref, x,
+                (wg_t, wu_t, wd_t), sel_indices, sel_count, gm_tok,
+                group_size=group_size, activation=activation,
+                fatrelu_threshold=fatrelu_threshold,
+                collect_stats=collect_stats)
+
+
+def fused_sparse_mlp_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, sel_indices,
+                       sel_count, gm_tok=None, *, group_size: int = 8,
+                       activation: str = "relu",
+                       fatrelu_threshold: float = 0.0,
+                       collect_stats: bool = False):
+    """int8-weight fused sparse MLP: the contract of
+    :func:`fused_sparse_mlp` with int8 (k, d) leaves, ``wg_s``/``wu_s``
+    (k, d/qg) and ``wd_s`` (k/qg, d) float32 scales."""
+    return _mlp("fused_sparse_mlp_q", ref.fused_sparse_mlp_q_ref, x,
+                (wg_q, wg_s, wu_q, wu_s, wd_q, wd_s), sel_indices, sel_count,
+                gm_tok, group_size=group_size, activation=activation,
+                fatrelu_threshold=fatrelu_threshold,
+                collect_stats=collect_stats)
+
+
+def fused_sparse_mlp_chunk_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
+                             sel_indices, sel_count, gm_tok=None, *,
+                             group_size: int = 8, activation: str = "relu",
+                             fatrelu_threshold: float = 0.0,
+                             collect_stats: bool = False):
+    """Row-tiled int8-weight fused sparse MLP for prefill chunks."""
+    return _mlp("fused_sparse_mlp_chunk_q", ref.fused_sparse_mlp_chunk_q_ref,
+                x, (wg_q, wg_s, wu_q, wu_s, wd_q, wd_s), sel_indices,
+                sel_count, gm_tok, group_size=group_size,
+                activation=activation, fatrelu_threshold=fatrelu_threshold,
+                collect_stats=collect_stats)

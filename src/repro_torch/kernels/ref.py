@@ -27,9 +27,30 @@ def predict_group_margins_ref(packed_w: torch.Tensor, x: torch.Tensor,
     return gm, cnt
 
 
+def predict_chunk_group_margins_ref(packed_w: torch.Tensor, x: torch.Tensor,
+                                    d_valid: int, alpha: torch.Tensor,
+                                    group_size: int = 8):
+    """Plain version of kernels.predict.predict_chunk_group_margins: its
+    outputs are per row, so it is the decode predictor's plain version."""
+    return predict_group_margins_ref(packed_w, x, d_valid, alpha, group_size)
+
+
 def _take_rows(w_t: torch.Tensor, sel_indices: torch.Tensor, g: int):
     k, d = w_t.shape
     return w_t.reshape(k // g, g, d)[sel_indices.long()].reshape(-1, d)
+
+
+def _telemetry(ga: torch.Tensor, keep: torch.Tensor, valid: torch.Tensor,
+               g: int) -> torch.Tensor:
+    """(B, 3) int32 telemetry from the gate activity ``ga`` (B, C*G), the
+    token's own keep decision per selected group ``keep`` (B, C) and the
+    groups inside the count ``valid`` (C,)."""
+    live = (ga > 0) & valid.repeat_interleave(g)[None, :]
+    keep_row = keep.repeat_interleave(g, dim=-1)
+    actual = live.sum(-1, dtype=torch.int32)
+    fn = (live & ~keep_row).sum(-1, dtype=torch.int32)
+    realized = (keep & valid[None, :]).sum(-1, dtype=torch.int32) * g
+    return torch.stack([actual, fn, realized], dim=-1)
 
 
 def fused_mlp_telemetry_ref(x, wg_t, sel_indices, sel_count, gm_tok, *,
@@ -43,13 +64,8 @@ def fused_mlp_telemetry_ref(x, wg_t, sel_indices, sel_count, gm_tok, *,
     act = _act(activation, fatrelu_threshold)
     valid = torch.arange(cap, device=x.device) < sel_count        # (C,)
     ga = act(x.float() @ _take_rows(wg_t, sel_indices, g).float().T)
-    live = (ga > 0) & valid.repeat_interleave(g)[None, :]
     keep = gm_tok.float()[:, sel_indices.long()] <= 0             # (B, C)
-    keep_row = keep.repeat_interleave(g, dim=-1)
-    actual = live.sum(-1, dtype=torch.int32)
-    fn = (live & ~keep_row).sum(-1, dtype=torch.int32)
-    realized = (keep & valid[None, :]).sum(-1, dtype=torch.int32) * g
-    return torch.stack([actual, fn, realized], dim=-1)
+    return _telemetry(ga, keep, valid, g)
 
 
 def fused_sparse_mlp_ref(x, wg_t, wu_t, wd_t, sel_indices, sel_count, *,
@@ -71,3 +87,87 @@ def fused_sparse_mlp_ref(x, wg_t, wu_t, wd_t, sel_indices, sel_count, *,
         h = h * (xf @ _take_rows(wu_t, sel_indices, g).float().T)
     h = h.to(x.dtype).float()
     return h @ _take_rows(wd_t, sel_indices, g).float()
+
+
+def fused_sparse_mlp_stats_ref(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
+                               gm_tok=None, *, group_size: int = 8,
+                               activation: str = "relu",
+                               fatrelu_threshold: float = 0.0,
+                               collect_stats: bool = False):
+    """The fused kernel's whole contract: y, and with ``collect_stats``
+    (needs ``gm_tok``) also its telemetry."""
+    kw = dict(group_size=group_size, activation=activation,
+              fatrelu_threshold=fatrelu_threshold)
+    y = fused_sparse_mlp_ref(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
+                             **kw)
+    if not collect_stats:
+        return y
+    return y, fused_mlp_telemetry_ref(x, wg_t, sel_indices, sel_count,
+                                      gm_tok, **kw)
+
+
+def fused_sparse_mlp_chunk_ref(*args, **kw):
+    """Plain version of kernels.sparse_mlp_fused.fused_sparse_mlp_chunk:
+    row tiling changes no row's math, so it is the decode plain version."""
+    return fused_sparse_mlp_stats_ref(*args, **kw)
+
+
+def _qdot(xf: torch.Tensor, wq: torch.Tensor, s: torch.Tensor):
+    """Quantized dot of the reference kernel's ``_qdot``: x (B, d) float32
+    against C selected tiles wq (C, G, d) int8 with scales s (C, G, d/qg):
+    one partial dot per quant group, times its scale, summed in ascending
+    quant-group order -> (B, C, G) float32."""
+    c, g, d = wq.shape
+    nq = s.shape[-1]
+    qg = d // nq
+    part = torch.einsum("bqj,cgqj->bcgq", xf.reshape(-1, nq, qg),
+                        wq.float().reshape(c, g, nq, qg))
+    terms = part * s[None]
+    acc = terms[..., 0]
+    for q in range(1, nq):
+        acc = acc + terms[..., q]
+    return acc
+
+
+def fused_sparse_mlp_q_ref(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
+                           sel_indices, sel_count, gm_tok=None, *,
+                           group_size: int = 8, activation: str = "relu",
+                           fatrelu_threshold: float = 0.0,
+                           collect_stats: bool = False):
+    """Plain version of kernels.sparse_mlp_fused.fused_sparse_mlp_q, in the
+    reference kernel's op order: x taken as float32; gate and up through
+    :func:`_qdot`; h NOT rounded to x's dtype; per selected group the down
+    projection ``(h @ Wq_tile) * wd_s[sel // (qg/G)]``, added to y in
+    selection order for the first ``sel_count`` groups; telemetry from the
+    quantized gate.  Returns y (B, d) float32 [, telemetry (B, 3) int32]."""
+    b, d = x.shape
+    k = wg_q.shape[0]
+    g = group_size
+    qg = d // wg_s.shape[1]
+    cap = sel_indices.shape[0]
+    act = _act(activation, fatrelu_threshold)
+    sel = sel_indices.long()
+    valid = torch.arange(cap, device=x.device) < sel_count        # (C,)
+
+    def tiles(w):
+        return w.reshape(k // g, g, w.shape[-1])[sel]             # (C, G, .)
+
+    xf = x.float()
+    ga = act(_qdot(xf, tiles(wg_q), tiles(wg_s)))                 # (B, C, G)
+    h = ga * _qdot(xf, tiles(wu_q), tiles(wu_s)) if wu_q is not None \
+        else ga
+    yd = torch.einsum("bcg,cgd->cbd", h, tiles(wd_q).float())
+    yd = yd * wd_s[sel // (qg // g)][:, None, :]                  # (C, B, d)
+    y = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+    for c in range(cap):
+        y = torch.where(valid[c], y + yd[c], y)
+    if not collect_stats:
+        return y
+    keep = gm_tok.float()[:, sel] <= 0                            # (B, C)
+    return y, _telemetry(ga.reshape(b, -1), keep, valid, g)
+
+
+def fused_sparse_mlp_chunk_q_ref(*args, **kw):
+    """Plain version of kernels.sparse_mlp_fused.fused_sparse_mlp_chunk_q:
+    row tiling changes no row's math, so it is the decode q version."""
+    return fused_sparse_mlp_q_ref(*args, **kw)

@@ -6,6 +6,11 @@ On the GPU, at the model's published shape (random weights from --seed):
 On the CPU at reduced size:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch prosparse-llama2-7b --reduced --device cpu --strategy pallas
+Chunked sparse prefill with int8 MLP weights (add --reduced --device cpu
+--quant-group-size 32 for the CPU):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch prosparse-llama2-7b --strategy pallas --prompt-len 96 \
+        --max-len 256 --prefill-chunk 64 --sparse-prefill --weight-dtype int8
 
 Prints the reference's JSON throughput report.
 """
@@ -60,6 +65,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--sla-mix", default="balanced:1",
                     help="comma list tier:weight (latency, balanced, "
                          "quality), e.g. latency:1,balanced:2,quality:1")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="fixed prefill chunk in tokens (must divide "
+                         "--max-len); 0 = monolithic prefill.  Admissions "
+                         "stream through chunks interleaved with decode "
+                         "steps")
+    ap.add_argument("--prefill-interleave", type=int, default=1,
+                    help="max prefill chunks per decode-loop iteration "
+                         "(higher = faster admission, more decode jitter)")
+    ap.add_argument("--sparse-prefill", action="store_true",
+                    help="sign-bit sparse prediction for prefill chunks "
+                         "(one chunk-union selection per chunk; needs "
+                         "--prefill-chunk)")
+    ap.add_argument("--weight-dtype", default="", choices=("", "int8"),
+                    help="quantize the sparse-MLP weights at load time "
+                         "('int8': int8 leaves + per-group scales through "
+                         "the int8 kernels; '' = float weights)")
+    ap.add_argument("--quant-group-size", type=int, default=128,
+                    help="quantization group width (must divide d_model "
+                         "and d_ff and be a multiple of the selection "
+                         "group size)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
@@ -71,10 +96,23 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(sparse=dataclasses.replace(
             cfg.sparse, strategy=args.strategy,
             enabled=args.strategy != "dense"))
+    if args.weight_dtype:
+        cfg = cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, weight_dtype=args.weight_dtype,
+            quant_group_size=args.quant_group_size))
+    if args.sparse_prefill:
+        if not args.prefill_chunk:
+            raise SystemExit("--sparse-prefill needs --prefill-chunk "
+                             "(chunk-union selection is per prefill chunk)")
+        cfg = cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, sparse_prefill=True,
+            prefill_max_tokens=max(cfg.sparse.prefill_max_tokens,
+                                   args.prefill_chunk)))
     params = lm.init_lm(cfg, args.seed, device)
-    srv = Server(lm, cfg, ServeConfig(batch=args.batch, max_len=args.max_len,
-                                      max_new_tokens=args.max_new),
-                 params, device=device)
+    srv = Server(lm, cfg, ServeConfig(
+        batch=args.batch, max_len=args.max_len, max_new_tokens=args.max_new,
+        prefill_chunk=args.prefill_chunk,
+        prefill_interleave=args.prefill_interleave), params, device=device)
     rng = np.random.default_rng(args.seed)
     slas = parse_sla_mix(args.sla_mix, args.requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab,
@@ -91,7 +129,15 @@ def main(argv=None) -> dict:
     rep["sparse"] = {"enabled": cfg.sparse.enabled,
                      "strategy": cfg.sparse.strategy,
                      "alpha": cfg.sparse.alpha_base,
-                     "capacity_frac": round(cfg.sparse.capacity_frac, 4)}
+                     "capacity_frac": round(cfg.sparse.capacity_frac, 4),
+                     "weight_dtype": cfg.sparse.weight_dtype or "float"}
+    if args.prefill_chunk:
+        rep["prefill"] = {"chunk": args.prefill_chunk,
+                          "interleave": args.prefill_interleave,
+                          "sparse": bool(args.sparse_prefill),
+                          "prefill_chunks_run": srv.prefill_chunks_run,
+                          "prefill_chunks_skipped":
+                              srv.prefill_chunks_skipped}
     rep["device"] = str(device)
     print(json.dumps(rep, indent=1))
     return rep

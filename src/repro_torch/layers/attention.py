@@ -137,6 +137,39 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def chunk_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+                 cache: dict, offset: int, valid=None):
+    """Chunked-prefill attention: an S-token chunk at sequence ``offset``
+    attends the KV cache (every earlier chunk plus itself).  x: (B, S, d);
+    ``valid`` (scalar or (B,)) is the prompt's real length: K/V of chunk rows
+    at positions >= valid are zeroed before the cache write, so the cache
+    holds what a monolithic prefill leaves there.  Chunks arrive in order
+    from offset 0; the causal mask keeps positions past the chunk out.
+    Returns (out (B, S, d), cache updated in place)."""
+    b, s = x.shape[0], x.shape[1]
+    q_pos = offset + torch.arange(s, device=x.device)              # (S,)
+    q, k, v = _project_qkv(params, x, cfg)
+    q = apply_rope(q, q_pos, cfg.rope_theta)
+    k = apply_rope(k, q_pos, cfg.rope_theta)
+    if valid is not None:
+        vld = torch.as_tensor(valid, device=x.device)
+        live = q_pos < (vld[:, None] if vld.ndim else vld)
+        live = live.reshape(-1, s)[:, :, None, None]               # (B|1,S,..)
+        k = torch.where(live, k, torch.zeros_like(k))
+        v = torch.where(live, v, torch.zeros_like(v))
+    cache = update_kv_cache(cache, k, v, offset)
+    ck, cv = cache["k"], cache["v"]
+    if ck.dtype == torch.int8:
+        ck = (ck.float() * cache["k_scale"].float()[..., None]).to(x.dtype)
+        cv = (cv.float() * cache["v_scale"].float()[..., None]).to(x.dtype)
+    else:
+        ck, cv = ck.to(x.dtype), cv.to(x.dtype)
+    k_pos = torch.arange(ck.shape[1], device=x.device)
+    out = flash_attention(q, ck, cv, q_pos, k_pos)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(x.dtype), cache
+
+
 def _as_compute(t: torch.Tensor) -> torch.Tensor:
     """Cache operand of a decode product as float32: int8 values are read
     as bfloat16, as the reference multiplies them (exact either way)."""

@@ -1,6 +1,7 @@
 """MLP block with the SparseInfer hook: counterpart of
 ``repro/layers/mlp.py``.  Prefill runs dense (the paper sparsifies decode
-only, §V-C); decode dispatches to the configured strategy."""
+only, §V-C) unless ``sparse_prefill`` extends the batch-union selection to
+the rows of a prefill chunk; decode dispatches to the configured strategy."""
 from __future__ import annotations
 
 import torch
@@ -16,13 +17,17 @@ def init_mlp(generator: torch.Generator, d: int, k: int, gated: bool = True,
 
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig, *,
-              decode: bool = False, alpha=None, layer_idx: int = 0,
-              num_layers: int = 1, return_stats: bool = False):
-    """x: (..., d).  Dense unless ``decode`` and ``cfg.enabled``; a decode
-    batch of more than ``sparse_max_batch`` tokens also runs dense — the
-    reference's own semantics (one union selection serves at most that
-    many tokens), not a device fallback.  ``alpha`` overrides the layer's
-    schedule: a scalar or one value per token."""
+              decode: bool = False, prefill: bool = False, alpha=None,
+              layer_idx: int = 0, num_layers: int = 1,
+              return_stats: bool = False):
+    """x: (..., d).  Sparse when ``cfg.enabled`` and either ``decode`` or
+    ``prefill`` with ``cfg.sparse_prefill`` (a chunk's rows then form one
+    union selection, as a decode batch's slots do); dense otherwise.  More
+    rows than ``prefill_max_tokens`` (prefill) or ``sparse_max_batch``
+    (decode) also run dense — the reference's own semantics (one union
+    selection serves at most that many rows), not a device fallback.
+    ``alpha`` overrides the layer's schedule: a scalar or one value per
+    row."""
     shape = x.shape
 
     def finish(out):
@@ -32,10 +37,14 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig, *,
             return y.reshape(shape).to(x.dtype), stats
         return out.reshape(shape).to(x.dtype)
 
-    if not (cfg.enabled and decode):
+    sparse = cfg.enabled and (decode or (prefill and cfg.sparse_prefill))
+    if prefill and (cfg.tp_shards or cfg.dp_shards):
+        sparse = False    # the reference keeps a sharded prefill dense
+    if not sparse:
         return finish(SM.dense_mlp(params, x, cfg, return_stats=return_stats))
     xf = x.reshape(-1, shape[-1])
-    if xf.shape[0] > cfg.sparse_max_batch:
+    max_rows = cfg.prefill_max_tokens if prefill else cfg.sparse_max_batch
+    if xf.shape[0] > max_rows:
         return finish(SM.dense_mlp(params, xf, cfg,
                                    return_stats=return_stats))
     return finish(SM.apply(params, xf, cfg, alpha=alpha, layer_idx=layer_idx,

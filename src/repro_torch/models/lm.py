@@ -5,7 +5,9 @@ dicts (the reference stacks them along a leading axis for ``lax.scan``; a
 Python loop over layers takes the scan's place).  Caches are
 ``{"blocks": [per-layer {"k", "v"[, "k_scale", "v_scale"]}]}``.
 
-Public API: init_lm, init_caches, prefill, decode_step, prepare_sparse.
+Public API: init_lm, init_caches, prefill, prefill_chunk, decode_step,
+prepare_sparse.  ``init_lm`` and ``init_caches`` put their tensors on the
+card unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_mlp as SM
+from repro_torch.device import resolve_device
 from repro_torch.layers import attention as A
 from repro_torch.layers import embeddings as E
 from repro_torch.layers.mlp import init_mlp, mlp_apply
@@ -28,6 +31,9 @@ from repro_torch.models import common as C
 _UNPORTED = ("qkv_bias", "qk_norm", "attn_softcap", "final_softcap",
              "window", "local_global_period", "embed_scale",
              "post_block_norm", "first_dense_layers")
+
+# families whose prefill runs in fixed-size chunks against the decode cache
+CHUNK_PREFILL_FAMILIES = ("dense",)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -59,13 +65,14 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
-def init_lm(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random weights drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the draws differ from the reference's
     ``jax.random``; tests carry the reference's weights over with
-    ``repro_torch.bridge``)."""
+    ``repro_torch.bridge``).  Raises without a GPU unless ``device`` is
+    ``"cpu"``."""
     _check_family(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     pd = C.param_dtype(cfg)
     params: dict[str, Any] = {
@@ -90,9 +97,11 @@ def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device="cpu") -> dict:
-    """Zero decode caches, one KV dict per layer."""
+                device="cuda") -> dict:
+    """Zero decode caches, one KV dict per layer, on ``device`` (raises
+    without a GPU unless it is ``"cpu"``)."""
     _check_family(cfg)
+    device = resolve_device(device)
     kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
     return {"blocks": [A.init_kv_cache(batch, max_len, C.attn_cfg(cfg),
                                        kv_dt, device)
@@ -187,11 +196,108 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     return logits, caches
 
 
+def _chunk_stat_mean(a: torch.Tensor, tok_mask: torch.Tensor):
+    """One chunk's per-row MLP stats, (B*S,) from the sparse path or (B, S)
+    from the dense one, reduced to (B,): the mean over the chunk's real
+    prompt positions only (pad rows carry dead-alpha values)."""
+    b, s = tok_mask.shape
+    a = a.reshape(b, s)
+    wm = tok_mask.float()
+    return (a * wm).sum(1) / torch.clamp(wm.sum(1), min=1.0)
+
+
+def _block_chunk_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
+                     cache: dict, offset: int, valid, alpha, tok_mask,
+                     collect_stats: bool = False):
+    """One block over a prefill chunk, writing K/V into the decode cache at
+    ``offset``.  ``tok_mask`` (B, S) marks real prompt positions: pad rows
+    enter the sparse union with ``DEAD_SLOT_ALPHA`` (they predict
+    all-sparse and leave the chunk union) and stay out of the stats."""
+    h = C.norm_apply(cfg, blk["ln1"], x)
+    h, cache = A.chunk_attend(blk["attn"], h, C.attn_cfg(cfg), cache, offset,
+                              valid)
+    x = x + h
+    h = C.norm_apply(cfg, blk["ln2"], x)
+    al = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    if al.ndim == 1:                                       # per slot (B,)
+        al = al[:, None]
+    a_tok = torch.where(tok_mask, al, torch.tensor(
+        SM.DEAD_SLOT_ALPHA, device=x.device)).reshape(-1)
+    out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), prefill=True,
+                    alpha=a_tok, return_stats=collect_stats)
+    if not collect_stats:
+        return x + out, cache, None
+    h, st = out
+    return x + h, cache, {k: _chunk_stat_mean(v, tok_mask)
+                          for k, v in st.items()}
+
+
+def _dense_stack_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                       caches: dict, offset: int, valid, tok_mask,
+                       alphas=None, collect_stats: bool = False):
+    """A prefill chunk through every layer; alphas as in
+    ``_dense_stack_decode``: (n_layers,) or (n_layers, B)."""
+    alphas = torch.as_tensor(_alphas(cfg) if alphas is None else alphas,
+                             dtype=torch.float32, device=x.device)
+    new, stats = [], []
+    for i, (blk, cache) in enumerate(zip(params["blocks"],
+                                         caches["blocks"])):
+        x, cache, st = _block_chunk_fwd(blk, x, cfg, cache, offset, valid,
+                                        alphas[i], tok_mask, collect_stats)
+        new.append(cache)
+        stats.append(st)
+    if collect_stats:
+        return x, {"blocks": new}, {k: torch.stack([s[k] for s in stats])
+                                    for k in SM.MLP_STAT_KEYS}
+    return x, {"blocks": new}, None
+
+
+def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  caches: dict, offset: int, valid, *, alphas=None,
+                  collect_stats: bool = False):
+    """One fixed-size prefill chunk against decode-layout caches.
+
+    tokens (B, S): the chunk of the prompt that starts at sequence
+    ``offset``; ``valid`` (scalar or (B,)): the prompt's real length, so
+    chunk positions >= valid are padding.  Chunks arrive in order from
+    offset 0; ``caches`` (``init_caches``) are updated in place.  Returns
+    (logits (B, V) float32 read at position ``valid - 1``, meaningful on
+    the chunk that holds it, caches[, stats]); stats are the (L, B) MLP
+    telemetry of ``decode_step``, averaged over the chunk's real rows."""
+    if cfg.family not in CHUNK_PREFILL_FAMILIES:
+        raise NotImplementedError(
+            f"chunked prefill supports {CHUNK_PREFILL_FAMILIES}, not "
+            f"{cfg.family!r}")
+    _check_family(cfg)
+    dev = tokens.device
+    b, s = tokens.shape
+    offset = int(offset)
+    vld = torch.as_tensor(valid, dtype=torch.long, device=dev)
+    if vld.ndim == 0:
+        vld = vld.expand(b)
+    pos = offset + torch.arange(s, device=dev)
+    tok_mask = pos[None, :] < vld[:, None]                    # (B, S)
+    x = _embed_in(params, cfg, tokens)
+    x, caches, stats = _dense_stack_chunk(params, x, cfg, caches, offset,
+                                          vld, tok_mask, alphas,
+                                          collect_stats)
+    x = C.norm_apply(cfg, params["final_norm"], x)
+    last = torch.clamp(vld - 1 - offset, 0, s - 1)            # (B,)
+    logits = C.head_logits(x[torch.arange(b, device=dev), last],
+                           _head_table(params))
+    if collect_stats:
+        return logits, caches, stats
+    return logits, caches
+
+
 def prepare_sparse(params: dict, sparse: Optional[SM.SparseInferConfig] = None
                    ) -> dict:
-    """Offline step for serving: pack each layer's gate-weight sign bits."""
+    """Offline step for serving: pack each layer's gate-weight sign bits;
+    with ``sparse.weight_dtype == "int8"`` also quantize each layer's MLP
+    (``core/quantize.py``).  A node already quantized passes through."""
     out = dict(params)
     out["blocks"] = [dict(blk, mlp=SM.prepare_sparse_params(blk["mlp"],
                                                             sparse))
+                     if "wg_t" in blk["mlp"] else blk
                      for blk in params["blocks"]]
     return out

@@ -8,8 +8,15 @@ copied into the slot).  Each request's SLA tier adds a per-slot alpha
 offset to the per-layer schedule; dead slots get ``DEAD_SLOT_ALPHA`` so they
 drop out of the batch-union selection.
 
-Not ported yet: the alpha controller and capacity-bucket ladder, the paged
-KV pool, chunked prefill, overload handling and the metrics hub.
+With ``ServeConfig.prefill_chunk`` a refilled slot goes pending instead: its
+prompt, zero-padded to whole chunks, streams through ``prefill_chunk`` into
+batch-1 scratch caches, at most ``prefill_interleave`` chunks per loop
+iteration between decode steps.  A pending slot is dead in the decode union;
+the last chunk's logits give its first token and the scratch is copied in.
+
+Not ported yet: the alpha controller and capacity-bucket ladder (and with
+it the controller's prefill rider), the paged KV pool, overload handling
+and the metrics hub.
 """
 from __future__ import annotations
 
@@ -38,6 +45,12 @@ class ServeConfig:
     # scheduler (False) is not ported
     slot_refill: bool = True
     sla_tiers: tuple = DEFAULT_SLA_TIERS
+    # fixed prefill chunk in tokens; 0 = monolithic batch-1 prefill.  Must
+    # divide max_len
+    prefill_chunk: int = 0
+    # at most this many prefill chunks per decode-loop iteration (the
+    # TTFT-vs-inter-token-latency knob)
+    prefill_interleave: int = 1
 
 
 @dataclasses.dataclass
@@ -73,6 +86,19 @@ class Server:
     def __init__(self, model_mod, cfg: ModelConfig, scfg: ServeConfig,
                  params: dict, device="cuda"):
         self.device = resolve_device(device)
+        if scfg.prefill_chunk:
+            if scfg.prefill_chunk < 1 or scfg.max_len % scfg.prefill_chunk:
+                raise ValueError(
+                    f"prefill_chunk={scfg.prefill_chunk} must be positive "
+                    f"and divide max_len={scfg.max_len} (so every padded "
+                    "prompt fits the cache)")
+            if scfg.prefill_interleave < 1:
+                raise ValueError(
+                    f"prefill_interleave={scfg.prefill_interleave} must be "
+                    ">= 1 (chunks per decode-loop iteration)")
+            if cfg.family not in model_mod.CHUNK_PREFILL_FAMILIES:
+                raise NotImplementedError(
+                    f"family {cfg.family!r} has no chunked prefill")
         if not scfg.slot_refill:
             raise NotImplementedError(
                 "the legacy chunked scheduler is not ported; use "
@@ -92,6 +118,9 @@ class Server:
         self._tier_offsets = np.asarray(
             [t.alpha_offset for t in scfg.sla_tiers], np.float32)
         self.decode_steps = 0        # decode steps run (all serve calls)
+        self.prefill_chunks_run = 0       # admission chunks run
+        self.prefill_chunks_skipped = 0   # chunks saved by prefix reuse:
+                                          # 0 until the paged KV pool
 
     # ------------------------------------------------------- alpha plumbing
     def _tier_of(self, req: Request) -> int:
@@ -119,6 +148,13 @@ class Server:
             alphas=alphas)
         self.decode_steps += 1
         return greedy_sample(logits), caches
+
+    def _prefill_alphas(self, t: int) -> np.ndarray:
+        """(n_layers,) alphas of one request's prefill chunks: the static
+        schedule plus its tier's offset (pad rows get the dead alpha in the
+        model)."""
+        base = self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
+        return (base + self._tier_offsets[t]).astype(np.float32)
 
     # ----------------------------------------------------------- single ---
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
@@ -162,6 +198,7 @@ class Server:
 
     def _serve_slot_refill(self, requests: list[Request]) -> list[Request]:
         B = self.scfg.batch
+        pc = self.scfg.prefill_chunk
         queue = collections.deque(requests)
         done: list[Request] = []
         caches = self.mod.init_caches(self.cfg, B, self.scfg.max_len,
@@ -172,6 +209,7 @@ class Server:
         tier_idx = np.zeros(B, np.int64)
         slot_req: list[Optional[Request]] = [None] * B
         slot_out: list[list[int]] = [[] for _ in range(B)]
+        pending: dict[int, dict] = {}          # slot -> chunked admission
         alpha_mat: Optional[np.ndarray] = None  # changes only at refills
 
         def finish(i: int) -> None:
@@ -184,39 +222,87 @@ class Server:
             slot_req[i] = None
             active[i] = False
 
-        def admit(i: int) -> None:
-            """Fill slot i from the queue: batch-1 prefill at the prompt's
-            natural length, copied into the slot."""
+        def place(i: int, r: Request, first: int, t: int, one: dict) -> None:
+            """Activate slot i with a finished prefill."""
             nonlocal alpha_mat
+            r.ttft_s = time.perf_counter() - r.t_admit
+            _splice_slot(caches, one, i)
+            slot_req[i] = r
+            slot_out[i] = [first]
+            tok[i, 0] = first
+            lengths[i] = len(r.prompt)
+            tier_idx[i] = t
+            active[i] = True
+            alpha_mat = None
+
+        def admit(i: int) -> None:
+            """Fill slot i from the queue.  With chunked prefill the slot
+            goes pending; otherwise a batch-1 prefill at the prompt's
+            natural length is copied into the slot."""
             while queue:
                 r = queue.popleft()
                 t = self._tier_of(r)
                 plen = len(r.prompt)
                 r.t_start = time.perf_counter()
                 r.queue_wait_s = r.t_start - r.t_admit
+                if pc:
+                    toks = np.zeros((1, -(-plen // pc) * pc), np.int32)
+                    toks[0, :plen] = np.asarray(r.prompt, np.int32)
+                    pending[i] = {
+                        "req": r, "tier": t, "tokens": toks, "off": 0,
+                        "caches": self.mod.init_caches(
+                            self.cfg, 1, self.scfg.max_len, self.device)}
+                    return
                 prompt = torch.as_tensor(
                     np.asarray(r.prompt, np.int32)[None, :],
                     device=self.device)
                 logits, one = self.mod.prefill(self.params, self.cfg, prompt,
                                                self.scfg.max_len)
-                first = int(greedy_sample(logits)[0])
-                r.ttft_s = time.perf_counter() - r.t_admit
-                _splice_slot(caches, one, i)
-                slot_req[i] = r
-                slot_out[i] = [first]
-                tok[i, 0] = first
-                lengths[i] = plen
-                tier_idx[i] = t
-                active[i] = True
-                alpha_mat = None
+                place(i, r, int(greedy_sample(logits)[0]), t, one)
                 if r.max_new <= 1:
                     finish(i)     # prefill alone satisfied it; keep draining
                     continue
                 return
 
+        def advance_prefill(budget: int) -> None:
+            """Run up to ``budget`` prefill chunks, round-robin over the
+            pending slots."""
+            while budget > 0 and pending:
+                for i in sorted(pending):
+                    if budget <= 0:
+                        break
+                    st = pending[i]
+                    r = st["req"]
+                    chunk = torch.as_tensor(
+                        st["tokens"][:, st["off"]:st["off"] + pc],
+                        device=self.device)
+                    logits, st["caches"] = self.mod.prefill_chunk(
+                        self.params, self.cfg, chunk, st["caches"],
+                        st["off"], len(r.prompt),
+                        alphas=self._prefill_alphas(st["tier"]))
+                    st["off"] += pc
+                    budget -= 1
+                    self.prefill_chunks_run += 1
+                    if st["off"] >= st["tokens"].shape[1]:
+                        del pending[i]
+                        place(i, r, int(greedy_sample(logits)[0]),
+                              st["tier"], st["caches"])
+                        if r.max_new <= 1:
+                            finish(i)
+                            admit(i)   # refill: may go pending again
+
         for i in range(B):
             admit(i)
-        while active.any():
+        while active.any() or pending or queue:
+            if queue:
+                for i in range(B):
+                    if slot_req[i] is None and i not in pending:
+                        admit(i)
+            if pending:
+                # interleave admissions with decode steps
+                advance_prefill(self.scfg.prefill_interleave)
+            if not active.any():
+                continue          # nothing decoding yet: keep prefilling
             if alpha_mat is None:
                 alpha_mat = self._slot_alpha_matrix(tier_idx, active)
             ntok, caches = self._decode(tok, caches, lengths, alpha_mat)

@@ -48,7 +48,52 @@ def test_server_without_device_raises_without_gpu():
     from repro_torch.runtime.server import Server, ServeConfig
     cfg = reduced_config("prosparse-llama2-7b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Server(lm, cfg, ServeConfig(), lm.init_lm(cfg, 0))
+        Server(lm, cfg, ServeConfig(), lm.init_lm(cfg, 0, device="cpu"))
+
+
+@pytest.mark.parametrize("entry", ["init_lm", "init_caches",
+                                   "params_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a GPU these raise unless asked for ``device="cpu"``, and
+    then put their tensors on the CPU."""
+    _no_gpu()
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import lm
+    cfg = reduced_config("prosparse-llama2-7b")
+    if entry == "params_from_numpy":
+        params = lm.init_lm(cfg, 0, device="cpu")
+
+        def numpy_tree(nodes):          # the reference's layer-stacked tree
+            if isinstance(nodes[0], dict):
+                return {k: numpy_tree([n[k] for n in nodes])
+                        for k in nodes[0]}
+            return np.stack([n.numpy() for n in nodes])
+        tree = {k: {kk: vv.numpy() for kk, vv in v.items()}
+                for k, v in params.items() if k != "blocks"}
+        tree["blocks"] = numpy_tree(params["blocks"])
+
+        def call(**kw):
+            return bridge.params_from_numpy(tree, cfg, **kw)
+    elif entry == "init_lm":
+        def call(**kw):
+            return lm.init_lm(cfg, 0, **kw)
+    else:
+        def call(**kw):
+            return lm.init_caches(cfg, 2, 8, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    leaves, stack = [], [call(device="cpu")]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, list):
+            stack.extend(node)
+        elif torch.is_tensor(node):
+            leaves.append(node)
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
 def test_serve_cli_without_device_raises_without_gpu():

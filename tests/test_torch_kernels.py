@@ -112,5 +112,7 @@ def test_launch_counts_untouched_on_cpu():
     w, x = _inputs(3, 2)
     pw = _t(JP.pack_signs(jnp.asarray(w["wg_t"])))
     tops.predict_group_margins(pw, _t(x), D, 1.0, group_size=G)
-    assert tops.launch_counts() == {"predict_group_margins": 0,
-                                    "fused_sparse_mlp": 0}
+    assert tops.launch_counts() == dict.fromkeys(
+        ("predict_group_margins", "predict_chunk_group_margins",
+         "fused_sparse_mlp", "fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
+         "fused_sparse_mlp_chunk_q"), 0)

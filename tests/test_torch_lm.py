@@ -43,7 +43,7 @@ def test_decode_step_teacher_forced(kv, tol):
     jcfg, tcfg = _cfgs(kv)
     jparams = jlm.init_lm(jax.random.PRNGKey(0), jcfg)
     tparams = tlm.prepare_sparse(bridge.params_from_numpy(
-        jax.tree.map(np.asarray, jparams), tcfg))
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu"))
     jparams = jlm.prepare_sparse(jparams)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, jcfg.vocab, size=(B, PLEN))
@@ -87,7 +87,7 @@ def test_static_schedule_and_scalar_cache_len():
                                                    enabled=False))
     jparams = jlm.init_lm(jax.random.PRNGKey(1), jcfg)
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                       tcfg)
+                                       tcfg, device="cpu")
     prompt = np.random.default_rng(1).integers(0, jcfg.vocab,
                                                size=(B, PLEN))
     tok = np.zeros((B, 1), np.int64)
@@ -106,15 +106,16 @@ def test_static_schedule_and_scalar_cache_len():
 def test_unported_model_flavours_raise(flavour):
     _, tcfg = _cfgs("float32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_lm(tcfg.replace(**flavour))
+        tlm.init_lm(tcfg.replace(**flavour), device="cpu")
 
 
 def test_bridge_unstacks_layers_and_rejects_depth_mismatch():
     jcfg, tcfg = _cfgs("float32")
     tree = jax.tree.map(np.asarray, jlm.init_lm(jax.random.PRNGKey(2), jcfg))
-    params = bridge.params_from_numpy(tree, tcfg)
+    params = bridge.params_from_numpy(tree, tcfg, device="cpu")
     assert len(params["blocks"]) == tcfg.n_layers
     np.testing.assert_array_equal(params["blocks"][1]["mlp"]["wg_t"].numpy(),
                                   tree["blocks"]["mlp"]["wg_t"][1])
     with pytest.raises(ValueError, match="layers"):
-        bridge.params_from_numpy(tree, tcfg.replace(n_layers=3))
+        bridge.params_from_numpy(tree, tcfg.replace(n_layers=3),
+                                 device="cpu")

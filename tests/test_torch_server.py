@@ -36,7 +36,7 @@ def test_slot_refill_matches_single_request_generate():
     exactly the tokens a single-request generate() of the same model gives
     (dense strategy, batch 2)."""
     cfg = _cfg("dense")
-    params = lm.init_lm(cfg, 0)
+    params = lm.init_lm(cfg, 0, device="cpu")
     rng = np.random.default_rng(0)
     reqs = _requests(rng, 6, rng.choice([4, 6, 8], size=6),
                      rng.integers(1, 7, size=6), cfg.vocab)
@@ -57,7 +57,7 @@ def test_slot_refill_matches_single_request_generate():
 def test_pallas_mixed_sla_completes():
     cfg = _cfg("pallas")
     srv = Server(lm, cfg, ServeConfig(batch=2, max_len=32),
-                 lm.init_lm(cfg, 1), device="cpu")
+                 lm.init_lm(cfg, 1, device="cpu"), device="cpu")
     rng = np.random.default_rng(1)
     reqs = _requests(rng, 5, rng.integers(3, 9, size=5), [4] * 5, cfg.vocab,
                      slas=("latency", "balanced", "quality"))
@@ -106,7 +106,7 @@ def test_dead_slot_alpha_leaves_union():
 
 def test_serve_validates_queue_and_config():
     cfg = _cfg("dense")
-    params = lm.init_lm(cfg, 2)
+    params = lm.init_lm(cfg, 2, device="cpu")
     srv = Server(lm, cfg, ServeConfig(batch=2, max_len=16), params,
                  device="cpu")
     with pytest.raises(ValueError, match="max_len"):
