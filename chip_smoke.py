@@ -29,7 +29,25 @@ Phases, in order; any failure exits non-zero:
              64, 96-192-token prompts), once with float32 and once with int8
              MLP weights; the counters must show two launches per sparse MLP
              per decode step and per prefill chunk.
-  7. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+  7. paged kernels  paged_attention and paged_kv_write against their plain
+             versions at full width (H = K = 32, hd = 128, block 16): B in
+             {1, 4, 16}, max_len 256 and 2048, fragmented tables with a shared
+             block, lengths 0, a block boundary and max_len - 1, bf16 and
+             float32 pools; small-shape edges (GQA, softcap, window, block
+             1/8/32, hd 64/256); the write bitwise with collisions.  Each
+             is timed at the main path's shape (B=4, bf16 pool, 64-192 live
+             tokens) beside its bound, its plain version and a library call.
+  8. paged decode  2 full-width float32 layers against a fragmented float32
+             pool, 8 teacher-forced steps: the kernel route on the card
+             against the plain route on the CPU and the gather route on the
+             card.
+  9. serve-paged  all 32 layers through Server.serve with the paged KV pool
+             (bf16 pool, block 16, paged_attn_kernel, chunked sparse
+             prefill): a shared 128-token system prompt admitted by
+             reference, a second serve() of two sessions' turn 2, exact
+             launch counts, and a reused-prefix request's tokens equal to a
+             fresh server's.
+ 10. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 """
@@ -49,12 +67,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
+SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's ~1.98 GHz SM clock
+
 D, K, G = 4096, 11008, 8
 QG = 128                  # int8 quant group width
 BATCHES = (1, 4, 16)
 CHUNK_ROWS = (17, 64, 128)
 MAIN_BATCH = 4            # the serve phase's batch: the main path's shape
 MAIN_CHUNK = 64           # the chunked serve phase's prefill chunk
+PAGE_BLOCK = 16           # the paged pool's block size
+PAGED_NBPS = (16, 128)    # blocks per slot: max_len 256 and 2048
+MAIN_LIVE = (64, 100, 150, 192)   # the timed paged shape's slot lengths
+# the port's kernels by namespace (profiler rows)
+OWN_KERNELS = ("mlp::", "predict::", "paged::", "paged_write::")
 
 
 def fail(msg: str) -> None:
@@ -72,32 +97,30 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, flush=None) -> float:
-    """Mean device time of ``fn`` in ms from CUDA events.  With ``flush``
-    (a callable that evicts the L2) each launch follows a flush and the
-    flush's own time is subtracted, so the kernel finds its inputs in HBM
-    as it does inside a decode step."""
+    """Mean device time of ``fn`` in ms, with the host out of the way:
+    before each timed call the stream first sleeps (``torch.cuda._sleep``,
+    ~5 ms) so that the host has enqueued the whole call behind the sleep,
+    and the CUDA events around the call bracket device work only (a call
+    that synchronizes inside still waits for the host after that point).
+    With ``flush`` (a callable that evicts the L2) each call follows a
+    flush, so the kernel finds its inputs in HBM as inside a decode step."""
     import torch
-
-    def timed(body):
-        for _ in range(3):
-            body()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for _ in range(iters):
-            body()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / iters
-
-    if flush is None:
-        return timed(fn)
-
-    def both():
-        flush()
         fn()
-    return max(timed(both) - timed(flush), 0.0)
+        e1.record()
+        marks.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / iters
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -998,7 +1021,7 @@ def profile_step(label: str, fn, steps: int = 3) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     seen = sum(e.count for e in events
-               if e.key.startswith(("void mlp::", "void predict::")))
+               if e.key.removeprefix("void ").startswith(OWN_KERNELS))
     busy = sum(e.self_device_time_total for e in events) / steps / 1e3
     if not events or seen != launched:
         print(f"[profile] {label}: {wall:.3f} ms host wall; device busy not "
@@ -1011,6 +1034,449 @@ def profile_step(label: str, fn, steps: int = 3) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} ms"
               f"/step  x{e.count // steps:<4d} {e.key[:90]}", flush=True)
+
+
+def _paged_inputs(gen, rng, b, h, kvh, hd, bs, nbps, kv_dtype, q_dtype,
+                  lengths=None):
+    """q, a random pool, a fragmented table (slots 0 and 1 share their first
+    block) and lengths: max_len - 1, 0 and a block boundary first, then
+    random ones, unless ``lengths`` is given."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    n = 2 + b * nbps + 3
+    table = (rng.permutation(n - 2)[: b * nbps] + 2).reshape(b, nbps)
+    if b > 1:
+        table[1, 0] = table[0, 0]
+    s_max = nbps * bs
+    if lengths is None:
+        lengths = [(s_max - 1, 0, bs)[i] if i < 3
+                   else int(rng.integers(1, s_max)) for i in range(b)]
+    kp = torch.randn((n, bs, kvh, hd), generator=gen, device=dev)
+    vp = torch.randn((n, bs, kvh, hd), generator=gen, device=dev)
+    q = torch.randn((b, h, hd), generator=gen, device=dev)
+    return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype),
+            torch.as_tensor(table.astype(np.int32), device=dev),
+            torch.as_tensor(np.asarray(lengths, np.int32), device=dev))
+
+
+def _check_attention(tag, out, want, vp) -> float:
+    """Tolerance: the output is a weighted mean of v rows.  bf16 pools
+    round p to bf16 before the PV product, where a float32 ulp of
+    difference can move p by one bf16 ulp: 2^-8 * max|v|.  float32 pools
+    differ in summation order only: 1e-4 * max|v|."""
+    import torch
+    torch.cuda.synchronize()
+    vmax = float(vp.float().abs().max())
+    tol = (2 ** -8 if vp.dtype == torch.bfloat16 else 1e-4) * vmax
+    err = float((out - want).abs().max())
+    if not bool(torch.isfinite(out).all()) or err > tol:
+        fail(f"paged_attention {tag}: max abs err {err:.3e} > {tol:.3e}")
+    return err
+
+
+def phase_paged_kernels(results: dict) -> None:
+    """paged_attention and paged_kv_write against their plain versions at
+    full width, then the timings at the main path's shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.default_rng(8)
+    h = kvh = 32
+    hd, bs = 128, PAGE_BLOCK
+    worst = 0.0
+    for kv_dtype in (torch.bfloat16, torch.float32):
+        for b in BATCHES:
+            for nbps in PAGED_NBPS:
+                q, kp, vp, table, lengths = _paged_inputs(
+                    gen, rng, b, h, kvh, hd, bs, nbps, kv_dtype, kv_dtype)
+                tag = (f"B={b} max_len={nbps * bs} pool={str(kv_dtype)[6:]}"
+                       f" lengths={lengths.tolist()[:4]}")
+                err = _check_attention(
+                    tag, KA.paged_attention(q, kp, vp, table, lengths),
+                    ref.paged_attention_ref(q, kp, vp, table, lengths), vp)
+                worst = max(worst, err)
+                print(f"[paged] paged_attention {tag}: max_abs_err "
+                      f"{err:.3e}", flush=True)
+                del q, kp, vp
+    n_edge = phase_paged_edges()
+    n_write = phase_paged_write()
+    # ---- timings at the main path's shape: B=4, bf16, max_len 256
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+    b, nbps = MAIN_BATCH, PAGED_NBPS[0]
+    s_max = nbps * bs
+    q, kp, vp, table, lengths = _paged_inputs(
+        gen, rng, b, h, kvh, hd, bs, nbps, torch.bfloat16, torch.bfloat16,
+        lengths=MAIN_LIVE)
+    err = _check_attention(
+        "main shape", KA.paged_attention(q, kp, vp, table, lengths),
+        ref.paged_attention_ref(q, kp, vp, table, lengths), vp)
+    t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths),
+                  iters=50, flush=flush)
+    t_p = cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
+                                                  lengths),
+                  iters=10, flush=flush)
+    # yardstick: SDPA on a dense (B, K, S, hd) view gathered beforehand
+    # (the gather is left out of its time)
+    kd = kp[table.long()].reshape(b, s_max, kvh, hd).transpose(1, 2) \
+        .contiguous()
+    vd = vp[table.long()].reshape(b, s_max, kvh, hd).transpose(1, 2) \
+        .contiguous()
+    live_mask = (torch.arange(s_max, device=dev)[None, :]
+                 <= lengths[:, None])[:, None, None, :]
+    qd = q[:, :, None, :]
+    t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=live_mask), iters=50, flush=flush)
+    live = int((lengths.long() + 1).sum())
+    a_bytes = (2 * live * kvh * hd * 2 + b * h * hd * 2 + b * h * hd * 4
+               + b * nbps * 4 + b * 4)
+    a_bound = bound_ms(a_bytes, 4 * h * live * hd)
+    # the decode step's write: each slot's row at its length
+    blk = table.gather(1, (lengths.long() // bs)[:, None])[:, 0]
+    off = lengths % bs
+    vals = torch.randn((b, kvh, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    t_w = cuda_ms(lambda: KA.paged_kv_write(kp, vals, blk, off), iters=50)
+    t_wp = cuda_ms(lambda: ref.paged_kv_write_ref(kp, vals, blk, off),
+                   iters=20)
+    bl, ol = blk.long(), off.long()
+    t_wl = cuda_ms(lambda: kp.index_put_((bl, ol), vals), iters=50)
+    w_bound = bound_ms(2 * b * kvh * hd * 2 + 2 * b * 4, 0)
+    print(f"[paged] paged_attention B={b} bf16 lengths {list(MAIN_LIVE)} "
+          f"({live} live rows): max_abs_err {err:.3e} kernel {t_k:.4f} ms "
+          f"plain {t_p:.4f} ms bound {a_bound[0]:.4f} ms ({a_bound[1]}) "
+          f"sdpa-on-gathered-view {t_lib:.4f} ms", flush=True)
+    print(f"[paged] paged_kv_write B={b} bf16: bitwise, kernel {t_w:.4f} ms"
+          f" plain {t_wp:.4f} ms bound {w_bound[0]:.5f} ms ({w_bound[1]}) "
+          f"index_put_ {t_wl:.4f} ms", flush=True)
+    results["paged_attention"] = dict(
+        max_abs_err=max(worst, err), ms=t_k, plain_ms=t_p,
+        bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=t_lib)
+    results["paged_kv_write"] = dict(
+        max_abs_err=0.0, ms=t_w, plain_ms=t_wp, bound_ms=w_bound[0],
+        bound_by=w_bound[1], library_ms=t_wl)
+    print(f"[paged] paged_attention agrees with its plain version in "
+          f"{2 * len(BATCHES) * len(PAGED_NBPS)} full-width cases (max "
+          f"abs err {worst:.3e}) and {n_edge} small-shape cases; "
+          f"paged_kv_write is bitwise in {n_write} cases", flush=True)
+    del q, kp, vp, kd, vd, flush_buf
+    torch.cuda.empty_cache()
+
+
+def phase_paged_edges() -> int:
+    """paged_attention's other paths at small shapes: GQA rep 2/4/8, hd 64
+    and 256, block 1/8/32, softcap, window (with a length past it: no live
+    lane, a uniform softmax), float32 q on a bf16 pool, lengths past
+    max_len."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(9)
+    bf, f32 = torch.bfloat16, torch.float32
+    n = 0
+    for b, h, kvh, hd, bs, nbps, kv_dt, q_dt, softcap, window in [
+            (3, 8, 4, 64, 8, 6, bf, bf, 0.0, 0),
+            (3, 16, 4, 128, 1, 40, f32, f32, 0.0, 0),
+            (2, 16, 2, 64, 32, 3, bf, f32, 30.0, 0),
+            (5, 8, 8, 128, 16, 4, f32, bf, 0.0, 7),
+            (5, 4, 1, 256, 8, 5, bf, bf, 20.0, 9),
+            (4, 32, 4, 64, 8, 16, f32, f32, 0.0, 0)]:
+        s_max = nbps * bs
+        lengths = [s_max - 1, 0, bs, s_max + 10, 3][:b]
+        q, kp, vp, table, lens = _paged_inputs(
+            gen, rng, b, h, kvh, hd, bs, nbps, kv_dt, q_dt, lengths=lengths)
+        kw = dict(softcap=softcap, window=window)
+        _check_attention(
+            f"B={b} H={h} K={kvh} hd={hd} block={bs} max_len={s_max} "
+            f"{kv_dt}/{q_dt} softcap={softcap} window={window}",
+            ops.paged_attention(q, kp, vp, table, lens, **kw),
+            ref.paged_attention_ref(q, kp, vp, table, lens, **kw), vp)
+        n += 1
+    return n
+
+
+def phase_paged_write() -> int:
+    """paged_kv_write bitwise against its plain version, with several slots
+    on one row of the write-off block (the last one wins) and a row size
+    that is not a multiple of 16 bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rng = np.random.default_rng(10)
+    n = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for b, row in ((16, (32, 128)), (4, (32, 128)), (9, (3, 5))):
+            pages = torch.randn((40, PAGE_BLOCK) + row, generator=gen,
+                                device=dev).to(dt)
+            vals = torch.randn((b,) + row, generator=gen, device=dev).to(dt)
+            blocks = rng.integers(2, 40, size=b)
+            offsets = rng.integers(0, PAGE_BLOCK, size=b)
+            blocks[: b // 2] = 1                    # the write-off block
+            offsets[: b // 2] = rng.integers(0, 2, size=b // 2)
+            perm = rng.permutation(b)
+            blk = torch.as_tensor(blocks[perm].astype(np.int32), device=dev)
+            off = torch.as_tensor(offsets[perm].astype(np.int32), device=dev)
+            got, want = pages.clone(), pages.clone()
+            KA.paged_kv_write(got, vals, blk, off)
+            ref.paged_kv_write_ref(want, vals, blk, off)
+            torch.cuda.synchronize()
+            last = max(i for i in range(b) if int(blk[i]) == int(blk[0])
+                       and int(off[i]) == int(off[0]))
+            if not (torch.equal(got, want) and torch.equal(
+                    got[int(blk[0]), int(off[0])], vals[last])):
+                fail(f"paged_kv_write B={b} row={row} {dt}: differs from "
+                     "its plain version or the last slot did not win")
+            n += 1
+    return n
+
+
+def phase_paged_decode() -> None:
+    """Two full-width float32 layers decoding against a fragmented float32
+    pool: the kernel route on the card against the plain route on the CPU
+    and against the gather route on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32",
+                       paged_attn_kernel=True,
+                       sparse=dataclasses.replace(base.sparse,
+                                                  strategy="pallas",
+                                                  enabled=True))
+    b, steps, bs, nbps = MAIN_BATCH, 8, PAGE_BLOCK, 4
+    params = {"cuda": lm.prepare_sparse(lm.init_lm(cfg, 0, "cuda"))}
+    params["cpu"] = _to(params["cuda"], "cpu")
+    rng = np.random.default_rng(11)
+    n = 2 + b * nbps + 3
+    table = (rng.permutation(n - 2)[: b * nbps] + 2).reshape(b, nbps)
+    table[1, 0] = table[0, 0]            # a shared prefix block, read only
+    table = table.astype(np.int32)
+    lens0 = np.asarray([20, 17, 33, 47])
+    # stale random content everywhere: the history of the live lanes
+    shape = (n, bs, cfg.n_kv_heads, cfg.resolved_head_dim)
+    pool_np = [{k: rng.standard_normal(shape).astype(np.float32)
+                for k in ("k", "v")} for _ in range(cfg.n_layers)]
+    forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
+    alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
+        np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
+
+    def run(run_cfg, dev):
+        pool = {"blocks": [{k: torch.from_numpy(v).to(dev)
+                            for k, v in layer.items()}
+                           for layer in pool_np]}
+        tab = torch.as_tensor(table, device=dev)
+        out_l, out_s = [], []
+        with torch.inference_mode():
+            for t in range(steps):
+                lg, pool, st = lm.decode_step(
+                    params[dev], run_cfg,
+                    torch.as_tensor(forced[t], device=dev), pool,
+                    torch.as_tensor(lens0 + t, device=dev), alphas=alphas,
+                    collect_stats=True, block_table=tab)
+                out_l.append(lg.float().cpu())
+                out_s.append({k: v.cpu() for k, v in st.items()})
+        return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
+                                    for k in MLP_STAT_KEYS}
+
+    ops.reset_launch_counts()
+    kern = run(cfg, "cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = cfg.n_layers
+    if counts["paged_attention"] != L * steps or \
+            counts["paged_kv_write"] != 2 * L * steps:
+        fail(f"paged decode: launches {counts}, want {L * steps} "
+             f"paged_attention and {2 * L * steps} paged_kv_write")
+    cpu = run(cfg, "cpu")
+    gather = run(cfg.replace(paged_attn_kernel=False), "cuda")
+    if not bool(torch.isfinite(kern[0]).all()):
+        fail("paged decode: non-finite logits on the card")
+    # as phase 3: float32 sums in another order; a stat may move by 2 groups
+    tol, stat_tol = 1e-3, 2 * cfg.sparse.group_size / cfg.d_ff
+    for name, other in (("CPU plain route", cpu),
+                        ("card gather route", gather)):
+        diff = (kern[0] - other[0]).abs()
+        worst = max(float((kern[1][k] - other[1][k]).abs().max())
+                    for k in MLP_STAT_KEYS)
+        n_diff = sum(int((kern[1][k] != other[1][k]).sum())
+                     for k in MLP_STAT_KEYS)
+        print(f"[paged-decode] kernel route vs {name}: logits max abs diff "
+              f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} "
+              f"(tolerance {tol}); {n_diff} of "
+              f"{len(MLP_STAT_KEYS) * steps * L * b} stat entries differ, by"
+              f" at most {worst:.3e}", flush=True)
+        if float(diff.max()) > tol or worst > stat_tol:
+            fail(f"paged decode vs {name}: logits differ by "
+                 f"{float(diff.max())} or a stat by {worst}")
+    print(f"[paged-decode] launches on the card {counts}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_serve_paged(results: dict) -> None:
+    """All 32 full-width layers through the slot-refill server with the
+    paged KV pool (bf16, block 16, paged_attn_kernel), chunked sparse
+    prefill (chunks of 64) and float32 MLP weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import PagedKVConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                       sparse=dataclasses.replace(
+                           base.sparse, strategy="pallas", enabled=True,
+                           sparse_prefill=True,
+                           prefill_max_tokens=max(
+                               base.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                       prefill_chunk=MAIN_CHUNK,
+                       paged_kv=PagedKVConfig(block_size=PAGE_BLOCK))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, scfg, params, device="cuda")
+    torch.cuda.synchronize()
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for layer in srv._pool["blocks"] for t in layer.values())
+    print(f"[serve-paged] {cfg.n_layers} layers, KV pool "
+          f"{srv.kv_pool.n_blocks} blocks x {PAGE_BLOCK} tokens "
+          f"{cfg.kv_cache_dtype}, {pool_bytes / 1e9:.3f} GB; init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(12)
+    system = rng.integers(0, cfg.vocab, size=128)
+    # uid 0 shares the system prompt and finishes first (8 new tokens);
+    # uids 4-6 share it too and are admitted only when a slot frees, after
+    # uid 0 committed its prompt blocks.  Sharers keep one tier: the
+    # sparse-prefill alphas salt the trie.
+    specs = [(True, 8, "balanced", None), (False, 16, "latency", "sA"),
+             (False, 16, "quality", "sB"), (False, 16, "balanced", None),
+             (True, 16, "balanced", None), (True, 16, "balanced", None),
+             (True, 16, "balanced", None), (False, 16, "quality", None)]
+    reqs = []
+    for uid, (share, max_new, sla, sid) in enumerate(specs):
+        own = rng.integers(0, cfg.vocab, size=int(
+            rng.integers(16, 41) if share else rng.integers(60, 151)))
+        prompt = np.concatenate([system, own]) if share else own
+        reqs.append(Request(uid=uid, prompt=prompt, max_new=max_new,
+                            sla=sla, session_id=sid))
+    L = cfg.n_layers
+
+    def serve(batch, label):
+        ops.reset_launch_counts()
+        steps0, run0 = srv.decode_steps, srv.prefill_chunks_run
+        skip0 = srv.prefill_chunks_skipped
+        done = srv.serve(batch)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        steps = srv.decode_steps - steps0
+        chunks = srv.prefill_chunks_run - run0
+        skipped = srv.prefill_chunks_skipped - skip0
+        if len(done) != len(batch) or any(
+                r.outcome != "completed" or len(r.out) != r.max_new
+                or not ((r.out >= 0) & (r.out < cfg.vocab)).all()
+                for r in done):
+            fail(f"serve-paged {label}: not every request completed with "
+                 "valid tokens")
+        want = {k: 0 for k in counts}
+        want.update({"predict_group_margins": L * steps,
+                     "fused_sparse_mlp": L * steps,
+                     "paged_attention": L * steps,
+                     "paged_kv_write": 2 * L * steps,
+                     "predict_chunk_group_margins": L * chunks,
+                     "fused_sparse_mlp_chunk": L * chunks})
+        n_chunks = sum(-(-len(r.prompt) // MAIN_CHUNK) for r in batch)
+        if steps == 0 or counts != want or chunks + skipped != n_chunks:
+            fail(f"serve-paged {label}: launches {counts}, want {want} "
+                 f"({steps} decode steps, {chunks} chunks run + {skipped} "
+                 f"skipped of {n_chunks})")
+        rep = throughput_report(done)
+        print(f"[serve-paged] {label}: throughput_report {json.dumps(rep)}",
+              flush=True)
+        print(f"[serve-paged] {label}: decode steps {steps}; prefill chunks "
+              f"run {chunks}, skipped {skipped}; launches {counts}; "
+              f"paged_stats {json.dumps(srv.paged_stats())}", flush=True)
+        return done, counts
+
+    done, counts = serve(reqs, "8 requests")
+    results["launches_paged"] = counts
+    st = srv.paged_stats()
+    if st["reuse_hits"] < 3 or st["prefill_chunks_skipped"] < 6:
+        fail(f"serve-paged: the three later sharers of the system prompt "
+             f"did not admit by reference: {st}")
+    hist = {r.uid: np.concatenate([r.prompt, r.out]) for r in done}
+    turn2 = [Request(uid=10 + u, prompt=np.concatenate(
+                 [hist[u], rng.integers(0, cfg.vocab, size=8)]),
+                 max_new=16, session_id=sid)
+             for u, sid in ((1, "sA"), (2, "sB"))]
+    done2, _ = serve(turn2, "turn 2 of two sessions")
+    tiers = {r.uid: r.sla for r in done2}
+    if tiers != {11: "latency", 12: "quality"}:
+        fail(f"serve-paged: session tiers did not stick: {tiers}")
+    # a sharer alone, admitted by reference, against a fresh server
+    probe = np.concatenate([system, rng.integers(0, cfg.vocab, size=24)])
+    skip0 = srv.prefill_chunks_skipped
+    [got], _ = serve([Request(uid=20, prompt=probe, max_new=16)],
+                     "a reused prefix alone")
+    if srv.prefill_chunks_skipped - skip0 != 2:
+        fail("serve-paged: the probe did not admit its 128-token prefix by "
+             "reference")
+    print(f"[serve-paged] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    srv.kv_pool.check_invariants()
+    fresh = Server(lm, cfg, scfg, params, device="cuda")
+    [want] = fresh.serve([Request(uid=20, prompt=probe, max_new=16)])
+    torch.cuda.synchronize()
+    if not np.array_equal(got.out, want.out):
+        fail(f"serve-paged: the reused-prefix request emitted {got.out} "
+             f"but {want.out} on a fresh server")
+    print(f"[serve-paged] the reused-prefix request's 16 tokens equal a "
+          f"fresh server's", flush=True)
+    del fresh, params
+    profile_paged_decode(srv, cfg)
+    del srv
+    torch.cuda.empty_cache()
+
+
+def profile_paged_decode(srv, cfg) -> None:
+    """Where one full-depth paged decode step's time goes: B=4, every slot
+    at length 64 over its own 16 pool blocks (a pool of its own)."""
+    import torch
+    from repro_torch.models import lm
+
+    b, nbps = srv.scfg.batch, srv._nbps
+    pool = lm.init_kv_pool(cfg, b * nbps + 2, PAGE_BLOCK, "cuda")
+    table = (torch.arange(b * nbps, dtype=torch.int32, device="cuda")
+             + 2).reshape(b, nbps)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    lengths = torch.full((b,), 64, device="cuda")
+    profile_step(f"paged decode step (B={b}, {cfg.n_layers} layers, "
+                 f"{cfg.kv_cache_dtype} pool, paged kernels)",
+                 lambda: lm.decode_step(srv.params, cfg, tok, pool, lengths,
+                                        block_table=table))
 
 
 def main() -> None:
@@ -1034,10 +1500,13 @@ def main() -> None:
     phase_build()
     phase_kernels(results)
     phase_chunk_kernels(results)
+    phase_paged_kernels(results)
     phase_decode()
     phase_prefill()
+    phase_paged_decode()
     phase_serve(results)
     phase_serve_chunked(results)
+    phase_serve_paged(results)
     print(f"[done] all phases in {time.perf_counter() - t0:.1f} s",
           flush=True)
     src_of = "src/repro_torch/csrc/{}.cu".format
@@ -1046,7 +1515,9 @@ def main() -> None:
         **{n: results["launches_chunked_float32"][n]
            for n in ("predict_chunk_group_margins", "fused_sparse_mlp_chunk")},
         **{n: results["launches_chunked_int8"][n]
-           for n in ("fused_sparse_mlp_q", "fused_sparse_mlp_chunk_q")}}
+           for n in ("fused_sparse_mlp_q", "fused_sparse_mlp_chunk_q")},
+        **{n: results["launches_paged"][n]
+           for n in ("paged_attention", "paged_kv_write")}}
     replaces = {
         "predict_group_margins": "src/repro/kernels/predict.py:263",
         "fused_sparse_mlp": "src/repro/kernels/sparse_mlp_fused.py:300",
@@ -1054,7 +1525,9 @@ def main() -> None:
         "fused_sparse_mlp_chunk": "src/repro/kernels/sparse_mlp_fused.py:499",
         "fused_sparse_mlp_q": "src/repro/kernels/sparse_mlp_fused.py:397",
         "fused_sparse_mlp_chunk_q":
-            "src/repro/kernels/sparse_mlp_fused.py:597"}
+            "src/repro/kernels/sparse_mlp_fused.py:597",
+        "paged_attention": "src/repro/kernels/paged_attn.py:125",
+        "paged_kv_write": "src/repro/kernels/paged_attn.py:164"}
     kernels = [{"name": n, "route": "cuda", "source": src_of(n),
                 "replaces": r, "launches": launches[n], **results[n]}
                for n, r in replaces.items()]

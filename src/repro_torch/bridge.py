@@ -8,7 +8,9 @@ It imports nothing of JAX: a bfloat16 leaf arrives as an ``ml_dtypes``
 numpy array and is widened to float32 (exactly) before the cast back.
 A quantized MLP node (the reference's ``prepare_sparse`` with int8 weights:
 int8 leaves, float32 scales and the int32 ``sign_wg``) carries over leaf
-for leaf, in its own dtypes.
+for leaf, in its own dtypes.  ``pool_from_numpy`` does the same for a
+paged KV pool (the reference's ``init_kv_pool`` tree: leaves
+(L, N, block, ...) under ``blocks``).
 """
 from __future__ import annotations
 
@@ -48,3 +50,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     out["blocks"] = [_convert(tree["blocks"], device, i) for i in range(n)]
     return out
 
+
+def pool_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Reference paged KV pool (numpy leaves (L, N, block, ...) under
+    ``blocks``) -> the port's pool ``{"blocks": [per-layer {"k", "v"[,
+    "k_scale", "v_scale"]}]}`` on ``device``.  Raises without a GPU unless
+    ``device`` is ``"cpu"``."""
+    if cfg.family != "dense" or set(tree) != {"blocks"}:
+        raise NotImplementedError("only the dense family's pool is ported")
+    device = resolve_device(device)
+    n = np.asarray(tree["blocks"]["k"]).shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"pool holds {n} layers, config has "
+                         f"{cfg.n_layers}")
+    return {"blocks": [_convert(tree["blocks"], device, i)
+                       for i in range(n)]}

@@ -2,8 +2,8 @@
 
 Field names, types and defaults are the reference's own, so a port config
 compares field for field with its JAX twin.  Only the configs this slice
-serves are ported (``ModelConfig`` and the SLA tiers); the controller,
-paged-KV and metrics configs come with their slices.
+serves are ported (``ModelConfig``, the SLA tiers and ``PagedKVConfig``);
+the controller and metrics configs come with their slices.
 """
 from __future__ import annotations
 
@@ -30,6 +30,24 @@ DEFAULT_SLA_TIERS: tuple = (
     SLATier("balanced", priority=1),
     SLATier("quality", alpha_offset=0.25, target_scale=1.4, priority=2),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKVConfig:
+    """Paged KV pool for the slot-refill serve path: a global block pool
+    plus per-slot block tables in place of per-slot ``max_len`` buffers.
+    Committed full prompt blocks are shared through a hash trie (repeated
+    system prompts and resumed session history admit by reference), and
+    diverging reuse is copy-on-write forked."""
+
+    block_size: int = 16    # tokens per pool block; must divide
+                            # ServeConfig.max_len, and prefill_chunk must
+                            # be a multiple of it when chunked prefill is on
+    pool_blocks: int = 0    # total blocks INCLUDING the two reserved ones
+                            # (null + trash); 0 = auto-size to the dense
+                            # equivalent batch * max_len/block_size + 2
+    prefix_cache: bool = True   # hash-trie admission of committed blocks
+    max_sessions: int = 64  # LRU cap on retained session chains
 
 
 @dataclasses.dataclass(frozen=True)

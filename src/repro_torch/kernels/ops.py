@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import paged_attn as _paged
 from repro_torch.kernels import predict as _predict
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse_mlp_fused as _fused
@@ -22,7 +23,7 @@ from repro_torch.kernels import sparse_mlp_fused as _fused
 _LAUNCHES = dict.fromkeys(
     ("predict_group_margins", "predict_chunk_group_margins",
      "fused_sparse_mlp", "fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
-     "fused_sparse_mlp_chunk_q"), 0)
+     "fused_sparse_mlp_chunk_q", "paged_attention", "paged_kv_write"), 0)
 
 
 def launch_counts() -> dict:
@@ -145,3 +146,34 @@ def fused_sparse_mlp_chunk_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
                 sel_count, gm_tok, group_size=group_size,
                 activation=activation, fatrelu_threshold=fatrelu_threshold,
                 collect_stats=collect_stats)
+
+
+def paged_attention(q, k_pages, v_pages, table, lengths, k_scale=None,
+                    v_scale=None, *, softcap: float = 0.0, window: int = 0):
+    """Paged decode attention over KV-pool pages: q (B, H, hd), pages
+    (N, block, K, hd), table (B, nbps), lengths (B,) -> the normalized
+    context (B, H, hd) float32.  An int8 pool (with its scales) runs only
+    on the CPU here: on the card it takes the layer's gather route
+    (``layers/attention.py:paged_decode_attend``), and the kernel raises."""
+    if not q.is_cuda:
+        return ref.paged_attention_ref(q, k_pages, v_pages, table, lengths,
+                                       k_scale, v_scale, softcap=softcap,
+                                       window=window)
+    if k_scale is not None or v_scale is not None:
+        raise ValueError("paged_attention: the CUDA kernel takes float32 "
+                         "or bfloat16 pools, not int8 ones with scales")
+    out = _paged.paged_attention(q, k_pages, v_pages, table, lengths,
+                                 softcap=softcap, window=window)
+    _LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def paged_kv_write(pages, vals, blocks, offsets):
+    """The decode step's KV write into the pool, in place:
+    ``pages[blocks[b], offsets[b]] = vals[b]``, the last slot winning on a
+    collision.  Returns ``pages``."""
+    if not pages.is_cuda:
+        return ref.paged_kv_write_ref(pages, vals, blocks, offsets)
+    out = _paged.paged_kv_write(pages, vals, blocks, offsets)
+    _LAUNCHES["paged_kv_write"] += 1
+    return out

@@ -171,3 +171,85 @@ def fused_sparse_mlp_chunk_q_ref(*args, **kw):
     """Plain version of kernels.sparse_mlp_fused.fused_sparse_mlp_chunk_q:
     row tiling changes no row's math, so it is the decode q version."""
     return fused_sparse_mlp_q_ref(*args, **kw)
+
+
+# ------------------------------------------------------- paged attention --
+
+NEG_INF = -1e30     # layers/attention.py NEG_INF (the mask's value)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, table: torch.Tensor,
+                        lengths: torch.Tensor, k_scale=None, v_scale=None,
+                        *, softcap: float = 0.0,
+                        window: int = 0) -> torch.Tensor:
+    """Plain version of kernels.paged_attn.paged_attention: gather each
+    slot's pool pages into its dense (B, S, K, hd) view, then the decode
+    softmax at full cache width in the operation sequence of
+    ``layers.attention.decode_attend_partial`` + normalize, so it is
+    bitwise the port's dense decode on the same live tokens (stale lanes sit
+    behind the NEG_INF mask with softmax weight exactly +0.0).
+
+    q (B, H, hd); pages (N, block, K, hd) float32, bfloat16 or int8 (then
+    with (N, block, K) ``k_scale``/``v_scale``); table (B, nbps) int32;
+    lengths (B,) -> (B, H, hd) float32."""
+    b, h, hd = q.shape
+    _, bs, kvh, _ = k_pages.shape
+    s_max = table.shape[1] * bs
+    tab = table.long()
+    int8 = k_pages.dtype == torch.int8
+
+    def dense(p):
+        return p[tab].reshape((b, s_max) + p.shape[2:])
+
+    def compute(t):          # int8 values are multiplied as bfloat16
+        return (t.to(torch.bfloat16) if int8 else t).float()
+
+    kk, vv = dense(k_pages), dense(v_pages)
+    op_dtype = torch.bfloat16 if int8 else k_pages.dtype
+    qg = q.reshape(b, kvh, h // kvh, hd).to(op_dtype).float()
+    s = torch.einsum("bkrh,btkh->bkrt", qg, compute(kk))
+    # one folded constant, as the TPU kernel computes it
+    if softcap > 0.0:
+        s = torch.tanh(s * ((hd ** -0.5) / softcap)) * softcap
+    else:
+        s = s * (hd ** -0.5)
+    if k_scale is not None:
+        s = s * dense(k_scale).float().transpose(1, 2)[:, :, None, :]
+    kvp = torch.arange(s_max, device=q.device)
+    ln = lengths.long()[:, None]
+    mask = kvp[None, :] <= ln
+    if window > 0:
+        mask = mask & ((ln - kvp[None, :]) < window)
+    s = torch.where(mask[:, None, None, :], s,
+                    torch.tensor(NEG_INF, device=s.device))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    if v_scale is not None:
+        pv = p * dense(v_scale).float().transpose(1, 2)[:, :, None, :]
+        o = torch.einsum("bkrt,btkh->bkrh", pv.to(torch.bfloat16).float(),
+                         compute(vv))
+    else:
+        o = torch.einsum("bkrt,btkh->bkrh", p.to(vv.dtype).float(),
+                         vv.float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(b, h, hd)
+
+
+def paged_kv_write_ref(pages: torch.Tensor, vals: torch.Tensor,
+                       blocks: torch.Tensor,
+                       offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels.paged_attn.paged_kv_write: in place,
+    ``pages[blocks[b], offsets[b]] = vals[b]`` with collisions applied in
+    slot order (the last slot wins, as on the TPU's sequential grid).  A
+    slot that a later slot overwrites is dropped first, so the scatter's
+    indices are unique and its result does not depend on the order
+    ``index_put_`` takes.  Returns ``pages``."""
+    key = blocks.long() * pages.shape[1] + offsets.long()
+    later = torch.ones((key.shape[0],) * 2, dtype=torch.bool,
+                       device=key.device).triu(1)
+    keep = ~((key[:, None] == key[None, :]) & later).any(1)
+    pages[blocks.long()[keep], offsets.long()[keep]] = \
+        vals[keep].to(pages.dtype)
+    return pages

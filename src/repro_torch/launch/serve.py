@@ -11,8 +11,14 @@ Chunked sparse prefill with int8 MLP weights (add --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch prosparse-llama2-7b --strategy pallas --prompt-len 96 \
         --max-len 256 --prefill-chunk 64 --sparse-prefill --weight-dtype int8
+The paged KV pool (blocks of 16 tokens; with chunked prefill, prompts that
+share committed blocks admit by reference):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch prosparse-llama2-7b --strategy pallas --max-len 256 \
+        --prefill-chunk 64 --paged-kv 16
 
-Prints the reference's JSON throughput report.
+Prints the reference's JSON throughput report (with ``paged``: the pool's
+counters, under --paged-kv).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import time
 
 import numpy as np
 
+from repro_torch.configs.base import PagedKVConfig
 from repro_torch.configs.registry import arch_names, get_config, \
     reduced_config
 from repro_torch.device import resolve_device
@@ -85,6 +92,13 @@ def main(argv=None) -> dict:
                     help="quantization group width (must divide d_model "
                          "and d_ff and be a multiple of the selection "
                          "group size)")
+    ap.add_argument("--paged-kv", type=int, default=0, metavar="BLOCK",
+                    help="enable the paged KV pool with this block size in "
+                         "tokens (0 = dense per-slot caches); prefix reuse "
+                         "and sessions need the pool")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="total pool blocks (0 = auto-size to exactly fit "
+                         "--batch x --max-len)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
@@ -112,7 +126,10 @@ def main(argv=None) -> dict:
     srv = Server(lm, cfg, ServeConfig(
         batch=args.batch, max_len=args.max_len, max_new_tokens=args.max_new,
         prefill_chunk=args.prefill_chunk,
-        prefill_interleave=args.prefill_interleave), params, device=device)
+        prefill_interleave=args.prefill_interleave,
+        paged_kv=(PagedKVConfig(block_size=args.paged_kv,
+                                pool_blocks=args.pool_blocks)
+                  if args.paged_kv else None)), params, device=device)
     rng = np.random.default_rng(args.seed)
     slas = parse_sla_mix(args.sla_mix, args.requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab,
@@ -138,6 +155,8 @@ def main(argv=None) -> dict:
                           "prefill_chunks_run": srv.prefill_chunks_run,
                           "prefill_chunks_skipped":
                               srv.prefill_chunks_skipped}
+    if args.paged_kv:
+        rep["paged"] = srv.paged_stats()
     rep["device"] = str(device)
     print(json.dumps(rep, indent=1))
     return rep

@@ -1,6 +1,7 @@
 """Attention for the dense decode path: counterpart of
 ``repro/layers/attention.py`` (causal self-attention with GQA; prefill
-attention; KV-cache decode, int8 KV included).  The reference's other
+attention; KV-cache decode, int8 KV included; decode against the paged KV
+pool).  The reference's other
 flavours (QKV bias, qk-norm, logit softcap, sliding window, cross
 attention) are not ported; ``models/lm.py`` rejects configs that set them.
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops, ref
 from repro_torch.layers.rope import apply_rope
 
 NEG_INF = -1e30
@@ -28,6 +30,8 @@ class AttentionConfig:
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
+    # paged decode through the paged-attention kernels (float pools only)
+    paged_kernel: bool = False
 
 
 def init_attention(generator: torch.Generator, cfg: AttentionConfig,
@@ -259,3 +263,89 @@ def decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
                                     cache.get("k_scale"),
                                     cache.get("v_scale"))
     return finalize_decode(o, l, params, x.dtype, cfg), cache
+
+
+# -------------------------------------------------------------- paged KV ---
+# The paged KV pool keeps each layer's cache as a global block pool, leaves
+# (N, block, K, hd) instead of per-slot (B, max_len, K, hd); a per-slot
+# block table (B, max_len/block) maps each slot's logical sequence blocks
+# onto pool blocks.  The decode step writes the new token's K/V into its
+# slot's pool block and attends the slot's pages.  The gather route gathers
+# the table back into the dense per-slot view and runs the decode math of
+# ``decode_attend`` on the same shapes, so it is bitwise the dense path;
+# stale content in recycled blocks sits on masked lanes only, where its
+# softmax weight is exactly +0.0.  Like the dense cache, the pool is
+# updated in place.
+
+def _write_target(table: torch.Tensor, cache_len: torch.Tensor, bs: int):
+    """Pool block and row of each slot's write position ``cache_len``."""
+    blk = table.gather(1, (cache_len // bs)[:, None].to(torch.long))[:, 0]
+    return blk, (cache_len % bs).to(torch.int32)
+
+
+def paged_update_kv(pool: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                    table: torch.Tensor, cache_len: torch.Tensor) -> dict:
+    """Write one token per slot into the pool, in place: (B, 1, K, hd) K/V
+    at per-slot position ``cache_len`` lands in block
+    ``table[b, pos // block]`` at row ``pos % block``.  Slots parked on the
+    shared write-off block collide there; the last slot wins."""
+    blk, off = _write_target(table, cache_len, pool["k"].shape[1])
+    if pool["k"].dtype == torch.int8:
+        (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
+        upd = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        upd = {"k": k_new, "v": v_new}
+    for name, val in upd.items():
+        ref.paged_kv_write_ref(pool[name], val[:, 0], blk, off)
+    return pool
+
+
+def paged_gather_kv(pool: dict, table: torch.Tensor) -> dict:
+    """Per-slot dense views of the pool: leaves (N, block, ...) and table
+    (B, nbps) -> (B, nbps * block, ...), the shapes the dense decode
+    attends."""
+    b, nbps = table.shape
+    tab = table.long()
+    return {k: v[tab].reshape((b, nbps * v.shape[1]) + v.shape[2:])
+            for k, v in pool.items()}
+
+
+def paged_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+                        pool: dict, cache_len, table: torch.Tensor) -> tuple:
+    """Single-token decode against a paged KV pool.  x (B, 1, d); ``pool``
+    holds this layer's block-pool leaves; ``table`` (B, nbps) int32;
+    ``cache_len`` (B,) per-slot lengths.  Returns (out (B, 1, d), pool
+    updated in place).
+
+    With ``cfg.paged_kernel`` and a float pool the K/V write and the
+    attention run on the paged kernels (``ops.paged_kv_write`` twice, then
+    ``ops.paged_attention``); an int8 pool always takes the gather route,
+    as in the reference, where its scale epilogue lives."""
+    cl = torch.as_tensor(cache_len, device=x.device)
+    if cl.ndim != 1:
+        raise ValueError("paged decode runs per slot: cache_len must be "
+                         "(B,)")
+    cl = cl.long()
+    pos = cl[:, None]
+    q, k, v = _project_qkv(params, x, cfg)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.paged_kernel and pool["k"].dtype != torch.int8:
+        blk, off = _write_target(table, cl, pool["k"].shape[1])
+        ops.paged_kv_write(pool["k"], k[:, 0], blk, off)
+        ops.paged_kv_write(pool["v"], v[:, 0], blk, off)
+        ctx = ops.paged_attention(q[:, 0], pool["k"], pool["v"], table, cl)
+        b = x.shape[0]
+        out = ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+        return out @ params["wo"].to(x.dtype), pool
+    pool = paged_update_kv(pool, k, v, table, cl)
+    dense = paged_gather_kv(pool, table)
+    s_max = dense["k"].shape[1]
+    kv_positions = torch.arange(s_max, device=x.device)
+    live = kv_positions <= cl[:, None]
+    kvp = torch.where(live, kv_positions,
+                      q_pos_sentinel(s_max, cl)[:, None])
+    o, l, _ = decode_attend_partial(q, dense["k"], dense["v"], cfg, kvp, cl,
+                                    dense.get("k_scale"),
+                                    dense.get("v_scale"))
+    return finalize_decode(o, l, params, x.dtype, cfg), pool

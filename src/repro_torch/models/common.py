@@ -19,7 +19,8 @@ def norm_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
 def attn_cfg(cfg: ModelConfig) -> AttentionConfig:
     return AttentionConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        paged_kernel=cfg.paged_attn_kernel)
 
 
 def torch_dtype(name: str) -> torch.dtype:

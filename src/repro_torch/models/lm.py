@@ -5,9 +5,12 @@ dicts (the reference stacks them along a leading axis for ``lax.scan``; a
 Python loop over layers takes the scan's place).  Caches are
 ``{"blocks": [per-layer {"k", "v"[, "k_scale", "v_scale"]}]}``.
 
-Public API: init_lm, init_caches, prefill, prefill_chunk, decode_step,
-prepare_sparse.  ``init_lm`` and ``init_caches`` put their tensors on the
-card unless the caller asks for ``device="cpu"``.
+Public API: init_lm, init_caches, init_kv_pool, prefill, prefill_chunk,
+decode_step, prepare_sparse.  ``init_lm``, ``init_caches`` and
+``init_kv_pool`` put their tensors on the card unless the caller asks for
+``device="cpu"``.  A paged KV pool has the caches' layout with each leaf's
+(batch, max_len) dims replaced by (n_blocks, block_size); ``decode_step``
+takes it with ``block_table=``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ _UNPORTED = ("qkv_bias", "qk_norm", "attn_softcap", "final_softcap",
 
 # families whose prefill runs in fixed-size chunks against the decode cache
 CHUNK_PREFILL_FAMILIES = ("dense",)
+
+# families whose caches are pure per-layer KV and can live in the paged
+# block pool
+PAGED_KV_FAMILIES = ("dense",)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -108,6 +115,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                        for _ in range(cfg.n_layers)]}
 
 
+def init_kv_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
+                 device="cuda") -> dict:
+    """Zero paged-KV block pool: per layer ``{"k", "v"}`` of shape
+    (n_blocks, block_size, K, hd) (+ (n_blocks, block_size, K) bfloat16
+    scales for an int8 pool), shared by every slot through per-slot block
+    tables.  On ``device`` (raises without a GPU unless it is ``"cpu"``)."""
+    if cfg.family not in PAGED_KV_FAMILIES:
+        raise NotImplementedError(
+            f"paged KV pool supports {PAGED_KV_FAMILIES}, not "
+            f"{cfg.family!r}")
+    return init_caches(cfg, n_blocks, block_size, device)
+
+
 def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor):
     """One transformer block over a prompt (dense MLP).  Returns (x, kv)."""
@@ -140,11 +160,18 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                  cache_len, alpha, collect_stats: bool = False):
-    """One block, single-token decode.  Returns (x, cache, stats or None)."""
+                  cache_len, alpha, collect_stats: bool = False,
+                  block_table=None):
+    """One block, single-token decode.  Returns (x, cache, stats or None).
+    ``block_table`` switches the attention onto the paged KV pool
+    (``cache`` is then this layer's pool leaves)."""
     h = C.norm_apply(cfg, blk["ln1"], x)
-    h, cache = A.decode_attend(blk["attn"], h, C.attn_cfg(cfg), cache,
-                               cache_len)
+    if block_table is not None:
+        h, cache = A.paged_decode_attend(blk["attn"], h, C.attn_cfg(cfg),
+                                         cache, cache_len, block_table)
+    else:
+        h, cache = A.decode_attend(blk["attn"], h, C.attn_cfg(cfg), cache,
+                                   cache_len)
     x = x + h
     h = C.norm_apply(cfg, blk["ln2"], x)
     out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), decode=True,
@@ -157,9 +184,11 @@ def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
 
 def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                         caches: dict, cache_len, alphas=None,
-                        collect_stats: bool = False):
+                        collect_stats: bool = False, block_table=None):
     """Decode through every layer.  ``alphas`` overrides the static
-    schedule: (n_layers,) per layer or (n_layers, B) per layer and slot."""
+    schedule: (n_layers,) per layer or (n_layers, B) per layer and slot.
+    ``block_table`` (B, nbps): paged-KV mode, ``caches`` is then the block
+    pool (``init_kv_pool``), its table shared by every layer."""
     alphas = torch.as_tensor(_alphas(cfg) if alphas is None else alphas,
                              dtype=torch.float32, device=x.device)
     if alphas.shape[0] != cfg.n_layers:
@@ -169,7 +198,8 @@ def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     for i, (blk, cache) in enumerate(zip(params["blocks"],
                                          caches["blocks"])):
         x, cache, st = _block_decode(blk, x, cfg, cache, cache_len,
-                                     alphas[i], collect_stats=collect_stats)
+                                     alphas[i], collect_stats=collect_stats,
+                                     block_table=block_table)
         new.append(cache)
         stats.append(st)
     if collect_stats:
@@ -180,15 +210,22 @@ def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 caches: dict, cache_len, *, alphas=None,
-                collect_stats: bool = False):
+                collect_stats: bool = False, block_table=None):
     """One decode step.  token (B, 1) -> (logits (B, V) float32, caches
     [, stats]).  ``cache_len``: scalar shared length or (B,) per-slot
     lengths.  With ``collect_stats`` the stats are a dict over
-    ``MLP_STAT_KEYS`` of (L, B) float32 tensors."""
+    ``MLP_STAT_KEYS`` of (L, B) float32 tensors.  ``block_table``
+    (B, nbps) int32: ``caches`` is a paged KV pool (``init_kv_pool``) and
+    ``cache_len`` must be per slot."""
     _check_family(cfg)
+    if block_table is not None and cfg.family not in PAGED_KV_FAMILIES:
+        raise NotImplementedError(
+            f"paged KV decode supports {PAGED_KV_FAMILIES}, not "
+            f"{cfg.family!r}")
     x = _embed_in(params, cfg, token)
     x, caches, stats = _dense_stack_decode(params, x, cfg, caches, cache_len,
-                                           alphas, collect_stats)
+                                           alphas, collect_stats,
+                                           block_table)
     x = C.norm_apply(cfg, params["final_norm"], x)
     logits = C.head_logits(x[:, 0], _head_table(params))
     if collect_stats:

@@ -14,9 +14,23 @@ batch-1 scratch caches, at most ``prefill_interleave`` chunks per loop
 iteration between decode steps.  A pending slot is dead in the decode union;
 the last chunk's logits give its first token and the scratch is copied in.
 
+With ``ServeConfig.paged_kv`` the per-slot ``max_len`` caches give way to
+one block pool per layer and per-slot block tables (``runtime/kv_pool.py``
+keeps the host books).  A finished prefill is written into blocks the slot
+owns; the decode step writes each slot's new K/V into its table's block
+and attends its pages (the paged-attention kernels with
+``ModelConfig.paged_attn_kernel`` and a float pool).  When a slot retires,
+its full prompt blocks are committed to a prefix trie, and with a
+``Request.session_id`` its whole chain is kept.  A chunked admission whose
+prompt starts with committed blocks, or extends its session's history,
+admits those by reference: its scratch is seeded from the pool and the
+chunks they cover are skipped.  The session's SLA tier sticks across
+turns.  The pool persists across ``serve()`` calls.
+
 Not ported yet: the alpha controller and capacity-bucket ladder (and with
-it the controller's prefill rider), the paged KV pool, overload handling
-and the metrics hub.
+it the controller's prefill rider), overload handling (preemption,
+shedding, deadlines, the pressure gate: pool exhaustion raises
+``PoolExhausted``) and the metrics hub.
 """
 from __future__ import annotations
 
@@ -29,10 +43,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DEFAULT_SLA_TIERS, ModelConfig
+from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ModelConfig,
+                                      PagedKVConfig)
 from repro_torch.core.sparse_mlp import DEAD_SLOT_ALPHA
 from repro_torch.device import resolve_device
 from repro_torch.models.common import greedy_sample
+from repro_torch.runtime.kv_pool import KVPool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +67,10 @@ class ServeConfig:
     # at most this many prefill chunks per decode-loop iteration (the
     # TTFT-vs-inter-token-latency knob)
     prefill_interleave: int = 1
+    # paged KV pool with prefix reuse and sessions; None keeps the dense
+    # per-slot caches.  block_size must divide max_len, and prefill_chunk
+    # must be a multiple of it
+    paged_kv: Optional[PagedKVConfig] = None
 
 
 @dataclasses.dataclass
@@ -59,6 +79,11 @@ class Request:
     prompt: np.ndarray           # (prompt_len,)
     max_new: int = 32
     sla: str = "balanced"        # ServeConfig.sla_tiers entry
+    session_id: Optional[str] = None  # paged serving: keep this request's
+                                 # KV chain under the id; a later request
+                                 # with the same id whose prompt extends the
+                                 # history admits by reference and takes
+                                 # the session's SLA tier
     out: Optional[np.ndarray] = None
     latency_s: float = 0.0       # admission -> last token (incl. queue wait)
     t_admit: float = 0.0         # perf_counter at admission (serve() entry)
@@ -75,6 +100,28 @@ def _splice_slot(full: dict, one: dict, slot: int) -> None:
     for f, o in zip(full["blocks"], one["blocks"]):
         for name, buf in f.items():
             buf[slot:slot + 1].copy_(o[name])
+
+
+def _seed_scratch(pool: dict, seed: torch.Tensor) -> dict:
+    """A batch-1 scratch cache gathered from the pool by ``seed`` (nbps,):
+    adopted blocks, and the NULL block (zeros) on every other lane, which
+    reads exactly like a freshly zeroed cache."""
+    return {"blocks": [{name: buf[seed].reshape((1, -1) + buf.shape[2:])
+                        for name, buf in layer.items()}
+                       for layer in pool["blocks"]]}
+
+
+def _commit_owned(pool: dict, one: dict, owned: torch.Tensor,
+                  nb_re: int) -> None:
+    """Write a finished batch-1 prefill's sequence blocks nb_re.. into the
+    pool blocks ``owned`` (ids the slot owns, distinct), in place.  Adopted
+    blocks below nb_re are left as they are, and nothing else is written:
+    not the NULL block, not the write-off block."""
+    n = owned.numel()
+    for f, o in zip(pool["blocks"], one["blocks"]):
+        for name, buf in f.items():
+            src = o[name][0].reshape((-1,) + buf.shape[1:])
+            buf[owned] = src[nb_re:nb_re + n].to(buf.dtype)
 
 
 class Server:
@@ -99,6 +146,22 @@ class Server:
             if cfg.family not in model_mod.CHUNK_PREFILL_FAMILIES:
                 raise NotImplementedError(
                     f"family {cfg.family!r} has no chunked prefill")
+        pk = scfg.paged_kv
+        if pk is not None:
+            pfams = getattr(model_mod, "PAGED_KV_FAMILIES", ())
+            if cfg.family not in pfams:
+                raise ValueError(
+                    f"paged_kv: family {cfg.family!r} has no paged decode "
+                    f"path (supported: {pfams})")
+            if pk.block_size < 1 or scfg.max_len % pk.block_size:
+                raise ValueError(
+                    f"paged_kv.block_size={pk.block_size} must be positive "
+                    f"and divide max_len={scfg.max_len}")
+            if scfg.prefill_chunk and scfg.prefill_chunk % pk.block_size:
+                raise ValueError(
+                    f"prefill_chunk={scfg.prefill_chunk} must be a multiple "
+                    f"of paged_kv.block_size={pk.block_size} so trie-aligned "
+                    "reuse lands on chunk boundaries")
         if not scfg.slot_refill:
             raise NotImplementedError(
                 "the legacy chunked scheduler is not ported; use "
@@ -119,8 +182,24 @@ class Server:
             [t.alpha_offset for t in scfg.sla_tiers], np.float32)
         self.decode_steps = 0        # decode steps run (all serve calls)
         self.prefill_chunks_run = 0       # admission chunks run
-        self.prefill_chunks_skipped = 0   # chunks saved by prefix reuse:
-                                          # 0 until the paged KV pool
+        self.prefill_chunks_skipped = 0   # chunks saved by prefix reuse
+                                          # (paged KV pool only)
+        self.kv_pool: Optional[KVPool] = None
+        self._pool: Optional[dict] = None
+        if pk is not None:
+            self._nbps = scfg.max_len // pk.block_size
+            self._init_paged_state()
+
+    def _init_paged_state(self) -> None:
+        """Fresh host pool manager and zeroed device block pool."""
+        pk = self.scfg.paged_kv
+        n_blocks = (pk.pool_blocks
+                    or self.scfg.batch * self._nbps + KVPool._RESERVED)
+        self.kv_pool = KVPool(n_blocks, pk.block_size,
+                              max_sessions=pk.max_sessions,
+                              prefix_cache=pk.prefix_cache)
+        self._pool = self.mod.init_kv_pool(self.cfg, n_blocks, pk.block_size,
+                                           self.device)
 
     # ------------------------------------------------------- alpha plumbing
     def _tier_of(self, req: Request) -> int:
@@ -141,11 +220,13 @@ class Server:
         mat[:, ~active] = DEAD_SLOT_ALPHA
         return mat
 
-    def _decode(self, tok, caches, lengths, alphas=None):
+    def _decode(self, tok, caches, lengths, alphas=None, table=None):
+        if table is not None:
+            table = torch.as_tensor(table, device=self.device)
         logits, caches = self.mod.decode_step(
             self.params, self.cfg, torch.as_tensor(tok, device=self.device),
             caches, torch.as_tensor(lengths, device=self.device),
-            alphas=alphas)
+            alphas=alphas, block_table=table)
         self.decode_steps += 1
         return greedy_sample(logits), caches
 
@@ -155,6 +236,76 @@ class Server:
         model)."""
         base = self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
         return (base + self._tier_offsets[t]).astype(np.float32)
+
+    # ------------------------------------------------------- paged KV ----
+    def _prefill_salt(self, t: int) -> bytes:
+        """Trie hash salt: everything besides the tokens that determines a
+        prefill-origin block's content.  Dense prefill depends on the
+        tokens alone (empty salt); sparse prefill skips MLP rows by the
+        per-layer alphas, so they fold in and a committed block matches
+        only a request that would have prefilled it identically."""
+        sp = self.cfg.sparse
+        if not (sp.enabled and sp.sparse_prefill
+                and not (sp.tp_shards or sp.dp_shards)):
+            return b""
+        return np.asarray(self._prefill_alphas(t), np.float32).tobytes()
+
+    def _match_reuse(self, r: Request, t: int, plen: int) -> dict:
+        """Longest prefix a paged admission can take by reference: the
+        request's own session chain (continuation of its retained cache,
+        decode-written reply blocks included) or the prefix trie of
+        committed prompt blocks, whichever covers more.  The reuse boundary
+        is chunk-aligned and always leaves the final chunk to run (it gives
+        the first token).  Matched full blocks past the boundary come back
+        as ``cow_ids``: they are referenced here, and ``place`` adopts them
+        for writing, forking the shared originals (copy-on-write)."""
+        pool = self.kv_pool
+        pc = self.scfg.prefill_chunk
+        bs = pool.block_size
+        prompt = np.asarray(r.prompt, np.int32)
+        salt = self._prefill_salt(t)
+        meta: dict = {"adopted": 0, "ids": [], "cow_ids": [],
+                      "hashes": pool.block_hashes(salt, prompt)}
+        if not (pool.prefix_cache and pc):
+            return meta
+        ids: list[int] = []
+        sess = pool.lookup_session(r.session_id) if r.session_id else None
+        if sess is not None:
+            hist = sess["history"]
+            n = min(plen, len(hist))
+            eq = prompt[:n] == hist[:n]
+            m = n if eq.all() else int(np.argmax(~eq))
+            ids = sess["chain"][: m // bs]
+        tids = pool.match_prefix(salt, prompt)
+        if len(tids) > len(ids):
+            ids = tids
+        if not ids:
+            return meta
+        r_max = ((plen - 1) // pc) * pc
+        nb_re = (min(len(ids) * bs, r_max) // pc) * (pc // bs)
+        # reference every matched block now, adopted and COW candidates:
+        # an eviction cascade before place() could otherwise reissue one
+        for b in ids:
+            pool.incref(b)
+        meta["adopted"] = nb_re
+        meta["ids"] = ids[:nb_re]
+        meta["cow_ids"] = ids[nb_re:]
+        if nb_re:
+            pool.stats["reuse_hits"] += 1
+            pool.stats["reused_blocks"] += nb_re
+            pool.stats["reused_tokens"] += nb_re * bs
+        return meta
+
+    def paged_stats(self) -> dict:
+        """Pool occupancy and reuse counters plus admission chunk counts
+        (empty without ``ServeConfig.paged_kv``); the reference's keys,
+        its overload counters 0 (overload handling is not ported)."""
+        if self.kv_pool is None:
+            return {}
+        return {**self.kv_pool.snapshot(),
+                "prefill_chunks_run": self.prefill_chunks_run,
+                "prefill_chunks_skipped": self.prefill_chunks_skipped,
+                "preemptions": 0, "shed": 0, "admissions_deferred": 0}
 
     # ----------------------------------------------------------- single ---
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
@@ -201,8 +352,24 @@ class Server:
         pc = self.scfg.prefill_chunk
         queue = collections.deque(requests)
         done: list[Request] = []
-        caches = self.mod.init_caches(self.cfg, B, self.scfg.max_len,
-                                      self.device)
+        paged = self.kv_pool is not None
+        pool_mgr = self.kv_pool
+        if paged:
+            # session-sticky SLA tiers, resolved before any admission
+            for r in requests:
+                sess = pool_mgr.lookup_session(r.session_id)
+                if sess is not None:
+                    r.sla = sess["tier"]
+            # the device pool persists across serve() calls (sessions and
+            # committed prefixes keep admitting by reference)
+            caches = self._pool
+            bs_, nbps = pool_mgr.block_size, self._nbps
+            table = np.full((B, nbps), KVPool.TRASH, np.int32)
+            slot_meta: list[Optional[dict]] = [None] * B
+        else:
+            caches = self.mod.init_caches(self.cfg, B, self.scfg.max_len,
+                                          self.device)
+            table = None
         tok = np.zeros((B, 1), np.int32)
         lengths = np.zeros(B, np.int32)
         active = np.zeros(B, bool)
@@ -219,28 +386,95 @@ class Server:
             r.t_end = time.perf_counter()
             r.latency_s = r.t_end - r.t_admit
             done.append(r)
+            if paged:
+                release_slot(i, r)
             slot_req[i] = None
             active[i] = False
 
-        def place(i: int, r: Request, first: int, t: int, one: dict) -> None:
-            """Activate slot i with a finished prefill."""
+        def release_slot(i: int, r: Request) -> None:
+            """Retire slot i's table row: commit its prefill-origin full
+            prompt blocks to the trie (deduplicated against existing
+            chains), then keep the whole chain, reply blocks and partial
+            tail included, under the request's session, or release every
+            reference (committed blocks park in the evictable LRU)."""
+            meta = slot_meta[i]
+            written = int(lengths[i])          # prompt + decoded-token KV
+            n_chain = -(-written // bs_) if written else 0
+            chain = [int(table[i, j]) for j in range(n_chain)]
+            # decode-written KV is not bitwise prefill KV: only full prompt
+            # blocks are committable
+            n_prompt_full = meta["plen"] // bs_
+            chain[:n_prompt_full] = pool_mgr.commit_chain(
+                meta["hashes"][:n_prompt_full], chain[:n_prompt_full],
+                owned_from=meta["adopted"])
+            sid = r.session_id
+            if sid is not None:
+                hist = np.concatenate(
+                    [np.asarray(r.prompt, np.int32),
+                     np.asarray(slot_out[i], np.int32)])[:written]
+                tier = self.scfg.sla_tiers[meta["tier"]].name
+                pool_mgr.store_session(sid, chain, hist, tier)
+            else:
+                for b in chain:
+                    pool_mgr.release(b)
+            table[i, :] = KVPool.TRASH
+            slot_meta[i] = None
+
+        def place(i: int, r: Request, first: int, t: int, one: dict,
+                  meta: Optional[dict] = None) -> None:
+            """Activate slot i with a finished prefill: copy the batch-1
+            caches into the slot (dense), or write them into blocks the slot
+            owns (paged)."""
             nonlocal alpha_mat
             r.ttft_s = time.perf_counter() - r.t_admit
-            _splice_slot(caches, one, i)
+            plen = len(r.prompt)
+            if paged:
+                meta = meta or {"adopted": 0, "ids": [], "cow_ids": [],
+                                "hashes": pool_mgr.block_hashes(
+                                    self._prefill_salt(t),
+                                    np.asarray(r.prompt, np.int32))}
+                nb_re = meta["adopted"]
+                nb_prompt = -(-plen // bs_)
+                # matched blocks past the reuse boundary were re-run: adopt
+                # them for writing (copy-on-write forks the shared
+                # originals; the commit below rewrites every owned block,
+                # the matched ones with the same content).  Their reference
+                # was taken in _match_reuse; ensure_writable consumes it.
+                # Without overload handling an exhausted pool raises.
+                cow = meta["cow_ids"]
+                owned = [pool_mgr.ensure_writable(cow[j - nb_re])[0]
+                         if j - nb_re < len(cow) else pool_mgr.alloc()
+                         for j in range(nb_re, nb_prompt)]
+                _commit_owned(caches, one,
+                              torch.as_tensor(owned, dtype=torch.long,
+                                              device=self.device), nb_re)
+                table[i, :nb_re] = meta["ids"][:nb_re]
+                table[i, nb_re:nb_prompt] = owned
+                table[i, nb_prompt:] = KVPool.TRASH
+                meta["plen"] = plen
+                meta["tier"] = t
+                slot_meta[i] = meta
+            else:
+                _splice_slot(caches, one, i)
             slot_req[i] = r
             slot_out[i] = [first]
             tok[i, 0] = first
-            lengths[i] = len(r.prompt)
+            lengths[i] = plen
             tier_idx[i] = t
             active[i] = True
             alpha_mat = None
 
         def admit(i: int) -> None:
             """Fill slot i from the queue.  With chunked prefill the slot
-            goes pending; otherwise a batch-1 prefill at the prompt's
-            natural length is copied into the slot."""
+            goes pending (admitting by reference what the pool holds, when
+            paged); otherwise a batch-1 prefill at the prompt's natural
+            length is copied into the slot."""
             while queue:
                 r = queue.popleft()
+                if paged:
+                    sess = pool_mgr.lookup_session(r.session_id)
+                    if sess is not None:
+                        r.sla = sess["tier"]    # session-sticky tier
                 t = self._tier_of(r)
                 plen = len(r.prompt)
                 r.t_start = time.perf_counter()
@@ -248,10 +482,23 @@ class Server:
                 if pc:
                     toks = np.zeros((1, -(-plen // pc) * pc), np.int32)
                     toks[0, :plen] = np.asarray(r.prompt, np.int32)
-                    pending[i] = {
-                        "req": r, "tier": t, "tokens": toks, "off": 0,
-                        "caches": self.mod.init_caches(
-                            self.cfg, 1, self.scfg.max_len, self.device)}
+                    st = {"req": r, "tier": t, "tokens": toks, "off": 0}
+                    if paged:
+                        st["meta"] = m = self._match_reuse(r, t, plen)
+                    if paged and m["adopted"]:
+                        # admit by reference: seed the scratch with the
+                        # adopted blocks and start at the reuse boundary
+                        st["off"] = m["adopted"] * bs_
+                        seed = np.zeros(nbps, np.int64)      # NULL lanes
+                        seed[:m["adopted"]] = m["ids"][:m["adopted"]]
+                        st["caches"] = _seed_scratch(
+                            caches, torch.as_tensor(seed,
+                                                    device=self.device))
+                        self.prefill_chunks_skipped += st["off"] // pc
+                    else:
+                        st["caches"] = self.mod.init_caches(
+                            self.cfg, 1, self.scfg.max_len, self.device)
+                    pending[i] = st
                     return
                 prompt = torch.as_tensor(
                     np.asarray(r.prompt, np.int32)[None, :],
@@ -286,10 +533,20 @@ class Server:
                     if st["off"] >= st["tokens"].shape[1]:
                         del pending[i]
                         place(i, r, int(greedy_sample(logits)[0]),
-                              st["tier"], st["caches"])
+                              st["tier"], st["caches"], st.get("meta"))
                         if r.max_new <= 1:
                             finish(i)
                             admit(i)   # refill: may go pending again
+
+        def ensure_write_blocks() -> None:
+            """Before a decode step every live slot's write position must
+            land in a block it owns: allocate on first touch (TRASH lanes
+            are the unallocated tail)."""
+            for i in range(B):
+                if active[i]:
+                    j = int(lengths[i]) // bs_
+                    if table[i, j] == KVPool.TRASH:
+                        table[i, j] = pool_mgr.alloc()
 
         for i in range(B):
             admit(i)
@@ -303,9 +560,12 @@ class Server:
                 advance_prefill(self.scfg.prefill_interleave)
             if not active.any():
                 continue          # nothing decoding yet: keep prefilling
+            if paged:
+                ensure_write_blocks()
             if alpha_mat is None:
                 alpha_mat = self._slot_alpha_matrix(tier_idx, active)
-            ntok, caches = self._decode(tok, caches, lengths, alpha_mat)
+            ntok, caches = self._decode(tok, caches, lengths, alpha_mat,
+                                        table)
             ntok = ntok.cpu().numpy()
             refill = []
             for i in range(B):
@@ -321,6 +581,8 @@ class Server:
                 alpha_mat = None
                 for i in refill:
                     admit(i)
+        if paged:
+            self._pool = caches
         return done
 
 

@@ -52,7 +52,7 @@ def test_server_without_device_raises_without_gpu():
 
 
 @pytest.mark.parametrize("entry", ["init_lm", "init_caches",
-                                   "params_from_numpy"])
+                                   "init_kv_pool", "params_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
     """Without a GPU these raise unless asked for ``device="cpu"``, and
     then put their tensors on the CPU."""
@@ -79,6 +79,9 @@ def test_entry_points_default_to_the_card(entry):
     elif entry == "init_lm":
         def call(**kw):
             return lm.init_lm(cfg, 0, **kw)
+    elif entry == "init_kv_pool":
+        def call(**kw):
+            return lm.init_kv_pool(cfg, 6, 4, **kw)
     else:
         def call(**kw):
             return lm.init_caches(cfg, 2, 8, **kw)
