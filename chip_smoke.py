@@ -47,7 +47,27 @@ Phases, in order; any failure exits non-zero:
              reference, a second serve() of two sessions' turn 2, exact
              launch counts, and a reused-prefix request's tokens equal to a
              fresh server's.
- 10. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 10. sign kernels  sign_pack and predict_counts against their plain versions,
+             bitwise, at full width: the gate weights (11008 x d) and x at B
+             in {1, 4, 16, 24} plus a (G, B, d) batch, float32 and bf16, d in
+             {4096, 4000} (a padded last word), zeros and -0.0 in the input;
+             predict_margins bitwise against core.predictor.margins at alpha
+             in {1.0, 1.03, per-slot with a dead slot}.  Timed at the main
+             path's shapes (x at B=4, the gate weights at load, counts at
+             B=4) beside their bounds and plain versions; no PyTorch call
+             packs bits or counts popcounts, so no library yardstick.
+ 11. strategies  the 2 full-width float32 layers of phase 3 with strategies
+             masked and gather, 8 teacher-forced steps on the card against
+             the CPU: logits within 1e-3, stats reported, launches exact.
+ 12. serve-controller  all 32 layers through Server.serve with the
+             adaptive-alpha controller per SLA tier (batch 4, 8 requests of
+             mixed tiers, chunked sparse prefill feeding the prefill rider,
+             a warmed 3-rung capacity ladder): strategy gather with a masked
+             audit every 4th step, then strategy pallas (native false
+             negatives, no audits).  Launch counts exact from load to
+             drain; audits, bucket sequence and the controller's report
+             printed; a profile of a gather step and of a masked audit step.
+ 13. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 """
@@ -79,7 +99,12 @@ PAGE_BLOCK = 16           # the paged pool's block size
 PAGED_NBPS = (16, 128)    # blocks per slot: max_len 256 and 2048
 MAIN_LIVE = (64, 100, 150, 192)   # the timed paged shape's slot lengths
 # the port's kernels by namespace (profiler rows)
-OWN_KERNELS = ("mlp::", "predict::", "paged::", "paged_write::")
+OWN_KERNELS = ("mlp::", "predict::", "paged::", "paged_write::", "sign::",
+               "counts::")
+D_PAD = 4000              # a width that is not a multiple of 32
+# capacity fractions of the controller serve's ladder: 144, 288 and 560 of
+# the 1376 row groups
+CTRL_BUCKETS = (0.1, 0.2, 0.4)
 
 
 def fail(msg: str) -> None:
@@ -810,7 +835,6 @@ def phase_serve_chunked(results: dict) -> None:
 
 def phase_decode() -> None:
     """Two full-width float32 layers: card (CUDA kernels) vs CPU (plain)."""
-    import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
@@ -827,32 +851,12 @@ def phase_decode() -> None:
                        sparse=dataclasses.replace(base.sparse,
                                                   strategy="pallas",
                                                   enabled=True))
-    b, plen, steps, max_len = 4, 16, 8, 32
+    b, steps = DEC_BATCH, DEC_STEPS
     params = {"cuda": lm.prepare_sparse(lm.init_lm(cfg, 0, "cuda"))}
     params["cpu"] = _to(params["cuda"], "cpu")
-    rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab, size=(b, plen))
-    forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
-    # per-slot alphas: schedule plus SLA-like offsets
-    alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
-        np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
 
     def run(run_cfg, dev):
-        with torch.inference_mode():
-            lg, caches = lm.prefill(params[dev], run_cfg,
-                                    torch.as_tensor(prompt, device=dev),
-                                    max_len)
-            out_l, out_s = [], []
-            for t in range(steps):
-                lg, caches, st = lm.decode_step(
-                    params[dev], run_cfg,
-                    torch.as_tensor(forced[t], device=dev), caches,
-                    torch.full((b,), plen + t, device=dev), alphas=alphas,
-                    collect_stats=True)
-                out_l.append(lg.float().cpu())
-                out_s.append({k: v.cpu() for k, v in st.items()})
-        return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
-                                    for k in MLP_STAT_KEYS}
+        return _teacher_forced(params[dev], run_cfg, dev)
 
     logits, stats = {}, {}
     for dev in ("cuda", "cpu"):
@@ -894,6 +898,92 @@ def phase_decode() -> None:
           f"{float(d8.max()):.3e}, median {float(d8.median()):.3e}; "
           f"{n8} of {len(MLP_STAT_KEYS) * b * steps * cfg.n_layers} stat "
           "entries differ", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+DEC_BATCH, DEC_PLEN, DEC_STEPS, DEC_MAX_LEN = 4, 16, 8, 32
+
+
+def _teacher_forced(params, cfg, dev):
+    """Prefill a seeded batch of 4 prompts, then 8 teacher-forced decode
+    steps with per-slot alphas (the schedule plus SLA-like offsets) ->
+    (logits (steps, B, V), stats {key: (steps, L, B)}) on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.models import lm
+    b, plen, steps = DEC_BATCH, DEC_PLEN, DEC_STEPS
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, size=(b, plen))
+    forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
+    alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
+        np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
+    with torch.inference_mode():
+        lg, caches = lm.prefill(params, cfg,
+                                torch.as_tensor(prompt, device=dev),
+                                DEC_MAX_LEN)
+        out_l, out_s = [], []
+        for t in range(steps):
+            lg, caches, st = lm.decode_step(
+                params, cfg, torch.as_tensor(forced[t], device=dev), caches,
+                torch.full((b,), plen + t, device=dev), alphas=alphas,
+                collect_stats=True)
+            out_l.append(lg.float().cpu())
+            out_s.append({k: v.cpu() for k, v in st.items()})
+    return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
+                                for k in MLP_STAT_KEYS}
+
+
+def phase_decode_strategies() -> None:
+    """The two layers of phase_decode with strategies masked and gather:
+    their margins run the sign_pack and predict_counts kernels on the card
+    (one launch each per layer and step) and the plain versions on the
+    CPU."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    base = get_config("prosparse-llama2-7b")
+    cfg0 = base.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
+    params = {"cuda": lm.prepare_sparse(lm.init_lm(cfg0, 0, "cuda"))}
+    params["cpu"] = _to(params["cuda"], "cpu")
+    L = cfg0.n_layers
+    for strategy in ("masked", "gather"):
+        cfg = cfg0.replace(sparse=dataclasses.replace(
+            base.sparse, strategy=strategy, enabled=True))
+        ops.reset_launch_counts()
+        card = _teacher_forced(params["cuda"], cfg, "cuda")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {n: L * DEC_STEPS if n in ("sign_pack", "predict_counts")
+                else 0 for n in counts}
+        if counts != want:
+            fail(f"{strategy} decode: launches {counts}, want {want}")
+        cpu = _teacher_forced(params["cpu"], cfg, "cpu")
+        if not bool(torch.isfinite(card[0]).all()):
+            fail(f"{strategy} decode: non-finite logits on the card")
+        diff = (card[0] - cpu[0]).abs()
+        # tolerance as phase_decode: float32 sums in another order
+        tol = 1e-3
+        n_diff = sum(int((card[1][k] != cpu[1][k]).sum())
+                     for k in MLP_STAT_KEYS)
+        worst = max(float((card[1][k] - cpu[1][k]).abs().max())
+                    for k in MLP_STAT_KEYS)
+        print(f"[strategies] {strategy}: logits max abs diff "
+              f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} "
+              f"(tolerance {tol}); {n_diff} of "
+              f"{len(MLP_STAT_KEYS) * DEC_STEPS * L * DEC_BATCH} stat "
+              f"entries differ, by at most {worst:.3e}; launches {counts}",
+              flush=True)
+        for k in MLP_STAT_KEYS:
+            print(f"[strategies] {strategy} stat {k}: card mean "
+                  f"{float(card[1][k].mean()):.5f}, CPU mean "
+                  f"{float(cpu[1][k].mean()):.5f}", flush=True)
+        if float(diff.max()) > tol:
+            fail(f"{strategy} decode: logits differ by {float(diff.max())}")
     del params
     torch.cuda.empty_cache()
 
@@ -1245,6 +1335,99 @@ def phase_paged_write() -> int:
     return n
 
 
+def phase_sign_kernels(results: dict) -> None:
+    """sign_pack and predict_counts against their plain versions at full
+    width, bitwise, and predict_margins against core.predictor.margins;
+    then the timings at the main path's shapes."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import sign_pack as KS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = 0
+
+    def same(tag, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape \
+                else "shape"
+            fail(f"{tag}: differs from its plain version ({bad})")
+        return 1
+
+    for d in (D, D_PAD):
+        wg = torch.randn((K, d), generator=gen, device=dev) * d ** -0.5
+        wg[0, :96] = 0.0
+        wg[1, :96] = -0.0
+        for wdt in (torch.float32, torch.bfloat16):
+            w_t = wg.to(wdt)
+            n += same(f"sign_pack wg ({K}, {d}) {wdt}", KS.sign_pack(w_t),
+                      ref.sign_pack_ref(w_t))
+        pw = KS.sign_pack(wg)
+        for b in (1, 4, 16, 24):
+            x = torch.randn((b, d), generator=gen, device=dev)
+            x[0, ::7] = 0.0
+            x[-1, 1::5] = -0.0
+            for xdt in (torch.float32, torch.bfloat16):
+                tag = f"B={b} d={d} x={str(xdt)[6:]}"
+                px = KS.sign_pack(x.to(xdt))
+                n += same(f"sign_pack {tag}", px, ref.sign_pack_ref(x.to(xdt)))
+                n += same(f"predict_counts {tag}", KP.predict_counts(pw, px),
+                          ref.predict_counts_ref(pw, px))
+                for aname, alpha in _alpha_cases(b, dev).items():
+                    n += same(f"predict_margins {tag} alpha={aname}",
+                              ops.predict_margins(pw, px, d, alpha),
+                              P.margins(pw, px, d, alpha))
+        xg = torch.randn((2, MAIN_BATCH, d), generator=gen, device=dev)
+        pxg = ops.sign_pack(xg)
+        n += same(f"sign_pack (2, {MAIN_BATCH}, {d})", pxg,
+                  ref.sign_pack_ref(xg))
+        n += same(f"predict_counts (2, {MAIN_BATCH}, {d})",
+                  ops.predict_counts(pw, pxg), ref.predict_counts_ref(pw, pxg))
+    print(f"[signs] sign_pack, predict_counts and predict_margins bitwise "
+          f"equal to their plain versions in {n} cases (d in {{{D}, "
+          f"{D_PAD}}}, B in {{1, 4, 16, 24}} and (2, {MAIN_BATCH}), float32 "
+          f"and bf16, zeros and -0.0)", flush=True)
+    # ---- timings at the main path's shapes: x (B=4, bf16) per MLP call,
+    # the float32 gate weights at load, the counts at B=4
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+    b, w = MAIN_BATCH, D // 32
+    x = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16)
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    pw, px = KS.sign_pack(wg), KS.sign_pack(x)
+    t_sx = cuda_ms(lambda: KS.sign_pack(x), iters=50, flush=flush)
+    t_sx_plain = cuda_ms(lambda: ref.sign_pack_ref(x), iters=20, flush=flush)
+    b_sx = bound_ms(b * D * 2 + b * w * 4, b * D)
+    t_sw = cuda_ms(lambda: KS.sign_pack(wg), iters=10)
+    t_sw_plain = cuda_ms(lambda: ref.sign_pack_ref(wg), iters=3)
+    b_sw = bound_ms(K * D * 4 + K * w * 4, K * D)
+    t_c = cuda_ms(lambda: KP.predict_counts(pw, px), iters=50, flush=flush)
+    t_c_plain = cuda_ms(lambda: ref.predict_counts_ref(pw, px), iters=5,
+                        flush=flush)
+    b_c = bound_ms(K * w * 4 + b * w * 4 + b * K * 4, 3 * b * K * w)
+    print(f"[signs] sign_pack x B={b} bf16: kernel {t_sx:.4f} ms plain "
+          f"{t_sx_plain:.4f} ms bound {b_sx[0]:.5f} ms ({b_sx[1]})",
+          flush=True)
+    print(f"[signs] sign_pack gate weights ({K}, {D}) float32 (at load): "
+          f"kernel {t_sw:.4f} ms plain {t_sw_plain:.4f} ms bound "
+          f"{b_sw[0]:.4f} ms ({b_sw[1]})", flush=True)
+    print(f"[signs] predict_counts B={b}: kernel {t_c:.4f} ms plain "
+          f"{t_c_plain:.4f} ms bound {b_c[0]:.4f} ms ({b_c[1]})", flush=True)
+    results["sign_pack"] = dict(max_abs_err=0.0, ms=t_sx, plain_ms=t_sx_plain,
+                                bound_ms=b_sx[0], bound_by=b_sx[1],
+                                library_ms=None)
+    results["predict_counts"] = dict(
+        max_abs_err=0.0, ms=t_c, plain_ms=t_c_plain, bound_ms=b_c[0],
+        bound_by=b_c[1], library_ms=None)
+    del wg, pw, flush_buf
+    torch.cuda.empty_cache()
+
+
 def phase_paged_decode() -> None:
     """Two full-width float32 layers decoding against a fragmented float32
     pool: the kernel route on the card against the plain route on the CPU
@@ -1479,6 +1662,130 @@ def profile_paged_decode(srv, cfg) -> None:
                                         block_table=table))
 
 
+def phase_serve_controller(results: dict) -> None:
+    """All 32 full-width layers through the slot-refill server with the
+    adaptive-alpha controller per SLA tier: strategy gather (masked audit
+    every 4th step), then pallas (native false negatives).  The launch
+    counters are reset before the server is built, so they cover the sign
+    pack at load too."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ControllerConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config("prosparse-llama2-7b")
+    scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                       prefill_chunk=MAIN_CHUNK, warm_buckets=True,
+                       controller=ControllerConfig(enabled=True,
+                                                   per_tier=True,
+                                                   audit_period=4))
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, base.vocab, size=int(p))
+               for p in rng.integers(64, 129, size=8)]
+    tiers = ("latency", "balanced", "quality")
+    L = base.n_layers
+    for strategy in ("gather", "pallas"):
+        cfg = base.replace(sparse=dataclasses.replace(
+            base.sparse, strategy=strategy, enabled=True,
+            sparse_prefill=True, capacity_buckets=CTRL_BUCKETS,
+            prefill_max_tokens=max(base.sparse.prefill_max_tokens,
+                                   MAIN_CHUNK)))
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, 0, "cuda")
+        ops.reset_launch_counts()
+        srv = Server(lm, cfg, scfg, params, device="cuda")
+        del params
+        ladder = cfg.sparse.capacity_ladder(cfg.d_ff)
+        reqs = [Request(uid=i, prompt=p, max_new=16, sla=tiers[i % 3])
+                for i, p in enumerate(prompts)]
+        t1 = time.perf_counter()
+        done = srv.serve(reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        steps, warm = srv.decode_steps, srv.warmup_steps
+        chunks = srv.prefill_chunks_run
+        ctl = srv.controller
+        rep = throughput_report(done)
+        print(f"[serve-controller] {strategy}: ladder {list(ladder)} groups; "
+              f"init {t1 - t0:.1f} s, serve {time.perf_counter() - t1:.1f} s;"
+              f" throughput_report {json.dumps(rep)}", flush=True)
+        print(f"[serve-controller] {strategy}: decode steps {steps} (+{warm} "
+              f"warmup), prefill chunks {chunks}, audits {ctl.state.audits}; "
+              f"launches {counts}", flush=True)
+        print(f"[serve-controller] {strategy}: bucket sequence "
+              f"{list(srv.bucket_history)}; setups per bucket "
+              f"{dict(srv._trace_counts)}", flush=True)
+        print(f"[serve-controller] {strategy}: controller report "
+              f"{json.dumps(ctl.report())}", flush=True)
+        if len(done) != 8 or any(
+                r.outcome != "completed" or len(r.out) != 16
+                or not ((r.out >= 0) & (r.out < cfg.vocab)).all()
+                for r in done):
+            fail(f"serve-controller ({strategy}): not every request "
+                 "completed with 16 valid tokens")
+        want = {n: 0 for n in counts}
+        if strategy == "gather":
+            # x's sign pack and the counts in every MLP call: decode steps,
+            # warmup steps and prefill chunks; the gate weights' at load
+            want["sign_pack"] = L * (1 + steps + warm + chunks)
+            want["predict_counts"] = L * (steps + warm + chunks)
+            audits = steps // 4
+        else:
+            want.update({"sign_pack": L,
+                         "predict_group_margins": L * (steps + warm),
+                         "fused_sparse_mlp": L * (steps + warm),
+                         "predict_chunk_group_margins": L * chunks,
+                         "fused_sparse_mlp_chunk": L * chunks})
+            audits = 0
+        if steps == 0 or counts != want:
+            fail(f"serve-controller ({strategy}): launches {counts}, want "
+                 f"{want}")
+        if (ctl.state.steps, ctl.state.audits, ctl.prefill_chunks) != \
+                (steps, audits, chunks) or ctl.native_fn != (
+                    strategy == "pallas"):
+            fail(f"serve-controller ({strategy}): controller saw "
+                 f"{ctl.state.steps} steps, {ctl.state.audits} audits, "
+                 f"{ctl.prefill_chunks} prefill chunks; want {steps}, "
+                 f"{audits}, {chunks}")
+        if warm != len(ladder) or set(srv._trace_counts.values()) != {1} \
+                or not set(srv.bucket_history) <= set(ladder):
+            fail(f"serve-controller ({strategy}): warmup {warm} steps, "
+                 f"setups {dict(srv._trace_counts)}, buckets "
+                 f"{set(srv.bucket_history)} (ladder {ladder})")
+        results[f"launches_ctrl_{strategy}"] = counts
+        if strategy == "gather":
+            profile_controller_steps(srv, cfg)
+        del srv
+        torch.cuda.empty_cache()
+
+
+def profile_controller_steps(srv, cfg) -> None:
+    """Where one full-depth controller decode step's time goes: a gather
+    step at the 288-group rung and a masked audit step, B=4, balanced-tier
+    alphas, caches at length 64, telemetry collected."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+
+    b = srv.scfg.batch
+    caches = lm.init_caches(cfg, b, srv.scfg.max_len, "cuda")
+    tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    lengths = torch.full((b,), 64, device="cuda")
+    alphas = srv._slot_alpha_matrix(
+        np.full(b, srv._tier_index["balanced"]))
+    for label, c in ((f"gather decode step (B={b}, {cfg.n_layers} layers, "
+                      "bucket 288 groups)", srv._bucket_cfgs[288]),
+                     (f"masked audit step (B={b}, {cfg.n_layers} layers)",
+                      srv._audit_cfg)):
+        profile_step(label, lambda c=c: lm.decode_step(
+            srv.params, c, tok, caches, lengths, alphas=alphas,
+            collect_stats=True))
+
+
 def main() -> None:
     try:
         import torch
@@ -1497,16 +1804,21 @@ def main() -> None:
     print(f"[gpu] {gpu_line()}", flush=True)
     t0 = time.perf_counter()
     results: dict = {}
-    phase_build()
-    phase_kernels(results)
-    phase_chunk_kernels(results)
-    phase_paged_kernels(results)
-    phase_decode()
-    phase_prefill()
-    phase_paged_decode()
-    phase_serve(results)
-    phase_serve_chunked(results)
-    phase_serve_paged(results)
+    for phase, args in ((phase_build, ()), (phase_kernels, (results,)),
+                        (phase_chunk_kernels, (results,)),
+                        (phase_paged_kernels, (results,)),
+                        (phase_sign_kernels, (results,)),
+                        (phase_decode, ()), (phase_prefill, ()),
+                        (phase_paged_decode, ()),
+                        (phase_decode_strategies, ()),
+                        (phase_serve, (results,)),
+                        (phase_serve_chunked, (results,)),
+                        (phase_serve_paged, (results,)),
+                        (phase_serve_controller, (results,))):
+        t = time.perf_counter()
+        phase(*args)
+        print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",
+              flush=True)
     print(f"[done] all phases in {time.perf_counter() - t0:.1f} s",
           flush=True)
     src_of = "src/repro_torch/csrc/{}.cu".format
@@ -1517,7 +1829,9 @@ def main() -> None:
         **{n: results["launches_chunked_int8"][n]
            for n in ("fused_sparse_mlp_q", "fused_sparse_mlp_chunk_q")},
         **{n: results["launches_paged"][n]
-           for n in ("paged_attention", "paged_kv_write")}}
+           for n in ("paged_attention", "paged_kv_write")},
+        **{n: results["launches_ctrl_gather"][n]
+           for n in ("sign_pack", "predict_counts")}}
     replaces = {
         "predict_group_margins": "src/repro/kernels/predict.py:263",
         "fused_sparse_mlp": "src/repro/kernels/sparse_mlp_fused.py:300",
@@ -1527,7 +1841,9 @@ def main() -> None:
         "fused_sparse_mlp_chunk_q":
             "src/repro/kernels/sparse_mlp_fused.py:597",
         "paged_attention": "src/repro/kernels/paged_attn.py:125",
-        "paged_kv_write": "src/repro/kernels/paged_attn.py:164"}
+        "paged_kv_write": "src/repro/kernels/paged_attn.py:164",
+        "sign_pack": "src/repro/kernels/sign_pack.py:73",
+        "predict_counts": "src/repro/kernels/predict.py:85"}
     kernels = [{"name": n, "route": "cuda", "source": src_of(n),
                 "replaces": r, "launches": launches[n], **results[n]}
                for n, r in replaces.items()]

@@ -1,9 +1,9 @@
 """Model configuration: the counterpart of ``repro/configs/base.py``.
 
 Field names, types and defaults are the reference's own, so a port config
-compares field for field with its JAX twin.  Only the configs this slice
-serves are ported (``ModelConfig``, the SLA tiers and ``PagedKVConfig``);
-the controller and metrics configs come with their slices.
+compares field for field with its JAX twin.  Ported: ``ModelConfig``, the
+SLA tiers, ``ControllerConfig`` and ``PagedKVConfig``; the metrics config
+comes with its slice.
 """
 from __future__ import annotations
 
@@ -15,13 +15,18 @@ from repro_torch.core.sparse_mlp import SparseInferConfig
 @dataclasses.dataclass(frozen=True)
 class SLATier:
     """One per-request service tier: a per-slot alpha offset added to the
-    per-layer schedule (``target_scale`` and ``priority`` serve the
-    controller and preemption, not ported yet)."""
+    per-layer schedule and, under a per-tier controller, its own density
+    target (``target``: the controller's ``target_density`` times
+    ``target_scale``).  ``priority`` ranks tiers for preemption, which is
+    not ported yet."""
 
     name: str
     alpha_offset: float = 0.0
     target_scale: float = 1.0
     priority: int = 1
+
+    def target(self, base_density: float) -> float:
+        return float(min(1.0, max(1e-3, base_density * self.target_scale)))
 
 
 # offsets sized for the reduced configs, as in the reference
@@ -30,6 +35,38 @@ DEFAULT_SLA_TIERS: tuple = (
     SLATier("balanced", priority=1),
     SLATier("quality", alpha_offset=0.25, target_scale=1.4, priority=2),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerConfig:
+    """The online adaptive-alpha controller of the serve path
+    (``runtime/controller.py``): between decode steps each layer's alpha
+    moves so that realized density tracks ``target_density``, and periodic
+    masked-strategy audit steps bound the false-negative rate."""
+
+    enabled: bool = False
+    target_density: float = 0.25   # per-layer realized density setpoint
+    gain: float = 0.5              # integral gain on (density - target)
+    ema: float = 0.4               # EMA weight of a new observation
+    alpha_min: float = 0.25        # clamp floor (most aggressive skipping)
+    alpha_max: float = 8.0         # clamp ceiling (most conservative)
+    max_step: float = 0.25         # per-update |dalpha| bound
+    audit_period: int = 8          # masked-path audit every N decode steps
+    fn_budget: float = 0.02        # tolerated active-but-skipped rate
+    fn_gain: float = 4.0           # conservatism push per unit FN excess
+    adapt_capacity: bool = False   # re-size capacity from the observed
+                                   # demand at refill boundaries (no-op
+                                   # under a capacity-bucket ladder)
+    per_tier: bool = False         # one (alpha vector, density target) per
+                                   # ServeConfig.sla_tiers entry: (T, L)
+    # the sharded serve's per-shard bucket ladder (not ported: the fields
+    # keep the reference's config shape)
+    per_shard_buckets: bool = True
+    bucket_tuple_cap: int = 16
+    shard_slack: float = 1.3
+    # weight of the sparse-prefill density error in the alpha update,
+    # relative to the decode one (0 = prefill chunks are observed only)
+    prefill_weight: float = 0.25
 
 
 @dataclasses.dataclass(frozen=True)

@@ -75,17 +75,26 @@ def margins(packed_w: torch.Tensor, packed_x: torch.Tensor, d_valid: int,
     (..., k).  Positive => predicted sparse.
 
     ``alpha`` is a scalar or broadcasts against the batch dims of
-    ``packed_x``.  The jitted reference contracts the multiply-subtract into
-    one fused multiply-add; here the margin is computed in float64 — where
-    it is exact for these operands — and rounded once to float32, which is
-    the same single rounding, so margins agree bit for bit.
+    ``packed_x``.
     """
-    n_neg = neg_counts(packed_w, packed_x).to(torch.float64)
+    return margins_from_counts(neg_counts(packed_w, packed_x), d_valid,
+                               alpha)
+
+
+def margins_from_counts(n_neg: torch.Tensor, d_valid: int,
+                        alpha: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """The margin epilogue on negative-product counts (..., k) int32.
+
+    The jitted reference contracts the multiply-subtract into one fused
+    multiply-add; here the margin is computed in float64 — where it is
+    exact for these operands — and rounded once to float32, which is the
+    same single rounding, so margins agree bit for bit."""
+    n = n_neg.to(torch.float64)
     a = torch.as_tensor(alpha, dtype=torch.float32,
-                        device=packed_x.device).to(torch.float64)
+                        device=n_neg.device).to(torch.float64)
     if a.ndim:
         a = a[..., None]
-    return (n_neg - a * (float(d_valid) - n_neg)).to(torch.float32)
+    return (n - a * (float(d_valid) - n)).to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +114,11 @@ class AlphaSchedule:
         return np.asarray(
             [self.alpha_for_layer(i, num_layers) for i in range(num_layers)],
             dtype=np.float32)
+
+    def init_state(self, num_layers: int) -> np.ndarray:
+        """Initial per-layer alphas of the online controller
+        (``runtime/controller.py``): the schedule it then adapts."""
+        return self.alphas(num_layers).copy()
 
 
 def predictor_op_count(d: int, k: int) -> int:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import predictor as P
+from repro_torch.kernels import ops as kops
 
 QMAX = 127.0
 
@@ -116,7 +116,7 @@ def quantize_mlp_node(node: dict, qg: int, group_size: int = 8) -> dict:
     check_quant_dims(wg.shape[-1], wg.shape[-2], group_size, qg)
     out = {k: v for k, v in node.items() if k not in ("wg_t", "wu_t",
                                                       "wd_t")}
-    out["sign_wg"] = P.pack_signs(wg)
+    out["sign_wg"] = kops.sign_pack(wg)
     out["wg_q"], out["wg_s"] = quantize_rows(wg, qg)
     if node.get("wu_t") is not None:
         out["wu_q"], out["wu_s"] = quantize_rows(node["wu_t"], qg)

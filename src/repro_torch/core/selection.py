@@ -9,6 +9,7 @@ order.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -55,6 +56,29 @@ def capacity_select_with_stats(margin: torch.Tensor, capacity: int
                                occupancy)
 
 
+def clamp_selection(sel: Selection, stats: SelectionStats, capacity
+                    ) -> tuple[Selection, SelectionStats]:
+    """Clamp a Selection and its stats to a smaller effective capacity.
+
+    :func:`capacity_select` orders survivors margin-ascending with the valid
+    entries a contiguous prefix, so keeping the first ``capacity`` entries
+    equals selecting with that capacity directly.  The shape stays at the
+    wide ``len(sel.indices)``; clamped-off entries are re-pointed at group 0
+    and marked invalid, like capacity padding."""
+    cap_max = sel.indices.shape[0]
+    dev = sel.indices.device
+    cap = torch.as_tensor(capacity, dtype=torch.int32, device=dev)
+    keep = torch.arange(cap_max, dtype=torch.int32, device=dev) < cap
+    valid = sel.valid & keep
+    count = torch.minimum(sel.count, cap)
+    idx = torch.where(valid, sel.indices, torch.zeros_like(sel.indices))
+    occupancy = count.to(torch.float32) / torch.clamp(
+        cap.to(torch.float32), min=1.0)
+    return (Selection(idx.to(torch.int32), valid, count),
+            SelectionStats(stats.predicted, count, stats.predicted - count,
+                           occupancy))
+
+
 def group_margins(margin: torch.Tensor, group_size: int) -> torch.Tensor:
     """Per-neuron -> per-group margins (min over the G members)."""
     k = margin.shape[-1]
@@ -69,3 +93,27 @@ def union_margin(margin: torch.Tensor) -> torch.Tensor:
     if margin.ndim == 1:
         return margin
     return margin.reshape(-1, margin.shape[-1]).amin(0)
+
+
+def take_row_groups(w_grouped: torch.Tensor,
+                    indices: torch.Tensor) -> torch.Tensor:
+    """Selected row groups of a grouped weight matrix: w_grouped
+    (n_groups, G, d), indices (..., C) group ids (padding already re-pointed
+    at a valid group) -> (..., C, G, d)."""
+    return w_grouped[indices.long()]
+
+
+def mask_from_selection(sel: Selection, k: int) -> torch.Tensor:
+    """Boolean keep-mask (k,) of a Selection's valid entries."""
+    mask = torch.zeros((k,), dtype=torch.bool, device=sel.indices.device)
+    mask[sel.indices[sel.valid].long()] = True
+    return mask
+
+
+def expected_capacity(k: int, sparsity: float, slack: float = 1.3,
+                      multiple: int = 128) -> int:
+    """Default capacity: expected density with slack, rounded up to a
+    multiple of ``multiple`` and capped at ``k``."""
+    dense = max(1, int(round(k * (1.0 - sparsity) * slack)))
+    cap = int(math.ceil(dense / multiple) * multiple)
+    return min(cap, k)

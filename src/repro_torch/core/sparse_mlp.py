@@ -1,17 +1,23 @@
 """The SparseInfer gated MLP: the counterpart of ``repro/core/sparse_mlp.py``.
 
-Ported strategies:
+Strategies:
 
 ``dense``   the baseline gated MLP (and the monolithic prefill path).
+``masked``  predict and zero-mask: the full gate matmul, so its stats carry
+            the exact false-negative rate (the controller's audit steps).
+``gather``  predict -> per-group batch-union top-C selection -> gather of
+            the selected row groups -> compact matmuls.  Plain ``torch``
+            indexing and ``einsum``, as the reference's XLA path.
 ``pallas``  the two-kernel pipeline: the fused predictor kernel, a batch-
             union top-C selection, then the fused sparse-MLP kernel with
             in-kernel telemetry; a prefill chunk runs the chunk kernels and
             int8 weights the int8 kernels.  The name is the reference's own
             config string; here it names the CUDA kernels in ``csrc/``.
 
-``masked`` and ``gather`` are not ported yet and raise.
-Weights are neuron-major: ``wg_t, wu_t, wd_t`` are (k, d), or their int8
-leaves and scales (``core/quantize.py``).
+``masked`` and ``gather`` take their margins from the ``sign_pack`` and
+``predict_counts`` kernels (``kernels/ops.py``).  Weights are
+neuron-major: ``wg_t, wu_t, wd_t`` are (k, d), or their int8 leaves and
+scales (``core/quantize.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.core import predictor as P
 from repro_torch.core import quantize as Q
 from repro_torch.core import selection as S
 from repro_torch.core.relufication import get_activation, is_sparsifiable
+from repro_torch.kernels import ops as kops
 
 @dataclasses.dataclass(frozen=True)
 class SparseInferConfig:
@@ -110,7 +117,7 @@ def prepare_sparse_params(params: dict,
         return Q.quantize_mlp_node(params, cfg.quant_group_size,
                                    cfg.group_size)
     out = dict(params)
-    out["sign_wg"] = P.pack_signs(params["wg_t"])
+    out["sign_wg"] = kops.sign_pack(params["wg_t"])
     return out
 
 
@@ -167,6 +174,116 @@ def dense_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
     return y
 
 
+def _margins(params: dict, x: torch.Tensor, alpha) -> torch.Tensor:
+    """Per-token predictor margins (..., k): x's sign pack and the counts
+    against the packed gate signs, each one kernel launch on the card."""
+    sign_wg = params.get("sign_wg")
+    if sign_wg is None:
+        sign_wg = kops.sign_pack(params["wg_t"])
+    return kops.predict_margins(sign_wg, kops.sign_pack(x), x.shape[-1],
+                                alpha)
+
+
+def masked_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
+               alpha=1.0, return_stats: bool = False):
+    """Predict and zero-mask: the paper's skip semantics over the full gate
+    matmul, so the stats include the exact false-negative rate (active
+    neurons the predictor skipped).  ``alpha`` is a scalar or one value per
+    token."""
+    params = Q.dense_view(params)
+    m = _margins(params, x, alpha)                          # (..., k)
+    keep = (m <= 0).to(x.dtype)
+    g1 = _act(cfg)(x @ params["wg_t"].to(x.dtype).T)
+    h1 = g1 * keep
+    if "wu_t" in params:
+        h1 = h1 * (x @ params["wu_t"].to(x.dtype).T)
+    y = h1 @ params["wd_t"].to(x.dtype)
+    if not return_stats:
+        return y
+    active = g1 > 0
+    k = m.shape[-1]
+    # the keep fraction is a mean in x's dtype, as the reference takes it
+    kept = keep.float().mean(-1).to(x.dtype)
+    return y, _stats(
+        x.shape[:-1], x.device,
+        predicted_density=kept,
+        realized_density=kept,                 # every predicted row computed
+        actual_density=active.float().mean(-1),
+        false_neg_rate=(active & (m > 0)).float().mean(-1),
+        union_demand_frac=(m <= 0).reshape(-1, k).any(0).float().mean())
+
+
+def gather_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
+               alpha=1.0, return_stats: bool = False):
+    """Capacity-gather path: x (d,), (B, d) (one batch union) or (G, B, d)
+    (a union and a selection per group G).  Per group: the batch-union
+    margins, a top-C selection of row groups, the gather of those rows and
+    compact matmuls.  Unsharded: the reference's per-shard local selection
+    needs ``tp_shards`` (not ported)."""
+    params = Q.dense_view(params)
+    act = _act(cfg)
+    squeeze = x.ndim == 1
+    xb = x[None] if squeeze else x
+    grouped_in = xb.ndim == 3
+    xg = xb if grouped_in else xb[None]                     # (G, B, d)
+    ngrp, b, d = xg.shape
+    k = params["wg_t"].shape[0]
+    g = cfg.group_size
+    cap = cfg.capacity(k)
+
+    m_tok = _margins(params, xg, alpha)                     # (G, B, k)
+    gm = S.group_margins(m_tok.amin(1), g)                  # (G, k/g)
+    picks = [S.capacity_select_with_stats(gm[i], cap) for i in range(ngrp)]
+    idx = torch.stack([s.indices for s, _ in picks])        # (G, C)
+    valid = torch.stack([s.valid for s, _ in picks])
+    count = torch.stack([s.count for s, _ in picks])        # (G,)
+    overflow = torch.stack([st.overflow for _, st in picks])
+
+    def take_rows(w_t):                                     # (G, C*g, d)
+        return S.take_row_groups(w_t.reshape(k // g, g, d), idx).reshape(
+            ngrp, cap * g, d).to(xg.dtype)
+
+    wg, wd = take_rows(params["wg_t"]), take_rows(params["wd_t"])
+    vmask = valid.repeat_interleave(g, dim=-1).to(xg.dtype)  # (G, C*g)
+    g1 = act(torch.einsum("gbd,gnd->gbn", xg, wg)) * vmask[:, None]
+    h1 = g1
+    if "wu_t" in params:
+        h1 = h1 * torch.einsum("gbd,gnd->gbn", xg, take_rows(params["wu_t"]))
+    if cfg.use_actual_sparsity:
+        # the paper's +AS: rows whose gate is exactly zero add nothing
+        h1 = torch.where(h1 != 0, h1, torch.zeros_like(h1))
+    y = torch.einsum("gbn,gnd->gbd", h1, wd)                # (G, B, d)
+    if not grouped_in:
+        y = y[0]
+    if squeeze:
+        y = y[0]
+    if not return_stats:
+        return y
+    # per token: the token's own predicted groups (a group survives if any
+    # member does) and those of them the union selection kept; the union's
+    # demand (selected + clamp-dropped) is a per-group quantity
+    kf = torch.tensor(float(k), device=x.device)
+    grp_keep = (m_tok.reshape(ngrp, b, k // g, g) <= 0).any(-1)
+    sel_mask = torch.stack([S.mask_from_selection(s, k // g)
+                            for s, _ in picks])             # (G, k/g)
+    pred_frac = grp_keep.float().mean(-1)                   # (G, B)
+    real_frac = (grp_keep & sel_mask[:, None]).sum(
+        -1, dtype=torch.float32) * g / kf
+    union = (count.float() * g / kf + overflow.float() * g / kf)[:, None]
+    stats = _stats(
+        (ngrp, b), x.device,
+        predicted_density=pred_frac,
+        realized_density=real_frac,
+        actual_density=(g1 > 0).sum(-1).float() / kf,
+        overflow_frac=torch.clamp(pred_frac - real_frac, min=0.0),
+        union_demand_frac=union)
+    if not grouped_in:
+        stats = {kk: v[0] for kk, v in stats.items()}
+    if squeeze:
+        stats = {kk: v[0] for kk, v in stats.items()}
+    return y, stats
+
+
 def pallas_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
                alpha=1.0, return_stats: bool = False):
     """Two-kernel sparse MLP: the fused predictor emits per-token per-group
@@ -176,7 +293,6 @@ def pallas_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
     More than ``cfg.sparse_max_batch`` rows (a prefill chunk) run the
     chunk kernels: the rows form one union selection, as a decode batch's
     slots do.  A quantized node runs the int8 kernels."""
-    from repro_torch.kernels import ops as kops
     squeeze = x.ndim == 1
     xb = x[None] if squeeze else x
     b, d = xb.shape
@@ -186,7 +302,7 @@ def pallas_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
     cap = cfg.capacity(k)
     sign_wg = params.get("sign_wg")
     if sign_wg is None:
-        sign_wg = P.pack_signs(params["wg_t"])
+        sign_wg = kops.sign_pack(params["wg_t"])
     chunked = b > cfg.sparse_max_batch
     a = torch.as_tensor(alpha, dtype=torch.float32,
                         device=xb.device).broadcast_to((b,))
@@ -250,10 +366,10 @@ def apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
             "sharded semantics)")
     if strategy == "dense":
         return dense_mlp(params, x, cfg, **kw)
+    if strategy == "masked":
+        return masked_mlp(params, x, cfg, alpha, **kw)
+    if strategy == "gather":
+        return gather_mlp(params, x, cfg, alpha, **kw)
     if strategy == "pallas":
         return pallas_mlp(params, x, cfg, alpha, **kw)
-    if strategy in ("masked", "gather"):
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported yet (ROADMAP Queue A, "
-            "masked and gather strategies)")
     raise ValueError(f"unknown strategy {strategy!r}")

@@ -41,6 +41,8 @@ SIGNATURES = {
         _I, _P]},
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _I, _I, _I, _I,
                                           _P]},
+    "sign_pack": {"sign_pack": [_P, _I, _P, _I, _I, _P]},
+    "predict_counts": {"predict_counts": [_P, _P, _P, _I, _I, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -105,6 +107,11 @@ def load(name: str) -> ctypes.CDLL:
         err.argtypes, err.restype = [_I], ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def n_loaded() -> int:
+    """Kernel libraries built or loaded so far in this process."""
+    return len(_LIBS)
 
 
 def check(name: str, rc: int) -> None:

@@ -15,15 +15,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import predictor as P
 from repro_torch.kernels import paged_attn as _paged
 from repro_torch.kernels import predict as _predict
 from repro_torch.kernels import ref
+from repro_torch.kernels import sign_pack as _sign_pack
 from repro_torch.kernels import sparse_mlp_fused as _fused
 
 _LAUNCHES = dict.fromkeys(
     ("predict_group_margins", "predict_chunk_group_margins",
      "fused_sparse_mlp", "fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
-     "fused_sparse_mlp_chunk_q", "paged_attention", "paged_kv_write"), 0)
+     "fused_sparse_mlp_chunk_q", "paged_attention", "paged_kv_write",
+     "sign_pack", "predict_counts"), 0)
 
 
 def launch_counts() -> dict:
@@ -34,6 +37,37 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def sign_pack(v: torch.Tensor) -> torch.Tensor:
+    """Pack the sign bits of the last axis: (..., d) -> (..., ceil(d/32))
+    int32, LSB-first.  Any ``d``: the kernel packs the last word's missing
+    lanes as positive, as the plain version does."""
+    if not v.is_cuda:
+        return ref.sign_pack_ref(v)
+    out = _sign_pack.sign_pack(v.reshape(-1, v.shape[-1]))
+    _LAUNCHES["sign_pack"] += 1
+    return out.reshape(v.shape[:-1] + (out.shape[-1],))
+
+
+def predict_counts(packed_w: torch.Tensor,
+                   packed_x: torch.Tensor) -> torch.Tensor:
+    """Negative-product counts: ((k, w), (..., w)) -> (..., k) int32."""
+    if not packed_x.is_cuda:
+        return ref.predict_counts_ref(packed_w, packed_x)
+    out = _predict.predict_counts(packed_w,
+                                  packed_x.reshape(-1, packed_x.shape[-1]))
+    _LAUNCHES["predict_counts"] += 1
+    return out.reshape(packed_x.shape[:-1] + (packed_w.shape[0],))
+
+
+def predict_margins(packed_w: torch.Tensor, packed_x: torch.Tensor,
+                    d_valid: int, alpha=1.0) -> torch.Tensor:
+    """Kernel-backed version of ``core.predictor.margins`` (paper eq. 2):
+    the counts of :func:`predict_counts`, then the margin epilogue, bit for
+    bit the plain version's."""
+    return P.margins_from_counts(predict_counts(packed_w, packed_x), d_valid,
+                                 alpha)
 
 
 def _alpha(alpha, b: int, device) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""Launchers of the fused predictor CUDA kernels, the counterparts of the
-Pallas kernels of ``repro/kernels/predict.py``:
+"""Launchers of the predictor CUDA kernels, the counterparts of the Pallas
+kernels of ``repro/kernels/predict.py``:
 
 * ``predict_group_margins`` (``csrc/predict_group_margins.cu``): a decode
   batch of at most ``MAX_BATCH`` tokens;
 * ``predict_chunk_group_margins`` (``csrc/predict_chunk_group_margins.cu``):
-  a prefill chunk of any number of rows, tiled over tokens.
+  a prefill chunk of any number of rows, tiled over tokens;
+* ``predict_counts`` (``csrc/predict_counts.cu``): the paper's Listing-1
+  negative-product counts from pre-packed signs, any number of rows.
 
-Both instantiate ``csrc/predict_margins.cuh``, so every row's outputs are
-bitwise the same from either.  Callers go through ``kernels.ops``, which
-picks the plain version for CPU tensors and counts launches."""
+The first two instantiate ``csrc/predict_margins.cuh``, so every row's
+outputs are bitwise the same from either.  Callers go through
+``kernels.ops``, which picks the plain version for CPU tensors and counts
+launches."""
 from __future__ import annotations
 
 import torch
@@ -70,3 +73,31 @@ def predict_chunk_group_margins(packed_w: torch.Tensor, x: torch.Tensor,
     chunk), one launch tiled over tokens."""
     return _launch("predict_chunk_group_margins", packed_w, x, alpha,
                    d_valid, group_size)
+
+
+def predict_counts(packed_w: torch.Tensor,
+                   packed_x: torch.Tensor) -> torch.Tensor:
+    """One launch: packed gate signs (k, w) int32 and packed x (B, w)
+    int32, on one CUDA device -> (B, k) int32 counts of sign bits that
+    differ."""
+    k, w = packed_w.shape
+    if not (packed_x.is_cuda and packed_w.device == packed_x.device):
+        raise ValueError("predict_counts launches on CUDA tensors of one "
+                         "device")
+    if packed_w.dtype != torch.int32 or packed_x.dtype != torch.int32:
+        raise ValueError(f"unsupported dtypes packed_w={packed_w.dtype} "
+                         f"packed_x={packed_x.dtype}")
+    if packed_x.ndim != 2 or packed_x.shape[1] != w or k < 1 or w < 1 \
+            or packed_x.shape[0] < 1:
+        raise ValueError(f"bad shapes for predict_counts: packed_w="
+                         f"{tuple(packed_w.shape)} packed_x="
+                         f"{tuple(packed_x.shape)}")
+    b = packed_x.shape[0]
+    packed_w, packed_x = packed_w.contiguous(), packed_x.contiguous()
+    lib = build.load("predict_counts")
+    out = torch.empty((b, k), dtype=torch.int32, device=packed_x.device)
+    stream = torch.cuda.current_stream(packed_x.device).cuda_stream
+    rc = lib.predict_counts(packed_w.data_ptr(), packed_x.data_ptr(),
+                            out.data_ptr(), b, w, k, stream)
+    build.check("predict_counts", rc)
+    return out

@@ -15,6 +15,19 @@ def _act(activation: str, fatrelu_threshold: float):
         else activation, fatrelu_threshold)
 
 
+def sign_pack_ref(v: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels.sign_pack.sign_pack: (..., d) ->
+    (..., ceil(d/32)) int32 sign words, LSB-first."""
+    return P.pack_signs(v)
+
+
+def predict_counts_ref(packed_w: torch.Tensor,
+                       packed_x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels.predict.predict_counts: (k, w) x (..., w)
+    -> (..., k) int32 negative-product counts."""
+    return P.neg_counts(packed_w, packed_x)
+
+
 def predict_group_margins_ref(packed_w: torch.Tensor, x: torch.Tensor,
                               d_valid: int, alpha: torch.Tensor,
                               group_size: int = 8):

@@ -16,9 +16,15 @@ share committed blocks admit by reference):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch prosparse-llama2-7b --strategy pallas --max-len 256 \
         --prefill-chunk 64 --paged-kv 16
+The adaptive-alpha controller, per SLA tier, on the gather strategy with a
+masked audit every 4th step (on the CPU: --reduced --device cpu):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch prosparse-llama2-7b --strategy gather --controller \
+        --per-tier --audit-period 4 --sla-mix latency:1,balanced:1,quality:1
 
 Prints the reference's JSON throughput report (with ``paged``: the pool's
-counters, under --paged-kv).
+counters, under --paged-kv; with ``controller``: its report, under
+--controller).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.base import PagedKVConfig
+from repro_torch.configs.base import ControllerConfig, PagedKVConfig
 from repro_torch.configs.registry import arch_names, get_config, \
     reduced_config
 from repro_torch.device import resolve_device
@@ -72,6 +78,30 @@ def main(argv=None) -> dict:
     ap.add_argument("--sla-mix", default="balanced:1",
                     help="comma list tier:weight (latency, balanced, "
                          "quality), e.g. latency:1,balanced:2,quality:1")
+    ap.add_argument("--controller", action="store_true",
+                    help="adapt per-layer alpha online toward "
+                         "--target-density")
+    ap.add_argument("--per-tier", action="store_true",
+                    help="one controller (alpha vector, density target) per "
+                         "SLA tier")
+    ap.add_argument("--target-density", type=float, default=0.25)
+    ap.add_argument("--ctrl-gain", type=float, default=0.5)
+    ap.add_argument("--audit-period", type=int, default=8,
+                    help="a masked-strategy audit step (exact false "
+                         "negatives) every N decode steps; 0 = none "
+                         "(pallas never audits)")
+    ap.add_argument("--adapt-capacity", action="store_true",
+                    help="re-size the capacity at refill boundaries from "
+                         "the observed demand (superseded by "
+                         "--capacity-buckets)")
+    ap.add_argument("--capacity-buckets", default="",
+                    help="comma list of capacity fractions forming the "
+                         "bucket ladder, e.g. 0.125,0.25,0.5: the "
+                         "controller picks a bucket between decode steps "
+                         "(gather, pallas)")
+    ap.add_argument("--warm-buckets", action="store_true",
+                    help="run every capacity bucket's decode step once "
+                         "before the first controller step")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="fixed prefill chunk in tokens (must divide "
                          "--max-len); 0 = monolithic prefill.  Admissions "
@@ -110,6 +140,10 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(sparse=dataclasses.replace(
             cfg.sparse, strategy=args.strategy,
             enabled=args.strategy != "dense"))
+    if args.capacity_buckets:
+        cfg = cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, capacity_buckets=tuple(
+                float(v) for v in args.capacity_buckets.split(","))))
     if args.weight_dtype:
         cfg = cfg.replace(sparse=dataclasses.replace(
             cfg.sparse, weight_dtype=args.weight_dtype,
@@ -123,8 +157,15 @@ def main(argv=None) -> dict:
             prefill_max_tokens=max(cfg.sparse.prefill_max_tokens,
                                    args.prefill_chunk)))
     params = lm.init_lm(cfg, args.seed, device)
+    ccfg = ControllerConfig(enabled=args.controller,
+                            target_density=args.target_density,
+                            gain=args.ctrl_gain,
+                            audit_period=args.audit_period,
+                            adapt_capacity=args.adapt_capacity,
+                            per_tier=args.per_tier)
     srv = Server(lm, cfg, ServeConfig(
         batch=args.batch, max_len=args.max_len, max_new_tokens=args.max_new,
+        controller=ccfg, warm_buckets=args.warm_buckets,
         prefill_chunk=args.prefill_chunk,
         prefill_interleave=args.prefill_interleave,
         paged_kv=(PagedKVConfig(block_size=args.paged_kv,
@@ -146,8 +187,13 @@ def main(argv=None) -> dict:
     rep["sparse"] = {"enabled": cfg.sparse.enabled,
                      "strategy": cfg.sparse.strategy,
                      "alpha": cfg.sparse.alpha_base,
-                     "capacity_frac": round(cfg.sparse.capacity_frac, 4),
+                     # srv.cfg: --adapt-capacity may have moved it
+                     "capacity_frac": round(srv.cfg.sparse.capacity_frac, 4),
                      "weight_dtype": cfg.sparse.weight_dtype or "float"}
+    if cfg.sparse.capacity_buckets:
+        rep["sparse"]["capacity_buckets"] = list(
+            cfg.sparse.capacity_ladder(cfg.d_ff))
+        rep["sparse"]["active_bucket"] = getattr(srv, "_active_cap", None)
     if args.prefill_chunk:
         rep["prefill"] = {"chunk": args.prefill_chunk,
                           "interleave": args.prefill_interleave,
@@ -157,6 +203,8 @@ def main(argv=None) -> dict:
                               srv.prefill_chunks_skipped}
     if args.paged_kv:
         rep["paged"] = srv.paged_stats()
+    if srv.controller is not None:
+        rep["controller"] = srv.controller.report()
     rep["device"] = str(device)
     print(json.dumps(rep, indent=1))
     return rep

@@ -27,10 +27,21 @@ admits those by reference: its scratch is seeded from the pool and the
 chunks they cover are skipped.  The session's SLA tier sticks across
 turns.  The pool persists across ``serve()`` calls.
 
-Not ported yet: the alpha controller and capacity-bucket ladder (and with
-it the controller's prefill rider), overload handling (preemption,
-shedding, deadlines, the pressure gate: pool exhaustion raises
-``PoolExhausted``) and the metrics hub.
+With ``ServeConfig.controller`` enabled (and a sparse strategy) the
+adaptive-alpha controller (``runtime/controller.py``) owns the alphas: each
+decode step returns its (L, B) MLP telemetry, which the controller folds in
+between steps (per SLA tier with ``per_tier``).  Every ``audit_period``-th
+step runs the masked strategy, whose full gate gives exact false negatives
+(not under pallas, whose kernels report a proxy every step).  With
+``SparseInferConfig.capacity_buckets`` (gather, pallas) the controller's
+union-demand hint picks a rung of the capacity ladder between steps;
+``adapt_capacity`` without a ladder re-sizes the capacity at refill
+boundaries.  Sparse prefill chunks feed the controller's prefill rider.
+
+Not ported yet: sharded serving (``tp_shards``/``dp_shards``), controller
+checkpoints, overload handling (preemption, shedding, deadlines, the
+pressure gate: pool exhaustion raises ``PoolExhausted``) and the metrics
+hub.
 """
 from __future__ import annotations
 
@@ -38,16 +49,21 @@ import collections
 import dataclasses
 import math
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ModelConfig,
-                                      PagedKVConfig)
+from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ControllerConfig,
+                                      ModelConfig, PagedKVConfig)
 from repro_torch.core.sparse_mlp import DEAD_SLOT_ALPHA
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.models.common import greedy_sample
+from repro_torch.runtime.controller import (TRAJECTORY_KEEP,
+                                            AlphaController,
+                                            aggregate_tier_stats)
 from repro_torch.runtime.kv_pool import KVPool
 
 
@@ -61,6 +77,14 @@ class ServeConfig:
     # scheduler (False) is not ported
     slot_refill: bool = True
     sla_tiers: tuple = DEFAULT_SLA_TIERS
+    # the online adaptive-alpha controller; off, the static schedule (plus
+    # tier offsets) decodes every step
+    controller: ControllerConfig = dataclasses.field(
+        default_factory=ControllerConfig)
+    # run every capacity bucket's decode step once, on copies of the
+    # caches, before the first controller step, so the first bucket switch
+    # meets no first-use cost
+    warm_buckets: bool = False
     # fixed prefill chunk in tokens; 0 = monolithic batch-1 prefill.  Must
     # divide max_len
     prefill_chunk: int = 0
@@ -100,6 +124,11 @@ def _splice_slot(full: dict, one: dict, slot: int) -> None:
     for f, o in zip(full["blocks"], one["blocks"]):
         for name, buf in f.items():
             buf[slot:slot + 1].copy_(o[name])
+
+
+def _clone_caches(caches: dict) -> dict:
+    return {"blocks": [{name: buf.clone() for name, buf in layer.items()}
+                       for layer in caches["blocks"]]}
 
 
 def _seed_scratch(pool: dict, seed: torch.Tensor) -> dict:
@@ -168,10 +197,11 @@ class Server:
                 "slot_refill=True")
         if not scfg.greedy:
             raise NotImplementedError("only greedy decoding is ported")
-        if cfg.sparse.enabled and cfg.sparse.strategy in ("masked", "gather"):
+        if cfg.sparse.enabled and (cfg.sparse.tp_shards
+                                   or cfg.sparse.dp_shards):
             raise NotImplementedError(
-                f"strategy {cfg.sparse.strategy!r} is not ported yet "
-                "(ROADMAP Queue A, masked and gather strategies)")
+                "sharded sparse decode is not ported yet (ROADMAP Queue A, "
+                "sharded semantics)")
         self.mod = model_mod
         self.cfg = cfg
         self.scfg = scfg
@@ -189,6 +219,21 @@ class Server:
         if pk is not None:
             self._nbps = scfg.max_len // pk.block_size
             self._init_paged_state()
+        # ---- the adaptive-alpha controller; it lives across serve() and
+        # generate() calls, so adaptation carries over between requests
+        self.controller: Optional[AlphaController] = None
+        self.warmup_steps = 0        # decode steps run by warm_buckets
+        if cfg.sparse.capacity_buckets and not (scfg.controller.enabled
+                                                and cfg.sparse.enabled):
+            warnings.warn(
+                "SparseInferConfig.capacity_buckets set but the controller "
+                "is disabled: the bucket ladder needs capacity_hint to pick "
+                "buckets; decoding uses the static capacity_frac",
+                stacklevel=2)
+        if scfg.controller.enabled and cfg.sparse.enabled:
+            self._build_controller_fns()
+        self._init_controller_state()
+        self._cfg0 = self.cfg          # reset() restores it
 
     def _init_paged_state(self) -> None:
         """Fresh host pool manager and zeroed device block pool."""
@@ -201,6 +246,147 @@ class Server:
         self._pool = self.mod.init_kv_pool(self.cfg, n_blocks, pk.block_size,
                                            self.device)
 
+    def reset(self) -> None:
+        """Restore the cross-serve state (controller, capacity bucket, KV
+        pool, admission counters) to its fresh-construction value, so the
+        next serve() is a new server's.  serve() calls it when the
+        scheduler raises."""
+        if self.cfg is not self._cfg0:
+            # maybe_adapt_capacity moved the capacity mid-serve
+            self.cfg = self._cfg0
+            self._build_controller_fns()
+        self._init_controller_state()
+        if self.scfg.paged_kv is not None:
+            self._init_paged_state()
+        self.prefill_chunks_run = 0
+        self.prefill_chunks_skipped = 0
+
+    # ------------------------------------------------------- controller ---
+    def _build_controller_fns(self) -> None:
+        """The controller's decode configurations against the current
+        ``self.cfg``: one per capacity bucket of a ``capacity_buckets``
+        ladder (gather, pallas), else one, plus the audit configuration
+        (strategy masked).  Switching buckets between decode steps is a
+        dict lookup.  ``_trace_counts`` counts, per bucket, its first
+        decode step and every later one during which a kernel library had
+        to be built or loaded: the CUDA kernels take every shape without a
+        rebuild, so after warmup each bucket stays at 1."""
+        cfg = self.cfg
+        self._trace_counts: collections.Counter = collections.Counter()
+        self._bucket_cfgs: dict = {}
+        self._warmed_buckets = False
+        if cfg.sparse.capacity_buckets and cfg.sparse.strategy in (
+                "gather", "pallas"):
+            for capg in cfg.sparse.capacity_ladder(cfg.d_ff):
+                self._bucket_cfgs[capg] = cfg.replace(
+                    sparse=dataclasses.replace(cfg.sparse,
+                                               capacity_override=capg))
+            self._active_cap = max(self._bucket_cfgs)   # start the widest
+        else:
+            if cfg.sparse.capacity_buckets:
+                warnings.warn(
+                    "SparseInferConfig.capacity_buckets set but strategy="
+                    f"{cfg.sparse.strategy!r} has no capacity selection: "
+                    "the ladder applies to gather/pallas only; decoding "
+                    "runs without buckets", stacklevel=2)
+            self._bucket_cfgs[0] = cfg
+            self._active_cap = 0
+        self._initial_cap = self._active_cap
+        self._audit_cfg = cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, strategy="masked"))
+
+    def _init_controller_state(self) -> None:
+        """A fresh controller (construction and :meth:`reset` share it).
+        Under pallas its kernels report false negatives every step
+        (``native_fn``): no audit steps."""
+        cfg, scfg = self.cfg, self.scfg
+        if not (scfg.controller.enabled and cfg.sparse.enabled):
+            self.controller = None
+            return
+        tiers = scfg.sla_tiers if scfg.controller.per_tier else None
+        # one alpha per layer: the dense family, the only one ported
+        self.controller = AlphaController(
+            scfg.controller, cfg.sparse.alpha_schedule(), cfg.n_layers,
+            tiers=tiers, native_fn=cfg.sparse.strategy == "pallas")
+        self._active_cap = self._initial_cap
+        # the active bucket of every controller decode step
+        self.bucket_history: collections.deque = collections.deque(
+            maxlen=TRAJECTORY_KEEP)
+
+    def _count_setup(self, key, loaded_before: int) -> None:
+        if key not in self._trace_counts or build.n_loaded() > loaded_before:
+            self._trace_counts[key] += 1
+
+    def _select_bucket(self):
+        """The smallest capacity bucket covering the controller's
+        union-demand hint, picked between decode steps."""
+        ctl = self.controller
+        if ctl is None or len(self._bucket_cfgs) <= 1 or ctl.state.steps == 0:
+            return self._active_cap
+        need = -(-ctl.capacity_hint(self.cfg.d_ff)
+                 // self.cfg.sparse.group_size)      # neurons -> groups
+        for capg in sorted(self._bucket_cfgs):
+            if capg >= need:
+                self._active_cap = capg
+                break
+        else:
+            self._active_cap = max(self._bucket_cfgs)
+        return self._active_cap
+
+    def _warm_bucket_ladder(self, tok, caches, lengths, alphas,
+                            table=None) -> None:
+        """Run every bucket's decode step once on copies of the caches (a
+        decode step writes its caches in place), so nothing advances."""
+        if self._warmed_buckets or len(self._bucket_cfgs) <= 1:
+            self._warmed_buckets = True
+            return
+        tok = torch.as_tensor(tok, device=self.device)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        if table is not None:
+            table = torch.as_tensor(table, device=self.device)
+        for key, cfg_b in self._bucket_cfgs.items():
+            loaded = build.n_loaded()
+            self.mod.decode_step(self.params, cfg_b, tok,
+                                 _clone_caches(caches), lengths,
+                                 alphas=alphas, collect_stats=True,
+                                 block_table=table)
+            self._count_setup(key, loaded)
+            self.warmup_steps += 1
+        self._warmed_buckets = True
+
+    def maybe_adapt_capacity(self) -> bool:
+        """Move the static capacity toward the controller's hint (without a
+        bucket ladder, at refill boundaries).  True when it changed."""
+        ctl, sc = self.controller, self.scfg.controller
+        if ctl is None or not sc.adapt_capacity or ctl.state.steps == 0:
+            return False
+        if len(self._bucket_cfgs) > 1 or 0 not in self._bucket_cfgs:
+            return False              # the bucket ladder owns capacity
+        k = self.cfg.d_ff
+        hint = ctl.capacity_hint(k)
+        new_cfg = self.cfg.replace(sparse=dataclasses.replace(
+            self.cfg.sparse, capacity_frac=min(1.0, hint / k)))
+        if new_cfg.sparse.capacity(k) == self.cfg.sparse.capacity(k):
+            return False
+        self.cfg = new_cfg
+        self._build_controller_fns()
+        return True
+
+    def _observe_step(self, stats: dict, tier_idx: np.ndarray,
+                      active: Optional[np.ndarray], audit: bool) -> None:
+        """Fold one decode step's (L, B) telemetry into the controller: per
+        tier when tiered, else the mean over the live slots (``active``
+        None: every slot, as in generate())."""
+        ctl = self.controller
+        if ctl.tiers:
+            agg, counts = aggregate_tier_stats(stats, tier_idx, ctl.n_tiers,
+                                               active)
+            ctl.observe(agg, audit=audit, tier_counts=counts)
+        else:
+            sel = slice(None) if active is None else active
+            ctl.observe({k: v[:, sel].mean(-1) for k, v in stats.items()},
+                        audit=audit)
+
     # ------------------------------------------------------- alpha plumbing
     def _tier_of(self, req: Request) -> int:
         try:
@@ -211,30 +397,67 @@ class Server:
                 f"(configured: {sorted(self._tier_index)})") from None
 
     def _slot_alpha_matrix(self, tier_idx: np.ndarray,
-                           active: np.ndarray) -> np.ndarray:
-        """(n_layers, B) per-layer-per-slot alphas: the static schedule plus
-        each slot's tier offset; dead slots get ``DEAD_SLOT_ALPHA``."""
-        base = self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
-        mat = (base[:, None]
-               + self._tier_offsets[tier_idx][None, :]).astype(np.float32)
-        mat[:, ~active] = DEAD_SLOT_ALPHA
+                           active: Optional[np.ndarray] = None
+                           ) -> np.ndarray:
+        """(n_layers, B) per-layer-per-slot alphas: the static schedule, or
+        the controller's alphas, plus each slot's tier offset (a tiered
+        controller holds the tiers' alphas itself); dead slots get
+        ``DEAD_SLOT_ALPHA``."""
+        ctl = self.controller
+        if ctl is not None and ctl.tiers:
+            mat = ctl.slot_alphas(tier_idx)
+        else:
+            base = (self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
+                    if ctl is None else ctl.alphas())
+            mat = (base[:, None]
+                   + self._tier_offsets[tier_idx][None, :]).astype(np.float32)
+        if active is not None and not active.all():
+            mat[:, ~np.asarray(active, bool)] = DEAD_SLOT_ALPHA
         return mat
 
-    def _decode(self, tok, caches, lengths, alphas=None, table=None):
+    def _decode(self, tok, caches, lengths, alphas=None, table=None,
+                cfg: Optional[ModelConfig] = None):
+        """One decode step -> (tokens, caches); with ``cfg`` (a controller
+        configuration: a bucket's or the audit's) also the step's (L, B)
+        telemetry as numpy."""
         if table is not None:
             table = torch.as_tensor(table, device=self.device)
-        logits, caches = self.mod.decode_step(
-            self.params, self.cfg, torch.as_tensor(tok, device=self.device),
-            caches, torch.as_tensor(lengths, device=self.device),
-            alphas=alphas, block_table=table)
+        out = self.mod.decode_step(
+            self.params, cfg or self.cfg,
+            torch.as_tensor(tok, device=self.device), caches,
+            torch.as_tensor(lengths, device=self.device), alphas=alphas,
+            block_table=table, collect_stats=cfg is not None)
         self.decode_steps += 1
-        return greedy_sample(logits), caches
+        if cfg is None:
+            logits, caches = out
+            return greedy_sample(logits), caches
+        logits, caches, stats = out
+        return greedy_sample(logits), caches, {
+            k: v.cpu().numpy() for k, v in stats.items()}
+
+    def _decode_ctrl(self, audit: bool, tok, caches, lengths, alphas,
+                     table=None):
+        """A controller decode step: the audit configuration, or the active
+        bucket's."""
+        key = self._active_cap
+        loaded = build.n_loaded()
+        out = self._decode(tok, caches, lengths, alphas, table,
+                           self._audit_cfg if audit
+                           else self._bucket_cfgs[key])
+        if not audit:
+            self._count_setup(key, loaded)
+        self.bucket_history.append(key)
+        return out
 
     def _prefill_alphas(self, t: int) -> np.ndarray:
-        """(n_layers,) alphas of one request's prefill chunks: the static
-        schedule plus its tier's offset (pad rows get the dead alpha in the
-        model)."""
-        base = self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
+        """(n_layers,) alphas of one request's prefill chunks: the decode
+        slots' alphas for a request of tier ``t`` (pad rows get the dead
+        alpha in the model)."""
+        ctl = self.controller
+        if ctl is not None and ctl.tiers:
+            return ctl.slot_alphas(np.asarray([t]))[:, 0]
+        base = (self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
+                if ctl is None else ctl.alphas())
         return (base + self._tier_offsets[t]).astype(np.float32)
 
     # ------------------------------------------------------- paged KV ----
@@ -310,8 +533,18 @@ class Server:
     # ----------------------------------------------------------- single ---
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
         """prompts (B, P) int32 -> (B, max_new) greedy ids: one fixed batch
-        run to completion on the static schedule (the reference path of the
-        scheduler tests)."""
+        run to completion (the reference path of the scheduler tests), on
+        the static schedule or, with the controller, on the 'balanced'
+        tier's adapted alphas."""
+        ctl = self.controller
+        bal = self._tier_index.get("balanced")
+        if bal is None:
+            if ctl is not None and ctl.tiers:
+                raise ValueError(
+                    "generate() runs the whole batch on the 'balanced' tier "
+                    "but ServeConfig.sla_tiers has no such tier "
+                    f"({sorted(self._tier_index)})")
+            bal = 0
         with torch.inference_mode():
             b, plen = prompts.shape
             logits, caches = self.mod.prefill(
@@ -321,8 +554,21 @@ class Server:
             tok = greedy_sample(logits)[:, None]
             out = [tok]
             lengths = np.full(b, plen, np.int32)
+            tiers = np.full(b, bal)
             for _ in range(max_new - 1):
-                tok, caches = self._decode(tok, caches, lengths)
+                if ctl is None:
+                    tok, caches = self._decode(tok, caches, lengths)
+                else:
+                    audit = ctl.is_audit_step()
+                    self._select_bucket()
+                    alphas = (self._slot_alpha_matrix(tiers) if ctl.tiers
+                              else ctl.alphas())
+                    if self.scfg.warm_buckets and not self._warmed_buckets:
+                        self._warm_bucket_ladder(tok, caches, lengths,
+                                                 alphas)
+                    tok, caches, stats = self._decode_ctrl(
+                        audit, tok, caches, lengths, alphas)
+                    self._observe_step(stats, tiers, None, audit)
                 tok = tok[:, None]
                 out.append(tok)
                 lengths += 1
@@ -345,7 +591,13 @@ class Server:
                     f"request {r.uid}: prompt {len(r.prompt)} + max_new "
                     f"{r.max_new} exceeds max_len {self.scfg.max_len}")
         with torch.inference_mode():
-            return self._serve_slot_refill(requests)
+            try:
+                return self._serve_slot_refill(requests)
+            except Exception:
+                # the scheduler died with slots, pool and controller half
+                # updated: start the next serve from a fresh state
+                self.reset()
+                raise
 
     def _serve_slot_refill(self, requests: list[Request]) -> list[Request]:
         B = self.scfg.batch
@@ -378,6 +630,10 @@ class Server:
         slot_out: list[list[int]] = [[] for _ in range(B)]
         pending: dict[int, dict] = {}          # slot -> chunked admission
         alpha_mat: Optional[np.ndarray] = None  # changes only at refills
+        ctl = self.controller
+        # the controller's prefill rider: telemetry of the chunks that run
+        # sparse
+        prefill_stats = ctl is not None and self.cfg.sparse.sparse_prefill
 
         def finish(i: int) -> None:
             r = slot_req[i]
@@ -523,10 +779,19 @@ class Server:
                     chunk = torch.as_tensor(
                         st["tokens"][:, st["off"]:st["off"] + pc],
                         device=self.device)
-                    logits, st["caches"] = self.mod.prefill_chunk(
+                    out = self.mod.prefill_chunk(
                         self.params, self.cfg, chunk, st["caches"],
                         st["off"], len(r.prompt),
-                        alphas=self._prefill_alphas(st["tier"]))
+                        alphas=self._prefill_alphas(st["tier"]),
+                        collect_stats=prefill_stats)
+                    if prefill_stats:
+                        logits, st["caches"], stats = out
+                        ctl.observe_prefill(
+                            {k: v[:, 0].cpu().numpy()
+                             for k, v in stats.items()},
+                            tier=st["tier"] if ctl.tiers else None)
+                    else:
+                        logits, st["caches"] = out
                     st["off"] += pc
                     budget -= 1
                     self.prefill_chunks_run += 1
@@ -562,10 +827,22 @@ class Server:
                 continue          # nothing decoding yet: keep prefilling
             if paged:
                 ensure_write_blocks()
-            if alpha_mat is None:
-                alpha_mat = self._slot_alpha_matrix(tier_idx, active)
-            ntok, caches = self._decode(tok, caches, lengths, alpha_mat,
-                                        table)
+            if ctl is not None:
+                # rebuilt every step: the controller adapts between steps
+                alphas = self._slot_alpha_matrix(tier_idx, active)
+                if self.scfg.warm_buckets and not self._warmed_buckets:
+                    self._warm_bucket_ladder(tok, caches, lengths, alphas,
+                                             table)
+                audit = ctl.is_audit_step()
+                self._select_bucket()      # between-step bucket switch
+                ntok, caches, stats = self._decode_ctrl(
+                    audit, tok, caches, lengths, alphas, table)
+                self._observe_step(stats, tier_idx, active, audit)
+            else:
+                if alpha_mat is None:
+                    alpha_mat = self._slot_alpha_matrix(tier_idx, active)
+                ntok, caches = self._decode(tok, caches, lengths, alpha_mat,
+                                            table)
             ntok = ntok.cpu().numpy()
             refill = []
             for i in range(B):
@@ -579,6 +856,8 @@ class Server:
                     refill.append(i)
             if refill:
                 alpha_mat = None
+                if queue:
+                    self.maybe_adapt_capacity()   # a refill boundary
                 for i in refill:
                     admit(i)
         if paged:

@@ -115,4 +115,5 @@ def test_launch_counts_untouched_on_cpu():
     assert tops.launch_counts() == dict.fromkeys(
         ("predict_group_margins", "predict_chunk_group_margins",
          "fused_sparse_mlp", "fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
-         "fused_sparse_mlp_chunk_q", "paged_attention", "paged_kv_write"), 0)
+         "fused_sparse_mlp_chunk_q", "paged_attention", "paged_kv_write",
+         "sign_pack", "predict_counts"), 0)

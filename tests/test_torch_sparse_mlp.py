@@ -90,8 +90,13 @@ def test_mlp_apply_dense_fallback_past_sparse_max_batch():
 
 @pytest.mark.parametrize("strategy", ["masked", "gather"])
 def test_unported_strategies_raise(strategy):
+    """masked and gather run (tests/test_torch_strategies.py); their
+    sharded formulation is not ported and raises."""
     _, port_cfg = _cfgs()
     _, tp = _params(3)
+    y = TSM.apply(tp, torch.zeros((1, D)), dataclasses.replace(
+        port_cfg, strategy=strategy))
+    assert y.shape == (1, D)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSM.apply(tp, torch.zeros((1, D)), dataclasses.replace(
-            port_cfg, strategy=strategy))
+            port_cfg, strategy=strategy, tp_shards=2))
