@@ -49,7 +49,8 @@ Phases, in order; any failure exits non-zero:
              fresh server's.
  10. sign kernels  sign_pack and predict_counts against their plain versions,
              bitwise, at full width: the gate weights (11008 x d) and x at B
-             in {1, 4, 16, 24} plus a (G, B, d) batch, float32 and bf16, d in
+             in {1, 4, 16, 24, 64} (64: a gather prefill chunk) plus a
+             (G, B, d) batch, float32 and bf16, d in
              {4096, 4000} (a padded last word), zeros and -0.0 in the input;
              predict_margins bitwise against core.predictor.margins at alpha
              in {1.0, 1.03, per-slot with a dead slot}.  Timed at the main
@@ -58,7 +59,9 @@ Phases, in order; any failure exits non-zero:
              packs bits or counts popcounts, so no library yardstick.
  11. strategies  the 2 full-width float32 layers of phase 3 with strategies
              masked and gather, 8 teacher-forced steps on the card against
-             the CPU: logits within 1e-3, stats reported, launches exact.
+             the CPU: logits within 1e-3, stats reported, launches exact;
+             then a 64-row gather sparse-prefill chunk (the controller
+             serve's chunk MLP), card against CPU, logits within 1e-3.
  12. serve-controller  all 32 layers through Server.serve with the
              adaptive-alpha controller per SLA tier (batch 4, 8 requests of
              mixed tiers, chunked sparse prefill feeding the prefill rider,
@@ -67,6 +70,9 @@ Phases, in order; any failure exits non-zero:
              negatives, no audits).  Launch counts exact from load to
              drain; audits, bucket sequence and the controller's report
              printed; a profile of a gather step and of a masked audit step.
+             With random weights the union demand stays near 1, so the
+             ladder holds its top rung through the serve; a forced low
+             demand estimate must then select the lowest rung.
  13. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
@@ -984,8 +990,75 @@ def phase_decode_strategies() -> None:
                   f"{float(cpu[1][k].mean()):.5f}", flush=True)
         if float(diff.max()) > tol:
             fail(f"{strategy} decode: logits differ by {float(diff.max())}")
+    _gather_prefill_chunks(params, cfg0)
     del params
     torch.cuda.empty_cache()
+
+
+def _gather_prefill_chunks(params, cfg0) -> None:
+    """Strategy gather with sparse prefill, as the controller serve runs
+    its prompts: a 100-token prompt in chunks of 64 (a full chunk, then 36
+    rows and 28 pad rows), each chunk's 64 rows one union selection, card
+    against CPU.  Logits of the last chunk within 1e-3; each stat entry
+    within 2 groups, as phase_prefill holds them."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg = cfg0.replace(sparse=dataclasses.replace(
+        cfg0.sparse, strategy="gather", enabled=True, sparse_prefill=True,
+        prefill_max_tokens=max(cfg0.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    plen, chunk, L = 100, MAIN_CHUNK, cfg.n_layers
+    n_chunks = -(-plen // chunk)
+    rng = np.random.default_rng(11)
+    tokens = np.zeros((1, n_chunks * chunk), np.int64)
+    tokens[0, :plen] = rng.integers(0, cfg.vocab, size=plen)
+    alphas = cfg.sparse.alpha_schedule().alphas(L)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        caches = lm.init_caches(cfg, 1, DEC_MAX_LEN * 4, dev)
+        logits, stats = [], []
+        with torch.inference_mode():
+            for off in range(0, n_chunks * chunk, chunk):
+                lg, caches, st = lm.prefill_chunk(
+                    params[dev], cfg,
+                    torch.as_tensor(tokens[:, off:off + chunk], device=dev),
+                    caches, off, plen, alphas=alphas, collect_stats=True)
+                logits.append(lg.float().cpu())
+                stats.append({k: v.cpu() for k, v in st.items()})
+        out[dev] = (logits[-1], stats, ops.launch_counts())
+    counts = out["cuda"][2]
+    want = {n: L * n_chunks if n in ("sign_pack", "predict_counts") else 0
+            for n in counts}
+    if counts != want:
+        fail(f"gather prefill: launches {counts}, want {want}")
+    lg_c, lg_p = out["cuda"][0], out["cpu"][0]
+    if not bool(torch.isfinite(lg_c).all()):
+        fail("gather prefill: non-finite logits on the card")
+    diff = (lg_c - lg_p).abs()
+    pairs = list(zip(out["cuda"][1], out["cpu"][1]))
+    n_diff = sum(int((a[k] != b[k]).sum()) for a, b in pairs
+                 for k in MLP_STAT_KEYS)
+    worst = max(float((a[k] - b[k]).abs().max()) for a, b in pairs
+                for k in MLP_STAT_KEYS)
+    tol, stat_tol = 1e-3, 2 * cfg.sparse.group_size / cfg.d_ff
+    print(f"[strategies] gather sparse prefill, {plen} tokens in {n_chunks} "
+          f"chunks of {chunk}: logits max abs diff {float(diff.max()):.3e}, "
+          f"median {float(diff.median()):.3e} (tolerance {tol}); {n_diff} of "
+          f"{len(MLP_STAT_KEYS) * L * n_chunks} stat entries differ, by at "
+          f"most {worst:.3e} (tolerance {stat_tol:.3e}); launches {counts}",
+          flush=True)
+    for k in MLP_STAT_KEYS:
+        print(f"[strategies] gather prefill stat {k}: card "
+              f"{[round(float(a[k].mean()), 5) for a, _ in pairs]}, CPU "
+              f"{[round(float(b[k].mean()), 5) for _, b in pairs]}",
+              flush=True)
+    if float(diff.max()) > tol or worst > stat_tol:
+        fail(f"gather prefill: logits differ by {float(diff.max())} or a "
+             f"stat by {worst}")
 
 
 def _to(tree, device):
@@ -1366,7 +1439,8 @@ def phase_sign_kernels(results: dict) -> None:
             n += same(f"sign_pack wg ({K}, {d}) {wdt}", KS.sign_pack(w_t),
                       ref.sign_pack_ref(w_t))
         pw = KS.sign_pack(wg)
-        for b in (1, 4, 16, 24):
+        # 64: a gather prefill chunk's rows (four token tiles of counts)
+        for b in (1, 4, 16, 24, MAIN_CHUNK):
             x = torch.randn((b, d), generator=gen, device=dev)
             x[0, ::7] = 0.0
             x[-1, 1::5] = -0.0
@@ -1388,7 +1462,8 @@ def phase_sign_kernels(results: dict) -> None:
                   ops.predict_counts(pw, pxg), ref.predict_counts_ref(pw, pxg))
     print(f"[signs] sign_pack, predict_counts and predict_margins bitwise "
           f"equal to their plain versions in {n} cases (d in {{{D}, "
-          f"{D_PAD}}}, B in {{1, 4, 16, 24}} and (2, {MAIN_BATCH}), float32 "
+          f"{D_PAD}}}, B in {{1, 4, 16, 24, {MAIN_CHUNK}}} and "
+          f"(2, {MAIN_BATCH}), float32 "
           f"and bf16, zeros and -0.0)", flush=True)
     # ---- timings at the main path's shapes: x (B=4, bf16) per MLP call,
     # the float32 gate weights at load, the counts at B=4
@@ -1756,6 +1831,22 @@ def phase_serve_controller(results: dict) -> None:
             fail(f"serve-controller ({strategy}): warmup {warm} steps, "
                  f"setups {dict(srv._trace_counts)}, buckets "
                  f"{set(srv.bucket_history)} (ladder {ladder})")
+        # random weights keep the union demand near 1, so the serve holds
+        # the top rung; a forced demand estimate must move the selection
+        # down the ladder (slack 1.3, rounded up to 128 neurons: 0.05 ->
+        # 96 groups -> the lowest rung, 0.15 -> 272 -> the middle one)
+        held = ctl.state.union_ema
+        picks = {}
+        for demand in (0.05, 0.15, 1.0):
+            ctl.state.union_ema = np.full_like(ctl.state.density_ema,
+                                               demand)
+            picks[demand] = srv._select_bucket()
+        ctl.state.union_ema = held
+        print(f"[serve-controller] {strategy}: forced union demand -> "
+              f"bucket {picks}", flush=True)
+        if list(picks.values()) != sorted(ladder):
+            fail(f"serve-controller ({strategy}): forced demands selected "
+                 f"{picks}, want the rungs {sorted(ladder)} in order")
         results[f"launches_ctrl_{strategy}"] = counts
         if strategy == "gather":
             profile_controller_steps(srv, cfg)

@@ -16,15 +16,16 @@ import torch
 
 
 class Selection(NamedTuple):
-    """Fixed-shape selection of surviving groups."""
+    """Fixed-shape selection of surviving groups (leading dims ``...``:
+    one independent selection each)."""
 
-    indices: torch.Tensor  # (C,) int32 — padded past `count` with 0
-    valid: torch.Tensor    # (C,) bool
-    count: torch.Tensor    # () int32
+    indices: torch.Tensor  # (..., C) int32 — padded past `count` with 0
+    valid: torch.Tensor    # (..., C) bool
+    count: torch.Tensor    # (...) int32
 
 
 class SelectionStats(NamedTuple):
-    """Telemetry of one capacity selection (all 0-d tensors)."""
+    """Telemetry of one capacity selection (each of shape ``...``)."""
 
     predicted: torch.Tensor  # int32 — entries the predictor keeps
     selected: torch.Tensor   # int32 — survivors after the capacity clamp
@@ -33,14 +34,15 @@ class SelectionStats(NamedTuple):
 
 
 def capacity_select(margin: torch.Tensor, capacity: int) -> Selection:
-    """Top-``capacity`` smallest margins of ``margin`` (k,), valid entries
-    compacted to the front (stable), padding re-pointed at index 0."""
+    """Top-``capacity`` smallest margins of ``margin`` (..., k) along the
+    last axis, valid entries compacted to the front (stable), padding
+    re-pointed at index 0."""
     capacity = min(capacity, margin.shape[-1])
-    idx = torch.sort(margin, stable=True).indices[:capacity]
-    valid = margin[idx] <= 0
-    count = valid.sum(dtype=torch.int32)
-    order = torch.sort((~valid).to(torch.int8), stable=True).indices
-    idx, valid = idx[order], valid[order]
+    idx = torch.sort(margin, dim=-1, stable=True).indices[..., :capacity]
+    valid = margin.gather(-1, idx) <= 0
+    count = valid.sum(-1, dtype=torch.int32)
+    order = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices
+    idx, valid = idx.gather(-1, order), valid.gather(-1, order)
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     return Selection(idx.to(torch.int32), valid, count)
 
@@ -50,7 +52,7 @@ def capacity_select_with_stats(margin: torch.Tensor, capacity: int
     """:func:`capacity_select` plus its overflow/occupancy telemetry."""
     sel = capacity_select(margin, capacity)
     cap_eff = min(capacity, margin.shape[-1])
-    predicted = (margin <= 0).sum(dtype=torch.int32)
+    predicted = (margin <= 0).sum(-1, dtype=torch.int32)
     occupancy = sel.count.to(torch.float32) / float(cap_eff)
     return sel, SelectionStats(predicted, sel.count, predicted - sel.count,
                                occupancy)
@@ -64,8 +66,10 @@ def clamp_selection(sel: Selection, stats: SelectionStats, capacity
     entries a contiguous prefix, so keeping the first ``capacity`` entries
     equals selecting with that capacity directly.  The shape stays at the
     wide ``len(sel.indices)``; clamped-off entries are re-pointed at group 0
-    and marked invalid, like capacity padding."""
-    cap_max = sel.indices.shape[0]
+    and marked invalid, like capacity padding.  Kept for parity with the
+    reference, whose sharded per-shard ladder calls it; nothing in the
+    unsharded port does yet."""
+    cap_max = sel.indices.shape[-1]
     dev = sel.indices.device
     cap = torch.as_tensor(capacity, dtype=torch.int32, device=dev)
     keep = torch.arange(cap_max, dtype=torch.int32, device=dev) < cap
@@ -104,10 +108,13 @@ def take_row_groups(w_grouped: torch.Tensor,
 
 
 def mask_from_selection(sel: Selection, k: int) -> torch.Tensor:
-    """Boolean keep-mask (k,) of a Selection's valid entries."""
-    mask = torch.zeros((k,), dtype=torch.bool, device=sel.indices.device)
-    mask[sel.indices[sel.valid].long()] = True
-    return mask
+    """Boolean keep-mask (..., k) of a Selection's valid entries.  A sum,
+    not an assignment: padding points at index 0 too, and must not clear a
+    selected group 0 (no boolean indexing, so no host sync on the card)."""
+    hits = torch.zeros(sel.indices.shape[:-1] + (k,), dtype=torch.int32,
+                       device=sel.indices.device)
+    return hits.scatter_add_(-1, sel.indices.long(),
+                             sel.valid.to(torch.int32)) > 0
 
 
 def expected_capacity(k: int, sparsity: float, slack: float = 1.3,

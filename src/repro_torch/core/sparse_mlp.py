@@ -233,11 +233,8 @@ def gather_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
 
     m_tok = _margins(params, xg, alpha)                     # (G, B, k)
     gm = S.group_margins(m_tok.amin(1), g)                  # (G, k/g)
-    picks = [S.capacity_select_with_stats(gm[i], cap) for i in range(ngrp)]
-    idx = torch.stack([s.indices for s, _ in picks])        # (G, C)
-    valid = torch.stack([s.valid for s, _ in picks])
-    count = torch.stack([s.count for s, _ in picks])        # (G,)
-    overflow = torch.stack([st.overflow for _, st in picks])
+    sel, sstats = S.capacity_select_with_stats(gm, cap)     # (G, C)
+    idx, valid = sel.indices, sel.valid
 
     def take_rows(w_t):                                     # (G, C*g, d)
         return S.take_row_groups(w_t.reshape(k // g, g, d), idx).reshape(
@@ -264,12 +261,12 @@ def gather_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
     # demand (selected + clamp-dropped) is a per-group quantity
     kf = torch.tensor(float(k), device=x.device)
     grp_keep = (m_tok.reshape(ngrp, b, k // g, g) <= 0).any(-1)
-    sel_mask = torch.stack([S.mask_from_selection(s, k // g)
-                            for s, _ in picks])             # (G, k/g)
+    sel_mask = S.mask_from_selection(sel, k // g)           # (G, k/g)
     pred_frac = grp_keep.float().mean(-1)                   # (G, B)
     real_frac = (grp_keep & sel_mask[:, None]).sum(
         -1, dtype=torch.float32) * g / kf
-    union = (count.float() * g / kf + overflow.float() * g / kf)[:, None]
+    union = (sel.count.float() * g / kf
+             + sstats.overflow.float() * g / kf)[:, None]
     stats = _stats(
         (ngrp, b), x.device,
         predicted_density=pred_frac,

@@ -249,3 +249,27 @@ def test_selection_helpers_match_reference(narrow):
     for k, sparsity in ((11008, 0.6), (512, 0.93), (128, 0.0)):
         assert TS.expected_capacity(k, sparsity) == \
             JS.expected_capacity(k, sparsity)
+
+
+@pytest.mark.parametrize("cap", [16, 64, 128])
+def test_batched_selection_matches_reference_per_row(cap):
+    """capacity_select_with_stats and mask_from_selection over a (G, k)
+    batch of margins (gather's grouped input) equal the reference's, row by
+    row, tie order included; row 0 selects group 0 beside padding that
+    also points at group 0, which must stay in the mask."""
+    m = np.random.default_rng(cap).integers(-6, 3, size=(4, 128)).astype(
+        np.float32)
+    m[0] = 1.0
+    m[0, [0, 5, 9]] = -1.0                 # 3 valid, the rest padding
+    t_sel, t_st = TS.capacity_select_with_stats(torch.from_numpy(m), cap)
+    t_mask = TS.mask_from_selection(t_sel, 128)
+    assert bool(t_mask[0, 0]) and int(t_mask[0].sum()) == 3
+    for i in range(m.shape[0]):
+        j_sel, j_st = JS.capacity_select_with_stats(jnp.asarray(m[i]), cap)
+        for got, want in ((t_sel, j_sel), (t_st, j_st)):
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a[i].numpy(), np.asarray(b),
+                                              err_msg=f"row {i}")
+        np.testing.assert_array_equal(
+            t_mask[i].numpy(), np.asarray(JS.mask_from_selection(j_sel, 128)),
+            err_msg=f"row {i}")
