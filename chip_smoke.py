@@ -33,10 +33,18 @@ Phases, in order; any failure exits non-zero:
              versions at full width (H = K = 32, hd = 128, block 16): B in
              {1, 4, 16}, max_len 256 and 2048, fragmented tables with a shared
              block, lengths 0, a block boundary and max_len - 1, bf16 and
-             float32 pools; small-shape edges (GQA, softcap, window, block
-             1/8/32, hd 64/256); the write bitwise with collisions.  Each
-             is timed at the main path's shape (B=4, bf16 pool, 64-192 live
-             tokens) beside its bound, its plain version and a library call.
+             float32 pools; edges (GQA rep 2-8 and 48, softcap, window,
+             block 1/8/32, hd 64/256, and the cluster split's boundaries:
+             idle CTAs, spans ending on a tile of every CTA, windows of 1
+             row and of the last segment, none live, rep 8 at max_len
+             8192), each run twice and bitwise equal; the write bitwise
+             with collisions.  Each is timed at the main path's shape (B=4,
+             bf16 pool, 64-192 live tokens) beside its bound, its plain
+             version and a library call (attention: SDPA on a view gathered
+             beforehand, and gather + SDPA); the attention also with one
+             live row per slot, at doubled and equal lengths (its scaling),
+             at every cluster size, and at a long-context shape (B=16,
+             max_len 4096, lengths 512-4095) with its share of the bound.
   8. paged decode  2 full-width float32 layers against a fragmented float32
              pool, 8 teacher-forced steps: the kernel route on the card
              against the plain route on the CPU and the gather route on the
@@ -1238,12 +1246,70 @@ def _check_attention(tag, out, want, vp) -> float:
     return err
 
 
+def _attention_bound(lengths, b, h, kvh, hd, nbps, elem) -> tuple:
+    """Bytes: each live K and V row read once, q read, out (float32)
+    written, the table and lengths read; operations: the QK and PV
+    multiply-adds of the live rows."""
+    live = int((lengths.long() + 1).clamp(max=nbps * PAGE_BLOCK).sum())
+    n_bytes = (2 * live * kvh * hd * elem + b * h * hd * elem
+               + b * h * hd * 4 + b * nbps * 4 + b * 4)
+    return live, bound_ms(n_bytes, 4 * h * live * hd)
+
+
+def paged_scaling(gen, rng, flush) -> None:
+    """paged_attention's time (B=4, H = K = 32, hd 128, bf16) with one
+    live row per slot (the fixed cost), at the main path's lengths, at
+    those lengths doubled (max_len 512) and at every length 192: a kernel
+    bound by latency follows the longest slot, one bound by bytes the live
+    rows.  At the main lengths also each cluster size (checked against the
+    plain version) and the planned one with the L2 warm."""
+    import torch
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    for label, nbps, lens in (
+            ("one live row each", PAGED_NBPS[0], (0,) * MAIN_BATCH),
+            ("main", PAGED_NBPS[0], MAIN_LIVE),
+            ("main, max_len 512", 2 * PAGED_NBPS[0], MAIN_LIVE),
+            ("doubled", 2 * PAGED_NBPS[0], tuple(2 * n for n in MAIN_LIVE)),
+            ("all 192", PAGED_NBPS[0], (192,) * MAIN_BATCH)):
+        q, kp, vp, table, lengths = _paged_inputs(
+            gen, rng, MAIN_BATCH, 32, 32, 128, PAGE_BLOCK, nbps,
+            torch.bfloat16, torch.bfloat16, lengths=lens)
+        t = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths),
+                    iters=50, flush=flush)
+        live, bound = _attention_bound(lengths, MAIN_BATCH, 32, 32, 128,
+                                       nbps, 2)
+        print(f"[paged] scaling {label}: lengths {list(lens)} ({live} live "
+              f"rows, longest {max(lens) + 1}): kernel {t:.4f} ms, bound "
+              f"{bound[0]:.4f} ms", flush=True)
+        if label == "main":
+            # the cluster size against the plan's choice, L2 flushed and warm
+            want = ref.paged_attention_ref(q, kp, vp, table, lengths)
+            sweep = {}
+            for p in (1, 2, 4, 8):
+                _check_attention(f"main shape, P={p}", KA.paged_attention(
+                    q, kp, vp, table, lengths, cluster=p), want, vp)
+                sweep[p] = cuda_ms(lambda p=p: KA.paged_attention(
+                    q, kp, vp, table, lengths, cluster=p), iters=50,
+                    flush=flush)
+            warm = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table,
+                                                      lengths), iters=50)
+            print("[paged] scaling main by cluster size: " + ", ".join(
+                f"P={p} {t:.4f} ms ({KA.launch_plan(q, kp, table, p).fit} "
+                "clusters fit)" for p, t in sweep.items())
+                + f"; planned P={KA.launch_plan(q, kp, table).cluster} with "
+                f"the L2 warm {warm:.4f} ms", flush=True)
+        del q, kp, vp
+
+
 def phase_paged_kernels(results: dict) -> None:
     """paged_attention and paged_kv_write against their plain versions at
-    full width, then the timings at the main path's shape."""
+    full width and at the edges, then the timings at the main path's
+    shape, the attention's scaling with the slot lengths and the
+    long-context shape."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import paged_attn as KA
     from repro_torch.kernels import ref
 
@@ -1275,33 +1341,18 @@ def phase_paged_kernels(results: dict) -> None:
     def flush():
         flush_buf.zero_()
     b, nbps = MAIN_BATCH, PAGED_NBPS[0]
-    s_max = nbps * bs
     q, kp, vp, table, lengths = _paged_inputs(
         gen, rng, b, h, kvh, hd, bs, nbps, torch.bfloat16, torch.bfloat16,
         lengths=MAIN_LIVE)
     err = _check_attention(
-        "main shape", KA.paged_attention(q, kp, vp, table, lengths),
+        "main shape", _same_twice(
+            "main shape", lambda: KA.paged_attention(q, kp, vp, table,
+                                                     lengths)),
         ref.paged_attention_ref(q, kp, vp, table, lengths), vp)
-    t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths),
-                  iters=50, flush=flush)
-    t_p = cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
-                                                  lengths),
-                  iters=10, flush=flush)
-    # yardstick: SDPA on a dense (B, K, S, hd) view gathered beforehand
-    # (the gather is left out of its time)
-    kd = kp[table.long()].reshape(b, s_max, kvh, hd).transpose(1, 2) \
-        .contiguous()
-    vd = vp[table.long()].reshape(b, s_max, kvh, hd).transpose(1, 2) \
-        .contiguous()
-    live_mask = (torch.arange(s_max, device=dev)[None, :]
-                 <= lengths[:, None])[:, None, None, :]
-    qd = q[:, :, None, :]
-    t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=live_mask), iters=50, flush=flush)
-    live = int((lengths.long() + 1).sum())
-    a_bytes = (2 * live * kvh * hd * 2 + b * h * hd * 2 + b * h * hd * 4
-               + b * nbps * 4 + b * 4)
-    a_bound = bound_ms(a_bytes, 4 * h * live * hd)
+    pl = KA.launch_plan(q, kp, table)
+    t_k, t_p, t_lib, t_gl = _time_attention(q, kp, vp, table, lengths,
+                                            flush, plain_iters=10)
+    live, a_bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
     # the decode step's write: each slot's row at its length
     blk = table.gather(1, (lengths.long() // bs)[:, None])[:, 0]
     off = lengths % bs
@@ -1314,9 +1365,11 @@ def phase_paged_kernels(results: dict) -> None:
     t_wl = cuda_ms(lambda: kp.index_put_((bl, ol), vals), iters=50)
     w_bound = bound_ms(2 * b * kvh * hd * 2 + 2 * b * 4, 0)
     print(f"[paged] paged_attention B={b} bf16 lengths {list(MAIN_LIVE)} "
-          f"({live} live rows): max_abs_err {err:.3e} kernel {t_k:.4f} ms "
-          f"plain {t_p:.4f} ms bound {a_bound[0]:.4f} ms ({a_bound[1]}) "
-          f"sdpa-on-gathered-view {t_lib:.4f} ms", flush=True)
+          f"({live} live rows; {pl}): max_abs_err {err:.3e}, bitwise "
+          f"repeatable; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound "
+          f"{a_bound[0]:.4f} ms ({a_bound[1]}) sdpa-on-gathered-view "
+          f"{t_lib:.4f} ms gather+sdpa {t_gl:.4f} ms (kernel / sdpa "
+          f"{t_k / t_lib:.3f})", flush=True)
     print(f"[paged] paged_kv_write B={b} bf16: bitwise, kernel {t_w:.4f} ms"
           f" plain {t_wp:.4f} ms bound {w_bound[0]:.5f} ms ({w_bound[1]}) "
           f"index_put_ {t_wl:.4f} ms", flush=True)
@@ -1326,47 +1379,174 @@ def phase_paged_kernels(results: dict) -> None:
     results["paged_kv_write"] = dict(
         max_abs_err=0.0, ms=t_w, plain_ms=t_wp, bound_ms=w_bound[0],
         bound_by=w_bound[1], library_ms=t_wl)
+    del q, kp, vp
+    paged_scaling(gen, rng, flush)
+    paged_long(gen, rng, flush)
     print(f"[paged] paged_attention agrees with its plain version in "
           f"{2 * len(BATCHES) * len(PAGED_NBPS)} full-width cases (max "
-          f"abs err {worst:.3e}) and {n_edge} small-shape cases; "
+          f"abs err {worst:.3e}) and {n_edge} edge cases; "
           f"paged_kv_write is bitwise in {n_write} cases", flush=True)
-    del q, kp, vp, kd, vd, flush_buf
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
+def _same_twice(tag, fn):
+    """fn() twice on the same inputs: the outputs must be bitwise equal
+    (no float atomics, fixed reduction orders)."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"paged_attention {tag}: two runs on the same inputs differ "
+             f"by {float((a - b).abs().max()):.3e}")
+    return a
+
+
+def _time_attention(q, kp, vp, table, lengths, flush, plain_iters):
+    """The kernel, its plain version, SDPA on a dense (B, K, S, hd) view
+    gathered beforehand (the gather left out of its time), and the gather
+    and SDPA together (H = K: SDPA takes no GQA here)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    b, _, hd = q.shape
+    kvh = kp.shape[2]
+    s_max = table.shape[1] * kp.shape[1]
+    tab = table.long()
+
+    def view(pages):
+        return pages[tab].reshape(b, s_max, kvh, hd).transpose(1, 2)
+    live_mask = (torch.arange(s_max, device=q.device)[None, :]
+                 <= lengths[:, None])[:, None, None, :]
+    qd = q[:, :, None, :]
+    t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths),
+                  iters=50, flush=flush)
+    t_p = cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
+                                                  lengths),
+                  iters=plain_iters, flush=flush)
+    kd, vd = view(kp).contiguous(), view(vp).contiguous()
+    t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=live_mask), iters=50, flush=flush)
+    del kd, vd
+    t_gl = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, view(kp), view(vp), attn_mask=live_mask), iters=20,
+        flush=flush)
+    return t_k, t_p, t_lib, t_gl
+
+
+def paged_long(gen, rng, flush) -> None:
+    """The long-context timed shape: B=16, H = K = 32, hd 128, bf16 pool,
+    max_len 4096, lengths spread over 512-4095 (a ~1.1 GB pool, ~0.6 GB
+    of live K and V rows per call)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    b, h, kvh, hd, nbps = 16, 32, 32, 128, 4096 // PAGE_BLOCK
+    # the phase's seed alone: these lengths do not move with the draws of
+    # the cases before this one
+    lens = [int(x) for x in
+            np.random.default_rng(8).integers(512, 4096, size=b)]
+    q, kp, vp, table, lengths = _paged_inputs(
+        gen, rng, b, h, kvh, hd, PAGE_BLOCK, nbps, torch.bfloat16,
+        torch.bfloat16, lengths=lens)
+    err = _check_attention(
+        "long shape", _same_twice(
+            "long shape", lambda: KA.paged_attention(q, kp, vp, table,
+                                                     lengths)),
+        ref.paged_attention_ref(q, kp, vp, table, lengths), vp)
+    pl = KA.launch_plan(q, kp, table)
+    t_k, t_p, t_lib, t_gl = _time_attention(q, kp, vp, table, lengths,
+                                            flush, plain_iters=3)
+    live, bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
+    print(f"[paged] paged_attention long shape B={b} bf16 max_len "
+          f"{nbps * PAGE_BLOCK} lengths {min(lens)}-{max(lens)} ({live} live "
+          f"rows; {pl}): max_abs_err {err:.3e}, bitwise repeatable; kernel "
+          f"{t_k:.4f} ms plain {t_p:.4f} ms bound {bound[0]:.4f} ms "
+          f"({bound[1]}; share of bound {bound[0] / t_k:.3f}) "
+          f"sdpa-on-gathered-view {t_lib:.4f} ms gather+sdpa {t_gl:.4f} ms",
+          flush=True)
+    del q, kp, vp
     torch.cuda.empty_cache()
 
 
 def phase_paged_edges() -> int:
-    """paged_attention's other paths at small shapes: GQA rep 2/4/8, hd 64
-    and 256, block 1/8/32, softcap, window (with a length past it: no live
-    lane, a uniform softmax), float32 q on a bf16 pool, lengths past
-    max_len."""
+    """paged_attention's other paths: GQA rep 2/4/6/8 and 48 (six CTAs'
+    groups of query heads), hd 64 and 256, block 1/8/32, softcap, window
+    (with a length past it: no live lane, a uniform softmax), float32 q on
+    a bf16 pool, lengths past max_len; then the cluster split's edges at
+    P = 8: a slot shorter than one CTA's share (P - 1 idle CTAs), spans
+    that end exactly on a tile of every CTA and one past it, lengths at a
+    page boundary, windows of 1 row, of a tile and a few rows, and of the
+    last ceil(max_len / P) rows, none live at P = 8, and rep 8 at max_len
+    8192.  Each case twice: bitwise equal runs."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attn as KA
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     rng = np.random.default_rng(9)
     bf, f32 = torch.bfloat16, torch.float32
-    n = 0
-    for b, h, kvh, hd, bs, nbps, kv_dt, q_dt, softcap, window in [
-            (3, 8, 4, 64, 8, 6, bf, bf, 0.0, 0),
-            (3, 16, 4, 128, 1, 40, f32, f32, 0.0, 0),
-            (2, 16, 2, 64, 32, 3, bf, f32, 30.0, 0),
-            (5, 8, 8, 128, 16, 4, f32, bf, 0.0, 7),
-            (5, 4, 1, 256, 8, 5, bf, bf, 20.0, 9),
-            (4, 32, 4, 64, 8, 16, f32, f32, 0.0, 0)]:
+
+    def small(pl, s_max, bs, window):
+        return [s_max - 1, 0, bs, s_max + 10, 3]
+
+    def split(pl, s_max, bs, window):
+        p, tr = pl.cluster, pl.tile_rows
+        return [0, p - 2, p * tr - 1, p * tr, 9 * bs - 1, 9 * bs, s_max - 1]
+
+    def windowed(pl, s_max, bs, window):
+        return [s_max - 1, 0, 77, s_max + window + 3]
+
+    def given(*lens):
+        return lambda pl, s_max, bs, window: list(lens)
+
+    cases = [
+        (3, 8, 4, 64, 8, 6, bf, bf, 0.0, 0, small),
+        (3, 16, 4, 128, 1, 40, f32, f32, 0.0, 0, small),
+        (2, 16, 2, 64, 32, 3, bf, f32, 30.0, 0, small),
+        (5, 8, 8, 128, 16, 4, f32, bf, 0.0, 7, small),
+        (5, 4, 1, 256, 8, 5, bf, bf, 20.0, 9, small),
+        (4, 32, 4, 64, 8, 16, f32, f32, 0.0, 0, small),
+        (7, 8, 8, 128, 16, 64, bf, bf, 0.0, 0, split),
+        (7, 8, 8, 128, 16, 64, f32, f32, 0.0, 0, split),
+        (7, 8, 8, 128, 16, 64, bf, f32, 0.0, 0, split),
+        (4, 8, 8, 128, 16, 64, bf, bf, 0.0, 1, windowed),
+        (4, 8, 8, 128, 16, 64, bf, bf, 0.0, 35, windowed),
+        (4, 8, 8, 128, 16, 64, f32, f32, 5.0, 128, windowed),
+        (2, 32, 4, 128, 16, 512, bf, bf, 0.0, 0, given(8191, 5000)),
+        (2, 32, 4, 128, 16, 512, bf, f32, 0.0, 0, given(4095, 8191)),
+        (4, 16, 16, 64, 16, 32, bf, bf, 0.0, 0, given(511, 0, 200, 33)),
+        (3, 8, 4, 256, 16, 32, f32, f32, 0.0, 0, given(511, 100, 0)),
+        (3, 8, 4, 256, 16, 32, bf, bf, 30.0, 0, given(300, 511, 17)),
+        (2, 48, 1, 128, 16, 8, bf, bf, 0.0, 0, given(127, 50)),
+        (3, 12, 2, 128, 16, 8, f32, f32, 0.0, 0, given(127, 64, 5)),
+    ]
+    for (b, h, kvh, hd, bs, nbps, kv_dt, q_dt, softcap, window,
+         lens_of) in cases:
         s_max = nbps * bs
-        lengths = [s_max - 1, 0, bs, s_max + 10, 3][:b]
-        q, kp, vp, table, lens = _paged_inputs(
-            gen, rng, b, h, kvh, hd, bs, nbps, kv_dt, q_dt, lengths=lengths)
+        q, kp, vp, table, _ = _paged_inputs(
+            gen, rng, b, h, kvh, hd, bs, nbps, kv_dt, q_dt, lengths=[0] * b)
+        pl = KA.launch_plan(q, kp, table)
+        lengths = lens_of(pl, s_max, bs, window)[:b]
+        lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
         kw = dict(softcap=softcap, window=window)
-        _check_attention(
-            f"B={b} H={h} K={kvh} hd={hd} block={bs} max_len={s_max} "
-            f"{kv_dt}/{q_dt} softcap={softcap} window={window}",
-            ops.paged_attention(q, kp, vp, table, lens, **kw),
+        tag = (f"B={b} H={h} K={kvh} hd={hd} block={bs} max_len={s_max} "
+               f"{str(kv_dt)[6:]}/{str(q_dt)[6:]} softcap={softcap} "
+               f"window={window} lengths={lengths} (P={pl.cluster}, "
+               f"tile {pl.tile_rows} rows, {pl.smem_bytes} B)")
+        err = _check_attention(
+            tag, _same_twice(tag, lambda: ops.paged_attention(
+                q, kp, vp, table, lens, **kw)),
             ref.paged_attention_ref(q, kp, vp, table, lens, **kw), vp)
-        n += 1
-    return n
+        print(f"[paged] edge {tag}: max_abs_err {err:.3e}", flush=True)
+    return len(cases)
 
 
 def phase_paged_write() -> int:

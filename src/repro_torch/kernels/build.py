@@ -36,9 +36,10 @@ SIGNATURES = {
     **{name: {f"{name}_plan": _MLP_PLAN, name: _MLP}
        for name in ("fused_sparse_mlp", "fused_sparse_mlp_chunk",
                     "fused_sparse_mlp_q", "fused_sparse_mlp_chunk_q")},
-    "paged_attention": {"paged_attention": [
-        _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-        _I, _P]},
+    "paged_attention": {
+        "paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
+        "paged_attention_max_clusters": [_I] * 11},
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _I, _I, _I, _I,
                                           _P]},
     "sign_pack": {"sign_pack": [_P, _I, _P, _I, _I, _P]},

@@ -16,8 +16,10 @@ import warnings
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import ControllerConfig as JControllerConfig
+from repro.configs.base import PagedKVConfig as JPagedKVConfig
 from repro.configs.base import DEFAULT_SLA_TIERS as J_TIERS
 from repro.configs.registry import reduced_config as j_reduced
 from repro.core.predictor import AlphaSchedule as JAlphaSchedule
@@ -25,7 +27,8 @@ from repro.models import lm as jlm
 from repro.runtime import controller as jctl
 from repro.runtime import server as jserver
 from repro_torch import bridge
-from repro_torch.configs.base import DEFAULT_SLA_TIERS, ControllerConfig
+from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ControllerConfig,
+                                      PagedKVConfig)
 from repro_torch.configs.registry import reduced_config as t_reduced
 from repro_torch.core.predictor import AlphaSchedule
 from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
@@ -149,13 +152,14 @@ def test_state_dict_round_trip_and_rejections():
 
 # ------------------------------------------------------------- servers ----
 
-def _model_cfgs(strategy: str, buckets=(), d_ff=512):
+def _model_cfgs(strategy: str, buckets=(), d_ff=512, weights=""):
     out = []
     for reduced in (j_reduced, t_reduced):
         cfg = reduced(ARCH)
         out.append(cfg.replace(d_ff=d_ff, sparse=dataclasses.replace(
             cfg.sparse, strategy=strategy, capacity_frac=0.5,
-            capacity_buckets=buckets, sparse_prefill=True)))
+            capacity_buckets=buckets, sparse_prefill=True,
+            weight_dtype=weights, quant_group_size=32)))
     return out
 
 
@@ -191,15 +195,13 @@ def _close(a, b, path=""):
         assert a == b, (path, a, b)
 
 
-@pytest.mark.parametrize("strategy,per_tier", [
-    ("gather", True), ("gather", False), ("pallas", True),
-    ("pallas", False)])
-def test_server_with_controller_matches_reference(strategy, per_tier):
-    """gather: masked audits every 4th step and a 3-rung capacity ladder;
-    pallas: native false negatives, no audits.  Both with the prefill
-    rider (chunks of 8, sparse prefill) and mixed tiers."""
-    buckets = (0.25, 0.5, 1.0) if strategy == "gather" else ()
-    jcfg, tcfg = _model_cfgs(strategy, buckets)
+def _serve_both(strategy, per_tier, buckets, *, weights="", paged=False,
+                prefix=0):
+    """The reference's and the port's controller-driven servers on one
+    queue of 5 mixed-tier requests (the first ``prefix`` tokens shared by
+    all): tokens, the controller's report within 1e-5, audits, prefill
+    chunks, the bucket sequence and the final alphas.  Returns both."""
+    jcfg, tcfg = _model_cfgs(strategy, buckets, weights=weights)
     jp, tp = _params()
     # fn_budget 0.5: the false-negative term (reduced dims mispredict
     # often) must not hold alpha up, or the union never leaves the top rung
@@ -207,10 +209,14 @@ def test_server_with_controller_matches_reference(strategy, per_tier):
                 audit_period=4, fn_budget=0.5, per_tier=per_tier,
                 prefill_weight=0.5)
     kw = dict(batch=2, max_len=64, prefill_chunk=8, prefill_interleave=2)
+    jkw, tkw = dict(kw), dict(kw)
+    if paged:
+        jkw["paged_kv"] = JPagedKVConfig(block_size=8)
+        tkw["paged_kv"] = PagedKVConfig(block_size=8)
     jsrv = jserver.Server(jlm, jcfg, jserver.ServeConfig(
-        controller=JControllerConfig(**ccfg), **kw), jp)
+        controller=JControllerConfig(**ccfg), **jkw), jp)
     tsrv = Server(lm, tcfg, ServeConfig(
-        controller=ControllerConfig(**ccfg), **kw), tp, device="cpu")
+        controller=ControllerConfig(**ccfg), **tkw), tp, device="cpu")
     j_buckets = []
     select = jsrv._select_bucket
 
@@ -219,8 +225,13 @@ def test_server_with_controller_matches_reference(strategy, per_tier):
         return j_buckets[-1]
     jsrv._select_bucket = recording_select
     slas = ("latency", "balanced", "quality")
-    jdone = jsrv.serve(_requests(3, 5, jcfg.vocab, slas, jserver.Request))
-    tdone = tsrv.serve(_requests(3, 5, tcfg.vocab, slas))
+    shared = np.random.default_rng(9).integers(0, jcfg.vocab, size=prefix)
+    jreqs = _requests(3, 5, jcfg.vocab, slas, jserver.Request)
+    treqs = _requests(3, 5, tcfg.vocab, slas)
+    for r in jreqs + treqs:
+        r.prompt = np.concatenate([shared, r.prompt])
+    jdone = jsrv.serve(jreqs)
+    tdone = tsrv.serve(treqs)
     for jr, tr in zip(sorted(jdone, key=lambda r: r.uid),
                       sorted(tdone, key=lambda r: r.uid)):
         np.testing.assert_array_equal(tr.out, jr.out, err_msg=f"uid {tr.uid}")
@@ -234,6 +245,44 @@ def test_server_with_controller_matches_reference(strategy, per_tier):
         assert set(j_buckets) <= {16, 32, 64} and len(set(j_buckets)) > 1
     np.testing.assert_allclose(tsrv.controller.alphas(),
                                jsrv.controller.alphas(), rtol=0, atol=1e-5)
+    return jsrv, tsrv
+
+
+@pytest.mark.parametrize("strategy,per_tier", [
+    ("gather", True), ("gather", False), ("pallas", True),
+    ("pallas", False)])
+def test_server_with_controller_matches_reference(strategy, per_tier):
+    """gather: masked audits every 4th step and a 3-rung capacity ladder;
+    pallas: native false negatives, no audits.  Both with the prefill
+    rider (chunks of 8, sparse prefill) and mixed tiers."""
+    buckets = (0.25, 0.5, 1.0) if strategy == "gather" else ()
+    _serve_both(strategy, per_tier, buckets)
+
+
+@pytest.mark.parametrize("strategy", ["gather", "pallas", "masked"])
+def test_controller_on_paged_pool_matches_reference(strategy):
+    """The controller-driven server on a paged KV pool (blocks of 8, 18 in
+    all, so blocks are evicted) with a 16-token prefix shared by every
+    request: as above, and the pool's counters equal the reference's.
+    Sparse prefill salts the prefix trie with the prefill alphas, which
+    the controller moves every step, so in both packages no request takes
+    the shared prefix by reference here.  masked runs without a ladder (it
+    selects no capacity)."""
+    buckets = (0.25, 0.5, 1.0) if strategy == "gather" else ()
+    jsrv, tsrv = _serve_both(strategy, True, buckets, paged=True, prefix=16)
+    assert tsrv.paged_stats() == jsrv.paged_stats()
+    assert tsrv.paged_stats()["committed_blocks"] > 0
+    tsrv.kv_pool.check_invariants()
+
+
+@pytest.mark.parametrize("strategy", ["gather", "pallas", "masked"])
+def test_controller_with_int8_weights_matches_reference(strategy):
+    """The controller-driven server with int8 MLP weights (quant groups of
+    32): gather's row-group gathers and masked's audits dequantize, pallas
+    runs the int8 fused kernels' plain versions."""
+    buckets = (0.25, 0.5, 1.0) if strategy == "gather" else ()
+    _, tsrv = _serve_both(strategy, True, buckets, weights="int8")
+    assert tsrv.params["blocks"][0]["mlp"]["wg_q"].dtype == torch.int8
 
 
 def test_frozen_controller_reproduces_static_tokens():

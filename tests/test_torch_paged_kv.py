@@ -44,6 +44,7 @@ from repro_torch.configs.registry import default_sparse
 from repro_torch.configs.registry import reduced_config as t_reduced
 from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attn as KA
 from repro_torch.layers import attention as A
 from repro_torch.models import lm
 from repro_torch.runtime import kv_pool as tkv
@@ -161,6 +162,229 @@ def test_launch_counts_untouched_by_paged_ops_on_cpu():
     test_paged_kv_write_bitwise_with_collisions("float32")
     assert ops.launch_counts()["paged_kv_write"] == 0
     assert ops.launch_counts()["paged_attention"] == 0
+
+
+# ------------------------------------------- the attention's host plan ----
+
+def H100(p: int, smem: int) -> int:
+    """plan's max_clusters for an H100's 132 SMs, off the card: CTAs per SM
+    limited by threads (2048) and shared memory (228 KB, 1 KB reserved per
+    CTA) only; the card's occupancy calculator also counts registers and
+    cluster placement."""
+    per_sm = min(2048 // KA.THREADS, 233472 // (smem + 1024))
+    return 132 * per_sm // p
+
+
+def _layout(rg, hd, elem, bs, seg, tr):
+    """csrc/paged_attention.cu's shared memory, region by region: the ring
+    of 3 K/V tiles (or the 128 threads' row-group partial outputs, if
+    larger), q, the partial output, the scores, maxima, sums and block ids,
+    each padded to 16 bytes."""
+    pad = lambda x: -(-x // 16) * 16                      # noqa: E731
+    ring = max(3 * tr * hd * elem, 128 // (hd * elem // 16) * hd * 4)
+    return (pad(ring) + 2 * pad(rg * hd * 4) + pad(rg * seg * 4)
+            + 2 * pad(rg * 4) + pad((-(-seg // bs) + 1) * 4))
+
+
+# name: (B, H, K, hd, block, nbps, bytes per value), (P, query heads per
+# CTA, tile rows, score rows per CTA)
+PLANS = {
+    "main": ((4, 32, 32, 128, 16, 16, 2), (4, 1, 32, 64)),
+    "long": ((16, 32, 32, 128, 16, 256, 2), (8, 1, 32, 512)),
+    "B=16 max_len 256": ((16, 32, 32, 128, 16, 16, 2), (2, 1, 32, 128)),
+    "B=1": ((1, 32, 32, 128, 16, 16, 2), (4, 1, 32, 64)),
+    "rep 8 max_len 8192": ((2, 32, 4, 128, 16, 512, 2), (8, 8, 32, 1024)),
+    "rep 8 max_len 8192 float32": ((2, 32, 4, 128, 16, 512, 4),
+                                   (8, 8, 16, 1024)),
+    "hd 64": ((4, 16, 16, 64, 16, 32, 2), (8, 1, 64, 64)),
+    "hd 256 float32": ((3, 8, 4, 256, 16, 32, 4), (8, 2, 8, 64)),
+    "MQA rep 48": ((2, 48, 1, 128, 16, 8, 2), (2, 8, 32, 64)),
+    "rep 6": ((3, 12, 2, 128, 16, 8, 4), (2, 8, 16, 64)),
+    "block 1": ((3, 16, 4, 128, 1, 40, 4), (1, 4, 16, 40)),
+    "max_len 1": ((4, 8, 8, 128, 1, 1, 2), (1, 1, 32, 1)),
+    "B=64 GQA max_len 2048": ((64, 32, 8, 128, 16, 128, 2), (4, 4, 32, 512)),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_attention_plan_shapes(name):
+    """Cluster size, query-head group, tile rows and score rows for the
+    main and long timed shapes and the edge shapes of chip_smoke.py on an
+    H100's 132 SMs, and the shared memory of the kernel's layout."""
+    (b, h, kvh, hd, bs, nbps, elem), want = PLANS[name]
+    pl = KA.plan(b, h, kvh, hd, bs, nbps, elem, H100)
+    assert (pl.cluster, pl.rep_group, pl.tile_rows, pl.seg_rows) == want
+    assert pl.seg_rows == -(-nbps * bs // pl.cluster)
+    assert pl.clusters == b * kvh * -(-(h // kvh) // pl.rep_group)
+    assert pl.smem_bytes == _layout(pl.rep_group, hd, elem, bs, pl.seg_rows,
+                                    pl.tile_rows) <= KA.SMEM_LIMIT
+    assert pl.tile_rows * hd * elem <= KA.STAGE_BYTES or \
+        pl.tile_rows == KA.MIN_TILE_ROWS
+
+
+def test_attention_plan_main_shape_bytes():
+    """The main shape's CTA, region by region: 3 tiles of 32 bf16 rows of
+    256 bytes, q and o of one head, 64 scores, m and l, 5 block ids; its
+    128 clusters of 4 all fit on the card at once."""
+    pl = KA.plan(4, 32, 32, 128, 16, 16, 2, H100)
+    assert pl.smem_bytes == 3 * 32 * 256 + 512 + 512 + 256 + 16 + 16 + 32
+    assert pl.clusters == 128 <= pl.fit
+
+
+def test_attention_plan_splits_only_while_the_grid_fits():
+    """The cluster doubles only while the doubled clusters all fit on the
+    card at once: with room for 124 clusters of 4 (a second wave for the
+    main shape's 128) it stops at 2; past one wave a long max_len still
+    splits to 8, down to 512 rows a CTA."""
+    def card(fit4):
+        return lambda p, smem: {1: 1056, 2: 528, 4: fit4, 8: fit4 // 2}[p]
+    assert KA.plan(4, 32, 32, 128, 16, 16, 2, card(128)).cluster == 4
+    assert KA.plan(4, 32, 32, 128, 16, 16, 2, card(124)).cluster == 2
+    long = KA.plan(16, 32, 32, 128, 16, 256, 2, card(124))
+    assert (long.cluster, long.seg_rows) == (8, 512) and long.fit < 512
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        KA.plan(4, 32, 32, 128, 16, 16, 2, lambda p, smem: 0)
+    assert KA.plan(4, 32, 32, 128, 16, 16, 2, H100, cluster=8).cluster == 8
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        KA.plan(4, 32, 32, 128, 16, 16, 2, H100, cluster=3)
+
+
+def test_attention_plan_takes_rep8_at_8192():
+    """Refused before the split (rep 8 x 8192 float32 scores in one CTA:
+    262144 bytes), taken now: the cluster of 8 holds 1024 rows a CTA."""
+    assert 8 * 8192 * 4 > KA.SMEM_LIMIT
+    pl = KA.plan(2, 32, 4, 128, 16, 512, 2, H100)
+    assert pl.cluster == 8 and pl.smem_bytes <= KA.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("rep", [1, 3, 8, 16])
+def test_attention_plan_within_limit_or_raises(rep, elem):
+    """Whenever the plan accepts a shape its CTA fits the shared memory
+    limit, with a portable cluster (1-8 CTAs, never more than max_len
+    rows); otherwise it raises a ValueError that names the limit."""
+    kvh = 4
+    for b in (1, 4, 64):
+        for hd in (64, 128, 256):
+            for bs, nbps in ((1, 64), (16, 16), (16, 512), (16, 4096)):
+                s_max = nbps * bs
+                try:
+                    pl = KA.plan(b, rep * kvh, kvh, hd, bs, nbps, elem,
+                                 H100)
+                except ValueError as e:
+                    assert f"limit of {KA.SMEM_LIMIT}" in str(e)
+                    assert rep >= 8 and s_max > 8192
+                    continue
+                assert pl.cluster in (1, 2, 4, 8) and pl.cluster <= s_max
+                assert pl.smem_bytes <= KA.SMEM_LIMIT
+                assert pl.rep_group == min(8, 1 << (rep - 1).bit_length())
+                assert pl.seg_rows <= max(KA.MAX_SEG_ROWS, -(-s_max // 8))
+
+
+def test_attention_plan_rejects_impossible_shapes():
+    with pytest.raises(ValueError, match=f"limit of {KA.SMEM_LIMIT}"):
+        KA.plan(1, 32, 4, 128, 16, 4096, 2, H100)        # rep 8 x 65536
+    with pytest.raises(ValueError, match="at most 256"):
+        KA.plan(1, 4, 4, 512, 16, 4, 2, H100)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        KA.plan(1, 4, 4, 100, 16, 4, 2, H100)
+    with pytest.raises(ValueError, match="H a multiple of K"):
+        KA.plan(1, 6, 4, 128, 16, 4, 2, H100)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_attention_segments_cover_the_span(p):
+    """The P segments of a live span [t_lo, t_hi] tile it in rank order
+    with no gap and no overlap, each at most ceil(max_len / P) rows; a
+    span shorter than P leaves the last CTAs empty."""
+    s_max = 256
+    seg_rows = -(-s_max // p)
+    for t_lo, t_hi in [(0, 0), (0, p - 2), (0, p - 1), (0, p), (5, 9),
+                       (0, 31), (0, 32 * p - 1), (0, 32 * p), (17, 200),
+                       (s_max - 1, s_max - 1), (0, s_max - 1)]:
+        if t_hi < t_lo or t_hi >= s_max:
+            continue
+        rows, idle = [], 0
+        for rank in range(p):
+            a, n = KA.segment(t_lo, t_hi, p, rank)
+            assert 0 <= n <= seg_rows
+            rows.extend(range(a, a + n))
+            idle += n == 0
+        assert rows == list(range(t_lo, t_hi + 1))
+        span = t_hi - t_lo + 1
+        assert idle == p - -(-span // -(-span // p))
+
+
+def _cluster_attention(q, kp, vp, table, lengths, p, softcap=0.0,
+                       window=0):
+    """The kernel's dataflow on the CPU: each of the cluster's p CTAs
+    scores its segment, all take the global maximum, round p = exp(s - m)
+    to the pool dtype, and the partial outputs and sums are added in rank
+    order."""
+    b, h, hd = q.shape
+    _, bs, kvh, _ = kp.shape
+    s_max = table.shape[1] * bs
+    rep = h // kvh
+    out = torch.empty((b, h, hd))
+    for bi in range(b):
+        ln = int(lengths[bi])
+        t_lo = max(0, ln - window + 1) if window > 0 else 0
+        t_hi = min(ln, s_max - 1)
+        none_live = t_hi < t_lo
+        if none_live:
+            t_lo, t_hi = 0, s_max - 1
+        for hi in range(h):
+            kh = hi // rep
+            qr = q[bi, hi].to(kp.dtype).float()
+            segs = []
+            for rank in range(p):
+                a, n = KA.segment(t_lo, t_hi, p, rank)
+                t = torch.arange(a, a + n)
+                blk = table[bi].long()[t // bs].clamp(0, kp.shape[0] - 1)
+                k = kp[blk, t % bs, kh].float()
+                v = vp[blk, t % bs, kh].float()
+                s = k @ qr
+                s = (torch.tanh(s * ((hd ** -0.5) / softcap)) * softcap
+                     if softcap > 0 else s * hd ** -0.5)
+                if none_live:
+                    s = torch.full((n,), NEG_INF)
+                segs.append((s, v))
+            m = max(float(s.max()) for s, _ in segs if len(s))
+            o, l = torch.zeros(hd), torch.zeros(())
+            for s, v in segs:
+                pr = torch.exp(s - m)
+                o = o + pr.to(vp.dtype).float() @ v
+                l = l + pr.sum()
+            out[bi, hi] = o / torch.clamp(l, min=1e-30)
+    return out
+
+
+NEG_INF = -1e30
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [1, 4, 8])
+@pytest.mark.parametrize("softcap,window", OPTIONS + [(0.0, 1), (0.0, 3)])
+def test_cluster_split_matches_plain_version(dtype, p, softcap, window):
+    """The split with one global maximum gives the plain version's output
+    (up to summation order): lengths 0, shorter than P, at a block
+    boundary, s_max - 1 and past it (none live with a window)."""
+    rng = np.random.default_rng([p, len(dtype), window])
+    b, h, kvh, hd, bs, nbps = 6, 4, 2, 8, 4, 4
+    n, table = _fragmented(rng, b, nbps)
+    s_max = nbps * bs
+    lengths = torch.tensor([0, 2, bs, s_max - 1, 9, s_max + 20])
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    kp = torch.from_numpy(rng.standard_normal((n, bs, kvh, hd))).to(tdt)
+    vp = torch.from_numpy(rng.standard_normal((n, bs, kvh, hd))).to(tdt)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    tab = torch.from_numpy(table)
+    got = _cluster_attention(q, kp, vp, tab, lengths, p, softcap, window)
+    want = ops.paged_attention(q, kp, vp, tab, lengths, softcap=softcap,
+                               window=window)
+    tol = 2 ** -8 * float(vp.float().abs().max()) if dtype == "bfloat16" \
+        else 1e-5
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 # ------------------------------------------------------------- KVPool ------
