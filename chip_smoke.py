@@ -9,11 +9,17 @@ Phases, in order; any failure exits non-zero:
              at prosparse-llama2-7b's full width (d=4096, k=11008, G=8,
              C=288, int8 quant groups of 128): the decode kernels at B in
              {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead slot};
-             the chunk kernels at S in {17, 64, 128} rows with pad rows; the
-             int8 decode kernel at B in {1, 4, 16}; small-shape edge cases;
-             a decode batch of 24 through the ops layer.  Each is timed at
+             the chunk kernels at S in {17, 64, 128, 256} rows with pad
+             rows (the float32 one run twice and bitwise equal); the int8
+             decode kernel at B in {1, 4, 16}; small-shape edge cases; a
+             decode batch of 24 through the ops layer.  Each is timed at
              the main path's shape beside its bound, its plain version and
-             a library yardstick where one PyTorch call computes it.
+             a library yardstick where one PyTorch call computes it (the
+             float32 chunk MLP: three matmuls on the selected rows gathered
+             beforehand, and on all rows); then the float32 chunk MLP's
+             scaling line, S in {16, 32, 64, 128, 256} at the full and a
+             third of the selection (and none at S=64), each with the
+             kernel's phase trace of one launch.
   3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
              and KV cache: 8 teacher-forced decode steps on the card against
              the same weights on the CPU (plain kernel versions), logits and
@@ -96,17 +102,20 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 rate
-# outside the tensor cores — the kernels' arithmetic runs on the CUDA cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
+# outside the tensor cores (where most kernels' arithmetic runs) and the
+# dense TF32 tensor-core rate (the chunk MLP's split float32 products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's ~1.98 GHz SM clock
 
 D, K, G = 4096, 11008, 8
 QG = 128                  # int8 quant group width
 BATCHES = (1, 4, 16)
-CHUNK_ROWS = (17, 64, 128)
+CHUNK_ROWS = (17, 64, 128, 256)
+SCALING_ROWS = (16, 32, 64, 128, 256)   # the chunk MLP's scaling line
 MAIN_BATCH = 4            # the serve phase's batch: the main path's shape
 MAIN_CHUNK = 64           # the chunked serve phase's prefill chunk
 PAGE_BLOCK = 16           # the paged pool's block size
@@ -165,6 +174,111 @@ def cuda_ms(fn, iters: int = 20, flush=None) -> float:
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def tc_bound_ms(n_bytes: float, n_ops: float,
+                passes: int) -> tuple[float, str]:
+    """bound_ms for the tensor-core chunk MLP: its ``n_ops`` float32 flops
+    run as ``passes`` TF32 products of split operands (2 with bf16 x, 3
+    with float32 x) at the TF32 dense peak."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, passes * n_ops / TF32_OPS_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def chunk_mlp_work(rows: int, count: int, cap: int,
+                   xbytes: int) -> tuple[int, int]:
+    """Bytes and flops of one chunk-MLP call: count*G rows of the three
+    float32 matrices, x, the selection and its count read once, y written
+    once; 6 flops per token, selected row and column."""
+    n_bytes = (3 * count * G * D * 4 + rows * D * xbytes + cap * 4 + 4
+               + rows * D * 4)
+    return n_bytes, 6 * rows * count * G * D
+
+
+def _gathered_mlp(wg, wu, wd, sel_rows):
+    """The library yardstick of the chunk MLP: the selected rows of the
+    three matrices gathered beforehand, then three float32 matmuls."""
+    import torch
+    take = [m.reshape(K // G, G, D)[sel_rows].reshape(-1, D).contiguous()
+            for m in (wg, wu, wd)]
+    return lambda x: (torch.relu(x @ take[0].T) * (x @ take[1].T)) @ take[2]
+
+
+def phase_chunk_scaling() -> None:
+    """The float32 chunk MLP's time against the chunk's rows S and against
+    the selected rows (count full and a third of it; none at S=64, the
+    fixed cost), bf16 x, beside its bounds and the gathered-rows library
+    yardstick at each point: whether the time follows S x rows
+    (operations) or the rows alone (bytes or latency).  One more launch at
+    each point records the kernel's phase trace (KF.phase_times).  Last, a
+    contiguous read of the same weight bytes by one PyTorch reduction: the
+    rate a plain read reaches on this card."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wu = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wd = torch.randn((K, D), generator=gen, device=dev) * K ** -0.5
+    cap = SparseInferConfig().capacity(K)
+    x0 = torch.randn((MAIN_CHUNK, D), generator=gen, device=dev)
+    gm, _ = KP.predict_chunk_group_margins(
+        P.pack_signs(wg), x0, torch.ones(MAIN_CHUNK, device=dev),
+        d_valid=D, group_size=G)
+    sel = S.capacity_select(S.union_margin(gm), cap)
+    full = int(sel.count)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for rows in SCALING_ROWS:
+        x = torch.randn((rows, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        xf = x.float()
+        for count in (full, full // 3, 0):
+            if count == 0 and rows != MAIN_CHUNK:
+                continue
+            cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+            t = cuda_ms(lambda: KF.fused_sparse_mlp_chunk(
+                x, wg, wu, wd, sel.indices, cnt, group_size=G), flush=flush)
+            lib = _gathered_mlp(wg, wu, wd, sel.indices[:count].long())
+            t_lib = cuda_ms(lambda: lib(xf), flush=flush)
+            n_bytes, flops = chunk_mlp_work(rows, count, cap, 2)
+            tc = tc_bound_ms(n_bytes, flops, 2)
+            cc = bound_ms(n_bytes, flops)
+            # one more launch with the kernel's phase trace, L2 flushed
+            trace = torch.zeros(
+                (KF.chunk_plan(x, cap * G).grid, KF.TRACE_POINTS),
+                dtype=torch.int64, device=dev)
+            flush()
+            KF.fused_sparse_mlp_chunk(x, wg, wu, wd, sel.indices, cnt,
+                                      group_size=G, trace=trace)
+            phases = " ".join(f"{k} {v:.4f}" for k, v in
+                              KF.phase_times(trace).items())
+            print(f"[scaling] fused_sparse_mlp_chunk S={rows} x=bfloat16 "
+                  f"count={count}/{cap}: kernel {t:.4f} ms, gathered-rows "
+                  f"3-matmul {t_lib:.4f} ms, bound {tc[0]:.4f} ms "
+                  f"({tc[1]}, TF32 x2 passes) / {cc[0]:.4f} ms ({cc[1]}, "
+                  f"CUDA cores); one traced launch, ms: {phases}",
+                  flush=True)
+    # what a plain read of the same bytes takes on this card: one PyTorch
+    # reduction over a contiguous buffer of the three matrices' selected
+    # rows (113 MB at the full selection)
+    n_bytes, _ = chunk_mlp_work(MAIN_CHUNK, full, cap, 2)
+    flat = torch.ones(3 * full * G * D, device=dev)
+    t_read = cuda_ms(lambda: flat.sum(), flush=flush)
+    print(f"[scaling] a contiguous read of the selected weights' "
+          f"{3 * full * G * D * 4 / 1e6:.1f} MB (torch.sum): {t_read:.4f} ms,"
+          f" {3 * full * G * D * 4 / t_read / 1e9:.3f} TB/s (bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    del wg, wu, wd, flat, flush_buf
+    torch.cuda.empty_cache()
 
 
 def phase_build() -> None:
@@ -378,6 +492,14 @@ def _check_telemetry(tel, tel_r, x, wg, sel_idx, count, tag) -> None:
     print(f"[kernels] telemetry {tag}: differs by {diff.tolist()} where "
           f"{near.tolist()} gate values lie within rounding of 0",
           flush=True)
+    # each differing token's gate value nearest 0, against its sum of
+    # |x w| (float32 rounding of that sum is ~6e-8 of it)
+    for b in (diff.sum(-1) > 0).nonzero().flatten().tolist():
+        i = int((g[b].abs() / scale[b]).argmin())
+        print(f"[kernels] telemetry {tag}: token {b}'s gate value nearest 0"
+              f" is {float(g[b, i]):.3e} (reference sum) against sum |x w| "
+              f"{float(scale[b, i]):.3e}: {float(g[b, i].abs() / scale[b, i]):.2e}"
+              " of it", flush=True)
     if not (torch.equal(tel[:, 2], tel_r[:, 2])
             and bool((diff[:, :2] <= near[:, None]).all())):
         fail(f"fused_sparse_mlp telemetry {tag}: {tel.tolist()} vs "
@@ -469,9 +591,11 @@ def phase_chunk_kernels(results: dict) -> None:
                     y, tel = KF.fused_sparse_mlp_chunk(
                         x, wg, wu, wd, sel.indices, cnt_t, gm, group_size=G,
                         collect_stats=True)
-                    y0 = KF.fused_sparse_mlp_chunk(x, wg, wu, wd,
-                                                   sel.indices, cnt_t,
-                                                   group_size=G)
+                    y0 = _same_twice(
+                        f"{ctag} without telemetry",
+                        lambda: KF.fused_sparse_mlp_chunk(
+                            x, wg, wu, wd, sel.indices, cnt_t,
+                            group_size=G), name="fused_sparse_mlp_chunk")
                     y_r, tel_r = ref.fused_sparse_mlp_chunk_ref(
                         x, wg, wu, wd, sel.indices, cnt_t, gm, group_size=G,
                         collect_stats=True)
@@ -545,7 +669,12 @@ def phase_chunk_kernels(results: dict) -> None:
             xf = x.float()
             t_dense = cuda_ms(lambda: (torch.relu(xf @ wg.T) * (xf @ wu.T))
                               @ wd, flush=flush)
-            mb = bound_ms(3 * count * G * D * 4 + io, flops)
+            gathered = _gathered_mlp(wg, wu, wd, sel_rows)
+            t_lib = cuda_ms(lambda: gathered(xf), flush=flush)
+            del gathered
+            mb_bytes, _ = chunk_mlp_work(rows, count, cap, xbytes)
+            mb = tc_bound_ms(mb_bytes, flops, 2)
+            mb_cc = bound_ms(mb_bytes, flops)
             print(f"[kernels] predict_chunk_group_margins {tag}: "
                   f"max_abs_err 0 (bitwise, and per row equal to "
                   f"predict_group_margins) kernel {t_pred:.4f} ms plain "
@@ -555,22 +684,25 @@ def phase_chunk_kernels(results: dict) -> None:
                   f"{cap}: max_abs_err "
                   f"{results['err']['fused_sparse_mlp_chunk']:.3e} kernel "
                   f"{t_mlp:.4f} ms plain {t_mlp_plain:.4f} ms bound "
-                  f"{mb[0]:.4f} ms ({mb[1]}) dense-3-matmul {t_dense:.4f} ms",
-                  flush=True)
+                  f"{mb[0]:.4f} ms ({mb[1]}, TF32 x2 passes; share "
+                  f"{mb[0] / t_mlp:.3f}) / {mb_cc[0]:.4f} ms ({mb_cc[1]}, "
+                  f"CUDA cores) gathered-rows-3-matmul {t_lib:.4f} ms "
+                  f"dense-3-matmul {t_dense:.4f} ms", flush=True)
             results["predict_chunk_group_margins"] = dict(
                 max_abs_err=0.0, ms=t_pred, plain_ms=t_pred_plain,
                 bound_ms=pb[0], bound_by=pb[1], library_ms=None)
             results["fused_sparse_mlp_chunk"] = dict(
                 max_abs_err=results["err"]["fused_sparse_mlp_chunk"],
                 ms=t_mlp, plain_ms=t_mlp_plain, bound_ms=mb[0],
-                bound_by=mb[1], library_ms=t_dense)
+                bound_by=mb[1], library_ms=t_lib)
     # the errors over every case, not only those before the timed one
     for name in ("fused_sparse_mlp_chunk", "fused_sparse_mlp_q",
                  "fused_sparse_mlp_chunk_q"):
         results[name]["max_abs_err"] = results["err"][name]
     print("[kernels] chunk and int8 kernels agree with their plain versions"
           f" at S in {CHUNK_ROWS}, B in {BATCHES}, bf16 and float32 x, full"
-          " and cut-short counts", flush=True)
+          " and cut-short counts; the float32 chunk kernel bitwise equal in "
+          "two runs", flush=True)
     del wg, wu, wd, qn, qargs, wg_deq, flush_buf
     torch.cuda.empty_cache()
     phase_chunk_edges()
@@ -579,9 +711,9 @@ def phase_chunk_kernels(results: dict) -> None:
 
 def phase_chunk_edges() -> None:
     """The chunk and int8 kernels' other paths at small shapes: rows not a
-    multiple of the 16-row block, padded d, a partial column tile,
-    G in {1, 8, 16}, quant groups narrower than 4 columns, ungated,
-    fatrelu, a zero count."""
+    multiple of the 16-row block, token tiles of 8, 16, 32 and 64 rows,
+    padded d, a partial column tile, G in {1, 8, 16}, quant groups
+    narrower than 4 columns, ungated, fatrelu, a zero count."""
     import torch
     from repro_torch.core import quantize as Q
     from repro_torch.core import selection as S
@@ -594,7 +726,8 @@ def phase_chunk_edges() -> None:
             (100, 500, 1, 4, 3, True, "relu", 0.0),
             (128, 512, 8, 32, 37, True, "relu", 0.0),
             (192, 768, 16, 64, 20, False, "fatrelu", 0.05),
-            (64, 256, 1, 2, 5, True, "fatrelu", 0.0)]:
+            (64, 256, 1, 2, 5, True, "fatrelu", 0.0),
+            (256, 512, 8, 64, 12, True, "relu", 0.0)]:
         w = {m: torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
              for m in ("wg", "wu", "wd")}
         wu = w["wu"] if gated else None
@@ -1390,14 +1523,14 @@ def phase_paged_kernels(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _same_twice(tag, fn):
+def _same_twice(tag, fn, name="paged_attention"):
     """fn() twice on the same inputs: the outputs must be bitwise equal
     (no float atomics, fixed reduction orders)."""
     import torch
     a, b = fn(), fn()
     torch.cuda.synchronize()
     if not torch.equal(a, b):
-        fail(f"paged_attention {tag}: two runs on the same inputs differ "
+        fail(f"{name} {tag}: two runs on the same inputs differ "
              f"by {float((a - b).abs().max()):.3e}")
     return a
 
@@ -2077,6 +2210,7 @@ def main() -> None:
     results: dict = {}
     for phase, args in ((phase_build, ()), (phase_kernels, (results,)),
                         (phase_chunk_kernels, (results,)),
+                        (phase_chunk_scaling, ()),
                         (phase_paged_kernels, (results,)),
                         (phase_sign_kernels, (results,)),
                         (phase_decode, ()), (phase_prefill, ()),

@@ -145,7 +145,7 @@ def fused_sparse_mlp_chunk(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
                            fatrelu_threshold: float = 0.0,
                            collect_stats: bool = False):
     """Row-tiled fused sparse MLP for prefill chunks: one chunk-union
-    selection drives every row block; the contract of
+    selection drives the whole chunk; the contract of
     :func:`fused_sparse_mlp`."""
     return _mlp("fused_sparse_mlp_chunk", ref.fused_sparse_mlp_chunk_ref, x,
                 (wg_t, wu_t, wd_t), sel_indices, sel_count, gm_tok,
