@@ -10,16 +10,17 @@ Phases, in order; any failure exits non-zero:
              C=288, int8 quant groups of 128): the decode kernels at B in
              {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead slot};
              the chunk kernels at S in {17, 64, 128, 256} rows with pad
-             rows (the float32 one run twice and bitwise equal); the int8
+             rows (each run twice and bitwise equal); the int8
              decode kernel at B in {1, 4, 16}; small-shape edge cases; a
              decode batch of 24 through the ops layer.  Each is timed at
              the main path's shape beside its bound, its plain version and
              a library yardstick where one PyTorch call computes it (the
              float32 chunk MLP: three matmuls on the selected rows gathered
-             beforehand, and on all rows); then the float32 chunk MLP's
-             scaling line, S in {16, 32, 64, 128, 256} at the full and a
-             third of the selection (and none at S=64), each with the
-             kernel's phase trace of one launch.
+             beforehand, and on all rows; the int8 one beside the float32
+             one at the same shape); then the float32 and the int8 chunk
+             MLPs' scaling lines, S in {16, 32, 64, 128, 256} at the full
+             and a third of the selection (and none at S=64), each with
+             the kernel's phase trace of one launch.
   3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
              and KV cache: 8 teacher-forced decode steps on the card against
              the same weights on the CPU (plain kernel versions), logits and
@@ -104,10 +105,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
 # outside the tensor cores (where most kernels' arithmetic runs) and the
-# dense TF32 tensor-core rate (the chunk MLP's split float32 products)
+# dense TF32 and bf16 tensor-core rates (the chunk MLPs' products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's ~1.98 GHz SM clock
 
@@ -176,13 +178,35 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def tc_bound_ms(n_bytes: float, n_ops: float,
-                passes: int) -> tuple[float, str]:
-    """bound_ms for the tensor-core chunk MLP: its ``n_ops`` float32 flops
-    run as ``passes`` TF32 products of split operands (2 with bf16 x, 3
-    with float32 x) at the TF32 dense peak."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, passes * n_ops / TF32_OPS_PER_S
+def tc_bound_ms(n_bytes: float, tf32_flops: float,
+                bf16_flops: float = 0.0) -> tuple[float, str]:
+    """bound_ms for the tensor-core chunk MLPs: the flops of the TF32 passes
+    the kernel runs (each product of split operands takes one pass a pair
+    of parts) at the TF32 dense peak, plus those of its bf16 products at
+    the bf16 peak."""
+    t_b = n_bytes / HBM_BYTES_PER_S
+    t_o = tf32_flops / TF32_OPS_PER_S + bf16_flops / BF16_OPS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def chunk_q_work(rows: int, count: int, cap: int, xbytes: int,
+                 sel_rows) -> tuple[int, int, int, int]:
+    """Bytes, flops, TF32-pass flops and bf16 flops of one int8 chunk-MLP
+    call: count*G int8 rows of the three matrices, their gate/up scales,
+    one wd scale row per quant row-group the selection touches, x, the
+    selection and its count read once, y written once; 6 flops per token,
+    selected row and column.  The passes: gate and up one bf16 product each
+    with bf16 x (int8 and bf16 x exact), two TF32 passes each with float32
+    x (x split); down two TF32 passes (h split, float32)."""
+    import torch
+    q_rows = int(torch.unique(sel_rows // (QG // G)).numel())
+    n_bytes = (3 * count * G * D + 2 * count * G * (D // QG) * 4
+               + q_rows * D * 4 + rows * D * xbytes + cap * 4 + 4
+               + rows * D * 4)
+    mat = 2 * rows * count * G * D
+    if xbytes == 2:
+        return n_bytes, 3 * mat, 2 * mat, 2 * mat
+    return n_bytes, 3 * mat, 6 * mat, 0
 
 
 def chunk_mlp_work(rows: int, count: int, cap: int,
@@ -204,17 +228,23 @@ def _gathered_mlp(wg, wu, wd, sel_rows):
     return lambda x: (torch.relu(x @ take[0].T) * (x @ take[1].T)) @ take[2]
 
 
-def phase_chunk_scaling() -> None:
+def phase_chunk_scaling(traced: bool = True) -> None:
     """The float32 chunk MLP's time against the chunk's rows S and against
     the selected rows (count full and a third of it; none at S=64, the
     fixed cost), bf16 x, beside its bounds and the gathered-rows library
     yardstick at each point: whether the time follows S x rows
     (operations) or the rows alone (bytes or latency).  One more launch at
-    each point records the kernel's phase trace (KF.phase_times).  Last, a
+    each point records the kernel's phase trace (KF.phase_times).  Then a
     contiguous read of the same weight bytes by one PyTorch reduction: the
-    rate a plain read reaches on this card."""
+    rate a plain read reaches on this card.  Then the same line for the
+    int8 chunk MLP on the same weights quantized (qg=128; no PyTorch call
+    computes it), and a contiguous read of its weight bytes.  ``traced``
+    False leaves out the traced launches (for kernels that take no trace);
+    run alone from a script that puts a checkout's ``src`` on sys.path, it
+    times that checkout's kernels."""
     import torch
     from repro_torch.core import predictor as P
+    from repro_torch.core import quantize as Q
     from repro_torch.core import selection as S
     from repro_torch.core.sparse_mlp import SparseInferConfig
     from repro_torch.kernels import predict as KP
@@ -250,17 +280,18 @@ def phase_chunk_scaling() -> None:
             lib = _gathered_mlp(wg, wu, wd, sel.indices[:count].long())
             t_lib = cuda_ms(lambda: lib(xf), flush=flush)
             n_bytes, flops = chunk_mlp_work(rows, count, cap, 2)
-            tc = tc_bound_ms(n_bytes, flops, 2)
+            tc = tc_bound_ms(n_bytes, 2 * flops)
             cc = bound_ms(n_bytes, flops)
-            # one more launch with the kernel's phase trace, L2 flushed
-            trace = torch.zeros(
-                (KF.chunk_plan(x, cap * G).grid, KF.TRACE_POINTS),
-                dtype=torch.int64, device=dev)
-            flush()
-            KF.fused_sparse_mlp_chunk(x, wg, wu, wd, sel.indices, cnt,
-                                      group_size=G, trace=trace)
-            phases = " ".join(f"{k} {v:.4f}" for k, v in
-                              KF.phase_times(trace).items())
+            phases = "not traced"
+            if traced:   # one more launch with its phase trace, L2 flushed
+                trace = torch.zeros(
+                    (KF.chunk_plan(x, cap * G).grid, KF.TRACE_POINTS),
+                    dtype=torch.int64, device=dev)
+                flush()
+                KF.fused_sparse_mlp_chunk(x, wg, wu, wd, sel.indices, cnt,
+                                          group_size=G, trace=trace)
+                phases = " ".join(f"{k} {v:.4f}" for k, v in
+                                  KF.phase_times(trace).items())
             print(f"[scaling] fused_sparse_mlp_chunk S={rows} x=bfloat16 "
                   f"count={count}/{cap}: kernel {t:.4f} ms, gathered-rows "
                   f"3-matmul {t_lib:.4f} ms, bound {tc[0]:.4f} ms "
@@ -277,7 +308,50 @@ def phase_chunk_scaling() -> None:
           f"{3 * full * G * D * 4 / 1e6:.1f} MB (torch.sum): {t_read:.4f} ms,"
           f" {3 * full * G * D * 4 / t_read / 1e9:.3f} TB/s (bound "
           f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
-    del wg, wu, wd, flat, flush_buf
+    del flat
+    # ---- the int8 chunk MLP on the same weights, quantized (qg=128)
+    qn = Q.quantize_mlp_node({"wg_t": wg, "wu_t": wu, "wd_t": wd}, QG, G)
+    qargs = [qn[n] for n in QNAMES]
+    del wg, wu, wd
+    for rows in SCALING_ROWS:
+        x = torch.randn((rows, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for count in (full, full // 3, 0):
+            if count == 0 and rows != MAIN_CHUNK:
+                continue
+            cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+            t = cuda_ms(lambda: KF.fused_sparse_mlp_chunk_q(
+                x, *qargs, sel.indices, cnt, group_size=G), flush=flush)
+            n_bytes, flops, tf32, bf16 = chunk_q_work(
+                rows, count, cap, 2, sel.indices[:count].long())
+            tc = tc_bound_ms(n_bytes, tf32, bf16)
+            cc = bound_ms(n_bytes, flops)
+            phases = "not traced"
+            if traced:
+                trace = torch.zeros(
+                    (KF.chunk_plan(x, cap * G, 1, G).grid, KF.TRACE_POINTS),
+                    dtype=torch.int64, device=dev)
+                flush()
+                KF.fused_sparse_mlp_chunk_q(x, *qargs, sel.indices, cnt,
+                                            group_size=G, trace=trace)
+                phases = " ".join(f"{k} {v:.4f}" for k, v in
+                                  KF.phase_times(trace).items())
+            print(f"[scaling] fused_sparse_mlp_chunk_q S={rows} x=bfloat16 "
+                  f"count={count}/{cap}: kernel {t:.4f} ms, bound "
+                  f"{tc[0]:.4f} ms ({tc[1]}, bf16 gate/up, TF32 x2 down; share "
+                  f"{tc[0] / t:.3f}) / {cc[0]:.4f} ms ({cc[1]}, CUDA cores); "
+                  f"one traced launch, ms: {phases}", flush=True)
+    # a plain read of the int8 kernel's weight bytes (28 MB at the full
+    # selection), as float32 words
+    n_bytes = chunk_q_work(MAIN_CHUNK, full, cap, 2,
+                           sel.indices[:full].long())[0]
+    flat = torch.ones(3 * full * G * D // 4, device=dev)
+    t_read = cuda_ms(lambda: flat.sum(), flush=flush)
+    print(f"[scaling] a contiguous read of the selected int8 weights' "
+          f"{3 * full * G * D / 1e6:.1f} MB (torch.sum): {t_read:.4f} ms,"
+          f" {3 * full * G * D / t_read / 1e9:.3f} TB/s (bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    del qn, qargs, flat, flush_buf
     torch.cuda.empty_cache()
 
 
@@ -610,14 +684,22 @@ def phase_chunk_kernels(results: dict) -> None:
                 y, tel = getattr(KF, qname)(x, *qargs, sel.indices, cnt_t,
                                             gm, group_size=G,
                                             collect_stats=True)
-                y0 = getattr(KF, qname)(x, *qargs, sel.indices, cnt_t,
-                                        group_size=G)
+                if chunk:
+                    y0 = _same_twice(
+                        f"{ctag} without telemetry",
+                        lambda: KF.fused_sparse_mlp_chunk_q(
+                            x, *qargs, sel.indices, cnt_t, group_size=G),
+                        name=qname)
+                else:
+                    y0 = KF.fused_sparse_mlp_q(x, *qargs, sel.indices, cnt_t,
+                                               group_size=G)
                 y_r, tel_r = ref.fused_sparse_mlp_q_ref(
                     x, *qargs, sel.indices, cnt_t, gm, group_size=G,
                     collect_stats=True)
                 torch.cuda.synchronize()
-                # tolerance: float32 products summed in another order (and
-                # scaled per product, not per quant group); h stays float32
+                # tolerance: float32 products summed in another order (the
+                # decode kernel scales per product, not per quant group); h
+                # stays float32
                 check_y(qname, ctag, y, y0, y_r, 1e-4)
                 _check_telemetry(tel, tel_r, x, wg_deq, sel.indices, count,
                                  ctag)
@@ -643,10 +725,30 @@ def phase_chunk_kernels(results: dict) -> None:
                 x, *qargs, sel.indices, sel.count, group_size=G), iters=5,
                 flush=flush)
             qb = bound_ms(q_bytes, flops)
-            print(f"[kernels] {qname} {tag} count={count}/{cap}: max_abs_err"
-                  f" {results['err'][qname]:.3e} kernel {t_q:.4f} ms plain "
-                  f"{t_q_plain:.4f} ms bound {qb[0]:.4f} ms ({qb[1]})",
-                  flush=True)
+            if chunk:
+                # the tensor cores' products (bf16 gate/up, two TF32
+                # passes for down, with bf16 x), beside the CUDA-core bound
+                # and the float32 chunk kernel
+                q_bytes, _, tf32, bf16 = chunk_q_work(rows, count, cap,
+                                                      xbytes, sel_rows)
+                cc = qb
+                qb = tc_bound_ms(q_bytes, tf32, bf16)
+                t_f = cuda_ms(lambda: KF.fused_sparse_mlp_chunk(
+                    x, wg, wu, wd, sel.indices, sel.count, group_size=G),
+                    flush=flush)
+                print(f"[kernels] {qname} {tag} count={count}/{cap}: "
+                      f"max_abs_err {results['err'][qname]:.3e} kernel "
+                      f"{t_q:.4f} ms plain {t_q_plain:.4f} ms bound "
+                      f"{qb[0]:.4f} ms ({qb[1]}, bf16 gate/up, TF32 x2 "
+                      f"down; share "
+                      f"{qb[0] / t_q:.3f}) / {cc[0]:.4f} ms ({cc[1]}, CUDA "
+                      f"cores); the float32 chunk kernel at this shape "
+                      f"{t_f:.4f} ms", flush=True)
+            else:
+                print(f"[kernels] {qname} {tag} count={count}/{cap}: "
+                      f"max_abs_err {results['err'][qname]:.3e} kernel "
+                      f"{t_q:.4f} ms plain {t_q_plain:.4f} ms bound "
+                      f"{qb[0]:.4f} ms ({qb[1]})", flush=True)
             results[qname] = dict(
                 max_abs_err=results["err"][qname], ms=t_q,
                 plain_ms=t_q_plain, bound_ms=qb[0], bound_by=qb[1],
@@ -673,7 +775,7 @@ def phase_chunk_kernels(results: dict) -> None:
             t_lib = cuda_ms(lambda: gathered(xf), flush=flush)
             del gathered
             mb_bytes, _ = chunk_mlp_work(rows, count, cap, xbytes)
-            mb = tc_bound_ms(mb_bytes, flops, 2)
+            mb = tc_bound_ms(mb_bytes, 2 * flops)
             mb_cc = bound_ms(mb_bytes, flops)
             print(f"[kernels] predict_chunk_group_margins {tag}: "
                   f"max_abs_err 0 (bitwise, and per row equal to "
@@ -701,8 +803,8 @@ def phase_chunk_kernels(results: dict) -> None:
         results[name]["max_abs_err"] = results["err"][name]
     print("[kernels] chunk and int8 kernels agree with their plain versions"
           f" at S in {CHUNK_ROWS}, B in {BATCHES}, bf16 and float32 x, full"
-          " and cut-short counts; the float32 chunk kernel bitwise equal in "
-          "two runs", flush=True)
+          " and cut-short counts; both chunk kernels bitwise equal in two "
+          "runs", flush=True)
     del wg, wu, wd, qn, qargs, wg_deq, flush_buf
     torch.cuda.empty_cache()
     phase_chunk_edges()

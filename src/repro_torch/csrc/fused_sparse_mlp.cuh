@@ -1,6 +1,9 @@
-// Capacity-gathered fused sparse gated MLP, shared by the four fused
-// kernels: decode and prefill chunk, over float32 or int8 weights
-// (fused_sparse_mlp{,_chunk}{,_q}.cu instantiate it).
+// Capacity-gathered fused sparse gated MLP for a decode batch of at most 16
+// tokens, shared by the two decode kernels: float32 weights
+// (fused_sparse_mlp.cu, replacing the reference's fused_sparse_mlp) and
+// int8 weights (fused_sparse_mlp_q.cu, replacing fused_sparse_mlp_q).  The
+// two chunk kernels run on the tensor cores instead
+// (fused_sparse_mlp_chunk_tc.cuh).
 //
 // For the first `count` of the C selected row groups sel[0..C) it computes
 //     g = act(x Wg[rows]^T),  h = g * (x Wu[rows]^T)
@@ -22,15 +25,16 @@
 // d=4096: ~34 us at 3.35 TB/s) and 1 byte for int8 (28 MB plus ~1-2 MB of
 // scales: ~9 us).  The operations, 6 * B * count*G * d flops on the CUDA
 // cores (67 TFLOP/s for float32), pass the bytes at about B=48 for float32
-// weights and B=12 for int8: a prefill chunk of S=64 rows is bound by
-// operations (3.6 GFLOP, ~54 us), a decode batch by bytes.
+// weights and B=12 for int8, so a decode batch (B <= 16) is bound by
+// bytes, or close to it.
 //
 // Design: one cooperative launch in three phases separated by grid-wide
 // barriers, so that the sum over groups is split across the whole card and
 // still taken in one fixed order (y is identical from run to run; no float
-// atomics).  Rows of x are cut into row blocks of up to 16 tokens; the
-// grid is a multiple of the number of row blocks and block i serves row
-// block i % n_rb in every phase, so its token counters stay in registers.
+// atomics).  The batch is one row block of up to 16 tokens (the template
+// takes more row blocks; the grid is a multiple of their number and block
+// i serves row block i % n_rb in every phase, so its token counters stay
+// in registers).
 //   1. gate/up: one warp per (row block, selected weight row), coalesced
 //      4-element loads of Wg/Wu; the row block's x is staged in shared
 //      memory in column chunks; the warp's dot products are shuffle-reduced

@@ -33,8 +33,8 @@ extern "C" {
 // memory that one SM holds at once (the occupancy calculator).
 int fused_sparse_mlp_chunk_occupancy(int x_dtype, int nt, int smem,
                                      int* blocks) {
-  return (int)mlp::tc::dispatch<mlp::tc::Occupancy>(x_dtype, nt, smem,
-                                                     blocks);
+  return (int)mlp::tc::dispatch<float, mlp::tc::Occupancy>(x_dtype, nt, smem,
+                                                            blocks);
 }
 
 // One cooperative launch.  x (S, d) float32 (x_dtype 0) or bfloat16 (1);
@@ -66,9 +66,9 @@ int fused_sparse_mlp_chunk(const void* x, int x_dtype, const void* wg,
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x;
-  a.wg = static_cast<const float*>(wg);
-  a.wu = static_cast<const float*>(wu);
-  a.wd = static_cast<const float*>(wd);
+  a.wg = wg;
+  a.wu = wu;
+  a.wd = wd;
   a.sel = static_cast<const int32_t*>(sel);
   a.count = static_cast<const int32_t*>(count);
   a.gm_tok = static_cast<const float*>(gm_tok);
@@ -90,8 +90,9 @@ int fused_sparse_mlp_chunk(const void* x, int x_dtype, const void* wg,
   a.s_pad = s_pad;
   a.max_splits = max_splits;
   a.h_stride = h_stride;
-  return (int)dispatch<Launch>(x_dtype, nt, (const Args*)&a, grid, smem,
-                               static_cast<cudaStream_t>(stream));
+  a.slice_unit = kSliceUnit;
+  return (int)dispatch<float, Launch>(x_dtype, nt, (const Args*)&a, grid,
+                                      smem, static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_sparse_mlp_chunk_error_string(int code) {

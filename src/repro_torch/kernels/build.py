@@ -35,13 +35,16 @@ SIGNATURES = {
     "predict_group_margins": {"predict_group_margins": _PREDICT},
     "predict_chunk_group_margins": {"predict_chunk_group_margins": _PREDICT},
     **{name: {f"{name}_plan": _MLP_PLAN, name: _MLP}
-       for name in ("fused_sparse_mlp", "fused_sparse_mlp_q",
-                    "fused_sparse_mlp_chunk_q")},
+       for name in ("fused_sparse_mlp", "fused_sparse_mlp_q")},
     "fused_sparse_mlp_chunk": {
         "fused_sparse_mlp_chunk_occupancy": [_I, _I, _I, _P],
         "fused_sparse_mlp_chunk": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]},
+    "fused_sparse_mlp_chunk_q": {
+        "fused_sparse_mlp_chunk_q_occupancy": [_I, _I, _I, _P],
+        "fused_sparse_mlp_chunk_q": [_P, _I, *[_P] * 16, _L, *[_I] * 7, _F,
+                                     *[_I] * 7, _P]},
     "paged_attention": {
         "paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],

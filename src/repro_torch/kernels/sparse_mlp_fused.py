@@ -10,16 +10,18 @@ fused_sparse_mlp_q          csrc/fused_sparse_mlp_q.cu (B <= 16)   int8
 fused_sparse_mlp_chunk_q    csrc/fused_sparse_mlp_chunk_q.cu       int8
 ==========================  =====================================  ========
 
-Three share the CUDA-core kernel template of ``csrc/fused_sparse_mlp.cuh``;
-each source instantiates its own.  ``fused_sparse_mlp_chunk`` runs the
-tensor-core kernel of ``csrc/fused_sparse_mlp_chunk_tc.cuh``, launched with
-its own scratch from ``plan`` (tile sizes, the split of d, the slices, the
-grid and the shared memory), kept on the host so that the CPU tests reach
-it.  Callers go through ``kernels.ops``, which picks the plain version for
-CPU tensors and counts launches."""
+The two decode kernels share the CUDA-core kernel template of
+``csrc/fused_sparse_mlp.cuh``; each source instantiates its own.  The two
+chunk kernels run the tensor-core kernel of
+``csrc/fused_sparse_mlp_chunk_tc.cuh`` (float32 or int8 weights), launched
+with their own scratch from ``plan`` (tile sizes, the split of d, the
+slices, the grid and the shared memory), kept on the host so that the CPU
+tests reach it.  Callers go through ``kernels.ops``, which picks the plain
+version for CPU tensors and counts launches."""
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -49,6 +51,21 @@ def _plan(name: str, code: int, b: int, d: int, cap_rows: int,
     return _PLANS[key]
 
 
+def _quant_layout(name: str, k: int, d: int, g: int, wu, wg_s, wu_s,
+                  wd_s) -> int:
+    """The quant group width qg of int8 scales wg_s/wu_s (k, d/qg) and
+    wd_s (k/qg, d); raises unless qg divides d and k and G divides qg."""
+    scales = [s for s in (wg_s, wu_s, wd_s) if s is not None]
+    qg = d // wg_s.shape[1] if wg_s.ndim == 2 and wg_s.shape[1] else 0
+    if qg < 1 or (wu is None) != (wu_s is None) or qg * wg_s.shape[1] != d \
+            or k % qg or qg % g \
+            or any(s.shape != (k, d // qg) for s in (wg_s, wu_s)
+                   if s is not None) or wd_s.shape != (k // qg, d):
+        raise ValueError(f"bad quant layout for {name}: qg={qg} "
+                         f"scales {[tuple(s.shape) for s in scales]}")
+    return qg
+
+
 def _launch(name: str, x, wg, wu, wd, wg_s, wu_s, wd_s, sel_indices,
             sel_count, gm_tok, *, group_size: int, activation: str,
             fatrelu_threshold: float, collect_stats: bool):
@@ -69,20 +86,11 @@ def _launch(name: str, x, wg, wu, wd, wg_s, wu_s, wd_s, sel_indices,
         raise ValueError(f"{name} reads {wdt} weights and float32 scales")
     if x.dtype not in _X_DTYPES:
         raise ValueError(f"unsupported x dtype {x.dtype}")
-    chunk = "chunk" in name
     if any(m.shape != (k, d) for m in mats) or k % g or d % 4 or cap < 1 \
-            or b < 1 or (b > MAX_BATCH and not chunk):
+            or b < 1 or b > MAX_BATCH:
         raise ValueError(f"bad shapes x={tuple(x.shape)} w=({k}, {d}) "
                          f"C={cap} G={g} for {name}")
-    qg = 0
-    if quant:
-        qg = d // wg_s.shape[1]
-        if (wu is None) != (wu_s is None) or qg * wg_s.shape[1] != d \
-                or k % qg or qg % g \
-                or any(s.shape != (k, d // qg) for s in (wg_s, wu_s)
-                       if s is not None) or wd_s.shape != (k // qg, d):
-            raise ValueError(f"bad quant layout for {name}: qg={qg} "
-                             f"scales {[tuple(s.shape) for s in scales]}")
+    qg = _quant_layout(name, k, d, g, wu, wg_s, wu_s, wd_s) if quant else 0
     if collect_stats and (gm_tok is None or gm_tok.shape != (b, k // g)):
         raise ValueError("collect_stats needs per-token group margins "
                          "(B, k/G)")
@@ -126,12 +134,16 @@ def _launch(name: str, x, wg, wu, wd, wg_s, wu_s, wd_s, sel_indices,
 
 # ------------------------------------------- the tensor-core chunk kernel --
 # csrc/fused_sparse_mlp_chunk_tc.cuh: kThreads, kStages, kRows, kKC, kCols,
-# kKR, kSliceUnit, kMaxNT, kMaxSplits, kMinSliceRows, kTracePoints
+# kKR, kSliceUnit, kMaxNT, kMaxSplits, kMinSliceRows, kTracePoints; for
+# int8 weights kKCQ, kStagesQ, kDStrideQ, kSlotBytes
 THREADS, STAGES = 128, 4
 ROWS, KC = 64, 32           # gate/up: weight rows per item, d per stage
 COLS, KR = 128, 32          # down: d columns per item, rows per stage
 SLICE_UNIT = 8              # down's slices start on multiples of 8 rows
 MAX_NT, MAX_SPLITS, MIN_SLICE_ROWS = 8, 16, 64
+KC_Q, STAGES_Q = 128, 3     # int8: d per gate/up stage, ring stages
+DSTRIDE_Q = COLS + 16       # int8: bytes a Wd-tile row (padded)
+SLOT_BYTES = COLS * 4       # int8: one scale row of a down tile
 MAX_BLOCKS_PER_SM = 2
 SMEM_LIMIT = 232448         # shared memory a block can use on an H100
 INT32_MAX = 2 ** 31 - 1
@@ -142,15 +154,17 @@ class Plan(NamedTuple):
     nt: int              # 8-token MMA tiles per token tile
     token_tile: int      # tokens of a token tile: 8 * nt
     s_pad: int           # S rounded up to whole token tiles
-    k_chunks: int        # 32-column chunks of d
+    k_chunks: int        # chunks of d (chunk_cols wide)
     col_tiles: int       # 128-column tiles of d (down)
     grid: int            # blocks, all resident (cooperative launch)
     max_splits: int      # cap on the split of d (gate/up)
     smem_bytes: int      # dynamic shared memory per block
     gu_floats: int       # split partials of g, then of u
     h_stride: int        # hT's row: C*G rounded up to 8
-    h_floats: int        # hT: s_pad x h_stride
+    h_floats: int        # hT: s_pad x h_stride (int8: (big, small) pairs)
     part_floats: int     # slice partials of y: slices x S x d
+    chunk_cols: int      # columns of d a gate/up stage: 32, int8 128
+    slice_unit: int      # down's slices start on multiples of it
 
 
 def token_tiles(s: int) -> int:
@@ -162,13 +176,26 @@ def token_tiles(s: int) -> int:
     return nt
 
 
-def stage_bytes(nt: int, x_elem: int) -> int:
-    """One stage of the ring: gate/up's Wg, Wu (64 x 32 floats) and x
-    (8*nt rows of 32 values) tiles, swizzled, or down's Wd (32 rows of 128
-    floats, padded to 132: bulk copies fill it row by row) and hT (64
-    tokens x 32 floats, swizzled) tiles, whichever is larger."""
+def stage_bytes(nt: int, x_elem: int, w_elem: int = 4) -> int:
+    """One stage of the ring.  float32 weights: gate/up's Wg, Wu (64 x 32
+    floats) and x (8*nt rows of 32 values) tiles, swizzled, or down's Wd
+    (32 rows of 128 floats, padded to 132: bulk copies fill it row by row)
+    and hT (64 tokens x 32 floats, swizzled) tiles, whichever is larger.
+    int8 weights: gate/up's Wg, Wu (64 x 128 bytes), x (8*nt rows of 128
+    values) and the 64 rows' gate and up scales of the stage's first slab,
+    or down's Wd (32 rows of 128 bytes, padded to 144), hT (8*nt
+    tokens x 32 (big, small) pairs) and 4 scale rows of 128 floats (down
+    cuts the ring into more stages of its own size)."""
+    if w_elem == 1:
+        return max(2 * ROWS * KC_Q + 8 * nt * KC_Q * x_elem + 2 * ROWS * 4,
+                   KR * DSTRIDE_Q + 8 * nt * KR * 8 + KR // 8 * SLOT_BYTES)
     return max(2 * ROWS * KC * 4 + 8 * nt * KC * x_elem,
                KR * (COLS + 4) * 4 + 8 * MAX_NT * KR * 4)
+
+
+def sel_bytes(n_groups: int) -> int:
+    """int8: the selection's group ids, in shared memory after the ring."""
+    return -(-n_groups * 4 // 16) * 16
 
 
 def splits(grid: int, row_tiles: int, max_splits: int) -> int:
@@ -188,96 +215,111 @@ def slices(grid: int, col_tiles: int, nrows: int) -> int:
 
 
 def split_chunks(ks: int, k_chunks: int, n_splits: int) -> range:
-    """The 32-column chunks of d that gate/up's split ``ks`` sums, in its
-    order: ks, ks + n_splits, ...  (the splits of a row tile read
-    neighbouring pieces of the same rows at the same time)."""
+    """The chunks of d that gate/up's split ``ks`` sums, in its order: ks,
+    ks + n_splits, ...  (the splits of a row tile read neighbouring pieces
+    of the same rows at the same time)."""
     return range(ks, k_chunks, n_splits)
 
 
-def slice_range(sl: int, nrows: int, n_slices: int) -> tuple[int, int]:
+def slice_range(sl: int, nrows: int, n_slices: int,
+                unit: int = SLICE_UNIT) -> tuple[int, int]:
     """The selected rows of down's slice ``sl``: near-equal parts of the
-    8-row units, cut at nrows."""
-    units = -(-nrows // SLICE_UNIT)
+    ``unit``-row units, cut at nrows."""
+    units = -(-nrows // unit)
     lo, hi = sl * units // n_slices, (sl + 1) * units // n_slices
-    return min(nrows, lo * SLICE_UNIT), min(nrows, hi * SLICE_UNIT)
+    return min(nrows, lo * unit), min(nrows, hi * unit)
 
 
 def plan(s: int, d: int, cap_rows: int, x_elem: int, sms: int,
-         occupancy) -> Plan:
+         occupancy, w_elem: int = 4, group_size: int = 8) -> Plan:
     """The launch for a chunk of ``s`` rows of width ``d`` over at most
     ``cap_rows`` (= C*G) selected rows, ``x_elem``-byte x (4 float32, 2
-    bf16), on a card of ``sms`` SMs; ``occupancy(nt, smem)`` says how many
-    blocks one SM holds at once.  The grid is resident: at most 2 blocks a
-    SM, as many as the card holds.  The split of d is capped at 16, at the
-    32-column chunks of d, and so that the split partials stay within a
-    quarter of the weight bytes an item reads.  Raises ValueError on a
-    shape the kernel does not take and RuntimeError when the card cannot
-    hold one block."""
-    if s < 1 or d < 4 or d % 4 or cap_rows < 1 or x_elem not in (2, 4):
+    bf16) and ``w_elem``-byte weights (4 float32, 1 int8), on a card of
+    ``sms`` SMs; ``occupancy(nt, smem)`` says how many blocks one SM holds
+    at once.  The grid is resident: at most 2 blocks a SM, as many as the
+    card holds.  The split of d is capped at 16, at the chunks of d, and so
+    that the split partials stay within a quarter of the float32 weight
+    bytes an item reads (within the int8 ones).  int8 down slices start on
+    multiples of lcm(8, G), so that no selection group straddles two.
+    Raises ValueError on a shape the kernel does not take and RuntimeError
+    when the card cannot hold one block."""
+    name = "fused_sparse_mlp_chunk" + ("_q" if w_elem == 1 else "")
+    if s < 1 or d < 4 or d % 4 or cap_rows < 1 or x_elem not in (2, 4) \
+            or w_elem not in (1, 4) or group_size < 1:
         raise ValueError(
-            f"fused_sparse_mlp_chunk: bad shape S={s} d={d} C*G={cap_rows} "
-            f"x bytes={x_elem} (d must be a positive multiple of 4)")
+            f"{name}: bad shape S={s} d={d} C*G={cap_rows} x bytes={x_elem} "
+            f"weight bytes={w_elem} G={group_size} (d must be a positive "
+            "multiple of 4)")
+    kc, stages = (KC_Q, STAGES_Q) if w_elem == 1 else (KC, STAGES)
     nt = token_tiles(s)
     tn = 8 * nt
     s_pad = -(-s // tn) * tn
-    k_chunks = -(-d // KC)
+    k_chunks = -(-d // kc)
     col_tiles = -(-d // COLS)
-    smem = STAGES * stage_bytes(nt, x_elem)
+    smem = stages * stage_bytes(nt, x_elem, w_elem)
+    if w_elem == 1:
+        smem += sel_bytes(-(-cap_rows // group_size))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_sparse_mlp_chunk: {smem} bytes of shared "
-                         f"memory exceed the limit of {SMEM_LIMIT}")
+        raise ValueError(f"{name}: {smem} bytes of shared memory exceed the "
+                         f"limit of {SMEM_LIMIT}")
     per_sm = min(occupancy(nt, smem), MAX_BLOCKS_PER_SM)
     if per_sm < 1:
         raise RuntimeError(
-            f"fused_sparse_mlp_chunk: a block of {THREADS} threads with "
-            f"{smem} bytes of shared memory cannot be scheduled on this card")
+            f"{name}: a block of {THREADS} threads with {smem} bytes of "
+            "shared memory cannot be scheduled on this card")
     grid = per_sm * sms
     max_splits = max(1, min(MAX_SPLITS, k_chunks,
-                            k_chunks * KC // (4 * s_pad)))
+                            k_chunks * kc // (4 * s_pad)))
     row_tiles = -(-cap_rows // ROWS)
     items = max(rt * splits(grid, rt, max_splits)
                 for rt in range(1, row_tiles + 1))
     gu = 2 * items * ROWS * s_pad
     h_stride = -(-cap_rows // SLICE_UNIT) * SLICE_UNIT
-    h = s_pad * h_stride
+    h = s_pad * h_stride * (2 if w_elem == 1 else 1)
     part = slices(grid, col_tiles, cap_rows) * s * d
     if max(gu, h, part, s_pad * d) > INT32_MAX:
         raise ValueError(
-            f"fused_sparse_mlp_chunk: S={s} x d={d} over {cap_rows} rows "
-            f"needs {max(gu, h, part)} floats of scratch, past the limit of "
+            f"{name}: S={s} x d={d} over {cap_rows} rows needs "
+            f"{max(gu, h, part)} floats of scratch, past the limit of "
             f"{INT32_MAX}")
+    unit = SLICE_UNIT if w_elem == 4 else math.lcm(SLICE_UNIT, group_size)
     return Plan(nt, tn, s_pad, k_chunks, col_tiles, grid, max_splits, smem,
-                gu, h_stride, h, part)
+                gu, h_stride, h, part, kc, unit)
 
 
 _CHUNK_PLANS: dict = {}
 
 
-def _card_occupancy(device, code: int):
-    """``plan``'s occupancy from the card's calculator for this kernel."""
-    lib = build.load("fused_sparse_mlp_chunk")
+def _card_occupancy(device, code: int, name: str):
+    """``plan``'s occupancy from the card's calculator for kernel
+    ``name``."""
+    lib = build.load(name)
 
     def occupancy(nt: int, smem: int) -> int:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = lib.fused_sparse_mlp_chunk_occupancy(code, nt, smem,
-                                                      ctypes.byref(out))
-        build.check("fused_sparse_mlp_chunk", rc)
+            rc = getattr(lib, f"{name}_occupancy")(code, nt, smem,
+                                                   ctypes.byref(out))
+        build.check(name, rc)
         return out.value
     return occupancy
 
 
-def chunk_plan(x: torch.Tensor, cap_rows: int) -> Plan:
-    """The plan ``fused_sparse_mlp_chunk`` launches x with (made once per
-    shape, on the card's occupancy)."""
+def chunk_plan(x: torch.Tensor, cap_rows: int, w_elem: int = 4,
+               group_size: int = 8) -> Plan:
+    """The plan a chunk kernel launches x with over ``w_elem``-byte weights
+    (made once per shape, on the card's occupancy)."""
     s, d = x.shape
     code = _X_DTYPES[x.dtype]
-    key = (x.device.index, code, s, d, cap_rows)
+    name = "fused_sparse_mlp_chunk" + ("_q" if w_elem == 1 else "")
+    unit = group_size if w_elem == 1 else 0
+    key = (x.device.index, code, s, d, cap_rows, w_elem, unit)
     pl = _CHUNK_PLANS.get(key)
     if pl is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         pl = _CHUNK_PLANS[key] = plan(s, d, cap_rows, x.element_size(), sms,
-                                      _card_occupancy(x.device, code))
+                                      _card_occupancy(x.device, code, name),
+                                      w_elem, group_size)
     return pl
 
 
@@ -299,27 +341,37 @@ def phase_times(trace: torch.Tensor) -> dict:
     return out
 
 
-def _launch_chunk(x, wg, wu, wd, sel_indices, sel_count, gm_tok, *,
-                  group_size: int, activation: str, fatrelu_threshold: float,
-                  collect_stats: bool, trace: torch.Tensor | None = None):
-    name = "fused_sparse_mlp_chunk"
+def _launch_chunk(name: str, x, mats, scales, sel_indices, sel_count,
+                  gm_tok, *, group_size: int, activation: str,
+                  fatrelu_threshold: float, collect_stats: bool,
+                  trace: torch.Tensor | None = None):
+    """One launch of a tensor-core chunk kernel: ``mats`` (wg, wu, wd) and,
+    for int8 weights, ``scales`` (wg_s, wu_s, wd_s), else None."""
+    wg, wu, wd = mats
+    quant = scales is not None
+    wg_s, wu_s, wd_s = scales if quant else (None, None, None)
     s, d = x.shape
     k = wg.shape[0]
     g = group_size
     cap = sel_indices.shape[0]
     dev = x.device
-    mats = [m for m in (wg, wu, wd) if m is not None]
-    if not x.is_cuda or any(t.device != dev for t in mats) \
+    live = [t for t in (wg, wu, wd, wg_s, wu_s, wd_s) if t is not None]
+    if not x.is_cuda or any(t.device != dev for t in live) \
             or sel_indices.device != dev:
         raise ValueError(f"{name} launches on CUDA tensors of one device")
-    if any(m.dtype != torch.float32 for m in mats):
-        raise ValueError(f"{name} reads float32 weights")
+    wdt = torch.int8 if quant else torch.float32
+    if any(m.dtype != wdt for m in (wg, wu, wd) if m is not None) \
+            or (quant and any(t.dtype != torch.float32
+                              for t in (wg_s, wu_s, wd_s) if t is not None)):
+        raise ValueError(f"{name} reads {wdt} weights"
+                         + (" and float32 scales" if quant else ""))
     if x.dtype not in _X_DTYPES:
         raise ValueError(f"unsupported x dtype {x.dtype}")
-    if any(m.shape != (k, d) for m in mats) or k % g or d % 4 or cap < 1 \
-            or s < 1:
+    if any(m.shape != (k, d) for m in (wg, wu, wd) if m is not None) \
+            or k % g or d % 4 or cap < 1 or s < 1:
         raise ValueError(f"bad shapes x={tuple(x.shape)} w=({k}, {d}) "
                          f"C={cap} G={g} for {name}")
+    qg = _quant_layout(name, k, d, g, wu, wg_s, wu_s, wd_s) if quant else 0
     if collect_stats and (gm_tok is None or gm_tok.shape != (s, k // g)):
         raise ValueError("collect_stats needs per-token group margins "
                          "(B, k/G)")
@@ -330,12 +382,13 @@ def _launch_chunk(x, wg, wu, wd, sel_indices, sel_count, gm_tok, *,
     x = x.contiguous()
     if x.data_ptr() % 16:       # 16-byte copies of x's rows
         x = x.clone()
-    wg, wu, wd = (t.contiguous() if t is not None else None
-                  for t in (wg, wu, wd))
-    if any(m.data_ptr() % 16 for m in (wg, wu, wd) if m is not None):
+    wg, wu, wd, wg_s, wu_s, wd_s = (
+        t.contiguous() if t is not None else None
+        for t in (wg, wu, wd, wg_s, wu_s, wd_s))
+    if any(t.data_ptr() % 16 for t in (wg, wu, wd, wd_s) if t is not None):
         raise ValueError(f"{name} reads weights in 16-byte copies: their "
                          "storage must be 16-byte aligned")
-    pl = chunk_plan(x, cap * g)
+    pl = chunk_plan(x, cap * g, 1 if quant else 4, g)
     if trace is not None and (trace.dtype != torch.int64
                               or trace.device != dev
                               or trace.numel() < pl.grid * TRACE_POINTS):
@@ -359,14 +412,21 @@ def _launch_chunk(x, wg, wu, wd, sel_indices, sel_count, gm_tok, *,
         return t.data_ptr() if t is not None else None
 
     lib = build.load(name)
-    rc = lib.fused_sparse_mlp_chunk(
-        x.data_ptr(), _X_DTYPES[x.dtype], ptr(wg), ptr(wu), ptr(wd),
-        sel.data_ptr(), count.data_ptr(), ptr(gm), y.data_ptr(),
-        tel.data_ptr() if collect_stats else None, gu.data_ptr(),
-        ht.data_ptr(), part.data_ptr(), ws.data_ptr(), ptr(trace),
-        pl.gu_floats // 2, s, d, k, cap, g, act_kind,
-        float(fatrelu_threshold), pl.nt, pl.s_pad, pl.max_splits,
-        pl.h_stride, pl.grid, pl.smem_bytes,
+    head = (x.data_ptr(), _X_DTYPES[x.dtype])
+    if quant:
+        weights = (ptr(wg), ptr(wg_s), ptr(wu), ptr(wu_s), ptr(wd),
+                   ptr(wd_s))
+    else:
+        weights = (ptr(wg), ptr(wu), ptr(wd))
+    shape = (s, d, k, cap, g) + ((qg,) if quant else ())
+    tiles = (pl.nt, pl.s_pad, pl.max_splits, pl.h_stride) \
+        + ((pl.slice_unit,) if quant else ())
+    rc = getattr(lib, name)(
+        *head, *weights, sel.data_ptr(), count.data_ptr(), ptr(gm),
+        y.data_ptr(), tel.data_ptr() if collect_stats else None,
+        gu.data_ptr(), ht.data_ptr(), part.data_ptr(), ws.data_ptr(),
+        ptr(trace), pl.gu_floats // 2, *shape, act_kind,
+        float(fatrelu_threshold), *tiles, pl.grid, pl.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(name, rc)
     if collect_stats:
@@ -399,8 +459,9 @@ def fused_sparse_mlp_chunk(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
     one selection drives the whole chunk, on the tensor cores.  ``trace``
     (grid x 8 int64, see :func:`phase_times`) takes the launch's phase
     trace."""
-    return _launch_chunk(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
-                         gm_tok, group_size=group_size,
+    return _launch_chunk("fused_sparse_mlp_chunk", x, (wg_t, wu_t, wd_t),
+                         None, sel_indices, sel_count, gm_tok,
+                         group_size=group_size,
                          activation=activation,
                          fatrelu_threshold=fatrelu_threshold,
                          collect_stats=collect_stats, trace=trace)
@@ -424,11 +485,12 @@ def fused_sparse_mlp_chunk_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
                              sel_indices, sel_count, gm_tok=None, *,
                              group_size: int = 8, activation: str = "relu",
                              fatrelu_threshold: float = 0.0,
-                             collect_stats: bool = False):
-    """:func:`fused_sparse_mlp_q` for any number of rows (a prefill
-    chunk)."""
-    return _launch("fused_sparse_mlp_chunk_q", x, wg_q, wu_q, wd_q, wg_s,
-                   wu_s, wd_s, sel_indices, sel_count, gm_tok,
-                   group_size=group_size, activation=activation,
-                   fatrelu_threshold=fatrelu_threshold,
-                   collect_stats=collect_stats)
+                             collect_stats: bool = False, trace=None):
+    """:func:`fused_sparse_mlp_q` for any number of rows (a prefill chunk),
+    on the tensor cores.  ``trace`` (grid x 8 int64, see
+    :func:`phase_times`) takes the launch's phase trace."""
+    return _launch_chunk("fused_sparse_mlp_chunk_q", x, (wg_q, wu_q, wd_q),
+                         (wg_s, wu_s, wd_s), sel_indices, sel_count, gm_tok,
+                         group_size=group_size, activation=activation,
+                         fatrelu_threshold=fatrelu_threshold,
+                         collect_stats=collect_stats, trace=trace)
