@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero:
              {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead slot};
              the chunk kernels at S in {17, 64, 128, 256} rows with pad
              rows (each run twice and bitwise equal); the int8
-             decode kernel at B in {1, 4, 16}; small-shape edge cases; a
-             decode batch of 24 through the ops layer.  Each is timed at
+             decode kernel at B in {1, 4, 16} (each run twice and bitwise
+             equal); small-shape edge cases (the int8 decode kernel's:
+             d=100 and d in 4120..12288, qg in {1, ..., 128}, B from 1 to
+             16); a decode batch of 24 through the ops layer.  Each is timed at
              the main path's shape beside its bound, its plain version and
              a library yardstick where one PyTorch call computes it (the
              float32 chunk MLP: three matmuls on the selected rows gathered
@@ -20,7 +22,10 @@ Phases, in order; any failure exits non-zero:
              one at the same shape); then the float32 and the int8 chunk
              MLPs' scaling lines, S in {16, 32, 64, 128, 256} at the full
              and a third of the selection (and none at S=64), each with
-             the kernel's phase trace of one launch.
+             the kernel's phase trace of one launch; then the int8 decode
+             MLP's, B in {1, 4, 8, 16} at the full and a third of the
+             selection (and none at B=4), with its phase trace, beside a
+             contiguous read of the same int8 bytes.
   3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
              and KV cache: 8 teacher-forced decode steps on the card against
              the same weights on the CPU (plain kernel versions), logits and
@@ -91,6 +96,14 @@ Phases, in order; any failure exits non-zero:
  13. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
+
+    python3 chip_smoke.py --decode-q-ab OTHER_SRC
+
+times the int8 decode MLP of another checkout's ``src`` (say the parent
+commit's, unpacked by ``git archive``) beside this one's, in the order
+other, this, this, other, each in a process of its own: the scaling line
+of phase 2 (untraced for the other) and a profiled full-depth int8 decode
+step.  It runs no other phase.
 """
 from __future__ import annotations
 
@@ -118,14 +131,15 @@ QG = 128                  # int8 quant group width
 BATCHES = (1, 4, 16)
 CHUNK_ROWS = (17, 64, 128, 256)
 SCALING_ROWS = (16, 32, 64, 128, 256)   # the chunk MLP's scaling line
+DECODE_BATCHES = (1, 4, 8, 16)          # the int8 decode MLP's scaling line
 MAIN_BATCH = 4            # the serve phase's batch: the main path's shape
 MAIN_CHUNK = 64           # the chunked serve phase's prefill chunk
 PAGE_BLOCK = 16           # the paged pool's block size
 PAGED_NBPS = (16, 128)    # blocks per slot: max_len 256 and 2048
 MAIN_LIVE = (64, 100, 150, 192)   # the timed paged shape's slot lengths
 # the port's kernels by namespace (profiler rows)
-OWN_KERNELS = ("mlp::", "predict::", "paged::", "paged_write::", "sign::",
-               "counts::")
+OWN_KERNELS = ("mlp::", "mlpq::", "predict::", "paged::", "paged_write::",
+               "sign::", "counts::")
 D_PAD = 4000              # a width that is not a multiple of 32
 # capacity fractions of the controller serve's ladder: 144, 288 and 560 of
 # the 1376 row groups
@@ -355,6 +369,97 @@ def phase_chunk_scaling(traced: bool = True) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_decode_q_scaling(traced: bool = True) -> None:
+    """The int8 decode MLP's time against the batch B (1, 4, 8, 16) and the
+    selected rows (count full and a third of it; none at B=4, the fixed
+    cost), bf16 x, on prosparse-llama2-7b's weights quantized (qg=128),
+    beside its bound (bytes, or the CUDA cores' operations): whether the
+    time follows the rows (bytes or latency) or B x rows (operations).
+    One more launch at each point records the kernel's phase trace
+    (KF.q_phase_times); ``traced`` False leaves it out (for a kernel that
+    takes no trace).  Before the line, the float32 decode kernel at B=4 on
+    the same weights and selection; after it, a contiguous read of the
+    same int8 bytes by one PyTorch reduction: the rate a plain read reaches
+    on this card.  Run alone from a script that puts a checkout's ``src``
+    first on sys.path, it times that checkout's kernels."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.core import quantize as Q
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wu = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wd = torch.randn((K, D), generator=gen, device=dev) * K ** -0.5
+    cap = SparseInferConfig().capacity(K)
+    x0 = torch.randn((MAIN_BATCH, D), generator=gen, device=dev)
+    gm, _ = KP.predict_group_margins(
+        P.pack_signs(wg), x0, torch.ones(MAIN_BATCH, device=dev),
+        d_valid=D, group_size=G)
+    sel = S.capacity_select(S.union_margin(gm), cap)
+    full = int(sel.count)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    # the float32 decode kernel on the same weights and selection (it shares
+    # no code with the int8 one: its time should not move)
+    xb = x0.to(torch.bfloat16)
+    t = cuda_ms(lambda: KF.fused_sparse_mlp(xb, wg, wu, wd, sel.indices,
+                                            sel.count, group_size=G),
+                flush=flush)
+    print(f"[scaling] fused_sparse_mlp B={MAIN_BATCH} x=bfloat16 count="
+          f"{full}/{cap} (float32 weights): kernel {t:.4f} ms", flush=True)
+    qn = Q.quantize_mlp_node({"wg_t": wg, "wu_t": wu, "wd_t": wd}, QG, G)
+    qargs = [qn[n] for n in QNAMES]
+    del wg, wu, wd, qn
+    for b in DECODE_BATCHES:
+        x = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16)
+        for count in (full, full // 3, 0):
+            if count == 0 and b != MAIN_BATCH:
+                continue
+            cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+            t = cuda_ms(lambda: KF.fused_sparse_mlp_q(
+                x, *qargs, sel.indices, cnt, group_size=G), flush=flush)
+            n_bytes, flops = chunk_q_work(b, count, cap, 2,
+                                          sel.indices[:count].long())[:2]
+            bd = bound_ms(n_bytes, flops)
+            phases = "not traced"
+            if traced:   # one more launch with its phase trace, L2 flushed
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                trace = torch.zeros((KF.MAX_BLOCKS_PER_SM * sms,
+                                     KF.Q_TRACE_POINTS), dtype=torch.int64,
+                                    device=dev)
+                flush()
+                KF.fused_sparse_mlp_q(x, *qargs, sel.indices, cnt,
+                                      group_size=G, trace=trace)
+                phases = " ".join(f"{k} {v:.4f}" for k, v in
+                                  KF.q_phase_times(trace).items())
+            print(f"[scaling] fused_sparse_mlp_q B={b} x=bfloat16 "
+                  f"count={count}/{cap}: kernel {t:.4f} ms, bound "
+                  f"{bd[0]:.4f} ms ({bd[1]}; share {bd[0] / t:.3f}); one "
+                  f"traced launch, ms: {phases}", flush=True)
+    # a plain read of the kernel's int8 weight bytes at the full selection
+    # (28 MB), as float32 words
+    n_bytes = chunk_q_work(MAIN_BATCH, full, cap, 2,
+                           sel.indices[:full].long())[0]
+    flat = torch.ones(3 * full * G * D // 4, device=dev)
+    t_read = cuda_ms(lambda: flat.sum(), flush=flush)
+    print(f"[scaling] decode int8: a contiguous read of the selected int8 "
+          f"weights' {3 * full * G * D / 1e6:.1f} MB (torch.sum): "
+          f"{t_read:.4f} ms, {3 * full * G * D / t_read / 1e9:.3f} TB/s "
+          f"(bound of the kernel's bytes at B={MAIN_BATCH} "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    del qargs, flat, flush_buf
+    torch.cuda.empty_cache()
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t = build.build()
@@ -493,11 +598,16 @@ def phase_kernels(results: dict) -> None:
 
 
 def phase_kernel_edges() -> None:
-    """The kernels' other paths at small shapes, against the plain
+    """The decode kernels' other paths at small shapes, against the plain
     versions: d not a multiple of 32 (padded signs) or of 128 (a partial
-    column tile), G in {1, 8, 16}, ungated, fatrelu, a zero count."""
+    column tile), G in {1, 8, 16}, ungated, fatrelu, a zero count; then
+    the int8 decode kernel's: d=100, partial column tiles, d above one
+    round of 4096 columns, G in {1, 8, 16}, qg in {1, 2, 4, 6, 32, 40, 48,
+    64, 128}, ungated, fatrelu, a zero count, B from 1 to 16, each run
+    twice."""
     import torch
     from repro_torch.core import predictor as P
+    from repro_torch.core import quantize as Q
     from repro_torch.core import selection as S
     from repro_torch.kernels import ops, ref
 
@@ -547,6 +657,69 @@ def phase_kernel_edges() -> None:
     print(f"[kernels] {n} small-shape cases (padded d, partial column tile, "
           "G in {1, 8, 16}, ungated, fatrelu, zero count) agree with the "
           "plain versions", flush=True)
+    n = 0
+    # the int8 decode kernel: (d, k, G, qg, B, gated, activation,
+    # threshold): d=100 (rows not 16-byte aligned; qg 2 and 4: one column a
+    # thread), d=640 and 192 (a partial 512-column tile), qg in {1, 2, 4, 6,
+    # 32, 40, 48, 64, 128}, B from 1 to 16 (1 to 4 passes of 4 tokens);
+    # d above 4096 (two or three rounds of 4096 columns: the round's scales,
+    # x again each round, the sums carried from round to round, slabs of 40
+    # and 48 columns cut by a round's end, one-column items of qg=1)
+    for d, k, g, qg, b, gated, act, thr in [
+            (100, 500, 1, 4, 3, True, "relu", 0.0),
+            (100, 500, 1, 2, 1, True, "fatrelu", 0.05),
+            (128, 512, 8, 32, 16, True, "relu", 0.0),
+            (192, 768, 16, 64, 16, False, "fatrelu", 0.05),
+            (256, 256, 8, 64, 7, False, "fatrelu", 0.0),
+            (640, 512, 8, 128, 5, True, "relu", 0.0),
+            (96, 384, 16, 32, 12, True, "relu", 0.0),
+            (192, 576, 1, 6, 2, True, "relu", 0.0),
+            (8192, 512, 8, 128, 4, True, "relu", 0.0),
+            (8192, 512, 8, 64, 16, False, "relu", 0.0),
+            (4224, 768, 16, 48, 5, True, "fatrelu", 0.05),
+            (4120, 320, 8, 40, 2, True, "relu", 0.0),
+            (12288, 256, 1, 1, 3, True, "relu", 0.0)]:
+        w = {m: torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+             for m in ("wg", "wu", "wd")}
+        qn = Q.quantize_mlp_node({"wg_t": w["wg"],
+                                  "wu_t": w["wu"] if gated else None,
+                                  "wd_t": w["wd"]}, qg, g)
+        qargs = [qn.get(m) for m in QNAMES]
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, d), generator=gen, device=dev).to(xdt)
+            alpha = torch.linspace(0.9, 1.1, b, device=dev)
+            gm, _ = ops.predict_group_margins(qn["sign_wg"], x, d, alpha,
+                                              group_size=g)
+            sel = S.capacity_select(S.union_margin(gm), max(1, k // g // 4))
+            kw = dict(group_size=g, activation=act, fatrelu_threshold=thr)
+            for count in (sel.count, torch.zeros((), dtype=torch.int32,
+                                                 device=dev)):
+                y, tel = ops.fused_sparse_mlp_q(x, *qargs, sel.indices,
+                                                count, gm, **kw,
+                                                collect_stats=True)
+                y0 = _same_twice(
+                    f"d={d} G={g} qg={qg} B={b} {xdt} without telemetry",
+                    lambda: ops.fused_sparse_mlp_q(
+                        x, *qargs, sel.indices, count, **kw),
+                    name="fused_sparse_mlp_q")
+                y_r, tel_r = ref.fused_sparse_mlp_q_ref(
+                    x, *qargs, sel.indices, count, gm, **kw,
+                    collect_stats=True)
+                scale = float(y_r.abs().max()) or 1.0
+                err = float((y - y_r).abs().max())
+                if err > 1e-4 * scale or not torch.equal(y, y0) \
+                        or not torch.equal(tel, tel_r):
+                    fail(f"fused_sparse_mlp_q d={d} k={k} G={g} qg={qg} "
+                         f"B={b} {xdt} gated={gated} {act} "
+                         f"count={int(count)}: err {err:.3e}, y differs "
+                         f"with/without telemetry, or telemetry "
+                         f"{tel.tolist()} vs {tel_r.tolist()}")
+                n += 1
+    print(f"[kernels] {n} small-shape cases of the int8 decode kernel (d=100"
+          ", partial column tiles, d in 4120..12288, G in {1, 8, 16}, qg in "
+          "{1, 2, 4, 6, 32, 40, 48, 64, 128}, ungated, fatrelu, zero count, "
+          "B from 1 to 16) agree with the plain version, bitwise equal with "
+          "and without telemetry", flush=True)
 
 
 def _check_telemetry(tel, tel_r, x, wg, sel_idx, count, tag) -> None:
@@ -691,15 +864,20 @@ def phase_chunk_kernels(results: dict) -> None:
                             x, *qargs, sel.indices, cnt_t, group_size=G),
                         name=qname)
                 else:
-                    y0 = KF.fused_sparse_mlp_q(x, *qargs, sel.indices, cnt_t,
-                                               group_size=G)
+                    y0 = _same_twice(
+                        f"{ctag} without telemetry",
+                        lambda: KF.fused_sparse_mlp_q(
+                            x, *qargs, sel.indices, cnt_t, group_size=G),
+                        name=qname)
                 y_r, tel_r = ref.fused_sparse_mlp_q_ref(
                     x, *qargs, sel.indices, cnt_t, gm, group_size=G,
                     collect_stats=True)
                 torch.cuda.synchronize()
-                # tolerance: float32 products summed in another order (the
-                # decode kernel scales per product, not per quant group); h
-                # stays float32
+                # tolerance: float32 sums of the same products in another
+                # order (both kernels scale each quant slab's partial and
+                # each group's down partial, as the reference does, but sum
+                # within a slab, a group and across splits or slices in
+                # their own order); h stays float32
                 check_y(qname, ctag, y, y0, y_r, 1e-4)
                 _check_telemetry(tel, tel_r, x, wg_deq, sel.indices, count,
                                  ctag)
@@ -1078,6 +1256,8 @@ def phase_serve_chunked(results: dict) -> None:
                  f"and x {chunks} prefill chunks)")
         results[f"launches_chunked_{kind}"] = counts
         profile_prefill_chunk(srv, cfg, kind)
+        if weights:
+            profile_decode(srv, cfg, kind)
         del srv
         torch.cuda.empty_cache()
 
@@ -1368,8 +1548,9 @@ def phase_serve(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_decode(srv, cfg) -> None:
-    """Where one full-depth decode step's time goes."""
+def profile_decode(srv, cfg, kind: str = "") -> None:
+    """Where one full-depth decode step's time goes (``kind``: the MLP
+    weights, for the label)."""
     import torch
     from repro_torch.models import lm
 
@@ -1377,9 +1558,33 @@ def profile_decode(srv, cfg) -> None:
     caches = lm.init_caches(cfg, b, srv.scfg.max_len, "cuda")
     tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
     lengths = torch.full((b,), 64, device="cuda")
-    profile_step(f"decode step (B={b}, {cfg.n_layers} layers)",
+    label = f", {kind} MLP weights" if kind else ""
+    profile_step(f"decode step (B={b}, {cfg.n_layers} layers{label})",
                  lambda: lm.decode_step(srv.params, cfg, tok, caches,
                                         lengths))
+
+
+def profile_int8_decode() -> None:
+    """A full-depth decode step with int8 MLP weights, profiled, on its own
+    server (random weights from seed 0): run from a script that puts a
+    checkout's ``src`` first on sys.path, it profiles that checkout's
+    step."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(sparse=dataclasses.replace(
+        base.sparse, strategy="pallas", enabled=True, weight_dtype="int8",
+        quant_group_size=QG))
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, ServeConfig(batch=MAIN_BATCH, max_len=256),
+                 params, device="cuda")
+    del params
+    profile_decode(srv, cfg, "int8")
+    del srv
+    torch.cuda.empty_cache()
 
 
 def profile_prefill_chunk(srv, cfg, kind: str) -> None:
@@ -2292,6 +2497,24 @@ def profile_controller_steps(srv, cfg) -> None:
             collect_stats=True))
 
 
+def decode_q_ab(other_src: str, src: str) -> None:
+    """The int8 decode MLP's scaling line and int8 decode step profile of
+    ``other_src`` and ``src``, in the order other, this, this, other, each
+    in a process of its own (one package a process)."""
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        fail(f"no repro_torch in {other_src}")
+    for path in (other_src, src, src, other_src):
+        traced = path == src
+        code = (f"import sys; sys.path[:0] = [{path!r}, {HERE!r}]; "
+                "import torch; torch.backends.cuda.matmul.allow_tf32 = "
+                "False; import chip_smoke as cs; "
+                f"cs.phase_decode_q_scaling(traced={traced}); "
+                "cs.profile_int8_decode()")
+        print(f"[ab] {path}", flush=True)
+        if subprocess.run([sys.executable, "-c", code]).returncode:
+            fail(f"the int8 decode A/B run of {path} failed")
+
+
 def main() -> None:
     try:
         import torch
@@ -2302,6 +2525,14 @@ def main() -> None:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repo")
+    if sys.argv[1:2] == ["--decode-q-ab"] and len(sys.argv) == 3:
+        print(f"[gpu] {gpu_line()}", flush=True)
+        decode_q_ab(os.path.abspath(sys.argv[2]), src)
+        print(f"[gpu] {gpu_line()}", flush=True)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --decode-q-ab "
+             "OTHER_SRC")
     sys.path.insert(0, src)
     # tolerances are set against full-float32 matrix products: TF32 keeps
     # ~3 decimal digits and would hide (or fake) a kernel fault
@@ -2313,6 +2544,7 @@ def main() -> None:
     for phase, args in ((phase_build, ()), (phase_kernels, (results,)),
                         (phase_chunk_kernels, (results,)),
                         (phase_chunk_scaling, ()),
+                        (phase_decode_q_scaling, ()),
                         (phase_paged_kernels, (results,)),
                         (phase_sign_kernels, (results,)),
                         (phase_decode, ()), (phase_prefill, ()),

@@ -1,32 +1,23 @@
 // Capacity-gathered fused sparse gated MLP for a decode batch of at most 16
-// tokens, shared by the two decode kernels: float32 weights
-// (fused_sparse_mlp.cu, replacing the reference's fused_sparse_mlp) and
-// int8 weights (fused_sparse_mlp_q.cu, replacing fused_sparse_mlp_q).  The
-// two chunk kernels run on the tensor cores instead
-// (fused_sparse_mlp_chunk_tc.cuh).
+// tokens over float32 weights (fused_sparse_mlp.cu, replacing the
+// reference's fused_sparse_mlp).  The int8 decode kernel has its own
+// design (fused_sparse_mlp_q.cu); the two chunk kernels run on the tensor
+// cores (fused_sparse_mlp_chunk_tc.cuh).
 //
 // For the first `count` of the C selected row groups sel[0..C) it computes
 //     g = act(x Wg[rows]^T),  h = g * (x Wu[rows]^T)
 //     y = sum over the selected rows of h[:, row] * Wd[row, :]   (float32)
 // and, when tel is given, per-token int32 counters (actual, false_neg,
 // realized) = (rows with g > 0, of those the ones whose own group margin
-// gm_tok[b, sel] said skip, G * groups the token itself kept).
-//   float32 weights: h is rounded to x's dtype before the down projection,
-//     as the reference kernel does (a no-op for float32 x).
-//   int8 weights (wg_s/wu_s (k, d/qg) and wd_s (k/qg, d) float32 scales):
-//     each weight is scaled by its group's scale as it is read, x is taken
-//     as float32 and h is not rounded, as the reference's int8 kernel does.
-//     The reference sums a partial dot per quant group and then scales it;
-//     scaling each product instead rounds differently, within float32
-//     rounding of the same sum.
+// gm_tok[b, sel] said skip, G * groups the token itself kept).  h is
+// rounded to x's dtype before the down projection, as the reference kernel
+// does (a no-op for float32 x).
 //
 // What bounds it on an H100.  The weight bytes: 3 * count*G rows of d, 4
-// bytes each for float32 (113 MB per layer at C=288 groups of 8 rows,
-// d=4096: ~34 us at 3.35 TB/s) and 1 byte for int8 (28 MB plus ~1-2 MB of
-// scales: ~9 us).  The operations, 6 * B * count*G * d flops on the CUDA
-// cores (67 TFLOP/s for float32), pass the bytes at about B=48 for float32
-// weights and B=12 for int8, so a decode batch (B <= 16) is bound by
-// bytes, or close to it.
+// bytes each (113 MB per layer at C=288 groups of 8 rows, d=4096: ~34 us at
+// 3.35 TB/s).  The operations, 6 * B * count*G * d flops on the CUDA cores
+// (67 TFLOP/s), pass the bytes at about B=48, so a decode batch (B <= 16)
+// is bound by bytes.
 //
 // Design: one cooperative launch in three phases separated by grid-wide
 // barriers, so that the sum over groups is split across the whole card and
@@ -57,8 +48,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace mlp {
 
 constexpr int kMaxB = 16;                      // tokens of one row block
@@ -79,30 +68,9 @@ __device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// four consecutive weights as float32 (p 4-element aligned)
+// four consecutive weights (p 4-element aligned)
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const char4 c = __ldg(reinterpret_cast<const char4*>(p));
-  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
-}
-
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
-}
-
-// scales of columns col..col+3 of one row of a (rows, d/qg) scale matrix
-__device__ __forceinline__ float4 row_scales(const float* s, int col,
-                                             int qg) {
-  if (qg >= 4) {  // at most one group boundary among 4 columns
-    const int q0 = col / qg, r = col - q0 * qg;
-    const float a = __ldg(s + q0);
-    const float b = r + 3 >= qg ? __ldg(s + q0 + 1) : a;
-    return make_float4(a, r + 1 >= qg ? b : a, r + 2 >= qg ? b : a, b);
-  }
-  return make_float4(__ldg(s + col / qg), __ldg(s + (col + 1) / qg),
-                     __ldg(s + (col + 2) / qg), __ldg(s + (col + 3) / qg));
 }
 
 __device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned phase) {
@@ -124,15 +92,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <typename XT, typename WT>
+template <typename XT>
 __global__ void __launch_bounds__(kThreads)
 fused_kernel(const XT* __restrict__ x,
-             const WT* __restrict__ wg,
-             const WT* __restrict__ wu,        // null: ungated
-             const WT* __restrict__ wd,
-             const float* __restrict__ wg_s,   // int8 only: (k, d/qg)
-             const float* __restrict__ wu_s,
-             const float* __restrict__ wd_s,   // int8 only: (k/qg, d)
+             const float* __restrict__ wg,
+             const float* __restrict__ wu,     // null: ungated
+             const float* __restrict__ wd,
              const int32_t* __restrict__ sel,
              const int32_t* __restrict__ count_ptr,
              const float* __restrict__ gm_tok,  // null: no stats
@@ -141,9 +106,8 @@ fused_kernel(const XT* __restrict__ x,
              float* __restrict__ hbuf,          // (C*G, B)
              float* __restrict__ part,          // (S, B, d)
              unsigned* __restrict__ bar,        // zeroed
-             int B, int d, int k, int C, int G, int qg, int act_kind,
+             int B, int d, int k, int C, int G, int act_kind,
              float thr, int dc, int rows_per_slice) {
-  constexpr bool kQuant = std::is_same<WT, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   __shared__ int tel_s[kMaxB * 3];
@@ -152,7 +116,6 @@ fused_kernel(const XT* __restrict__ x,
   const int count = min(max(*count_ptr, 0), C);
   const int nrows = count * G;
   const int n_groups = k / G;
-  const int nq = kQuant ? d / qg : 1;
   const bool gated = wu != nullptr;
   const bool stats = tel != nullptr;
   // this block's row block: tokens tok0 .. tok0 + Bt
@@ -185,17 +148,12 @@ fused_kernel(const XT* __restrict__ x,
       }
       __syncthreads();
       if (!has) continue;
-      const WT* grow = wg + (size_t)row * d + c0;
-      const WT* urow = gated ? wu + (size_t)row * d + c0 : nullptr;
+      const float* grow = wg + (size_t)row * d + c0;
+      const float* urow = gated ? wu + (size_t)row * d + c0 : nullptr;
       for (int i4 = lane; i4 < len / 4; i4 += 32) {
-        float4 gv = load4(grow + i4 * 4);
-        float4 uv = gated ? load4(urow + i4 * 4) : make_float4(0, 0, 0, 0);
-        if (kQuant) {
-          const int col = c0 + i4 * 4;
-          gv = mul4(gv, row_scales(wg_s + (size_t)row * nq, col, qg));
-          if (gated)
-            uv = mul4(uv, row_scales(wu_s + (size_t)row * nq, col, qg));
-        }
+        const float4 gv = load4(grow + i4 * 4);
+        const float4 uv =
+            gated ? load4(urow + i4 * 4) : make_float4(0, 0, 0, 0);
 #pragma unroll
         for (int b = 0; b < kMaxB; ++b) {
           if (b < Bt) {
@@ -225,8 +183,7 @@ fused_kernel(const XT* __restrict__ x,
       if (lane < Bt) {
         const float ga = act_kind == 0 ? fmaxf(gv, 0.f) : (gv > thr ? gv : 0.f);
         const float h = gated ? ga * uv : ga;
-        hbuf[(size_t)n * B + tok0 + lane] =
-            kQuant ? h : round_to(h, (XT*)nullptr);
+        hbuf[(size_t)n * B + tok0 + lane] = round_to(h, (XT*)nullptr);
         if (stats) {
           const bool live = ga > 0.f;
           const bool keep =
@@ -275,10 +232,7 @@ fused_kernel(const XT* __restrict__ x,
     if (colok) {
       for (int n = n0 + warp; n < n1; n += kWarps) {
         const int row = sel[n / G] * G + n % G;
-        float4 wv = load4(wd + (size_t)row * d + col);
-        if (kQuant)
-          wv = mul4(wv, __ldg(reinterpret_cast<const float4*>(
-                            wd_s + (size_t)(row / qg) * d + col)));
+        const float4 wv = load4(wd + (size_t)row * d + col);
         const float* hr = hs + (n - n0) * Bt;
 #pragma unroll
         for (int b = 0; b < kMaxB; ++b) {
@@ -344,7 +298,7 @@ struct Plan {
   int grid, dc, n_slices, rows_per_slice, smem;
 };
 
-template <typename XT, typename WT>
+template <typename XT>
 cudaError_t make_plan(int B, int d, int cap_rows, Plan* p) {
   // phase 1 stages Bt x dc floats of x; phase 2 holds rows_per_slice x Bt
   // floats of h plus the 4 x Bt x 128 reduction tile
@@ -355,7 +309,7 @@ cudaError_t make_plan(int B, int d, int cap_rows, Plan* p) {
   int occ = 0;
   p->smem = kSmemFloats * 4;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, fused_kernel<XT, WT>, kThreads, p->smem);
+      &occ, fused_kernel<XT>, kThreads, p->smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -376,21 +330,17 @@ cudaError_t make_plan(int B, int d, int cap_rows, Plan* p) {
   return cudaSuccess;
 }
 
-template <typename XT, typename WT>
+template <typename XT>
 cudaError_t launch(const void* x, const void* wg, const void* wu,
-                   const void* wd, const void* wg_s, const void* wu_s,
-                   const void* wd_s, const void* sel, const void* count,
+                   const void* wd, const void* sel, const void* count,
                    const void* gm_tok, void* y, void* tel, void* hbuf,
                    void* part, void* bar, int B, int d, int k, int C, int G,
-                   int qg, int act_kind, float thr, const Plan& p,
+                   int act_kind, float thr, const Plan& p,
                    cudaStream_t stream) {
   const XT* xp = static_cast<const XT*>(x);
-  const WT* wgp = static_cast<const WT*>(wg);
-  const WT* wup = static_cast<const WT*>(wu);
-  const WT* wdp = static_cast<const WT*>(wd);
-  const float* wgsp = static_cast<const float*>(wg_s);
-  const float* wusp = static_cast<const float*>(wu_s);
-  const float* wdsp = static_cast<const float*>(wd_s);
+  const float* wgp = static_cast<const float*>(wg);
+  const float* wup = static_cast<const float*>(wu);
+  const float* wdp = static_cast<const float*>(wd);
   const int32_t* selp = static_cast<const int32_t*>(sel);
   const int32_t* cntp = static_cast<const int32_t*>(count);
   const float* gmp = static_cast<const float*>(gm_tok);
@@ -400,34 +350,31 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
   float* pp = static_cast<float*>(part);
   unsigned* bp = static_cast<unsigned*>(bar);
   int dc = p.dc, rps = p.rows_per_slice;
-  void* args[] = {&xp,  &wgp, &wup, &wdp, &wgsp, &wusp, &wdsp, &selp,
-                  &cntp, &gmp, &yp,  &telp, &hp,  &pp,   &bp,   &B,
-                  &d,   &k,   &C,   &G,   &qg,  &act_kind, &thr, &dc,
-                  &rps};
+  void* args[] = {&xp,  &wgp, &wup, &wdp,      &selp, &cntp, &gmp,
+                  &yp,  &telp, &hp, &pp,       &bp,   &B,    &d,
+                  &k,   &C,   &G,   &act_kind, &thr,  &dc,   &rps};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)fused_kernel<XT, WT>, dim3(p.grid), dim3(kThreads), args,
+      (const void*)fused_kernel<XT>, dim3(p.grid), dim3(kThreads), args,
       (size_t)p.smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// The C entry points of one kernel (weight type WT, at most max_b rows; 0 =
-// any): launch geometry for (B, d, C*G), out = {grid, dc, n_slices,
-// rows_per_slice, smem} (the caller sizes hbuf, C*G*B floats, and part,
-// n_slices*B*d floats, from it); and the launch.  x_dtype: 0 = float32,
-// 1 = bfloat16.  act_kind: 0 = relu, 1 = fatrelu(thr).  wu null = ungated;
-// gm_tok and tel null = no telemetry; the scales are given for int8 weights
-// only (qg = quant group width).  tel and bar must be zeroed by the caller.
-// The launch returns cudaGetLastError() after it (0 = launched).
-template <typename WT>
-int plan_entry(int max_b, int x_dtype, int B, int d, int cap_rows,
-               int* out) {
+// The C entry points of the kernel (at most max_b rows; 0 = any): launch
+// geometry for (B, d, C*G), out = {grid, dc, n_slices, rows_per_slice,
+// smem} (the caller sizes hbuf, C*G*B floats, and part, n_slices*B*d
+// floats, from it); and the launch.  x_dtype: 0 = float32, 1 = bfloat16.
+// act_kind: 0 = relu, 1 = fatrelu(thr).  wu null = ungated; gm_tok and tel
+// null = no telemetry.  tel and bar must be zeroed by the caller.  The
+// launch returns cudaGetLastError() after it (0 = launched).
+inline int plan_entry(int max_b, int x_dtype, int B, int d, int cap_rows,
+                      int* out) {
   if (B < 1 || (max_b && B > max_b) || d % 4 || cap_rows < 1)
     return (int)cudaErrorInvalidValue;
   Plan p{};
   cudaError_t e =
-      x_dtype == 0   ? make_plan<float, WT>(B, d, cap_rows, &p)
-      : x_dtype == 1 ? make_plan<__nv_bfloat16, WT>(B, d, cap_rows, &p)
+      x_dtype == 0   ? make_plan<float>(B, d, cap_rows, &p)
+      : x_dtype == 1 ? make_plan<__nv_bfloat16>(B, d, cap_rows, &p)
                      : cudaErrorInvalidValue;
   out[0] = p.grid;
   out[1] = p.dc;
@@ -437,58 +384,49 @@ int plan_entry(int max_b, int x_dtype, int B, int d, int cap_rows,
   return (int)e;
 }
 
-template <typename WT>
-int launch_entry(int max_b, const void* x, int x_dtype, const void* wg,
-                 const void* wu, const void* wd, const void* wg_s,
-                 const void* wu_s, const void* wd_s, const void* sel,
-                 const void* count, const void* gm_tok, void* y, void* tel,
-                 void* hbuf, void* part, void* bar, int B, int d, int k,
-                 int C, int G, int qg, int act_kind, float thr, int grid,
-                 int dc, int n_slices, int rows_per_slice, int smem,
-                 void* stream) {
-  constexpr bool kQuant = std::is_same<WT, int8_t>::value;
+inline int launch_entry(int max_b, const void* x, int x_dtype,
+                        const void* wg, const void* wu, const void* wd,
+                        const void* sel, const void* count,
+                        const void* gm_tok, void* y, void* tel, void* hbuf,
+                        void* part, void* bar, int B, int d, int k, int C,
+                        int G, int act_kind, float thr, int grid, int dc,
+                        int n_slices, int rows_per_slice, int smem,
+                        void* stream) {
   if (B < 1 || (max_b && B > max_b) || d % 4 || G < 1 || k % G ||
       grid % ((B + kMaxB - 1) / kMaxB))
-    return (int)cudaErrorInvalidValue;
-  if (kQuant != (wg_s != nullptr && wd_s != nullptr) ||
-      (kQuant && (qg < 1 || d % qg || k % qg || qg % G ||
-                  (wu != nullptr) != (wu_s != nullptr))))
     return (int)cudaErrorInvalidValue;
   Plan p{grid, dc, n_slices, rows_per_slice, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0)
-    return (int)launch<float, WT>(x, wg, wu, wd, wg_s, wu_s, wd_s, sel,
-                                  count, gm_tok, y, tel, hbuf, part, bar, B,
-                                  d, k, C, G, qg, act_kind, thr, p, s);
+    return (int)launch<float>(x, wg, wu, wd, sel, count, gm_tok, y, tel,
+                              hbuf, part, bar, B, d, k, C, G, act_kind, thr,
+                              p, s);
   if (x_dtype == 1)
-    return (int)launch<__nv_bfloat16, WT>(x, wg, wu, wd, wg_s, wu_s, wd_s,
-                                          sel, count, gm_tok, y, tel, hbuf,
-                                          part, bar, B, d, k, C, G, qg,
-                                          act_kind, thr, p, s);
+    return (int)launch<__nv_bfloat16>(x, wg, wu, wd, sel, count, gm_tok, y,
+                                      tel, hbuf, part, bar, B, d, k, C, G,
+                                      act_kind, thr, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace mlp
 
 // The exported functions of one source: NAME_plan, NAME and
-// NAME_error_string, for weight type WT and at most MAX_B rows (0 = any).
-#define MLP_EXPORTS(NAME, WT, MAX_B)                                          \
+// NAME_error_string, for at most MAX_B rows (0 = any).
+#define MLP_EXPORTS(NAME, MAX_B)                                              \
   extern "C" {                                                                \
   int NAME##_plan(int x_dtype, int B, int d, int cap_rows, int* out) {        \
-    return mlp::plan_entry<WT>(MAX_B, x_dtype, B, d, cap_rows, out);          \
+    return mlp::plan_entry(MAX_B, x_dtype, B, d, cap_rows, out);              \
   }                                                                           \
   int NAME(const void* x, int x_dtype, const void* wg, const void* wu,        \
-           const void* wd, const void* wg_s, const void* wu_s,                \
-           const void* wd_s, const void* sel, const void* count,              \
+           const void* wd, const void* sel, const void* count,                \
            const void* gm_tok, void* y, void* tel, void* hbuf, void* part,    \
-           void* bar, int B, int d, int k, int C, int G, int qg,              \
-           int act_kind, float thr, int grid, int dc, int n_slices,           \
-           int rows_per_slice, int smem, void* stream) {                      \
-    return mlp::launch_entry<WT>(MAX_B, x, x_dtype, wg, wu, wd, wg_s, wu_s,   \
-                                 wd_s, sel, count, gm_tok, y, tel, hbuf,      \
-                                 part, bar, B, d, k, C, G, qg, act_kind, thr, \
-                                 grid, dc, n_slices, rows_per_slice, smem,    \
-                                 stream);                                     \
+           void* bar, int B, int d, int k, int C, int G, int act_kind,        \
+           float thr, int grid, int dc, int n_slices, int rows_per_slice,     \
+           int smem, void* stream) {                                          \
+    return mlp::launch_entry(MAX_B, x, x_dtype, wg, wu, wd, sel, count,       \
+                             gm_tok, y, tel, hbuf, part, bar, B, d, k, C, G,  \
+                             act_kind, thr, grid, dc, n_slices,               \
+                             rows_per_slice, smem, stream);                   \
   }                                                                           \
   const char* NAME##_error_string(int code) {                                 \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                \

@@ -10,14 +10,18 @@ fused_sparse_mlp_q          csrc/fused_sparse_mlp_q.cu (B <= 16)   int8
 fused_sparse_mlp_chunk_q    csrc/fused_sparse_mlp_chunk_q.cu       int8
 ==========================  =====================================  ========
 
-The two decode kernels share the CUDA-core kernel template of
-``csrc/fused_sparse_mlp.cuh``; each source instantiates its own.  The two
-chunk kernels run the tensor-core kernel of
+The float32 decode kernel is the CUDA-core kernel of
+``csrc/fused_sparse_mlp.cuh``, which plans its own launch.  The int8
+decode kernel streams whole rows through a ring of 16-byte copies, gate/up
+on the CUDA cores with the quant scales applied per slab, launched from
+``decode_q_plan`` (the gate/up layout of the quant width, the chain batch,
+the ring, the shared memory and the grid).
+The two chunk kernels run the tensor-core kernel of
 ``csrc/fused_sparse_mlp_chunk_tc.cuh`` (float32 or int8 weights), launched
 with their own scratch from ``plan`` (tile sizes, the split of d, the
-slices, the grid and the shared memory), kept on the host so that the CPU
-tests reach it.  Callers go through ``kernels.ops``, which picks the plain
-version for CPU tensors and counts launches."""
+slices, the grid and the shared memory).  Both plans are kept on the host
+so that the CPU tests reach them.  Callers go through ``kernels.ops``,
+which picks the plain version for CPU tensors and counts launches."""
 from __future__ import annotations
 
 import ctypes
@@ -66,38 +70,31 @@ def _quant_layout(name: str, k: int, d: int, g: int, wu, wg_s, wu_s,
     return qg
 
 
-def _launch(name: str, x, wg, wu, wd, wg_s, wu_s, wd_s, sel_indices,
-            sel_count, gm_tok, *, group_size: int, activation: str,
-            fatrelu_threshold: float, collect_stats: bool):
+def _launch(name: str, x, wg, wu, wd, sel_indices, sel_count, gm_tok, *,
+            group_size: int, activation: str, fatrelu_threshold: float,
+            collect_stats: bool):
+    """One launch of the float32 decode kernel."""
     b, d = x.shape
     k = wg.shape[0]
     g = group_size
     cap = sel_indices.shape[0]
     dev = x.device
-    quant = wg_s is not None
-    wdt = torch.int8 if quant else torch.float32
     mats = [m for m in (wg, wu, wd) if m is not None]
-    scales = [s for s in (wg_s, wu_s, wd_s) if s is not None]
-    if not x.is_cuda or any(t.device != dev for t in mats + scales) \
+    if not x.is_cuda or any(t.device != dev for t in mats) \
             or sel_indices.device != dev:
         raise ValueError(f"{name} launches on CUDA tensors of one device")
-    if any(m.dtype != wdt for m in mats) \
-            or any(s.dtype != torch.float32 for s in scales):
-        raise ValueError(f"{name} reads {wdt} weights and float32 scales")
+    if any(m.dtype != torch.float32 for m in mats):
+        raise ValueError(f"{name} reads float32 weights")
     if x.dtype not in _X_DTYPES:
         raise ValueError(f"unsupported x dtype {x.dtype}")
     if any(m.shape != (k, d) for m in mats) or k % g or d % 4 or cap < 1 \
             or b < 1 or b > MAX_BATCH:
         raise ValueError(f"bad shapes x={tuple(x.shape)} w=({k}, {d}) "
                          f"C={cap} G={g} for {name}")
-    qg = _quant_layout(name, k, d, g, wu, wg_s, wu_s, wd_s) if quant else 0
     if collect_stats and (gm_tok is None or gm_tok.shape != (b, k // g)):
         raise ValueError("collect_stats needs per-token group margins "
                          "(B, k/G)")
-    act_kind = 1 if (activation == "fatrelu" or fatrelu_threshold > 0.0) \
-        else 0
-    if act_kind == 0 and activation != "relu":
-        raise ValueError(f"activation {activation!r} is not sparsifiable")
+    act_kind = _act_kind(activation, fatrelu_threshold)
     sel = sel_indices.to(torch.int32).contiguous()
     count = torch.as_tensor(sel_count, dtype=torch.int32,
                             device=dev).reshape(())
@@ -110,10 +107,8 @@ def _launch(name: str, x, wg, wu, wd, wg_s, wu_s, wd_s, sel_indices,
     hbuf = torch.empty((cap * g * b,), dtype=torch.float32, device=dev)
     part = torch.empty((n_slices * b * d,), dtype=torch.float32, device=dev)
     gm = gm_tok.float().contiguous() if collect_stats else None
-
-    wg, wu, wd, wg_s, wu_s, wd_s = (
-        t.contiguous() if t is not None else None
-        for t in (wg, wu, wd, wg_s, wu_s, wd_s))
+    wg, wu, wd = (t.contiguous() if t is not None else None
+                  for t in (wg, wu, wd))
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -121,11 +116,275 @@ def _launch(name: str, x, wg, wu, wd, wg_s, wu_s, wd_s, sel_indices,
     lib = build.load(name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(lib, name)(
-        x.data_ptr(), code, ptr(wg), ptr(wu), ptr(wd), ptr(wg_s), ptr(wu_s),
-        ptr(wd_s), sel.data_ptr(), count.data_ptr(), ptr(gm), y.data_ptr(),
+        x.data_ptr(), code, ptr(wg), ptr(wu), ptr(wd), sel.data_ptr(),
+        count.data_ptr(), ptr(gm), y.data_ptr(),
         tel.data_ptr() if collect_stats else None, hbuf.data_ptr(),
-        part.data_ptr(), ws.data_ptr(), b, d, k, cap, g, qg, act_kind,
+        part.data_ptr(), ws.data_ptr(), b, d, k, cap, g, act_kind,
         float(fatrelu_threshold), grid, dc, n_slices, rps, smem, stream)
+    build.check(name, rc)
+    if collect_stats:
+        return y, tel
+    return y
+
+
+def _act_kind(activation: str, fatrelu_threshold: float) -> int:
+    """The kernels' activation code: 0 relu, 1 fatrelu(threshold)."""
+    if activation == "fatrelu" or fatrelu_threshold > 0.0:
+        return 1
+    if activation != "relu":
+        raise ValueError(f"activation {activation!r} is not sparsifiable")
+    return 0
+
+
+# ------------------------------------------------ the int8 decode kernel --
+# csrc/fused_sparse_mlp_q.cu: kThreads, kPiece, kNBp, kState, kTile,
+# kRowsStep, kStages, kTracePoints; the gate/up modes kSlab16, kSlab1.  The
+# layout is decided here only: the kernel takes it from the plan, and its C
+# entry checks that the buffers hold what the kernel writes.
+Q_THREADS, Q_PIECE, Q_NBP = 256, 16, 4
+Q_ROUND_COLS = Q_PIECE * Q_THREADS  # columns of d a gate/up stage
+Q_STATE = 4 * Q_NBP                 # a chain row's carried sums
+Q_TILE, Q_ROWS_STEP = 2 * Q_THREADS, 16
+Q_STAGES = 6                        # stages of the ring a launch uses
+Q_SLAB16, Q_SLAB1 = 0, 1
+Q_ROWS_BUDGET = 48 * 1024           # bytes of a chain batch's rows
+Q_TRACE_POINTS = 8                  # see q_phase_times
+
+
+class QPlan(NamedTuple):
+    nb: int              # tokens of the instantiation: 4, 8 or 16
+    passes: int          # gate/up passes of Q_NBP tokens
+    mode: int            # Q_SLAB16 or Q_SLAB1
+    lanes: int           # lanes whose partials one item sums
+    items: int           # items (slab partials) of a row in one round
+    slab_scales: int     # Q_SLAB16: gate (and up) scales a stage carries
+    row_floats: int      # a chain row: Q_STATE, items, Q_SLAB16's scales
+    stage_bytes: int     # a gate/up stage
+    down_stage_bytes: int
+    chain_rows: int      # rows of a chain batch
+    stages: int          # stages of the ring
+    ring: int            # bytes of the ring
+    smem_bytes: int      # the ring and a chain batch's rows
+    grid: int            # blocks, all resident (cooperative launch)
+    tiles: int           # down's Q_TILE-column tiles of d
+    h_floats: int        # h: C*G rows of nb floats
+    part_floats: int     # down's runs: (grid + tiles) slots of nb x Q_TILE
+
+
+def q_mode(qg: int) -> int:
+    """How gate/up meets the quant slabs of width qg: 16-column pieces
+    inside a slab (qg a multiple of 16), else one column a piece."""
+    return Q_SLAB16 if qg % Q_PIECE == 0 else Q_SLAB1
+
+
+def q_lanes(qg: int) -> int:
+    """Lanes whose partials one item sums: the largest power of two <= 32
+    that divides the pieces of a slab."""
+    w = qg // Q_PIECE if q_mode(qg) == Q_SLAB16 else qg
+    lanes = 1
+    while lanes < 32 and w % (2 * lanes) == 0:
+        lanes *= 2
+    return lanes
+
+
+def q_items(d: int, qg: int) -> int:
+    """Items (lane-group partials) a row holds in one round of up to 4096
+    columns (every round but the last has exactly this many)."""
+    width = Q_PIECE if q_mode(qg) == Q_SLAB16 else 1
+    return -(-min(d, Q_ROUND_COLS) // (width * q_lanes(qg)))
+
+
+def q_round_slabs(d: int, qg: int) -> int:
+    """The gate and up scales a Q_SLAB16 stage brings of its row: the slabs
+    a round of 4096 columns touches (all of them when d fits one round)."""
+    if q_mode(qg) != Q_SLAB16:
+        return 0
+    return d // qg if d <= Q_ROUND_COLS else -(-Q_ROUND_COLS // qg) + 1
+
+
+def q_row_floats(d: int, qg: int) -> int:
+    """Floats of a row in a chain batch: the sums carried from round to
+    round (Q_STATE), the round's items (gate, then up, Q_NBP tokens each),
+    then for Q_SLAB16 the round's gate and up scales; a multiple of 4."""
+    f = Q_STATE + q_items(d, qg) * 2 * Q_NBP + 2 * q_round_slabs(d, qg)
+    return -(-f // 4) * 4
+
+
+def q_stage_bytes(d: int, qg: int) -> int:
+    """A gate/up stage: a row of Wg and of Wu, up to 4096 columns, each
+    padded to 16 bytes, then the round's gate and up scales."""
+    return 2 * (-(-min(d, Q_ROUND_COLS) // 16) * 16) \
+        + -(-2 * q_round_slabs(d, qg) * 4 // 16) * 16
+
+
+def q_down_stage_bytes(group_size: int, nb: int) -> int:
+    """A down stage: up to 16 rows of 512 bytes of Wd, their h rows of nb
+    floats, a scale row piece of 512 floats."""
+    rs = min(group_size, Q_ROWS_STEP)
+    return rs * Q_TILE + rs * nb * 4 + Q_TILE * 4
+
+
+def q_range(n: int, grid: int, blk: int) -> tuple[int, int]:
+    """Block blk's share [lo, hi) of n rows (gate/up) or units (down):
+    equal contiguous ranges, in order."""
+    return n * blk // grid, n * (blk + 1) // grid
+
+
+def q_owner(u: int, n: int, grid: int) -> int:
+    """The block whose share of n holds u (the kernel's phase 3)."""
+    return ((u + 1) * grid - 1) // n
+
+
+def decode_q_plan(b: int, d: int, cap_rows: int, group_size: int, qg: int,
+                  sms: int, occupancy) -> QPlan:
+    """The launch of the int8 decode kernel for b tokens of width d over at
+    most ``cap_rows`` (= C*G) selected rows in groups of ``group_size``
+    with quant width qg, on a card of ``sms`` SMs; ``occupancy(nb, mode,
+    smem)`` says how many blocks one SM holds at once.  Gate/up runs on
+    the CUDA cores in passes of 4 tokens and rounds of up to 4096 columns;
+    a chain batch holds as many rows as one block takes at one block a SM,
+    within Q_ROWS_BUDGET bytes (at least one row: every d fits, since a
+    row holds one round).  The ring has Q_STAGES stages.  The grid is
+    resident: at most 2 blocks a SM.  Raises ValueError on a shape the
+    kernel does not take and RuntimeError when the card cannot hold one
+    block."""
+    name = "fused_sparse_mlp_q"
+    g = group_size
+    if not 1 <= b <= MAX_BATCH or d < 4 or d % 4 or cap_rows < 1 or g < 1 \
+            or cap_rows % g or qg < 1 or d % qg or qg % g:
+        raise ValueError(
+            f"{name}: bad shape B={b} d={d} C*G={cap_rows} G={g} qg={qg} "
+            f"(B <= {MAX_BATCH}; d a positive multiple of 4 and of qg; qg "
+            "a multiple of G)")
+    nb = 4 if b <= 4 else 8 if b <= 8 else 16
+    mode = q_mode(qg)
+    row_floats = q_row_floats(d, qg)
+    s1, s2 = q_stage_bytes(d, qg), q_down_stage_bytes(g, nb)
+    ring = Q_STAGES * max(s1, s2)
+    chain_rows = max(1, min(-(-cap_rows // sms),
+                            Q_ROWS_BUDGET // (row_floats * 4)))
+    smem = ring + chain_rows * row_floats * 4
+    per_sm = min(occupancy(nb, mode, smem), MAX_BLOCKS_PER_SM)
+    if per_sm < 1:
+        raise RuntimeError(
+            f"{name}: a block of {Q_THREADS} threads with {smem} bytes of "
+            "shared memory cannot be scheduled on this card")
+    grid = per_sm * sms
+    tiles = -(-d // Q_TILE)
+    return QPlan(nb, -(-b // Q_NBP), mode, q_lanes(qg), q_items(d, qg),
+                 q_round_slabs(d, qg), row_floats, s1, s2, chain_rows,
+                 Q_STAGES, ring, smem, grid, tiles, cap_rows * nb,
+                 (grid + tiles) * nb * Q_TILE)
+
+
+_Q_PLANS: dict = {}
+
+
+def q_phase_times(trace: torch.Tensor) -> dict:
+    """Where an int8 decode launch's time went, from its phase trace (grid
+    x 8 int64: per block the global ns at start, first gate/up stage
+    landed, gate/up stream done, gate/up done (chains included), past
+    barrier 1, down done, past barrier 2 and end): each phase from the last
+    block to reach its start to the last to reach its end, in ms.  Rows
+    left at zero (a buffer longer than the grid) are not blocks."""
+    t = trace.double().cpu()
+    t = t[(t != 0).any(1)]
+    last = t.max(0).values
+    ms = lambda v: float(v) / 1e6                          # noqa: E731
+    names = ("first_stage", "gate_up_stream", "chain", "barrier_1", "down",
+             "barrier_2", "run_sum")
+    out = {"launch_skew": ms(last[0] - t[:, 0].min())}
+    out.update({n: ms(last[i + 1] - (last[i] if i else t[:, 0].min()))
+                for i, n in enumerate(names)})
+    out["total"] = ms(last[7] - t[:, 0].min())
+    return out
+
+
+def _launch_q(x, mats, scales, sel_indices, sel_count, gm_tok, *,
+              group_size: int, activation: str, fatrelu_threshold: float,
+              collect_stats: bool, trace: torch.Tensor | None = None):
+    """One launch of the int8 decode kernel: ``mats`` (wg, wu, wd) int8,
+    ``scales`` (wg_s, wu_s, wd_s) float32 (wu and wu_s None: ungated)."""
+    name = "fused_sparse_mlp_q"
+    wg, wu, wd = mats
+    wg_s, wu_s, wd_s = scales
+    b, d = x.shape
+    k = wg.shape[0]
+    g = group_size
+    cap = sel_indices.shape[0]
+    dev = x.device
+    live = [t for t in (wg, wu, wd, wg_s, wu_s, wd_s) if t is not None]
+    if not x.is_cuda or any(t.device != dev for t in live) \
+            or sel_indices.device != dev:
+        raise ValueError(f"{name} launches on CUDA tensors of one device")
+    if any(m.dtype != torch.int8 for m in (wg, wu, wd) if m is not None) \
+            or any(s.dtype != torch.float32
+                   for s in (wg_s, wu_s, wd_s) if s is not None):
+        raise ValueError(f"{name} reads int8 weights and float32 scales")
+    if x.dtype not in _X_DTYPES:
+        raise ValueError(f"unsupported x dtype {x.dtype}")
+    if any(m.shape != (k, d) for m in (wg, wu, wd) if m is not None) \
+            or k % g or d % 4 or cap < 1 or b < 1 or b > MAX_BATCH:
+        raise ValueError(f"bad shapes x={tuple(x.shape)} w=({k}, {d}) "
+                         f"C={cap} G={g} for {name}")
+    qg = _quant_layout(name, k, d, g, wu, wg_s, wu_s, wd_s)
+    if collect_stats and (gm_tok is None or gm_tok.shape != (b, k // g)):
+        raise ValueError("collect_stats needs per-token group margins "
+                         "(B, k/G)")
+    act_kind = _act_kind(activation, fatrelu_threshold)
+    wg, wu, wd, wg_s, wu_s, wd_s = (
+        t.contiguous() if t is not None else None
+        for t in (wg, wu, wd, wg_s, wu_s, wd_s))
+    if any(t.data_ptr() % 16 for t in (wg, wu, wd, wg_s, wu_s, wd_s)
+           if t is not None):
+        raise ValueError(f"{name} reads weights and scales in 16-byte "
+                         "copies: their storage must be 16-byte aligned")
+    x = x.contiguous()
+    if x.data_ptr() % 16:       # 16-byte copies of x's rows
+        x = x.clone()
+    code = _X_DTYPES[x.dtype]
+    key = (dev.index, code, b, d, cap * g, g, qg)
+    pl = _Q_PLANS.get(key)
+    if pl is None:
+        lib = build.load(name)
+
+        def occupancy(nb: int, mode: int, smem: int) -> int:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                rc = lib.fused_sparse_mlp_q_occupancy(code, nb, mode, smem,
+                                                      ctypes.byref(out))
+            build.check(name, rc)
+            return out.value
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pl = _Q_PLANS[key] = decode_q_plan(b, d, cap * g, g, qg, sms,
+                                           occupancy)
+    if trace is not None and (trace.dtype != torch.int64
+                              or trace.device != dev
+                              or trace.numel() < pl.grid * Q_TRACE_POINTS):
+        raise ValueError(f"{name}: trace takes {pl.grid} x "
+                         f"{Q_TRACE_POINTS} int64 on the launch's device")
+    sel = sel_indices.to(torch.int32).contiguous()
+    count = torch.as_tensor(sel_count, dtype=torch.int32,
+                            device=dev).reshape(())
+    y = torch.empty((b, d), dtype=torch.float32, device=dev)
+    ws = torch.zeros((1 + 3 * b,), dtype=torch.int32, device=dev)  # bar+tel
+    tel = ws[1:].view(b, 3)
+    scratch = torch.empty((pl.h_floats + pl.part_floats,),
+                          dtype=torch.float32, device=dev)
+    gm = gm_tok.float().contiguous() if collect_stats else None
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    rc = build.load(name).fused_sparse_mlp_q(
+        x.data_ptr(), code, ptr(wg), ptr(wg_s), ptr(wu), ptr(wu_s), ptr(wd),
+        ptr(wd_s), sel.data_ptr(), count.data_ptr(), ptr(gm), y.data_ptr(),
+        tel.data_ptr() if collect_stats else None, scratch.data_ptr(),
+        scratch[pl.h_floats:].data_ptr(), ws.data_ptr(), ptr(trace), b, d, k,
+        cap, g, qg, act_kind, float(fatrelu_threshold), pl.nb, pl.mode,
+        pl.lanes, pl.items, pl.slab_scales, pl.row_floats, pl.stage_bytes,
+        pl.down_stage_bytes, pl.chain_rows, pl.stages, pl.ring, pl.grid,
+        pl.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     build.check(name, rc)
     if collect_stats:
         return y, tel
@@ -375,10 +634,7 @@ def _launch_chunk(name: str, x, mats, scales, sel_indices, sel_count,
     if collect_stats and (gm_tok is None or gm_tok.shape != (s, k // g)):
         raise ValueError("collect_stats needs per-token group margins "
                          "(B, k/G)")
-    act_kind = 1 if (activation == "fatrelu" or fatrelu_threshold > 0.0) \
-        else 0
-    if act_kind == 0 and activation != "relu":
-        raise ValueError(f"activation {activation!r} is not sparsifiable")
+    act_kind = _act_kind(activation, fatrelu_threshold)
     x = x.contiguous()
     if x.data_ptr() % 16:       # 16-byte copies of x's rows
         x = x.clone()
@@ -443,8 +699,8 @@ def fused_sparse_mlp(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
     ids; sel_count () int32 on the device.  Returns y (B, d) float32, and
     with ``collect_stats`` (needs ``gm_tok`` (B, k/G) float32) also the
     (B, 3) int32 telemetry of ``TELEMETRY_COLS``."""
-    return _launch("fused_sparse_mlp", x, wg_t, wu_t, wd_t, None, None, None,
-                   sel_indices, sel_count, gm_tok, group_size=group_size,
+    return _launch("fused_sparse_mlp", x, wg_t, wu_t, wd_t, sel_indices,
+                   sel_count, gm_tok, group_size=group_size,
                    activation=activation,
                    fatrelu_threshold=fatrelu_threshold,
                    collect_stats=collect_stats)
@@ -471,14 +727,16 @@ def fused_sparse_mlp_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, sel_indices,
                        sel_count, gm_tok=None, *, group_size: int = 8,
                        activation: str = "relu",
                        fatrelu_threshold: float = 0.0,
-                       collect_stats: bool = False):
+                       collect_stats: bool = False, trace=None):
     """:func:`fused_sparse_mlp` over int8 weights: w*_q (k, d) int8,
-    ``wg_s``/``wu_s`` (k, d/qg) and ``wd_s`` (k/qg, d) float32 scales."""
-    return _launch("fused_sparse_mlp_q", x, wg_q, wu_q, wd_q, wg_s, wu_s,
-                   wd_s, sel_indices, sel_count, gm_tok,
-                   group_size=group_size, activation=activation,
-                   fatrelu_threshold=fatrelu_threshold,
-                   collect_stats=collect_stats)
+    ``wg_s``/``wu_s`` (k, d/qg) and ``wd_s`` (k/qg, d) float32 scales, all
+    16-byte aligned.  ``trace`` (grid x 8 int64, see :func:`q_phase_times`)
+    takes the launch's phase trace."""
+    return _launch_q(x, (wg_q, wu_q, wd_q), (wg_s, wu_s, wd_s), sel_indices,
+                     sel_count, gm_tok, group_size=group_size,
+                     activation=activation,
+                     fatrelu_threshold=fatrelu_threshold,
+                     collect_stats=collect_stats, trace=trace)
 
 
 def fused_sparse_mlp_chunk_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
