@@ -25,7 +25,15 @@ Phases, in order; any failure exits non-zero:
              the kernel's phase trace of one launch; then the int8 decode
              MLP's, B in {1, 4, 8, 16} at the full and a third of the
              selection (and none at B=4), with its phase trace, beside a
-             contiguous read of the same int8 bytes.
+             contiguous read of the same int8 bytes; then the predictors'
+             scaling line (the decode kernel at B in {1, 4, 8, 16}, the
+             chunk kernel at S in {16, ..., 256}) beside their bounds:
+             bytes, the bit products on the binary tensor cores and the
+             popcounts on the CUDA cores.  The predictors' edges: S in
+             {1, 17, 257}, d in {100, 4000, 4096, 5120}, G in {1, 8, 16}, x
+             random, all negative and all +-0.0, the chunk kernel and the
+             decode kernel on 16-row slices bitwise equal to the plain
+             version.
   3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
              and KV cache: 8 teacher-forced decode steps on the card against
              the same weights on the CPU (plain kernel versions), logits and
@@ -97,6 +105,15 @@ Phases, in order; any failure exits non-zero:
 
 It exits non-zero without a GPU, and without the repository beside it.
 
+    python3 chip_smoke.py --pred-ab OTHER_SRC
+
+times the predictors of another checkout's ``src`` beside this one's, in
+the order other, this, this, other, each in a process of its own: the
+predictors' scaling line of phase 2, the float32 decode and chunk MLP
+kernels on the same shapes (unchanged code, the yardstick) and a profiled
+full-depth prefill chunk (S=64) and decode step (B=4) with float32 MLP
+weights.  It runs no other phase.
+
     python3 chip_smoke.py --decode-q-ab OTHER_SRC
 
 times the int8 decode MLP of another checkout's ``src`` (say the parent
@@ -123,6 +140,15 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
+# the sign-bit predictors' two rates, for which no data sheet gives a
+# peak: __popc issues 16 a clock per SM on sm_90 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput), at the 1.98 GHz boost clock
+# of 132 SMs (tools/predict_step0.py measured 15.8 a clock per SM on the
+# H100 at 700 W); mma.sync m16n8k256 b1 .and.popc (16 x 8 x 256 bit
+# multiply-adds) ran at 0.59 a clock per SM there, the rate of int8
+# m16n8k32
+POPC_PER_S = 16 * 132 * 1.98e9
+B1_MACS_PER_S = 0.59 * 16 * 8 * 256 * 132 * 1.98e9
 
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's ~1.98 GHz SM clock
 
@@ -190,6 +216,29 @@ def cuda_ms(fn, iters: int = 20, flush=None) -> float:
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def predict_work(rows: int, xbytes: int, d: int = D,
+                 k: int = K) -> tuple[float, float, float]:
+    """Least times of one predictor call for ``rows`` tokens, in ms: the
+    packed gate signs, x, alpha, gm and cnt moved once at the HBM rate;
+    the AND-popcount bit products (rows * k * w * 32) on the binary tensor
+    cores, the kernels' route; ``rows * k * w`` popcounts on the CUDA
+    cores, the floor of any CUDA-core design."""
+    w = -(-d // 32)
+    n_bytes = k * w * 4 + rows * d * xbytes + rows * 4 + \
+        rows * (k // G) * 4 + rows * 4
+    return (n_bytes / HBM_BYTES_PER_S * 1e3,
+            rows * k * w * 32 / B1_MACS_PER_S * 1e3,
+            rows * k * w / POPC_PER_S * 1e3)
+
+
+def predict_bounds(rows: int, xbytes: int) -> tuple[float, str, float, str]:
+    """(bound ms, by) of a predictor call on the binary tensor cores (the
+    least time the card could take), then the same on the CUDA cores."""
+    t_b, t_tc, t_cc = predict_work(rows, xbytes)
+    return (max(t_b, t_tc), "bytes" if t_b >= t_tc else "operations",
+            max(t_b, t_cc), "bytes" if t_b >= t_cc else "operations")
 
 
 def tc_bound_ms(n_bytes: float, tf32_flops: float,
@@ -460,6 +509,103 @@ def phase_decode_q_scaling(traced: bool = True) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_predict_scaling() -> None:
+    """The predictors' time against the tokens, bf16 x on
+    prosparse-llama2-7b's gate signs, alpha 1.0: the decode kernel at B in
+    DECODE_BATCHES and the chunk kernel at S in SCALING_ROWS, each beside
+    its three least times (bytes at 3.35 TB/s, the bit products on the
+    binary tensor cores, the popcounts on the CUDA cores) and the share of
+    each.  Run alone from a script that puts a checkout's ``src`` first on
+    sys.path, it times that checkout's kernels."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.kernels import predict as KP
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pw = P.pack_signs(torch.randn((K, D), generator=gen, device=dev))
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for name, rows, tag in (("predict_group_margins", DECODE_BATCHES, "B"),
+                            ("predict_chunk_group_margins", SCALING_ROWS,
+                             "S")):
+        fn = getattr(KP, name)
+        for r in rows:
+            x = torch.randn((r, D), generator=gen, device=dev).to(
+                torch.bfloat16)
+            alpha = torch.ones(r, device=dev)
+            t = cuda_ms(lambda: fn(pw, x, alpha, d_valid=D, group_size=G),
+                        flush=flush)
+            t_b, t_tc, t_cc = predict_work(r, 2)
+            print(f"[scaling] predict {name} {tag}={r}: {t:.4f} ms; bytes "
+                  f"{t_b:.4f} ms (share {t_b / t:.3f}), b1 tensor cores "
+                  f"{t_tc:.4f} ms (share {t_tc / t:.3f}), CUDA-core "
+                  f"popcounts {t_cc:.4f} ms (share {t_cc / t:.3f})",
+                  flush=True)
+    del pw, flush_buf
+    torch.cuda.empty_cache()
+
+
+def phase_predict_edges() -> None:
+    """Both predictor kernels at their edges, bitwise against the plain
+    version, and the chunk kernel's rows against the decode kernel's on
+    16-row slices: S in {1, 17, 257} (token tiles of 1, 17 and 52 rows),
+    d=4000 (rows of 125 words: 4-byte loads, a partial span), d=100 (one
+    partial span), d=5120 (prosparse-llama2-13b's width: two chunks of
+    4096 columns), G in {1, 8, 16}, k not a multiple of 16 rows, x random,
+    all negative and all zero (+0.0 and -0.0), bf16 and float32 x, per-row
+    alphas with dead rows."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 0
+    for d, k, g in ((D_PAD, K, 16), (D_PAD, K, 1), (D, K, 8), (100, 500, 1),
+                    (256, 1008, 16), (5120, 1024, 8)):
+        pw = P.pack_signs(torch.randn((k, d), generator=gen, device=dev))
+        for s in (1, 17, 257):
+            alpha = _chunk_alphas(s, dev) if s > 1 else \
+                torch.ones(1, device=dev)
+            x0 = torch.randn((s, d), generator=gen, device=dev)
+            zero = torch.zeros((s, d), device=dev)
+            zero[:, 1::2] = -0.0
+            for kind, xk in (("random", x0), ("negative", -x0.abs() - 1e-3),
+                             ("zero", zero)):
+                for xdt in (torch.bfloat16, torch.float32):
+                    x = xk.to(xdt)
+                    tag = f"d={d} k={k} G={g} S={s} x={kind} {xdt}"
+                    gm, cnt = ops.predict_chunk_group_margins(
+                        pw, x, d, alpha, group_size=g)
+                    gm_r, cnt_r = ref.predict_group_margins_ref(
+                        pw, x, d, alpha, g)
+                    one = [ops.predict_group_margins(
+                        pw, x[i:i + 16], d, alpha[i:i + 16], group_size=g)
+                        for i in range(0, s, 16)]
+                    gm_1 = torch.cat([o[0] for o in one])
+                    cnt_1 = torch.cat([o[1] for o in one])
+                    torch.cuda.synchronize()
+                    if not (torch.equal(gm, gm_r) and torch.equal(cnt, cnt_r)):
+                        fail(f"predict_chunk_group_margins {tag}: "
+                             f"{int((gm != gm_r).sum())} margins and counts "
+                             f"{cnt[:4].tolist()} vs {cnt_r[:4].tolist()} "
+                             "differ from the plain version")
+                    if not (torch.equal(gm_1, gm_r)
+                            and torch.equal(cnt_1, cnt_r)):
+                        fail(f"predict_group_margins {tag}: the decode "
+                             "kernel's rows differ from the plain version")
+                    n += 1
+    print(f"[kernels] {n} predictor edge cases (S in {{1, 17, 257}}, d in "
+          f"{{100, {D_PAD}, {D}, 5120}}, G in {{1, 8, 16}}, x random, all "
+          "negative, all +-0.0, bf16 and float32): the chunk kernel and the "
+          "decode kernel on 16-row slices bitwise equal to the plain version",
+          flush=True)
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t = build.build()
@@ -559,8 +705,7 @@ def phase_kernels(results: dict) -> None:
                 sign_wg, x, alpha, d_valid=D, group_size=G), flush=flush)
             t_pred_plain = cuda_ms(lambda: ref.predict_group_margins_ref(
                 sign_wg, x, D, alpha, G), iters=5, flush=flush)
-            pb = K * w * 4 + b * D * xbytes + b * 4 + b * (K // G) * 4 + b * 4
-            p_bound = bound_ms(pb, 3 * b * K * w)
+            p_bound = predict_bounds(b, xbytes)
             t_mlp = cuda_ms(lambda: KF.fused_sparse_mlp(
                 x, wg, wu, wd, sel.indices, sel.count, group_size=G),
                 flush=flush)
@@ -576,7 +721,10 @@ def phase_kernels(results: dict) -> None:
             print(f"[kernels] predict_group_margins B={b} x={str(xdt)[6:]}: "
                   f"max_abs_err 0 (bitwise, 9 cases) kernel {t_pred:.4f} ms "
                   f"plain {t_pred_plain:.4f} ms bound {p_bound[0]:.4f} ms "
-                  f"({p_bound[1]})", flush=True)
+                  f"({p_bound[1]}, b1 tensor cores; share "
+                  f"{p_bound[0] / t_pred:.3f}) / {p_bound[2]:.4f} ms "
+                  f"({p_bound[3]}, CUDA-core popcounts; share "
+                  f"{p_bound[2] / t_pred:.3f})", flush=True)
             print(f"[kernels] fused_sparse_mlp B={b} x={str(xdt)[6:]} "
                   f"count={count}/{cap}: max_abs_err {err:.3e} kernel "
                   f"{t_mlp:.4f} ms plain {t_mlp_plain:.4f} ms bound "
@@ -938,8 +1086,7 @@ def phase_chunk_kernels(results: dict) -> None:
             t_pred_plain = cuda_ms(
                 lambda: ref.predict_chunk_group_margins_ref(
                     sign_wg, x, D, alpha, G), iters=5, flush=flush)
-            pb = bound_ms(K * w * 4 + rows * D * xbytes + rows * 4
-                          + rows * (K // G) * 4 + rows * 4, 3 * rows * K * w)
+            pb = predict_bounds(rows, xbytes)
             t_mlp = cuda_ms(lambda: KF.fused_sparse_mlp_chunk(
                 x, wg, wu, wd, sel.indices, sel.count, group_size=G),
                 flush=flush)
@@ -958,8 +1105,10 @@ def phase_chunk_kernels(results: dict) -> None:
             print(f"[kernels] predict_chunk_group_margins {tag}: "
                   f"max_abs_err 0 (bitwise, and per row equal to "
                   f"predict_group_margins) kernel {t_pred:.4f} ms plain "
-                  f"{t_pred_plain:.4f} ms bound {pb[0]:.4f} ms ({pb[1]})",
-                  flush=True)
+                  f"{t_pred_plain:.4f} ms bound {pb[0]:.4f} ms ({pb[1]}, b1 "
+                  f"tensor cores; share {pb[0] / t_pred:.3f}) / "
+                  f"{pb[2]:.4f} ms ({pb[3]}, CUDA-core popcounts; share "
+                  f"{pb[2] / t_pred:.3f})", flush=True)
             print(f"[kernels] fused_sparse_mlp_chunk {tag} count={count}/"
                   f"{cap}: max_abs_err "
                   f"{results['err']['fused_sparse_mlp_chunk']:.3e} kernel "
@@ -1057,6 +1206,7 @@ def phase_chunk_edges() -> None:
           "(rows not a multiple of 16, padded d, partial column tile, G in "
           "{1, 8, 16}, qg in {2, 4, 32, 64}, ungated, fatrelu, zero count) "
           "agree with the plain versions", flush=True)
+    phase_predict_edges()
 
 
 def phase_big_decode_batch() -> None:
@@ -1642,9 +1792,13 @@ def profile_step(label: str, fn, steps: int = 3) -> None:
         print(f"[profile] {label}: {wall:.3f} ms host wall, {busy:.3f} ms "
               f"device busy, idle share {max(0.0, 1 - busy / wall):.3f}",
               flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} ms"
-              f"/step  x{e.count // steps:<4d} {e.key[:90]}", flush=True)
+    # the 8 largest rows, then the port's kernels below them
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 8 or e.key.removeprefix("void ").startswith(OWN_KERNELS):
+            print(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f}"
+                  f" ms/step  x{e.count // steps:<4d} {e.key[:90]}",
+                  flush=True)
 
 
 def _paged_inputs(gen, rng, b, h, kvh, hd, bs, nbps, kv_dtype, q_dtype,
@@ -2104,7 +2258,10 @@ def phase_sign_kernels(results: dict) -> None:
     t_c = cuda_ms(lambda: KP.predict_counts(pw, px), iters=50, flush=flush)
     t_c_plain = cuda_ms(lambda: ref.predict_counts_ref(pw, px), iters=5,
                         flush=flush)
-    b_c = bound_ms(K * w * 4 + b * w * 4 + b * K * 4, 3 * b * K * w)
+    c_bytes = K * w * 4 + b * w * 4 + b * K * 4
+    b_c = (max(c_bytes / HBM_BYTES_PER_S, b * K * w / POPC_PER_S) * 1e3,
+           "bytes" if c_bytes / HBM_BYTES_PER_S >= b * K * w / POPC_PER_S
+           else "operations")
     print(f"[signs] sign_pack x B={b} bf16: kernel {t_sx:.4f} ms plain "
           f"{t_sx_plain:.4f} ms bound {b_sx[0]:.5f} ms ({b_sx[1]})",
           flush=True)
@@ -2515,6 +2672,87 @@ def decode_q_ab(other_src: str, src: str) -> None:
             fail(f"the int8 decode A/B run of {path} failed")
 
 
+def time_mlps() -> None:
+    """The float32 decode MLP at B=4 and the float32 chunk MLP at S=64, bf16
+    x, on a full selection of prosparse-llama2-7b's weights: the yardstick
+    of the predictor A/B (the MLP kernels are the same on both sides)."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    wg, wu, wd = (torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+                  for _ in range(3))
+    cap = SparseInferConfig().capacity(K)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for name, rows in (("fused_sparse_mlp", MAIN_BATCH),
+                       ("fused_sparse_mlp_chunk", MAIN_CHUNK)):
+        x = torch.randn((rows, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        gm, _ = KP.predict_chunk_group_margins(
+            P.pack_signs(wg), x, torch.ones(rows, device=dev), d_valid=D,
+            group_size=G)
+        sel = S.capacity_select(S.union_margin(gm), cap)
+        fn = getattr(KF, name)
+        t = cuda_ms(lambda: fn(x, wg, wu, wd, sel.indices, sel.count,
+                               group_size=G), flush=flush)
+        print(f"[ab] {name} rows={rows} count={int(sel.count)}: {t:.4f} ms",
+              flush=True)
+    del wg, wu, wd, flush_buf
+    torch.cuda.empty_cache()
+
+
+def profile_float32_steps() -> None:
+    """A full-depth prefill chunk (S=MAIN_CHUNK, sparse prefill) and a
+    decode step with float32 MLP weights, profiled, on one server (random
+    weights from seed 0): run from a script that puts a checkout's ``src``
+    first on sys.path, it profiles that checkout's steps."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(sparse=dataclasses.replace(
+        base.sparse, strategy="pallas", enabled=True, sparse_prefill=True,
+        prefill_max_tokens=max(base.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, ServeConfig(batch=MAIN_BATCH, max_len=256,
+                                      prefill_chunk=MAIN_CHUNK), params,
+                 device="cuda")
+    del params
+    profile_prefill_chunk(srv, cfg, "float32")
+    profile_decode(srv, cfg, "float32")
+    del srv
+    torch.cuda.empty_cache()
+
+
+def pred_ab(other_src: str, src: str) -> None:
+    """The predictors' scaling line, the two float32 MLP kernels beside
+    them and a profiled full-depth prefill chunk and decode step, of
+    ``other_src`` and ``src`` in the order other, this, this, other, each in
+    a process of its own (one package a process)."""
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        fail(f"no repro_torch in {other_src}")
+    for path in (other_src, src, src, other_src):
+        code = (f"import sys; sys.path[:0] = [{path!r}, {HERE!r}]; "
+                "import torch; torch.backends.cuda.matmul.allow_tf32 = "
+                "False; import chip_smoke as cs; "
+                "cs.phase_predict_scaling(); cs.time_mlps(); "
+                "cs.profile_float32_steps()")
+        print(f"[ab] {path}", flush=True)
+        if subprocess.run([sys.executable, "-c", code]).returncode:
+            fail(f"the predictor A/B run of {path} failed")
+
+
 def main() -> None:
     try:
         import torch
@@ -2525,14 +2763,15 @@ def main() -> None:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repo")
-    if sys.argv[1:2] == ["--decode-q-ab"] and len(sys.argv) == 3:
+    ab = {"--decode-q-ab": decode_q_ab, "--pred-ab": pred_ab}
+    if sys.argv[1:2] and sys.argv[1] in ab and len(sys.argv) == 3:
         print(f"[gpu] {gpu_line()}", flush=True)
-        decode_q_ab(os.path.abspath(sys.argv[2]), src)
+        ab[sys.argv[1]](os.path.abspath(sys.argv[2]), src)
         print(f"[gpu] {gpu_line()}", flush=True)
         return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, or --decode-q-ab "
-             "OTHER_SRC")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --decode-q-ab "
+             "OTHER_SRC or --pred-ab OTHER_SRC")
     sys.path.insert(0, src)
     # tolerances are set against full-float32 matrix products: TF32 keeps
     # ~3 decimal digits and would hide (or fake) a kernel fault
@@ -2545,6 +2784,7 @@ def main() -> None:
                         (phase_chunk_kernels, (results,)),
                         (phase_chunk_scaling, ()),
                         (phase_decode_q_scaling, ()),
+                        (phase_predict_scaling, ()),
                         (phase_paged_kernels, (results,)),
                         (phase_sign_kernels, (results,)),
                         (phase_decode, ()), (phase_prefill, ()),

@@ -25,15 +25,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PREDICT = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_PREDICT = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+            _I, _I, _P]
 _MLP_PLAN = [_I, _I, _I, _I, _P]
 _MLP = [_P, _I, *[_P] * 11, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
         _I, _P]
 _L = ctypes.c_longlong
 # C signatures of the exported functions, per source
 SIGNATURES = {
-    "predict_group_margins": {"predict_group_margins": _PREDICT},
-    "predict_chunk_group_margins": {"predict_chunk_group_margins": _PREDICT},
+    "predict_group_margins": {
+        "predict_group_margins": _PREDICT,
+        "predict_group_margins_max_clusters": [_I] * 4},
+    "predict_chunk_group_margins": {
+        "predict_chunk_group_margins": _PREDICT,
+        "predict_chunk_group_margins_max_clusters": [_I] * 4},
     "fused_sparse_mlp": {"fused_sparse_mlp_plan": _MLP_PLAN,
                          "fused_sparse_mlp": _MLP},
     "fused_sparse_mlp_q": {

@@ -9,10 +9,13 @@ kernels of ``repro/kernels/predict.py``:
   negative-product counts from pre-packed signs, any number of rows.
 
 The first two instantiate ``csrc/predict_margins.cuh``, so every row's
-outputs are bitwise the same from either.  Callers go through
-``kernels.ops``, which picks the plain version for CPU tensors and counts
-launches."""
+outputs are bitwise the same from either; :func:`margins_plan` is the only
+place their launch layout is decided.  Callers go through ``kernels.ops``,
+which picks the plain version for CPU tensors and counts launches."""
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -22,6 +25,116 @@ PACK = 32
 MAX_BATCH = 16          # tokens a decode launch takes (SparseInferConfig
                         # .sparse_max_batch's default)
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/predict_margins.cuh's constants
+CLUSTER = 8             # CTAs that share one packing of x of a large tile
+SOLO_TOKENS = 8         # a tile of at most this many tokens: no cluster
+TILE_TOKENS = 64        # tokens of a token tile at most
+MMA_ROWS, MMA_TOKENS = 16, 8   # the b1 MMA's M and N
+THREADS = 256
+SMEM_LIMIT = 230400     # dynamic shared memory a block: 227 KB on sm_90
+                        # less 2 KB kept for the kernel's static 1 KB
+
+
+@dataclasses.dataclass(frozen=True)
+class MarginsPlan:
+    """The launch of the predictor kernels (``csrc/predict_margins.cuh``):
+    a grid of ``ctas`` x ``token_tiles`` CTAs in clusters of ``cluster``;
+    CTA i takes the units [i*n_units/ctas, (i+1)*n_units/ctas) of
+    ``unit_rows`` gate rows and all tokens of its tile."""
+    tile: int           # tokens of a token tile (the last may hold fewer)
+    tile_pad: int       # tile rounded up to MMA_TOKENS
+    token_tiles: int
+    cluster: int        # CTAs that share one packing of x: 1 or CLUSTER
+    unit_rows: int      # lcm(16, G): no group straddles two CTAs
+    n_units: int
+    ctas: int           # CTAs per token tile, a multiple of cluster
+    rows_max: int       # rows of the largest CTA range
+    xstride: int        # words a row of packed signs, x's and w's (16 mod 32)
+    rstride: int        # ints per row of the products (8 mod 32)
+    smem: int           # bytes of dynamic shared memory
+
+
+def margins_smem(tile_pad: int, xstride: int, rows_max: int,
+                 rstride: int) -> int:
+    """Shared memory of one CTA: its gate-sign rows and the tile's x
+    signs (both ``xstride`` words a row), the products, popc(w) per row,
+    popc(x) and the kept-group counts per token."""
+    return 4 * ((rows_max + tile_pad) * xstride + rows_max * rstride
+                + rows_max + 2 * tile_pad)
+
+
+def margins_plan(s: int, w: int, k: int, group_size: int,
+                 max_clusters) -> MarginsPlan:
+    """The launch for ``s`` tokens of ``w`` sign words over ``k`` gate rows
+    in groups of ``group_size``.  ``max_clusters(cluster, smem)`` says how
+    many clusters of ``cluster`` CTAs with ``smem`` bytes of shared memory
+    the card runs at once; it is asked at SMEM_LIMIT, which no plan passes.
+    Token tiles hold up to TILE_TOKENS tokens; a tile of more than
+    SOLO_TOKENS is packed by a cluster of CLUSTER CTAs, a smaller one by
+    each CTA alone.  Each tile takes an equal share of the card's clusters,
+    so all tiles run at once, or more where a CTA's rows and tokens would
+    not fit in SMEM_LIMIT bytes (then they run in waves), but at most one
+    CTA a unit; fewer tokens a tile where even that does not fit.  Raises
+    ValueError on a shape the kernel does not take and RuntimeError when
+    the card cannot run one cluster."""
+    g = group_size
+    if s < 1 or w < 1 or k < 1 or g < 1 or k % g:
+        raise ValueError(f"predictor: bad shape S={s} w={w} k={k} G={g} "
+                         "(k a positive multiple of G)")
+    unit = math.lcm(MMA_ROWS, g)
+    n_units = -(-k // unit)
+    xstride = -(-w // 16) * 16 | 16
+    for cap in range(TILE_TOKENS, 0, -MMA_TOKENS):
+        tiles = -(-s // cap)
+        tile = -(-s // tiles)
+        tile_pad = -(-tile // MMA_TOKENS) * MMA_TOKENS
+        rstride = tile_pad + (40 - tile_pad % 32) % 32
+        cluster = CLUSTER if tile > SOLO_TOKENS else 1
+        fit = max_clusters(cluster, SMEM_LIMIT)
+        if fit < 1:
+            raise RuntimeError(
+                f"predictor: a cluster of {cluster} CTAs of {THREADS} "
+                "threads cannot be scheduled on this card")
+        most = -(-n_units // cluster)        # one CTA a unit
+        for clusters in range(max(1, min(fit // tiles, most)), most + 1):
+            ctas = cluster * clusters
+            rows_max = -(-n_units // ctas) * unit
+            smem = margins_smem(tile_pad, xstride, rows_max, rstride)
+            if smem <= SMEM_LIMIT:
+                break
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(
+            f"predictor: S={s} w={w} k={k} G={g} needs {smem} bytes of "
+            f"shared memory at {MMA_TOKENS} tokens a tile (limit "
+            f"{SMEM_LIMIT})")
+    if tiles > 65535:
+        raise ValueError(f"predictor: S={s} makes {tiles} token tiles "
+                         "(limit 65535)")
+    return MarginsPlan(tile, tile_pad, tiles, cluster, unit, n_units, ctas,
+                       rows_max, xstride, rstride, smem)
+
+
+_PLANS: dict = {}
+
+
+def _plan_for(lib, name: str, device, xd: int, b: int, w: int, k: int,
+              g: int) -> MarginsPlan:
+    """margins_plan on this card's occupancy calculator, once a shape."""
+    key = (name, device.index, xd, b, w, k, g)
+    pl = _PLANS.get(key)
+    if pl is None:
+        def max_clusters(cluster: int, smem: int) -> int:
+            with torch.cuda.device(device):
+                n = getattr(lib, f"{name}_max_clusters")(xd, w, cluster,
+                                                         smem)
+            if n < 0:
+                build.check(name, -n)
+            return n
+        pl = _PLANS[key] = margins_plan(b, w, k, g, max_clusters)
+    return pl
 
 
 def _launch(name: str, packed_w: torch.Tensor, x: torch.Tensor,
@@ -44,14 +157,17 @@ def _launch(name: str, packed_w: torch.Tensor, x: torch.Tensor,
     x, packed_w, alpha = x.contiguous(), packed_w.contiguous(), \
         alpha.contiguous()
     lib = build.load(name)
+    xd = _X_DTYPES[x.dtype]
+    pl = _plan_for(lib, name, x.device, xd, b, w, k, group_size)
     gm = torch.empty((b, k // group_size), dtype=torch.float32,
                      device=x.device)
     cnt = torch.zeros((b,), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, name)(
-        x.data_ptr(), _X_DTYPES[x.dtype], packed_w.data_ptr(),
-        alpha.data_ptr(), gm.data_ptr(), cnt.data_ptr(), b, w, k,
-        group_size, float(d_valid), stream)
+        x.data_ptr(), xd, packed_w.data_ptr(), alpha.data_ptr(),
+        gm.data_ptr(), cnt.data_ptr(), b, w, k, group_size, float(d_valid),
+        pl.tile, pl.cluster, pl.unit_rows, pl.ctas, pl.rstride, pl.smem,
+        stream)
     build.check(name, rc)
     return gm, cnt
 
