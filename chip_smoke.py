@@ -8,32 +8,38 @@ Phases, in order; any failure exits non-zero:
   2. kernels each CUDA kernel against its plain PyTorch version on the card
              at prosparse-llama2-7b's full width (d=4096, k=11008, G=8,
              C=288, int8 quant groups of 128): the decode kernels at B in
-             {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead slot};
+             {1, 4, 16}, alpha in {1.0, 1.03, per-slot with a dead slot}
+             (the float32 one run twice and bitwise equal);
              the chunk kernels at S in {17, 64, 128, 256} rows with pad
              rows (each run twice and bitwise equal); the int8
              decode kernel at B in {1, 4, 16} (each run twice and bitwise
-             equal); small-shape edge cases (the int8 decode kernel's:
+             equal); small-shape edge cases (the float32 decode
+             kernel's: d in {4100, 5120, 8192}, G up to 32; the int8 decode
+             kernel's:
              d=100 and d in 4120..12288, qg in {1, ..., 128}, B from 1 to
              16); a decode batch of 24 through the ops layer.  Each is timed at
              the main path's shape beside its bound, its plain version and
              a library yardstick where one PyTorch call computes it (the
-             float32 chunk MLP: three matmuls on the selected rows gathered
-             beforehand, and on all rows; the int8 one beside the float32
-             one at the same shape); then the float32 and the int8 chunk
+             float32 decode and chunk MLPs: three matmuls on the selected
+             rows gathered beforehand, and on all rows; the int8 one
+             beside the float32 one at the same shape); then the float32
+             and the int8 chunk
              MLPs' scaling lines, S in {16, 32, 64, 128, 256} at the full
              and a third of the selection (and none at S=64), each with
              the kernel's phase trace of one launch; then the int8 decode
              MLP's, B in {1, 4, 8, 16} at the full and a third of the
              selection (and none at B=4), with its phase trace, beside a
-             contiguous read of the same int8 bytes; then the predictors'
-             scaling line (the decode kernel at B in {1, 4, 8, 16}, the
-             chunk kernel at S in {16, ..., 256}) beside their bounds:
-             bytes, the bit products on the binary tensor cores and the
-             popcounts on the CUDA cores.  The predictors' edges: S in
-             {1, 17, 257}, d in {100, 4000, 4096, 5120}, G in {1, 8, 16}, x
-             random, all negative and all +-0.0, the chunk kernel and the
-             decode kernel on 16-row slices bitwise equal to the plain
-             version.
+             contiguous read of the same int8 bytes; then the float32
+             decode MLP's, the same points, with its phase trace, beside
+             the gathered-rows 3-matmul and a contiguous read of the same
+             float32 bytes; then the predictors' scaling line (the decode
+             kernel at B in {1, 4, 8, 16}, the chunk kernel at S in {16,
+             ..., 256}) beside their bounds: bytes, the bit products on
+             the binary tensor cores and the popcounts on the CUDA cores.
+             The predictors' edges: S in {1, 17, 257}, d in {100, 4000,
+             4096, 5120}, G in {1, 8, 16}, x random, all negative and all
+             +-0.0, the chunk kernel and the decode kernel on 16-row
+             slices bitwise equal to the plain version.
   3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
              and KV cache: 8 teacher-forced decode steps on the card against
              the same weights on the CPU (plain kernel versions), logits and
@@ -113,6 +119,14 @@ predictors' scaling line of phase 2, the float32 decode and chunk MLP
 kernels on the same shapes (unchanged code, the yardstick) and a profiled
 full-depth prefill chunk (S=64) and decode step (B=4) with float32 MLP
 weights.  It runs no other phase.
+
+    python3 chip_smoke.py --decode-ab OTHER_SRC
+
+times the float32 decode MLP of another checkout's ``src`` beside this
+one's, in the order other, this, this, other, each in a process of its
+own: the float32 decode scaling line of phase 2 (untraced for the other)
+and a profiled full-depth decode step with float32 MLP weights.  It runs
+no other phase.
 
     python3 chip_smoke.py --decode-q-ab OTHER_SRC
 
@@ -509,6 +523,87 @@ def phase_decode_q_scaling(traced: bool = True) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_decode_scaling(traced: bool = True) -> None:
+    """The float32 decode MLP's time against the batch B (1, 4, 8, 16) and
+    the selected rows (count full and a third of it; none at B=4, the
+    fixed cost), bf16 x, on prosparse-llama2-7b's weights, beside its bound
+    (bytes, or the CUDA cores' operations) and share, and the gathered-rows
+    3-matmul on the same inputs: whether the time follows the rows (bytes
+    or latency) or B x rows (operations).  One more launch at each point
+    records the kernel's phase trace (KF.decode_phase_times); ``traced``
+    False leaves it out (for a kernel that takes no trace).  After the
+    line, a contiguous read of the same float32 bytes by one PyTorch
+    reduction: the rate a plain read reaches on this card.  Run alone from
+    a script that puts a checkout's ``src`` first on sys.path, it times
+    that checkout's kernel."""
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wu = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wd = torch.randn((K, D), generator=gen, device=dev) * K ** -0.5
+    cap = SparseInferConfig().capacity(K)
+    x0 = torch.randn((MAIN_BATCH, D), generator=gen, device=dev)
+    gm, _ = KP.predict_group_margins(
+        P.pack_signs(wg), x0, torch.ones(MAIN_BATCH, device=dev),
+        d_valid=D, group_size=G)
+    sel = S.capacity_select(S.union_margin(gm), cap)
+    full = int(sel.count)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for b in DECODE_BATCHES:
+        x = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16)
+        xf = x.float()
+        for count in (full, full // 3, 0):
+            if count == 0 and b != MAIN_BATCH:
+                continue
+            cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+            t = cuda_ms(lambda: KF.fused_sparse_mlp(
+                x, wg, wu, wd, sel.indices, cnt, group_size=G), flush=flush)
+            lib = _gathered_mlp(wg, wu, wd, sel.indices[:count].long())
+            t_lib = cuda_ms(lambda: lib(xf), flush=flush)
+            n_bytes, flops = chunk_mlp_work(b, count, cap, 2)
+            bd = bound_ms(n_bytes, flops)
+            phases = "not traced"
+            if traced:   # one more launch with its phase trace, L2 flushed
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                trace = torch.zeros((KF.MAX_BLOCKS_PER_SM * sms,
+                                     KF.D_TRACE_POINTS), dtype=torch.int64,
+                                    device=dev)
+                flush()
+                KF.fused_sparse_mlp(x, wg, wu, wd, sel.indices, cnt,
+                                    group_size=G, trace=trace)
+                phases = " ".join(f"{k} {v:.4f}" for k, v in
+                                  KF.decode_phase_times(trace).items())
+            print(f"[scaling] fused_sparse_mlp B={b} x=bfloat16 "
+                  f"count={count}/{cap}: kernel {t:.4f} ms, bound "
+                  f"{bd[0]:.4f} ms ({bd[1]}; share {bd[0] / t:.3f}), "
+                  f"gathered-rows 3-matmul {t_lib:.4f} ms; one traced "
+                  f"launch, ms: {phases}", flush=True)
+    # a plain read of the kernel's weight bytes at the full selection (113
+    # MB)
+    n_bytes = chunk_mlp_work(MAIN_BATCH, full, cap, 2)[0]
+    flat = torch.ones(3 * full * G * D, device=dev)
+    t_read = cuda_ms(lambda: flat.sum(), flush=flush)
+    print(f"[scaling] decode float32: a contiguous read of the selected "
+          f"weights' {3 * full * G * D * 4 / 1e6:.1f} MB (torch.sum): "
+          f"{t_read:.4f} ms, {3 * full * G * D * 4 / t_read / 1e9:.3f} TB/s "
+          f"(bound of the kernel's bytes at B={MAIN_BATCH} "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    del wg, wu, wd, flat, flush_buf
+    torch.cuda.empty_cache()
+
+
 def phase_predict_scaling() -> None:
     """The predictors' time against the tokens, bf16 x on
     prosparse-llama2-7b's gate signs, alpha 1.0: the decode kernel at B in
@@ -674,8 +769,11 @@ def phase_kernels(results: dict) -> None:
                     y, tel = KF.fused_sparse_mlp(
                         x, wg, wu, wd, sel.indices, cnt_t, gm,
                         group_size=G, collect_stats=True)
-                    y0 = KF.fused_sparse_mlp(x, wg, wu, wd, sel.indices,
-                                             cnt_t, group_size=G)
+                    y0 = _same_twice(
+                        f"{tag} count={count} without telemetry",
+                        lambda: KF.fused_sparse_mlp(
+                            x, wg, wu, wd, sel.indices, cnt_t,
+                            group_size=G), name="fused_sparse_mlp")
                     y_r = ref.fused_sparse_mlp_ref(x, wg, wu, wd,
                                                    sel.indices, cnt_t,
                                                    group_size=G)
@@ -715,6 +813,9 @@ def phase_kernels(results: dict) -> None:
             xf = x.float()
             t_dense = cuda_ms(lambda: (torch.relu(xf @ wg.T) * (xf @ wu.T))
                               @ wd, flush=flush)
+            lib = _gathered_mlp(wg, wu, wd, sel.indices[:count].long())
+            t_lib = cuda_ms(lambda: lib(xf), flush=flush)
+            del lib
             mb = 3 * count * G * D * 4 + b * D * xbytes + cap * 4 + b * D * 4
             m_bound = bound_ms(mb, 6 * b * count * G * D)
             err = results["fused_err"][(b, xdt)]
@@ -728,8 +829,10 @@ def phase_kernels(results: dict) -> None:
             print(f"[kernels] fused_sparse_mlp B={b} x={str(xdt)[6:]} "
                   f"count={count}/{cap}: max_abs_err {err:.3e} kernel "
                   f"{t_mlp:.4f} ms plain {t_mlp_plain:.4f} ms bound "
-                  f"{m_bound[0]:.4f} ms ({m_bound[1]}) dense-3-matmul "
-                  f"{t_dense:.4f} ms", flush=True)
+                  f"{m_bound[0]:.4f} ms ({m_bound[1]}; share "
+                  f"{m_bound[0] / t_mlp:.3f}) gathered-rows-3-matmul "
+                  f"{t_lib:.4f} ms dense-3-matmul {t_dense:.4f} ms",
+                  flush=True)
             if b == MAIN_BATCH and xdt == torch.bfloat16:
                 results["predict_group_margins"] = dict(
                     max_abs_err=0.0, ms=t_pred, plain_ms=t_pred_plain,
@@ -738,7 +841,7 @@ def phase_kernels(results: dict) -> None:
                 results["fused_sparse_mlp"] = dict(
                     max_abs_err=err, ms=t_mlp, plain_ms=t_mlp_plain,
                     bound_ms=m_bound[0], bound_by=m_bound[1],
-                    library_ms=t_dense)
+                    library_ms=t_lib)
     results.pop("sel")
     del wg, wu, wd, flush_buf
     torch.cuda.empty_cache()
@@ -748,7 +851,9 @@ def phase_kernels(results: dict) -> None:
 def phase_kernel_edges() -> None:
     """The decode kernels' other paths at small shapes, against the plain
     versions: d not a multiple of 32 (padded signs) or of 128 (a partial
-    column tile), G in {1, 8, 16}, ungated, fatrelu, a zero count; then
+    column tile), G in {1, 8, 16}, ungated, fatrelu, a zero count; the
+    float32 decode kernel's rows longer than one gate/up stage (d in
+    {4100, 5120, 8192}, G up to 32, B from 1 to 16, each run twice); then
     the int8 decode kernel's: d=100, partial column tiles, d above one
     round of 4096 columns, G in {1, 8, 16}, qg in {1, 2, 4, 6, 32, 40, 48,
     64, 128}, ungated, fatrelu, a zero count, B from 1 to 16, each run
@@ -805,6 +910,61 @@ def phase_kernel_edges() -> None:
     print(f"[kernels] {n} small-shape cases (padded d, partial column tile, "
           "G in {1, 8, 16}, ungated, fatrelu, zero count) agree with the "
           "plain versions", flush=True)
+    n = 0
+    # the float32 decode kernel at rows longer than one gate/up stage:
+    # (d, k, G, B, gated, activation, threshold); d=4100 (two rounds of
+    # 4096 at B <= 4, five of 1024 at B=16, a partial 512-column tile),
+    # 5120 (the 13B model's width: two rounds at B <= 4, three of 2048 at
+    # B <= 8), 8192; G=32 (down's groups in two stages of 16 rows)
+    for d, k, g, b, gated, act, thr in [
+            (4100, 512, 8, 4, True, "relu", 0.0),
+            (4100, 256, 16, 16, True, "fatrelu", 0.05),
+            (5120, 512, 8, 1, False, "relu", 0.0),
+            (5120, 384, 1, 8, True, "relu", 0.0),
+            (5120, 768, 32, 13, True, "relu", 0.0),
+            (8192, 512, 8, 16, True, "relu", 0.0),
+            (8192, 256, 8, 5, False, "fatrelu", 0.0),
+            (8192, 512, 16, 2, True, "relu", 0.0)]:
+        w = {m: torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+             for m in ("wg", "wu", "wd")}
+        wu = w["wu"] if gated else None
+        sign = P.pack_signs(w["wg"])
+        kw = dict(group_size=g, activation=act, fatrelu_threshold=thr)
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, d), generator=gen, device=dev).to(xdt)
+            alpha = torch.linspace(0.9, 1.1, b, device=dev)
+            gm, _ = ops.predict_group_margins(sign, x, d, alpha,
+                                              group_size=g)
+            sel = S.capacity_select(S.union_margin(gm), max(1, k // g // 4))
+            for count in (sel.count, torch.zeros((), dtype=torch.int32,
+                                                 device=dev)):
+                y, tel = ops.fused_sparse_mlp(x, w["wg"], wu, w["wd"],
+                                              sel.indices, count, gm, **kw,
+                                              collect_stats=True)
+                y0 = _same_twice(
+                    f"d={d} G={g} B={b} {xdt} without telemetry",
+                    lambda: ops.fused_sparse_mlp(
+                        x, w["wg"], wu, w["wd"], sel.indices, count, **kw),
+                    name="fused_sparse_mlp")
+                y_r = ref.fused_sparse_mlp_ref(
+                    x, w["wg"], wu, w["wd"], sel.indices, count, **kw)
+                tel_r = ref.fused_mlp_telemetry_ref(
+                    x, w["wg"], sel.indices, count, gm, **kw)
+                scale = float(y_r.abs().max()) or 1.0
+                err = float((y - y_r).abs().max())
+                rtol = 2e-3 if xdt == torch.bfloat16 else 1e-4
+                if err > rtol * scale or not torch.equal(y, y0) \
+                        or not torch.equal(tel, tel_r):
+                    fail(f"fused_sparse_mlp d={d} k={k} G={g} B={b} {xdt} "
+                         f"gated={gated} {act} count={int(count)}: err "
+                         f"{err:.3e}, y differs with/without telemetry, or "
+                         f"telemetry {tel.tolist()} vs {tel_r.tolist()}")
+                n += 1
+    print(f"[kernels] {n} cases of the float32 decode kernel at d in {{4100, "
+          "5120, 8192} (rows over several gate/up rounds, partial tiles), "
+          "G in {1, 8, 16, 32}, B from 1 to 16, ungated, fatrelu, zero "
+          "count agree with the plain version, bitwise equal twice and with "
+          "and without telemetry", flush=True)
     n = 0
     # the int8 decode kernel: (d, k, G, qg, B, gated, activation,
     # threshold): d=100 (rows not 16-byte aligned; qg 2 and 4: one column a
@@ -2672,6 +2832,46 @@ def decode_q_ab(other_src: str, src: str) -> None:
             fail(f"the int8 decode A/B run of {path} failed")
 
 
+def decode_ab(other_src: str, src: str) -> None:
+    """The float32 decode MLP's scaling line and a profiled float32 decode
+    step of ``other_src`` and ``src``, in the order other, this, this,
+    other, each in a process of its own (one package a process)."""
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        fail(f"no repro_torch in {other_src}")
+    for path in (other_src, src, src, other_src):
+        traced = path == src
+        code = (f"import sys; sys.path[:0] = [{path!r}, {HERE!r}]; "
+                "import torch; torch.backends.cuda.matmul.allow_tf32 = "
+                "False; import chip_smoke as cs; "
+                f"cs.phase_decode_scaling(traced={traced}); "
+                "cs.profile_float32_decode()")
+        print(f"[ab] {path}", flush=True)
+        if subprocess.run([sys.executable, "-c", code]).returncode:
+            fail(f"the float32 decode A/B run of {path} failed")
+
+
+def profile_float32_decode() -> None:
+    """A full-depth decode step with float32 MLP weights, profiled, on its
+    own server (random weights from seed 0): run from a script that puts a
+    checkout's ``src`` first on sys.path, it profiles that checkout's
+    step."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(sparse=dataclasses.replace(
+        base.sparse, strategy="pallas", enabled=True))
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, ServeConfig(batch=MAIN_BATCH, max_len=256),
+                 params, device="cuda")
+    del params
+    profile_decode(srv, cfg, "float32")
+    del srv
+    torch.cuda.empty_cache()
+
+
 def time_mlps() -> None:
     """The float32 decode MLP at B=4 and the float32 chunk MLP at S=64, bf16
     x, on a full selection of prosparse-llama2-7b's weights: the yardstick
@@ -2763,15 +2963,16 @@ def main() -> None:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repo")
-    ab = {"--decode-q-ab": decode_q_ab, "--pred-ab": pred_ab}
+    ab = {"--decode-q-ab": decode_q_ab, "--pred-ab": pred_ab,
+          "--decode-ab": decode_ab}
     if sys.argv[1:2] and sys.argv[1] in ab and len(sys.argv) == 3:
         print(f"[gpu] {gpu_line()}", flush=True)
         ab[sys.argv[1]](os.path.abspath(sys.argv[2]), src)
         print(f"[gpu] {gpu_line()}", flush=True)
         return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, --decode-q-ab "
-             "OTHER_SRC or --pred-ab OTHER_SRC")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --decode-ab "
+             "OTHER_SRC, --decode-q-ab OTHER_SRC or --pred-ab OTHER_SRC")
     sys.path.insert(0, src)
     # tolerances are set against full-float32 matrix products: TF32 keeps
     # ~3 decimal digits and would hide (or fake) a kernel fault
@@ -2784,6 +2985,7 @@ def main() -> None:
                         (phase_chunk_kernels, (results,)),
                         (phase_chunk_scaling, ()),
                         (phase_decode_q_scaling, ()),
+                        (phase_decode_scaling, ()),
                         (phase_predict_scaling, ()),
                         (phase_paged_kernels, (results,)),
                         (phase_sign_kernels, (results,)),

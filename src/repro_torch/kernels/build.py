@@ -27,9 +27,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PREDICT = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
             _I, _I, _P]
-_MLP_PLAN = [_I, _I, _I, _I, _P]
-_MLP = [_P, _I, *[_P] * 11, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-        _I, _P]
 _L = ctypes.c_longlong
 # C signatures of the exported functions, per source
 SIGNATURES = {
@@ -39,8 +36,10 @@ SIGNATURES = {
     "predict_chunk_group_margins": {
         "predict_chunk_group_margins": _PREDICT,
         "predict_chunk_group_margins_max_clusters": [_I] * 4},
-    "fused_sparse_mlp": {"fused_sparse_mlp_plan": _MLP_PLAN,
-                         "fused_sparse_mlp": _MLP},
+    "fused_sparse_mlp": {
+        "fused_sparse_mlp_occupancy": [_I, _I, _I, _P],
+        "fused_sparse_mlp": [_P, _I, *[_P] * 13, *[_I] * 6, _F, *[_I] * 8,
+                             _P]},
     "fused_sparse_mlp_q": {
         "fused_sparse_mlp_q_occupancy": [_I, _I, _I, _I, _P],
         "fused_sparse_mlp_q": [_P, _I, *[_P] * 15, *[_I] * 7, _F,

@@ -10,16 +10,16 @@ fused_sparse_mlp_q          csrc/fused_sparse_mlp_q.cu (B <= 16)   int8
 fused_sparse_mlp_chunk_q    csrc/fused_sparse_mlp_chunk_q.cu       int8
 ==========================  =====================================  ========
 
-The float32 decode kernel is the CUDA-core kernel of
-``csrc/fused_sparse_mlp.cuh``, which plans its own launch.  The int8
-decode kernel streams whole rows through a ring of 16-byte copies, gate/up
-on the CUDA cores with the quant scales applied per slab, launched from
-``decode_q_plan`` (the gate/up layout of the quant width, the chain batch,
-the ring, the shared memory and the grid).
+The two decode kernels stream the selected rows, cut into equal ranges a
+block, through a ring of 16-byte copies and run on the CUDA cores: the
+float32 one launched from ``decode_plan`` (the batch width, the rounds of
+d, the stages, the chain batch, the ring, the shared memory and the grid),
+the int8 one, with the quant scales applied per slab, from
+``decode_q_plan`` (also the gate/up layout of the quant width).
 The two chunk kernels run the tensor-core kernel of
 ``csrc/fused_sparse_mlp_chunk_tc.cuh`` (float32 or int8 weights), launched
 with their own scratch from ``plan`` (tile sizes, the split of d, the
-slices, the grid and the shared memory).  Both plans are kept on the host
+slices, the grid and the shared memory).  The plans are kept on the host
 so that the CPU tests reach them.  Callers go through ``kernels.ops``,
 which picks the plain version for CPU tensors and counts launches."""
 from __future__ import annotations
@@ -38,21 +38,6 @@ TELEMETRY_COLS = ("actual", "false_neg", "realized")
 MAX_BATCH = 16          # rows a decode launch takes; the chunk kernels
                         # take any number
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PLANS: dict[tuple, tuple] = {}
-
-
-def _plan(name: str, code: int, b: int, d: int, cap_rows: int,
-          device) -> tuple:
-    """(grid, dc, n_slices, rows_per_slice, smem) of a launch shape."""
-    key = (name, code, b, d, cap_rows, device)
-    if key not in _PLANS:
-        out = (ctypes.c_int * 5)()
-        lib = build.load(name)
-        with torch.cuda.device(device):
-            rc = getattr(lib, f"{name}_plan")(code, b, d, cap_rows, out)
-        build.check(name, rc)
-        _PLANS[key] = tuple(out)
-    return _PLANS[key]
 
 
 def _quant_layout(name: str, k: int, d: int, g: int, wu, wg_s, wu_s,
@@ -70,9 +55,115 @@ def _quant_layout(name: str, k: int, d: int, g: int, wu, wg_s, wu_s,
     return qg
 
 
+# ---------------------------------------------- the float32 decode kernel --
+# csrc/fused_sparse_mlp.cu: kThreads, kWarps, kXRegs, kTile, kRowsStep,
+# kStages, kTracePoints.  The layout is decided here only: the kernel takes
+# it from the plan, and its C entry checks that the buffers hold what the
+# kernel writes.
+D_THREADS, D_WARPS = 256, 8
+D_XREGS = 64                      # x values a thread holds for a round
+D_TILE, D_ROWS_STEP = 2 * D_THREADS, 16
+D_STAGES = 8                      # the most stages a ring has
+D_RING_BUDGET = 96 * 1024         # bytes of the ring, at least 2 stages
+D_ROWS_BUDGET = 16 * 1024         # bytes of a chain batch's rows
+D_TRACE_POINTS = 8                # see decode_phase_times
+
+
+class DPlan(NamedTuple):
+    nb: int              # tokens of the instantiation: 4, 8 or 16
+    round_cols: int      # columns of d a gate/up stage: 4096, 2048, 1024
+    rounds: int          # gate/up rounds of a row
+    row_floats: int      # a chain row: 2 nb carried sums, 8 x 2 nb warp sums
+    stage_bytes: int     # a gate/up stage: a round of Wg and of Wu
+    down_stage_bytes: int
+    chain_rows: int      # rows of a chain batch
+    ring: int            # bytes of the ring
+    smem_bytes: int      # the ring and a chain batch's rows
+    grid: int            # blocks, all resident (cooperative launch)
+    tiles: int           # down's D_TILE-column tiles of d
+    h_floats: int        # h: C*G rows of nb floats
+    part_floats: int     # down's runs: (grid + tiles) slots of nb x D_TILE
+
+
+def decode_plan(b: int, d: int, cap_rows: int, group_size: int, sms: int,
+                occupancy) -> DPlan:
+    """The launch of the float32 decode kernel for b tokens of width d over
+    at most ``cap_rows`` (= C*G) selected rows in groups of ``group_size``,
+    on a card of ``sms`` SMs; ``occupancy(nb, smem)`` says how many blocks
+    one SM holds at once.  A stage of gate/up holds one row's round of Wg
+    and of Wu; one of down up to 16 rows of a 512-column tile of Wd and
+    their h rows.  The ring holds as many of the larger stage as fit in
+    D_RING_BUDGET bytes (2 to 8); a chain batch as many rows as one block
+    takes at one block a SM, within D_ROWS_BUDGET bytes.  The grid is
+    resident: at most 2 blocks a SM.  Raises ValueError on a shape the
+    kernel does not take and RuntimeError when the card cannot hold one
+    block."""
+    name = "fused_sparse_mlp"
+    g = group_size
+    if not 1 <= b <= MAX_BATCH or d < 4 or d % 4 or cap_rows < 1 or g < 1 \
+            or cap_rows % g:
+        raise ValueError(
+            f"{name}: bad shape B={b} d={d} C*G={cap_rows} G={g} (B <= "
+            f"{MAX_BATCH}; d a positive multiple of 4; C*G a multiple of G)")
+    nb = 4 if b <= 4 else 8 if b <= 8 else 16
+    rc = D_THREADS * D_XREGS // nb    # x of a thread's columns: 64 values
+    s1 = 2 * min(d, rc) * 4
+    s2 = min(g, D_ROWS_STEP) * (D_TILE + nb) * 4
+    big = max(s1, s2)
+    ring = max(2, min(D_STAGES, D_RING_BUDGET // big)) * big
+    row_floats = (1 + D_WARPS) * 2 * nb
+    chain_rows = max(1, min(-(-cap_rows // sms),
+                            D_ROWS_BUDGET // (row_floats * 4)))
+    smem = ring + chain_rows * row_floats * 4
+    per_sm = min(occupancy(nb, smem), MAX_BLOCKS_PER_SM)
+    if per_sm < 1:
+        raise RuntimeError(
+            f"{name}: a block of {D_THREADS} threads with {smem} bytes of "
+            "shared memory cannot be scheduled on this card")
+    grid = per_sm * sms
+    tiles = -(-d // D_TILE)
+    return DPlan(nb, rc, -(-d // rc), row_floats, s1, s2, chain_rows, ring,
+                 smem, grid, tiles, cap_rows * nb,
+                 (grid + tiles) * nb * D_TILE)
+
+
+_D_PLANS: dict = {}
+_BARRIERS: dict = {}
+
+
+def _barrier(dev, stream: int) -> torch.Tensor:
+    """The float32 decode kernel's grid-barrier counter for launches on
+    ``stream``: zeroed once here; every launch leaves it at zero."""
+    bar = _BARRIERS.get((dev.index, stream))
+    if bar is None:
+        bar = _BARRIERS[(dev.index, stream)] = torch.zeros(
+            (1,), dtype=torch.int32, device=dev)
+    return bar
+
+
+def decode_phase_times(trace: torch.Tensor) -> dict:
+    """Where a decode launch's time went, float32 or int8, from its phase
+    trace (grid x 8 int64: per block the global ns at start, first gate/up
+    stage landed, gate/up stream done, gate/up done (chains included), past
+    barrier 1, down done, past barrier 2 and end): each phase from the last
+    block to reach its start to the last to reach its end, in ms.  Rows
+    left at zero (a buffer longer than the grid) are not blocks."""
+    t = trace.double().cpu()
+    t = t[(t != 0).any(1)]
+    last = t.max(0).values
+    ms = lambda v: float(v) / 1e6                          # noqa: E731
+    names = ("first_stage", "gate_up_stream", "chain", "barrier_1", "down",
+             "barrier_2", "run_sum")
+    out = {"launch_skew": ms(last[0] - t[:, 0].min())}
+    out.update({n: ms(last[i + 1] - (last[i] if i else t[:, 0].min()))
+                for i, n in enumerate(names)})
+    out["total"] = ms(last[7] - t[:, 0].min())
+    return out
+
+
 def _launch(name: str, x, wg, wu, wd, sel_indices, sel_count, gm_tok, *,
             group_size: int, activation: str, fatrelu_threshold: float,
-            collect_stats: bool):
+            collect_stats: bool, trace: torch.Tensor | None = None):
     """One launch of the float32 decode kernel."""
     b, d = x.shape
     k = wg.shape[0]
@@ -95,32 +186,59 @@ def _launch(name: str, x, wg, wu, wd, sel_indices, sel_count, gm_tok, *,
         raise ValueError("collect_stats needs per-token group margins "
                          "(B, k/G)")
     act_kind = _act_kind(activation, fatrelu_threshold)
+    wg, wu, wd = (t.contiguous() if t is not None else None
+                  for t in (wg, wu, wd))
+    if any(t.data_ptr() % 16 for t in (wg, wu, wd) if t is not None):
+        raise ValueError(f"{name} reads weights in 16-byte copies: their "
+                         "storage must be 16-byte aligned")
+    x = x.contiguous()
+    if x.data_ptr() % 16:       # 16-byte loads of x's rows
+        x = x.clone()
+    code = _X_DTYPES[x.dtype]
+    key = (dev.index, code, b, d, cap * g, g)
+    pl = _D_PLANS.get(key)
+    if pl is None:
+        lib = build.load(name)
+
+        def occupancy(nb: int, smem: int) -> int:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                rc = lib.fused_sparse_mlp_occupancy(code, nb, smem,
+                                                    ctypes.byref(out))
+            build.check(name, rc)
+            return out.value
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pl = _D_PLANS[key] = decode_plan(b, d, cap * g, g, sms, occupancy)
+    if trace is not None and (trace.dtype != torch.int64
+                              or trace.device != dev
+                              or trace.numel() < pl.grid * D_TRACE_POINTS):
+        raise ValueError(f"{name}: trace takes {pl.grid} x "
+                         f"{D_TRACE_POINTS} int64 on the launch's device")
     sel = sel_indices.to(torch.int32).contiguous()
     count = torch.as_tensor(sel_count, dtype=torch.int32,
                             device=dev).reshape(())
-    x = x.contiguous()
-    code = _X_DTYPES[x.dtype]
-    grid, dc, n_slices, rps, smem = _plan(name, code, b, d, cap * g, dev)
     y = torch.empty((b, d), dtype=torch.float32, device=dev)
-    ws = torch.zeros((1 + 3 * b,), dtype=torch.int32, device=dev)  # bar+tel
-    tel = ws[1:].view(b, 3)
-    hbuf = torch.empty((cap * g * b,), dtype=torch.float32, device=dev)
-    part = torch.empty((n_slices * b * d,), dtype=torch.float32, device=dev)
-    gm = gm_tok.float().contiguous() if collect_stats else None
-    wg, wu, wd = (t.contiguous() if t is not None else None
-                  for t in (wg, wu, wd))
+    tel = tel_part = gm = None
+    if collect_stats:
+        tel = torch.empty((b, 3), dtype=torch.int32, device=dev)
+        tel_part = torch.empty((pl.grid, 3 * MAX_BATCH), dtype=torch.int32,
+                               device=dev)
+        gm = gm_tok.float().contiguous()
+    scratch = torch.empty((pl.h_floats + pl.part_floats,),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    lib = build.load(name)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, name)(
+    rc = build.load(name).fused_sparse_mlp(
         x.data_ptr(), code, ptr(wg), ptr(wu), ptr(wd), sel.data_ptr(),
-        count.data_ptr(), ptr(gm), y.data_ptr(),
-        tel.data_ptr() if collect_stats else None, hbuf.data_ptr(),
-        part.data_ptr(), ws.data_ptr(), b, d, k, cap, g, act_kind,
-        float(fatrelu_threshold), grid, dc, n_slices, rps, smem, stream)
+        count.data_ptr(), ptr(gm), y.data_ptr(), ptr(tel), ptr(tel_part),
+        scratch.data_ptr(), scratch[pl.h_floats:].data_ptr(),
+        _barrier(dev, stream).data_ptr(), ptr(trace), b, d, k, cap, g,
+        act_kind, float(fatrelu_threshold), pl.nb, pl.row_floats,
+        pl.stage_bytes, pl.down_stage_bytes, pl.chain_rows, pl.ring, pl.grid,
+        pl.smem_bytes, stream)
     build.check(name, rc)
     if collect_stats:
         return y, tel
@@ -148,7 +266,7 @@ Q_TILE, Q_ROWS_STEP = 2 * Q_THREADS, 16
 Q_STAGES = 6                        # stages of the ring a launch uses
 Q_SLAB16, Q_SLAB1 = 0, 1
 Q_ROWS_BUDGET = 48 * 1024           # bytes of a chain batch's rows
-Q_TRACE_POINTS = 8                  # see q_phase_times
+Q_TRACE_POINTS = 8                  # see decode_phase_times
 
 
 class QPlan(NamedTuple):
@@ -280,24 +398,8 @@ def decode_q_plan(b: int, d: int, cap_rows: int, group_size: int, qg: int,
 _Q_PLANS: dict = {}
 
 
-def q_phase_times(trace: torch.Tensor) -> dict:
-    """Where an int8 decode launch's time went, from its phase trace (grid
-    x 8 int64: per block the global ns at start, first gate/up stage
-    landed, gate/up stream done, gate/up done (chains included), past
-    barrier 1, down done, past barrier 2 and end): each phase from the last
-    block to reach its start to the last to reach its end, in ms.  Rows
-    left at zero (a buffer longer than the grid) are not blocks."""
-    t = trace.double().cpu()
-    t = t[(t != 0).any(1)]
-    last = t.max(0).values
-    ms = lambda v: float(v) / 1e6                          # noqa: E731
-    names = ("first_stage", "gate_up_stream", "chain", "barrier_1", "down",
-             "barrier_2", "run_sum")
-    out = {"launch_skew": ms(last[0] - t[:, 0].min())}
-    out.update({n: ms(last[i + 1] - (last[i] if i else t[:, 0].min()))
-                for i, n in enumerate(names)})
-    out["total"] = ms(last[7] - t[:, 0].min())
-    return out
+# the int8 decode kernel traces the same 8 points
+q_phase_times = decode_phase_times
 
 
 def _launch_q(x, mats, scales, sel_indices, sel_count, gm_tok, *,
@@ -693,17 +795,19 @@ def _launch_chunk(name: str, x, mats, scales, sel_indices, sel_count,
 def fused_sparse_mlp(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
                      gm_tok=None, *, group_size: int = 8,
                      activation: str = "relu", fatrelu_threshold: float = 0.0,
-                     collect_stats: bool = False):
+                     collect_stats: bool = False, trace=None):
     """One launch: x (B <= 16, d) float32/bfloat16; w*_t (k, d) float32
-    neuron-major (``wu_t`` None = ungated); sel_indices (C,) int32 group
-    ids; sel_count () int32 on the device.  Returns y (B, d) float32, and
-    with ``collect_stats`` (needs ``gm_tok`` (B, k/G) float32) also the
-    (B, 3) int32 telemetry of ``TELEMETRY_COLS``."""
+    neuron-major, 16-byte aligned (``wu_t`` None = ungated); sel_indices
+    (C,) int32 group ids; sel_count () int32 on the device.  Returns y (B,
+    d) float32, and with ``collect_stats`` (needs ``gm_tok`` (B, k/G)
+    float32) also the (B, 3) int32 telemetry of ``TELEMETRY_COLS``.
+    ``trace`` (grid x 8 int64, see :func:`decode_phase_times`) takes the
+    launch's phase trace."""
     return _launch("fused_sparse_mlp", x, wg_t, wu_t, wd_t, sel_indices,
                    sel_count, gm_tok, group_size=group_size,
                    activation=activation,
                    fatrelu_threshold=fatrelu_threshold,
-                   collect_stats=collect_stats)
+                   collect_stats=collect_stats, trace=trace)
 
 
 def fused_sparse_mlp_chunk(x, wg_t, wu_t, wd_t, sel_indices, sel_count,
@@ -730,8 +834,8 @@ def fused_sparse_mlp_q(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, sel_indices,
                        collect_stats: bool = False, trace=None):
     """:func:`fused_sparse_mlp` over int8 weights: w*_q (k, d) int8,
     ``wg_s``/``wu_s`` (k, d/qg) and ``wd_s`` (k/qg, d) float32 scales, all
-    16-byte aligned.  ``trace`` (grid x 8 int64, see :func:`q_phase_times`)
-    takes the launch's phase trace."""
+    16-byte aligned.  ``trace`` (grid x 8 int64, see
+    :func:`decode_phase_times`) takes the launch's phase trace."""
     return _launch_q(x, (wg_q, wu_q, wd_q), (wg_s, wu_s, wd_s), sel_indices,
                      sel_count, gm_tok, group_size=group_size,
                      activation=activation,
