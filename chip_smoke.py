@@ -34,8 +34,9 @@ Phases, in order; any failure exits non-zero:
              the gathered-rows 3-matmul and a contiguous read of the same
              float32 bytes; then the predictors' scaling line (the decode
              kernel at B in {1, 4, 8, 16}, the chunk kernel at S in {16,
-             ..., 256}) beside their bounds: bytes, the bit products on
-             the binary tensor cores and the popcounts on the CUDA cores.
+             ..., 256}, the counts kernel at B in {1, 4, 8, 16, 64, 128,
+             256}) beside their bounds: bytes, the bit products on the
+             binary tensor cores and the popcounts on the CUDA cores.
              The predictors' edges: S in {1, 17, 257}, d in {100, 4000,
              4096, 5120}, G in {1, 8, 16}, x random, all negative and all
              +-0.0, the chunk kernel and the decode kernel on 16-row
@@ -83,14 +84,17 @@ Phases, in order; any failure exits non-zero:
              fresh server's.
  10. sign kernels  sign_pack and predict_counts against their plain versions,
              bitwise, at full width: the gate weights (11008 x d) and x at B
-             in {1, 4, 16, 24, 64} (64: a gather prefill chunk) plus a
-             (G, B, d) batch, float32 and bf16, d in
+             in {1, 4, 16, 24, 64, 65, 257} (64: a gather prefill chunk)
+             plus a (G, B, d) batch, float32 and bf16, d in
              {4096, 4000} (a padded last word), zeros and -0.0 in the input;
              predict_margins bitwise against core.predictor.margins at alpha
-             in {1.0, 1.03, per-slot with a dead slot}.  Timed at the main
-             path's shapes (x at B=4, the gate weights at load, counts at
-             B=4) beside their bounds and plain versions; no PyTorch call
-             packs bits or counts popcounts, so no library yardstick.
+             in {1.0, 1.03, per-slot with a dead slot}; predict_counts twice
+             a case, and at its edges (k in {11000, 24, 1000}, d in {4096,
+             4000, 100}, B in {1, 5, 65, 257}, words random, all ones, all
+             ones against all zeros).  Timed at the main path's shapes (x
+             at B=4, the gate weights at load, counts at B=4 and S=64)
+             beside their bounds and plain versions; no PyTorch call packs
+             bits or counts popcounts, so no library yardstick.
  11. strategies  the 2 full-width float32 layers of phase 3 with strategies
              masked and gather, 8 teacher-forced steps on the card against
              the CPU: logits within 1e-3, stats reported, launches exact;
@@ -115,10 +119,12 @@ It exits non-zero without a GPU, and without the repository beside it.
 
 times the predictors of another checkout's ``src`` beside this one's, in
 the order other, this, this, other, each in a process of its own: the
-predictors' scaling line of phase 2, the float32 decode and chunk MLP
-kernels on the same shapes (unchanged code, the yardstick) and a profiled
-full-depth prefill chunk (S=64) and decode step (B=4) with float32 MLP
-weights.  It runs no other phase.
+predictors' scaling line of phase 2 (predict_group_margins,
+predict_chunk_group_margins and predict_counts), the float32 decode and
+chunk MLP kernels on the same shapes (unchanged code, the yardstick) and a
+profiled full-depth prefill chunk (S=64) and decode step (B=4) with
+float32 MLP weights, strategy pallas and then gather.  It runs no other
+phase.
 
     python3 chip_smoke.py --decode-ab OTHER_SRC
 
@@ -172,12 +178,14 @@ BATCHES = (1, 4, 16)
 CHUNK_ROWS = (17, 64, 128, 256)
 SCALING_ROWS = (16, 32, 64, 128, 256)   # the chunk MLP's scaling line
 DECODE_BATCHES = (1, 4, 8, 16)          # the int8 decode MLP's scaling line
+COUNTS_ROWS = (1, 4, 8, 16, 64, 128, 256)   # predict_counts' scaling line
 MAIN_BATCH = 4            # the serve phase's batch: the main path's shape
 MAIN_CHUNK = 64           # the chunked serve phase's prefill chunk
 PAGE_BLOCK = 16           # the paged pool's block size
 PAGED_NBPS = (16, 128)    # blocks per slot: max_len 256 and 2048
 MAIN_LIVE = (64, 100, 150, 192)   # the timed paged shape's slot lengths
-# the port's kernels by namespace (profiler rows)
+# the port's kernels by namespace (profiler rows); counts:: is that of the
+# CUDA-core predict_counts of older checkouts, which --pred-ab may profile
 OWN_KERNELS = ("mlp::", "mlpq::", "predict::", "paged::", "paged_write::",
                "sign::", "counts::")
 D_PAD = 4000              # a width that is not a multiple of 32
@@ -232,16 +240,18 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def predict_work(rows: int, xbytes: int, d: int = D,
-                 k: int = K) -> tuple[float, float, float]:
+def predict_work(rows: int, xbytes: int, d: int = D, k: int = K,
+                 counts: bool = False) -> tuple[float, float, float]:
     """Least times of one predictor call for ``rows`` tokens, in ms: the
-    packed gate signs, x, alpha, gm and cnt moved once at the HBM rate;
-    the AND-popcount bit products (rows * k * w * 32) on the binary tensor
-    cores, the kernels' route; ``rows * k * w`` popcounts on the CUDA
-    cores, the floor of any CUDA-core design."""
+    packed gate signs, x, alpha, gm and cnt moved once at the HBM rate
+    (``counts``: the packed gate signs, x's packed words and the (rows, k)
+    int32 counts); the AND-popcount bit products (rows * k * w * 32) on the
+    binary tensor cores, the kernels' route; ``rows * k * w`` popcounts on
+    the CUDA cores, the floor of any CUDA-core design."""
     w = -(-d // 32)
-    n_bytes = k * w * 4 + rows * d * xbytes + rows * 4 + \
-        rows * (k // G) * 4 + rows * 4
+    n_bytes = k * w * 4 + rows * w * 4 + rows * k * 4 if counts else \
+        k * w * 4 + rows * d * xbytes + rows * 4 + rows * (k // G) * 4 + \
+        rows * 4
     return (n_bytes / HBM_BYTES_PER_S * 1e3,
             rows * k * w * 32 / B1_MACS_PER_S * 1e3,
             rows * k * w / POPC_PER_S * 1e3)
@@ -604,14 +614,17 @@ def phase_decode_scaling(traced: bool = True) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_predict_scaling() -> None:
+def phase_predict_scaling(outputs: dict | None = None) -> None:
     """The predictors' time against the tokens, bf16 x on
     prosparse-llama2-7b's gate signs, alpha 1.0: the decode kernel at B in
-    DECODE_BATCHES and the chunk kernel at S in SCALING_ROWS, each beside
-    its three least times (bytes at 3.35 TB/s, the bit products on the
-    binary tensor cores, the popcounts on the CUDA cores) and the share of
-    each.  Run alone from a script that puts a checkout's ``src`` first on
-    sys.path, it times that checkout's kernels."""
+    DECODE_BATCHES, the chunk kernel at S in SCALING_ROWS and the counts
+    kernel (x's packed words) at B in COUNTS_ROWS, each beside its three
+    least times (bytes at 3.35 TB/s, the bit products on the binary tensor
+    cores, the popcounts on the CUDA cores) and the share of each.  Run
+    alone from a script that puts a checkout's ``src`` first on sys.path,
+    it times that checkout's kernels; ``outputs`` then collects every
+    point's outputs (on the CPU) by name, for another checkout's to be held
+    against them."""
     import torch
     from repro_torch.core import predictor as P
     from repro_torch.kernels import predict as KP
@@ -634,12 +647,27 @@ def phase_predict_scaling() -> None:
             alpha = torch.ones(r, device=dev)
             t = cuda_ms(lambda: fn(pw, x, alpha, d_valid=D, group_size=G),
                         flush=flush)
+            if outputs is not None:
+                outputs[f"{name} {tag}={r}"] = [
+                    o.cpu() for o in fn(pw, x, alpha, d_valid=D,
+                                        group_size=G)]
             t_b, t_tc, t_cc = predict_work(r, 2)
             print(f"[scaling] predict {name} {tag}={r}: {t:.4f} ms; bytes "
                   f"{t_b:.4f} ms (share {t_b / t:.3f}), b1 tensor cores "
                   f"{t_tc:.4f} ms (share {t_tc / t:.3f}), CUDA-core "
                   f"popcounts {t_cc:.4f} ms (share {t_cc / t:.3f})",
                   flush=True)
+    for r in COUNTS_ROWS:
+        px = P.pack_signs(torch.randn((r, D), generator=gen, device=dev))
+        t = cuda_ms(lambda: KP.predict_counts(pw, px), flush=flush)
+        if outputs is not None:
+            outputs[f"predict_counts B={r}"] = [KP.predict_counts(pw,
+                                                                  px).cpu()]
+        t_b, t_tc, t_cc = predict_work(r, 4, counts=True)
+        print(f"[scaling] predict_counts B={r}: {t:.4f} ms; bytes "
+              f"{t_b:.4f} ms (share {t_b / t:.3f}), b1 tensor cores "
+              f"{t_tc:.4f} ms (share {t_tc / t:.3f}), CUDA-core popcounts "
+              f"{t_cc:.4f} ms (share {t_cc / t:.3f})", flush=True)
     del pw, flush_buf
     torch.cuda.empty_cache()
 
@@ -2345,7 +2373,8 @@ def phase_paged_write() -> int:
 def phase_sign_kernels(results: dict) -> None:
     """sign_pack and predict_counts against their plain versions at full
     width, bitwise, and predict_margins against core.predictor.margins;
-    then the timings at the main path's shapes."""
+    predict_counts at its edges, each case twice; then the timings at the
+    main path's shapes."""
     import torch
     from repro_torch.core import predictor as P
     from repro_torch.kernels import ops, ref
@@ -2373,8 +2402,9 @@ def phase_sign_kernels(results: dict) -> None:
             n += same(f"sign_pack wg ({K}, {d}) {wdt}", KS.sign_pack(w_t),
                       ref.sign_pack_ref(w_t))
         pw = KS.sign_pack(wg)
-        # 64: a gather prefill chunk's rows (four token tiles of counts)
-        for b in (1, 4, 16, 24, MAIN_CHUNK):
+        # 64: a gather prefill chunk's rows; 65 and 257: a partial last
+        # token tile of counts
+        for b in (1, 4, 16, 24, MAIN_CHUNK, 65, 257):
             x = torch.randn((b, d), generator=gen, device=dev)
             x[0, ::7] = 0.0
             x[-1, 1::5] = -0.0
@@ -2382,8 +2412,11 @@ def phase_sign_kernels(results: dict) -> None:
                 tag = f"B={b} d={d} x={str(xdt)[6:]}"
                 px = KS.sign_pack(x.to(xdt))
                 n += same(f"sign_pack {tag}", px, ref.sign_pack_ref(x.to(xdt)))
-                n += same(f"predict_counts {tag}", KP.predict_counts(pw, px),
+                got = KP.predict_counts(pw, px)
+                n += same(f"predict_counts {tag}", got,
                           ref.predict_counts_ref(pw, px))
+                n += same(f"predict_counts {tag}, again",
+                          KP.predict_counts(pw, px), got)
                 for aname, alpha in _alpha_cases(b, dev).items():
                     n += same(f"predict_margins {tag} alpha={aname}",
                               ops.predict_margins(pw, px, d, alpha),
@@ -2396,9 +2429,34 @@ def phase_sign_kernels(results: dict) -> None:
                   ops.predict_counts(pw, pxg), ref.predict_counts_ref(pw, pxg))
     print(f"[signs] sign_pack, predict_counts and predict_margins bitwise "
           f"equal to their plain versions in {n} cases (d in {{{D}, "
-          f"{D_PAD}}}, B in {{1, 4, 16, 24, {MAIN_CHUNK}}} and "
+          f"{D_PAD}}}, B in {{1, 4, 16, 24, {MAIN_CHUNK}, 65, 257}} and "
           f"(2, {MAIN_BATCH}), float32 "
-          f"and bf16, zeros and -0.0)", flush=True)
+          f"and bf16, zeros and -0.0; predict_counts twice)", flush=True)
+    # ---- predict_counts at its edges: k not a multiple of 16 rows (a
+    # partial last unit), rows of 125 words (the 4-byte copies) and of 128
+    # and 4 (bulk copies), partial last token tiles, words all ones (every
+    # popcount term 32 w) and all ones against all zeros (the largest
+    # count), each run twice
+    m = 0
+    for k, d in ((K - 8, D), (K - 8, D_PAD), (24, D), (24, 100), (1000, D)):
+        pw = KS.sign_pack(torch.randn((k, d), generator=gen, device=dev))
+        for b in (1, 5, 65, 257):
+            px = KS.sign_pack(torch.randn((b, d), generator=gen, device=dev))
+            ones_w, ones_x = torch.full_like(pw, -1), torch.full_like(px, -1)
+            for kind, a, c in (("random", pw, px), ("ones", ones_w, ones_x),
+                               ("ones-zeros", ones_w, torch.zeros_like(px)),
+                               ("zeros-ones", torch.zeros_like(pw), ones_x)):
+                tag = f"predict_counts k={k} d={d} B={b} words={kind}"
+                got = KP.predict_counts(a, c)
+                m += same(tag, got, ref.predict_counts_ref(a, c))
+                m += same(f"{tag}, again", KP.predict_counts(a, c), got)
+                if kind in ("ones-zeros", "zeros-ones") and \
+                        not bool((got == 32 * a.shape[1]).all()):
+                    fail(f"{tag}: counts other than 32 w")
+    print(f"[signs] predict_counts edges bitwise equal to the plain version "
+          f"in {m} runs (k in {{{K - 8}, 24, 1000}}, d in {{{D}, {D_PAD}, "
+          "100}, B in {1, 5, 65, 257}, words random, all ones, all ones "
+          "against all zeros; each case twice)", flush=True)
     # ---- timings at the main path's shapes: x (B=4, bf16) per MLP call,
     # the float32 gate weights at load, the counts at B=4
     flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -2418,10 +2476,15 @@ def phase_sign_kernels(results: dict) -> None:
     t_c = cuda_ms(lambda: KP.predict_counts(pw, px), iters=50, flush=flush)
     t_c_plain = cuda_ms(lambda: ref.predict_counts_ref(pw, px), iters=5,
                         flush=flush)
-    c_bytes = K * w * 4 + b * w * 4 + b * K * 4
-    b_c = (max(c_bytes / HBM_BYTES_PER_S, b * K * w / POPC_PER_S) * 1e3,
-           "bytes" if c_bytes / HBM_BYTES_PER_S >= b * K * w / POPC_PER_S
-           else "operations")
+    # bound: bytes against the b1 MMAs, the kernel's route; the CUDA-core
+    # popcounts beside
+    t_b, t_tc, t_cc = predict_work(b, 4, counts=True)
+    b_c = (max(t_b, t_tc), "bytes" if t_b >= t_tc else "operations")
+    pxc = KS.sign_pack(torch.randn((MAIN_CHUNK, D), generator=gen,
+                                   device=dev))
+    t_c64 = cuda_ms(lambda: KP.predict_counts(pw, pxc), iters=50,
+                    flush=flush)
+    t_b64, t_tc64, t_cc64 = predict_work(MAIN_CHUNK, 4, counts=True)
     print(f"[signs] sign_pack x B={b} bf16: kernel {t_sx:.4f} ms plain "
           f"{t_sx_plain:.4f} ms bound {b_sx[0]:.5f} ms ({b_sx[1]})",
           flush=True)
@@ -2429,7 +2492,12 @@ def phase_sign_kernels(results: dict) -> None:
           f"kernel {t_sw:.4f} ms plain {t_sw_plain:.4f} ms bound "
           f"{b_sw[0]:.4f} ms ({b_sw[1]})", flush=True)
     print(f"[signs] predict_counts B={b}: kernel {t_c:.4f} ms plain "
-          f"{t_c_plain:.4f} ms bound {b_c[0]:.4f} ms ({b_c[1]})", flush=True)
+          f"{t_c_plain:.4f} ms bound {b_c[0]:.4f} ms ({b_c[1]}; CUDA-core "
+          f"popcounts {t_cc:.4f} ms)", flush=True)
+    print(f"[signs] predict_counts S={MAIN_CHUNK} (a gather prefill chunk): "
+          f"kernel {t_c64:.4f} ms bound {max(t_b64, t_tc64):.4f} ms (bytes "
+          f"{t_b64:.4f}, b1 tensor cores {t_tc64:.4f}; CUDA-core popcounts "
+          f"{t_cc64:.4f} ms)", flush=True)
     results["sign_pack"] = dict(max_abs_err=0.0, ms=t_sx, plain_ms=t_sx_plain,
                                 bound_ms=b_sx[0], bound_by=b_sx[1],
                                 library_ms=None)
@@ -2935,22 +3003,65 @@ def profile_float32_steps() -> None:
     torch.cuda.empty_cache()
 
 
+def profile_gather_steps() -> None:
+    """A full-depth gather prefill chunk (S=MAIN_CHUNK, sparse prefill) and
+    gather decode step (B=MAIN_BATCH) with float32 MLP weights, profiled,
+    on one server (random weights from seed 0): each MLP call packs x with
+    sign_pack and counts with predict_counts.  Run from a script that puts
+    a checkout's ``src`` first on sys.path, it profiles that checkout's
+    steps."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(sparse=dataclasses.replace(
+        base.sparse, strategy="gather", enabled=True, sparse_prefill=True,
+        prefill_max_tokens=max(base.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, ServeConfig(batch=MAIN_BATCH, max_len=256,
+                                      prefill_chunk=MAIN_CHUNK), params,
+                 device="cuda")
+    del params
+    profile_prefill_chunk(srv, cfg, "gather, float32")
+    profile_decode(srv, cfg, "gather, float32")
+    del srv
+    torch.cuda.empty_cache()
+
+
 def pred_ab(other_src: str, src: str) -> None:
-    """The predictors' scaling line, the two float32 MLP kernels beside
-    them and a profiled full-depth prefill chunk and decode step, of
-    ``other_src`` and ``src`` in the order other, this, this, other, each in
-    a process of its own (one package a process)."""
+    """The predictors' scaling line (predict_counts' too), the two float32
+    MLP kernels beside them and profiled full-depth prefill chunks and
+    decode steps (strategy pallas, then gather), of ``other_src`` and
+    ``src`` in the order other, this, this, other, each in a process of its
+    own (one package a process).  Every run's scaling-line outputs must be
+    bitwise the first run's."""
+    import torch
     if not os.path.isdir(os.path.join(other_src, "repro_torch")):
         fail(f"no repro_torch in {other_src}")
-    for path in (other_src, src, src, other_src):
+    out_dir = os.path.join(HERE, "build", "pred_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    saved = []
+    for i, path in enumerate((other_src, src, src, other_src)):
+        saved.append(os.path.join(out_dir, f"outputs{i}.pt"))
         code = (f"import sys; sys.path[:0] = [{path!r}, {HERE!r}]; "
                 "import torch; torch.backends.cuda.matmul.allow_tf32 = "
-                "False; import chip_smoke as cs; "
-                "cs.phase_predict_scaling(); cs.time_mlps(); "
-                "cs.profile_float32_steps()")
+                "False; import chip_smoke as cs; out = {}; "
+                f"cs.phase_predict_scaling(out); torch.save(out, "
+                f"{saved[-1]!r}); cs.time_mlps(); "
+                "cs.profile_float32_steps(); cs.profile_gather_steps()")
         print(f"[ab] {path}", flush=True)
         if subprocess.run([sys.executable, "-c", code]).returncode:
             fail(f"the predictor A/B run of {path} failed")
+    runs = [torch.load(f) for f in saved]
+    for name, first in runs[0].items():
+        if any(len(r[name]) != len(first) or not all(
+                torch.equal(a, b) for a, b in zip(r[name], first))
+               for r in runs[1:]):
+            fail(f"the predictor A/B: {name}'s outputs differ between runs")
+    print(f"[ab] the scaling lines' outputs ({len(runs[0])} points: gm and "
+          "cnt, counts) bitwise equal in all four runs", flush=True)
 
 
 def main() -> None:

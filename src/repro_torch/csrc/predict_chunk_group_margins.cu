@@ -23,7 +23,8 @@ int predict_chunk_group_margins(const void* x, int x_dtype, const void* pw,
                                 int ctas, int rstride, int smem,
                                 void* stream) {
   const predict::Plan p = predict::make_plan(
-      S, w, k, G, d_valid, tile, cluster, unit_rows, ctas, rstride, smem);
+      S, w, k, G, d_valid, tile, cluster, unit_rows, ctas, rstride, smem,
+      false);
   return predict::dispatch(x, x_dtype, pw, alpha, gm, cnt, p, stream);
 }
 

@@ -21,7 +21,8 @@ int predict_group_margins(const void* x, int x_dtype, const void* pw,
                           int smem, void* stream) {
   if (B > 16) return (int)cudaErrorInvalidValue;
   const predict::Plan p = predict::make_plan(
-      B, w, k, G, d_valid, tile, cluster, unit_rows, ctas, rstride, smem);
+      B, w, k, G, d_valid, tile, cluster, unit_rows, ctas, rstride, smem,
+      false);
   return predict::dispatch(x, x_dtype, pw, alpha, gm, cnt, p, stream);
 }
 

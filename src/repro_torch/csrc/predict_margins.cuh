@@ -1,19 +1,24 @@
-// Fused sign-bit predictor, shared by the decode kernel
-// (predict_group_margins.cu) and the prefill-chunk kernel
-// (predict_chunk_group_margins.cu).
+// Sign-bit predictor kernels, shared by the decode kernel
+// (predict_group_margins.cu), the prefill-chunk kernel
+// (predict_chunk_group_margins.cu) and the negative-product counts
+// (predict_counts.cu).
 //
-// For every token b and every row group of G gate-weight rows it computes
+// For every token b and every gate-weight row r it computes
 //     n_neg[b, r] = popcount(sign(x[b]) XOR signs(Wg[r]))
+// and then one of two epilogues.  Margins (the two predictors), per row
+// group of G rows:
 //     m[b, r]     = n_neg - alpha[b] * (d_valid - n_neg)     (paper eq. 2)
 //     gm[b, g]    = min over the G rows of group g
 //     cnt[b]      = number of groups with gm <= 0
+// Counts (the paper's Listing 1, G = 1): out[b, r] = n_neg[b, r].
 // n_neg is an integer and the margin is one fmaf, a single rounding, as the
 // jitted reference computes it, so gm and cnt are bitwise equal to the
 // plain version, and a row's outputs do not depend on the launch, the token
 // tile or the CTA that computed them.
 //
 // What bounds it on an H100: bytes.  It reads the packed gate signs,
-// k * w * 4 bytes (5.6 MB at k=11008, w=128: ~1.7 us at 3.35 TB/s), and x.
+// k * w * 4 bytes (5.6 MB at k=11008, w=128: ~1.7 us at 3.35 TB/s), and x;
+// the counts write S * k * 4 bytes (2.8 MB at S=64).
 // On the CUDA cores its S*k*w popcounts would take ~22 us at S=64
 // (__popc issues 16 a clock per SM); here they run on the binary tensor
 // cores, through the identity
@@ -23,29 +28,43 @@
 // (0.59 of them a clock per SM, as many as int8 m16n8k32), popc(w) is
 // counted once per row from the fragments and popc(x) once per token.
 //
+// Two template parameters choose the kernel's data routes:
+//   XT, the source of x: its values (float or __nv_bfloat16), packed in
+//      phase 1, or its packed sign words (uint32_t, as sign_pack writes
+//      them), which arrive like the gate-sign rows in phase 0;
+//   kCounts, the epilogue: margins -> group minima -> cnt, or the counts.
+// Phase 2, the products, is one piece of code for all of them.
+//
 // Design (the host plan, kernels/predict.py:margins_plan, sizes the grid):
-// grid (ctas, token tiles) in clusters of kCluster CTAs along x; a token
-// tile holds at most 64 tokens.  CTA i owns the units [i*n/ctas,
-// (i+1)*n/ctas) of lcm(16, G) rows, so no group straddles two CTAs.
+// grid (ctas, token tiles) in clusters of kCluster CTAs along x (of 1 CTA
+// when x comes packed); a token tile holds at most 64 tokens.  CTA i owns
+// the units [i*n/ctas, (i+1)*n/ctas) of lcm(16, G) rows, so no group
+// straddles two CTAs.
 //   0. The copy engines bring the CTA's gate-sign rows into shared memory
 //      (one bulk copy a row on an mbarrier; 4-byte cp.asyncs when a row is
 //      not a multiple of 16 bytes), so no warp stalls on their address
 //      translation, which after a cold start is the longest wait (~4 us on
-//      the H100).  The CTA zeroes the rows' pads, its copy of the tile's x
-//      signs and its counts, and arrives on the cluster barrier.
-//   1. The cluster packs the tile's x signs once: CTA `rank` takes an even
-//      share of the tile's words, a lane a word (its 32 values in 16-byte
-//      loads, 64 registers of them in flight), and stores each word into
-//      the shared memory of all kCluster CTAs (distributed shared memory),
-//      so x is read once per cluster, not once per CTA.  cluster.sync().
+//      the H100); packed x's rows come the same way.  The CTA zeroes the
+//      rows' pads, its copy of the tile's x signs (packed x: their pads)
+//      and its counts, and arrives on the cluster barrier.
+//   1. Values of x: the cluster packs the tile's x signs once: CTA `rank`
+//      takes an even share of the tile's words, a lane a word (its 32
+//      values in 16-byte loads, 64 registers of them in flight), and stores
+//      each word into the shared memory of all kCluster CTAs (distributed
+//      shared memory), so x is read once per cluster, not once per CTA.
+//      cluster.sync().  Packed x: nothing to do but wait for the copies.
 //   2. popc(x) per token.  Each warp then walks its 16-row tiles: per tile
 //      and chunk of 4096 columns, popc(w) of its rows and, for every 512-bit
 //      span, two MMAs for each 8-token slice (independent accumulators),
 //      A and B one 16-byte shared load a lane each, into an int32 product
 //      per (row, token) in shared memory.
-//   3. The CTA takes each group's minimum over its rows' margins, counts
-//      gm <= 0 per token in shared memory and adds the counts into cnt
-//      with one integer atomicAdd per token (cnt is zeroed by the caller).
+//   3. Margins: the CTA takes each group's minimum over its rows' margins,
+//      counts gm <= 0 per token in shared memory and adds the counts into
+//      cnt with one integer atomicAdd per token (cnt is zeroed by the
+//      caller).  Counts: n_neg = popc(x) + popc(w) - 2 * product per
+//      (token, row) straight from the shared products into out[b, r],
+//      token-major and coalesced; every output is written once by one CTA,
+//      so there is nothing for the caller to zero.
 // The k-step's words: lane (g, t) reads words 16j+4t .. 16j+4t+3 of span
 // j of rows g and g+8; the first MMA of the span takes words 4t and 4t+1
 // as its chunks t and 4+t, the second 4t+2 and 4t+3, and B the same words
@@ -58,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace predict {
 
 namespace cg = cooperative_groups;
@@ -69,6 +90,7 @@ constexpr int kCluster = 8;          // CTAs that share one packing of x,
 constexpr int kChunkSpans = 8;       // 512-bit spans of A held at once
 constexpr int kMaxSlices = 8;        // 8-token slices of a tile (64 tokens)
 constexpr int kSmemLimit = 230400;   // dynamic: 227 KB less 2 KB for static
+constexpr int kPackedWords = 2;      // x_dtype of x's packed sign words
 
 // The launch's layout, decided by the host plan and checked by check().
 struct Plan {
@@ -84,6 +106,7 @@ struct Plan {
   int xstride;     // words per row of the packed signs (x and w), 16 mod 32
   int rstride;     // ints per row of the products, 8 mod 32
   int smem;        // bytes of dynamic shared memory
+  bool counts;     // the epilogue: counts (true) or margins
 };
 
 __host__ __device__ inline int spans_of(int w) { return (w + 15) / 16; }
@@ -93,7 +116,8 @@ __host__ __device__ inline size_t smem_bytes(const Plan& p) {
          + (size_t)p.tile_pad * p.xstride * 4   // the tile's x signs
          + (size_t)p.rows_max * p.rstride * 4   // AND-popcount products
          + (size_t)p.rows_max * 4             // popc(w)
-         + (size_t)p.tile_pad * 4 * 2;        // popc(x), kept-group counts
+         + (size_t)p.tile_pad * 4 * (p.counts ? 1 : 2);   // popc(x), and
+                                              // the margins' kept groups
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -153,6 +177,25 @@ __device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// n_rows rows of w words, w apart at src, into shared memory xstride words
+// apart at dst: a bulk copy a row on mbarrier bar (kVec: w a multiple of 4
+// and src 16-byte aligned), else 4-byte cp.asyncs (waited by cp_wait_all)
+template <bool kVec>
+__device__ __forceinline__ void copy_rows(uint32_t* dst, const void* src,
+                                          int n_rows, int w, int xstride,
+                                          uint32_t bar) {
+  const int32_t* s = static_cast<const int32_t*>(src);
+  if (kVec) {
+    for (int r = threadIdx.x; r < n_rows; r += kThreads)
+      bulk_copy(smem_addr(dst + r * xstride), s + (size_t)r * w, w * 4, bar);
+  } else {
+    for (int i = threadIdx.x; i < n_rows * w; i += kThreads) {
+      const int r = i / w;
+      cp4(smem_addr(dst + r * xstride + i - r * w), s + i);
+    }
+  }
+}
+
 __device__ __forceinline__ int popc4(uint4 v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
 }
@@ -185,12 +228,16 @@ __device__ __forceinline__ uint32_t neg_bits(const uint4* v, float) {
   return m;
 }
 
-template <typename XT, bool kVec, int kCl>
+// XT: x's values (float, __nv_bfloat16) or its packed words (uint32_t);
+// kCounts: the counts epilogue, into cnt as (S, k), in place of margins
+// into gm (S, k/G) and kept-group counts into cnt (S,).
+template <typename XT, bool kVec, int kCl, bool kCounts>
 __global__ void __launch_bounds__(kThreads, 1)
-group_margins_kernel(const XT* __restrict__ x,
-                     const int32_t* __restrict__ pw,
-                     const float* __restrict__ alpha, float* __restrict__ gm,
-                     int32_t* __restrict__ cnt, const Plan p) {
+predict_kernel(const XT* __restrict__ x, const int32_t* __restrict__ pw,
+               const float* __restrict__ alpha, float* __restrict__ gm,
+               int32_t* __restrict__ cnt, const Plan p) {
+  constexpr bool kPacked = std::is_same<XT, uint32_t>::value;
+  static_assert(!kPacked || kCl == 1, "packed x needs no cluster");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* as = reinterpret_cast<uint32_t*>(smem_raw);  // (rows_max, xstride)
   uint32_t* xs = as + p.rows_max * p.xstride;            // (tile_pad, xstride)
@@ -215,14 +262,14 @@ group_margins_kernel(const XT* __restrict__ x,
   const int n_chunks = (ns + kChunkSpans - 1) / kChunkSpans;
   const uint32_t bar = smem_addr(&a_bar);
 
-  // 0. the copies' mbarrier; zero the rows' pads, the x signs and the
-  //    counts; arrive on the cluster barrier
+  // 0. the copies' mbarrier; zero the rows' pads, the x signs (packed x:
+  //    their pads) and the counts; arrive on the cluster barrier
   if (kVec && threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile(
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"((uint32_t)(rows * p.w * 4))
+        "r"((uint32_t)((rows + (kPacked ? T : 0)) * p.w * 4))
         : "memory");
   }
   {
@@ -236,9 +283,22 @@ group_margins_kernel(const XT* __restrict__ x,
       as[(rows + r) * p.xstride + i - r * ws] = 0u;
     }
   }
-  for (int i = threadIdx.x * 4; i < p.tile_pad * p.xstride; i += kThreads * 4)
-    *reinterpret_cast<uint4*>(xs + i) = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < p.tile_pad; i += kThreads) cnt_s[i] = 0;
+  if (kPacked) {   // words [w, xstride) of the tile's tokens, pad tokens
+    const int pad = p.xstride - p.w;
+    for (int i = threadIdx.x; i < T * pad; i += kThreads) {
+      const int b = i / pad;
+      xs[b * p.xstride + p.w + i - b * pad] = 0u;
+    }
+    for (int i = T * p.xstride + threadIdx.x; i < p.tile_pad * p.xstride;
+         i += kThreads)
+      xs[i] = 0u;
+  } else {
+    for (int i = threadIdx.x * 4; i < p.tile_pad * p.xstride;
+         i += kThreads * 4)
+      *reinterpret_cast<uint4*>(xs + i) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (!kCounts)
+    for (int i = threadIdx.x; i < p.tile_pad; i += kThreads) cnt_s[i] = 0;
   __syncthreads();   // the mbarrier is set up before any copy names it
   if (kCl > 1) cluster_arrive();
 
@@ -250,8 +310,12 @@ group_margins_kernel(const XT* __restrict__ x,
   //    share of the copies of the CTA's gate-sign rows into shared memory
   //    (a bulk copy a row on the copy engine, or 4-byte cp.asyncs when rows
   //    are not 16-byte aligned): issuing them can wait for their transfer,
-  //    which then overlaps x's loads
-  {
+  //    which then overlaps x's loads.  Packed x: the copies of the rows and
+  //    of the tile's words of x are all there is
+  if constexpr (kPacked) {
+    copy_rows<kVec>(as, pw + (size_t)r0 * p.w, rows, p.w, p.xstride, bar);
+    copy_rows<kVec>(xs, x + (size_t)tok0 * p.w, T, p.w, p.xstride, bar);
+  } else {
     constexpr int kLoads = 2 * (int)sizeof(XT);    // 16-byte loads a word
     constexpr int kWordsInFlight = 8 / (int)sizeof(XT);   // 64 registers
     const int total = T * p.w;
@@ -273,17 +337,8 @@ group_margins_kernel(const XT* __restrict__ x,
       }
       if (first) {        // once, before any remote store
         first = false;
-        if (kVec) {
-          for (int r = threadIdx.x; r < rows; r += kThreads)
-            bulk_copy(smem_addr(as + r * p.xstride),
-                      pw + (size_t)(r0 + r) * p.w, p.w * 4, bar);
-        } else {
-          for (int i = threadIdx.x; i < rows * p.w; i += kThreads) {
-            const int r = i / p.w;
-            cp4(smem_addr(as + r * p.xstride + i - r * p.w),
-                pw + (size_t)r0 * p.w + i);
-          }
-        }
+        copy_rows<kVec>(as, pw + (size_t)r0 * p.w, rows, p.w, p.xstride,
+                        bar);
         if (kCl > 1) cluster_wait();   // every CTA has zeroed its copy
       }
       if (blk >= f1) break;
@@ -310,6 +365,7 @@ group_margins_kernel(const XT* __restrict__ x,
     cluster.sync();   // every CTA holds the tile's signs
   else
     __syncthreads();
+  if (kVec && kPacked) mbar_wait0(bar);   // x's words came with the rows
 
   // 2a. popc(x) per token, tpt threads a token (pad tokens are zero)
   {
@@ -327,7 +383,7 @@ group_margins_kernel(const XT* __restrict__ x,
 
   // 2b. AND-popcount products and popc(w), one 16-row tile a warp at a
   //     time: per span the 8-token slices' MMAs are independent chains
-  if (kVec && warp < n_mt) mbar_wait0(bar);
+  if (kVec && !kPacked && warp < n_mt) mbar_wait0(bar);
   const int n_slices = p.tile_pad / 8;
   for (int mt = warp; mt < n_mt; mt += kWarps) {
     int ws0 = 0, ws1 = 0;
@@ -396,6 +452,22 @@ group_margins_kernel(const XT* __restrict__ x,
   }
   __syncthreads();
 
+  // 3. counts, token-major: a warp at a time writes a cell of 8 rows x 4
+  //    tokens, lane (r, b) = (lane & 7, lane >> 3), so each token's 8 rows
+  //    are one 32-byte sector and the products' reads (rows rstride = 8 mod
+  //    32 words apart) hit each bank at most twice; the cells of a token
+  //    quad run along the rows
+  if constexpr (kCounts) {
+    const int n_rc = (rows + 7) / 8, n_cells = n_rc * ((T + 3) / 4);
+    for (int c = warp; c < n_cells; c += kWarps) {
+      const int bc = c / n_rc;
+      const int r = (c - bc * n_rc) * 8 + (lane & 7), b = bc * 4 + (lane >> 3);
+      if (r < rows && b < T)
+        cnt[(size_t)(tok0 + b) * p.k + r0 + r] =
+            xpop[b] + wpop[r] - 2 * rp[r * p.rstride + b];
+    }
+    return;
+  }
   // 3. margins, group minima (rows in ascending order, as the reference
   //    takes them) and the per-token count of kept groups: one integer
   //    atomicAdd a token and CTA into cnt, which the caller zeroes
@@ -426,6 +498,7 @@ group_margins_kernel(const XT* __restrict__ x,
 // The plan's fields against this file's layout.
 inline bool check(const Plan& p) {
   if (p.S < 1 || p.w < 1 || p.k < 1 || p.G < 1 || p.k % p.G) return false;
+  if (p.counts && (p.G != 1 || p.cluster != 1)) return false;
   if (p.tile < 1 || p.tile > kMaxSlices * 8 ||
       p.tile_pad != (p.tile + 7) / 8 * 8)
     return false;
@@ -445,10 +518,10 @@ inline bool check(const Plan& p) {
 // Launches the plan p (max_clusters == nullptr), or asks the occupancy
 // calculator how many clusters of kCl CTAs with p.smem bytes of shared
 // memory the card runs at once (only p.smem is read).
-template <typename XT, bool kVec, int kCl>
+template <typename XT, bool kVec, int kCl, bool kCounts>
 int launch(const void* x, const void* pw, const void* alpha, void* gm,
            void* cnt, const Plan& p, cudaStream_t stream, int* max_clusters) {
-  auto kern = group_margins_kernel<XT, kVec, kCl>;
+  auto kern = predict_kernel<XT, kVec, kCl, kCounts>;
   if (p.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
@@ -488,19 +561,27 @@ int launch(const void* x, const void* pw, const void* alpha, void* gm,
   return (int)cudaGetLastError();
 }
 
-// x_dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// Rows of w words go by bulk copies where w is a multiple of 4 words and
+// the rows start 16-byte aligned.
+inline bool bulk_rows(int w, const void* a, const void* b) {
+  return w % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+// The margins epilogue.  x_dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 inline int dispatch(const void* x, int x_dtype, const void* pw,
                     const void* alpha, void* gm, void* cnt, const Plan& p,
                     void* stream) {
-  if (!check(p) || (x_dtype != 0 && x_dtype != 1))
+  if (p.counts || !check(p) || (x_dtype != 0 && x_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = p.w % 4 == 0;
-#define PREDICT_LAUNCH(XT, V)                                           \
-  return p.cluster == 1                                                 \
-             ? launch<XT, V, 1>(x, pw, alpha, gm, cnt, p, s, nullptr)   \
-             : launch<XT, V, kCluster>(x, pw, alpha, gm, cnt, p, s, nullptr)
+  const bool vec = bulk_rows(p.w, pw, pw);
+#define PREDICT_LAUNCH(XT, V)                                               \
+  return p.cluster == 1                                                     \
+             ? launch<XT, V, 1, false>(x, pw, alpha, gm, cnt, p, s, nullptr) \
+             : launch<XT, V, kCluster, false>(x, pw, alpha, gm, cnt, p, s,   \
+                                              nullptr)
   if (x_dtype == 0) {
     if (vec) PREDICT_LAUNCH(float, true);
     PREDICT_LAUNCH(float, false);
@@ -510,12 +591,26 @@ inline int dispatch(const void* x, int x_dtype, const void* pw,
 #undef PREDICT_LAUNCH
 }
 
+// The counts epilogue on packed x (S, w) int32 -> out (S, k) int32.
+inline int dispatch_counts(const void* px, const void* pw, void* out,
+                           const Plan& p, void* stream) {
+  if (!p.counts || !check(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bulk_rows(p.w, pw, px)
+             ? launch<uint32_t, true, 1, true>(px, pw, nullptr, nullptr, out,
+                                               p, s, nullptr)
+             : launch<uint32_t, false, 1, true>(px, pw, nullptr, nullptr,
+                                                out, p, s, nullptr);
+}
+
 // How many clusters of `cluster` CTAs (1 or kCluster) with smem bytes of
-// shared memory the card runs at once, for x_dtype and rows of w words; a
-// negative value is minus a CUDA error code.
+// shared memory the card runs at once, for x_dtype (kPackedWords: the
+// counts kernel, clusters of 1) and rows of w words; a negative value is
+// minus a CUDA error code.
 inline int max_clusters(int x_dtype, int w, int cluster, int smem) {
-  if ((x_dtype != 0 && x_dtype != 1) || w < 1 || smem < 0 ||
-      smem > kSmemLimit || (cluster != 1 && cluster != kCluster))
+  if (x_dtype < 0 || x_dtype > kPackedWords || w < 1 || smem < 0 ||
+      smem > kSmemLimit || (cluster != 1 && cluster != kCluster) ||
+      (x_dtype == kPackedWords && cluster != 1))
     return -(int)cudaErrorInvalidValue;
   Plan p = {};
   p.smem = smem;
@@ -523,11 +618,19 @@ inline int max_clusters(int x_dtype, int w, int cluster, int smem) {
   const bool vec = w % 4 == 0;
   int rc;
 #define PREDICT_FIT(XT, V)                                                \
-  (cluster == 1 ? launch<XT, V, 1>(nullptr, nullptr, nullptr, nullptr,    \
-                                   nullptr, p, nullptr, &n)               \
-                : launch<XT, V, kCluster>(nullptr, nullptr, nullptr,      \
-                                          nullptr, nullptr, p, nullptr, &n))
-  if (x_dtype == 0)
+  (cluster == 1                                                           \
+       ? launch<XT, V, 1, false>(nullptr, nullptr, nullptr, nullptr,      \
+                                 nullptr, p, nullptr, &n)                 \
+       : launch<XT, V, kCluster, false>(nullptr, nullptr, nullptr,        \
+                                        nullptr, nullptr, p, nullptr, &n))
+  if (x_dtype == kPackedWords)
+    rc = vec ? launch<uint32_t, true, 1, true>(nullptr, nullptr, nullptr,
+                                               nullptr, nullptr, p, nullptr,
+                                               &n)
+             : launch<uint32_t, false, 1, true>(nullptr, nullptr, nullptr,
+                                                nullptr, nullptr, p, nullptr,
+                                                &n);
+  else if (x_dtype == 0)
     rc = vec ? PREDICT_FIT(float, true) : PREDICT_FIT(float, false);
   else
     rc = vec ? PREDICT_FIT(__nv_bfloat16, true)
@@ -540,7 +643,7 @@ inline int max_clusters(int x_dtype, int w, int cluster, int smem) {
 // against this file's layout.
 inline Plan make_plan(int S, int w, int k, int G, float d_valid, int tile,
                       int cluster, int unit_rows, int ctas, int rstride,
-                      int smem) {
+                      int smem, bool counts) {
   Plan p;
   p.S = S;
   p.w = w;
@@ -557,6 +660,7 @@ inline Plan make_plan(int S, int w, int k, int G, float d_valid, int tile,
   p.xstride = spans_of(w) * 16 | 16;
   p.rstride = rstride;
   p.smem = smem;
+  p.counts = counts;
   return p;
 }
 

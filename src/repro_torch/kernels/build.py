@@ -60,7 +60,9 @@ SIGNATURES = {
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _I, _I, _I, _I,
                                           _P]},
     "sign_pack": {"sign_pack": [_P, _I, _P, _I, _I, _P]},
-    "predict_counts": {"predict_counts": [_P, _P, _P, _I, _I, _I, _P]},
+    "predict_counts": {
+        "predict_counts": [_P, _P, _P, *[_I] * 9, _P],
+        "predict_counts_max_clusters": [_I] * 2},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

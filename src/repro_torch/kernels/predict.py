@@ -8,10 +8,12 @@ kernels of ``repro/kernels/predict.py``:
 * ``predict_counts`` (``csrc/predict_counts.cu``): the paper's Listing-1
   negative-product counts from pre-packed signs, any number of rows.
 
-The first two instantiate ``csrc/predict_margins.cuh``, so every row's
-outputs are bitwise the same from either; :func:`margins_plan` is the only
-place their launch layout is decided.  Callers go through ``kernels.ops``,
-which picks the plain version for CPU tensors and counts launches."""
+All three instantiate ``csrc/predict_margins.cuh``: the first two with x's
+values and the margins epilogue, so every row's outputs are bitwise the
+same from either, the third with x's packed words and the counts
+epilogue.  :func:`margins_plan` is the only place their launch layout is
+decided.  Callers go through ``kernels.ops``, which picks the plain version
+for CPU tensors and counts launches."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +27,7 @@ PACK = 32
 MAX_BATCH = 16          # tokens a decode launch takes (SparseInferConfig
                         # .sparse_max_batch's default)
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+X_PACKED = 2            # x_dtype of packed sign words (the counts kernel)
 
 # csrc/predict_margins.cuh's constants
 CLUSTER = 8             # CTAs that share one packing of x of a large tile
@@ -56,32 +59,34 @@ class MarginsPlan:
 
 
 def margins_smem(tile_pad: int, xstride: int, rows_max: int,
-                 rstride: int) -> int:
+                 rstride: int, counts: bool = False) -> int:
     """Shared memory of one CTA: its gate-sign rows and the tile's x
     signs (both ``xstride`` words a row), the products, popc(w) per row,
-    popc(x) and the kept-group counts per token."""
+    popc(x) and, for the margins epilogue, the kept-group counts per
+    token."""
     return 4 * ((rows_max + tile_pad) * xstride + rows_max * rstride
-                + rows_max + 2 * tile_pad)
+                + rows_max + (1 if counts else 2) * tile_pad)
 
 
 def margins_plan(s: int, w: int, k: int, group_size: int,
-                 max_clusters) -> MarginsPlan:
+                 max_clusters, counts: bool = False) -> MarginsPlan:
     """The launch for ``s`` tokens of ``w`` sign words over ``k`` gate rows
-    in groups of ``group_size``.  ``max_clusters(cluster, smem)`` says how
+    in groups of ``group_size``; with ``counts``, of the counts kernel
+    (x packed, ``group_size`` 1).  ``max_clusters(cluster, smem)`` says how
     many clusters of ``cluster`` CTAs with ``smem`` bytes of shared memory
     the card runs at once; it is asked at SMEM_LIMIT, which no plan passes.
     Token tiles hold up to TILE_TOKENS tokens; a tile of more than
     SOLO_TOKENS is packed by a cluster of CLUSTER CTAs, a smaller one by
-    each CTA alone.  Each tile takes an equal share of the card's clusters,
-    so all tiles run at once, or more where a CTA's rows and tokens would
-    not fit in SMEM_LIMIT bytes (then they run in waves), but at most one
-    CTA a unit; fewer tokens a tile where even that does not fit.  Raises
-    ValueError on a shape the kernel does not take and RuntimeError when
-    the card cannot run one cluster."""
+    each CTA alone, and packed x needs no cluster.  Each tile takes an
+    equal share of the card's clusters, so all tiles run at once, or more
+    where a CTA's rows and tokens would not fit in SMEM_LIMIT bytes (then
+    they run in waves), but at most one CTA a unit; fewer tokens a tile
+    where even that does not fit.  Raises ValueError on a shape the kernel
+    does not take and RuntimeError when the card cannot run one cluster."""
     g = group_size
-    if s < 1 or w < 1 or k < 1 or g < 1 or k % g:
+    if s < 1 or w < 1 or k < 1 or g < 1 or k % g or (counts and g != 1):
         raise ValueError(f"predictor: bad shape S={s} w={w} k={k} G={g} "
-                         "(k a positive multiple of G)")
+                         "(k a positive multiple of G; G=1 for counts)")
     unit = math.lcm(MMA_ROWS, g)
     n_units = -(-k // unit)
     xstride = -(-w // 16) * 16 | 16
@@ -90,7 +95,7 @@ def margins_plan(s: int, w: int, k: int, group_size: int,
         tile = -(-s // tiles)
         tile_pad = -(-tile // MMA_TOKENS) * MMA_TOKENS
         rstride = tile_pad + (40 - tile_pad % 32) % 32
-        cluster = CLUSTER if tile > SOLO_TOKENS else 1
+        cluster = CLUSTER if tile > SOLO_TOKENS and not counts else 1
         fit = max_clusters(cluster, SMEM_LIMIT)
         if fit < 1:
             raise RuntimeError(
@@ -100,7 +105,8 @@ def margins_plan(s: int, w: int, k: int, group_size: int,
         for clusters in range(max(1, min(fit // tiles, most)), most + 1):
             ctas = cluster * clusters
             rows_max = -(-n_units // ctas) * unit
-            smem = margins_smem(tile_pad, xstride, rows_max, rstride)
+            smem = margins_smem(tile_pad, xstride, rows_max, rstride,
+                                counts)
             if smem <= SMEM_LIMIT:
                 break
         if smem <= SMEM_LIMIT:
@@ -122,18 +128,21 @@ _PLANS: dict = {}
 
 def _plan_for(lib, name: str, device, xd: int, b: int, w: int, k: int,
               g: int) -> MarginsPlan:
-    """margins_plan on this card's occupancy calculator, once a shape."""
+    """margins_plan on this card's occupancy calculator, once a shape
+    (``xd`` X_PACKED: the counts kernel's)."""
     key = (name, device.index, xd, b, w, k, g)
     pl = _PLANS.get(key)
     if pl is None:
+        counts = xd == X_PACKED
+
         def max_clusters(cluster: int, smem: int) -> int:
+            args = (w, smem) if counts else (xd, w, cluster, smem)
             with torch.cuda.device(device):
-                n = getattr(lib, f"{name}_max_clusters")(xd, w, cluster,
-                                                         smem)
+                n = getattr(lib, f"{name}_max_clusters")(*args)
             if n < 0:
                 build.check(name, -n)
             return n
-        pl = _PLANS[key] = margins_plan(b, w, k, g, max_clusters)
+        pl = _PLANS[key] = margins_plan(b, w, k, g, max_clusters, counts)
     return pl
 
 
@@ -193,9 +202,9 @@ def predict_chunk_group_margins(packed_w: torch.Tensor, x: torch.Tensor,
 
 def predict_counts(packed_w: torch.Tensor,
                    packed_x: torch.Tensor) -> torch.Tensor:
-    """One launch: packed gate signs (k, w) int32 and packed x (B, w)
+    """One launch: packed gate signs (k, w) int32 and packed x (B >= 1, w)
     int32, on one CUDA device -> (B, k) int32 counts of sign bits that
-    differ."""
+    differ; every output written by the kernel (nothing zeroed)."""
     k, w = packed_w.shape
     if not (packed_x.is_cuda and packed_w.device == packed_x.device):
         raise ValueError("predict_counts launches on CUDA tensors of one "
@@ -211,9 +220,13 @@ def predict_counts(packed_w: torch.Tensor,
     b = packed_x.shape[0]
     packed_w, packed_x = packed_w.contiguous(), packed_x.contiguous()
     lib = build.load("predict_counts")
+    pl = _plan_for(lib, "predict_counts", packed_x.device, X_PACKED, b, w,
+                   k, 1)
     out = torch.empty((b, k), dtype=torch.int32, device=packed_x.device)
     stream = torch.cuda.current_stream(packed_x.device).cuda_stream
     rc = lib.predict_counts(packed_w.data_ptr(), packed_x.data_ptr(),
-                            out.data_ptr(), b, w, k, stream)
+                            out.data_ptr(), b, w, k, pl.tile, pl.cluster,
+                            pl.unit_rows, pl.ctas, pl.rstride, pl.smem,
+                            stream)
     build.check("predict_counts", rc)
     return out

@@ -20,7 +20,26 @@ It builds, under ``build/predict_step0/``:
 Then it prints the old kernel's time at S in {1, 4, 16, 32, 64, 128, 256}
 (bf16 x; float32 at 4 and 64), the throw-away builds beside it at S in
 {4, 16, 64}, the rates and the layout check, each kernel timed with
-``chip_smoke.cuda_ms`` (CUDA events, the L2 flushed before each launch)."""
+``chip_smoke.cuda_ms`` (CUDA events, the L2 flushed before each launch).
+
+    python3 tools/predict_step0.py --counts SRC
+
+times the sign-bit kernels of the checkout whose ``src`` is SRC (say the
+parent commit's, unpacked by ``git archive``), bf16 x on
+prosparse-llama2-7b's gate signs: ``predict_counts`` at B in {1, 4, 16,
+64, 256} beside its bounds; ``predict_group_margins`` at B=4 through its
+launcher (the ``torch.zeros`` of cnt included), as the kernel alone, as a
+throw-away build of it that packs no x ("nopack", wrong by design: it
+shows what packing costs), and the ``torch.zeros`` alone;
+``predict_chunk_group_margins`` at S=64 through its launcher.
+
+    python3 tools/predict_step0.py --counts-ctas
+
+times this checkout's ``predict_counts`` (the counts instantiation of
+``predict_margins.cuh``) at B in {1, 4, 16, 64, 128, 256} on plans that
+give each token tile 132 to 2752 CTAs (``margins_plan`` asked with that
+many CTAs at once; more than the card runs at once make waves), each
+checked bitwise against the plain version."""
 import ctypes
 import os
 import pathlib
@@ -94,7 +113,169 @@ def build(old_src: str) -> dict:
     return libs
 
 
+def counts_step0(src: str) -> None:
+    """The ``--counts`` part: see the module docstring."""
+    sys.path[:0] = [src, str(ROOT)]
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import predictor as P
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+
+    if not torch.cuda.is_available():
+        sys.exit("predict_step0: no GPU")
+    if not KP.__file__.startswith(os.path.abspath(src)):
+        sys.exit(f"predict_step0: repro_torch came from {KP.__file__}")
+    print(f"[gpu] {cs.gpu_line()}", flush=True)
+    # the throw-away build: phase 1 packs no word of x
+    csrc = pathlib.Path(src) / "repro_torch" / "csrc"
+    hdr = (csrc / "predict_margins.cuh").read_text()
+    total = "const int total = T * p.w;"
+    if total not in hdr:
+        sys.exit("predict_step0: SRC's predict_margins.cuh has no packing "
+                 "loop to take out")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "nopack_margins.cuh").write_text(
+        hdr.replace(total, "const int total = 0 * T * p.w;"))
+    (OUT / "nopack.cu").write_text(
+        (csrc / "predict_group_margins.cu").read_text().replace(
+            '#include "predict_margins.cuh"', '#include "nopack_margins.cuh"'))
+    KB.build(["predict_counts", "predict_group_margins",
+              "predict_chunk_group_margins"])
+    out = subprocess.run(["/usr/local/cuda/bin/nvcc", *NVCC_FLAGS, "-o",
+                          str(OUT / "nopack.so"), str(OUT / "nopack.cu")],
+                         capture_output=True, text=True)
+    if out.returncode:
+        sys.exit(f"predict_step0: nvcc failed for nopack:\n{out.stdout}"
+                 f"{out.stderr}")
+    nopack = ctypes.CDLL(str(OUT / "nopack.so"))
+    for fn, argtypes in KB.SIGNATURES["predict_group_margins"].items():
+        getattr(nopack, fn).argtypes = argtypes
+        getattr(nopack, fn).restype = ctypes.c_int
+    dev = torch.device("cuda")
+    d, k, g = cs.D, cs.K, cs.G
+    w = d // 32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pw = P.pack_signs(torch.randn((k, d), generator=gen, device=dev))
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def flush():
+        flush_buf.zero_()
+
+    for b in (1, 4, 16, 64, 256):
+        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+        px = P.pack_signs(x)
+        if not torch.equal(KP.predict_counts(pw, px),
+                           ref.predict_counts_ref(pw, px)):
+            sys.exit(f"predict_step0: predict_counts is wrong at B={b}")
+        t = cs.cuda_ms(lambda: KP.predict_counts(pw, px), iters=50,
+                       flush=flush)
+        n_bytes = k * w * 4 + b * w * 4 + b * k * 4
+        t_b = n_bytes / cs.HBM_BYTES_PER_S * 1e3
+        t_tc = b * k * w * 32 / cs.B1_MACS_PER_S * 1e3
+        t_cc = b * k * w / cs.POPC_PER_S * 1e3
+        print(f"[step0] predict_counts B={b}: {t:.4f} ms; bytes {t_b:.4f} "
+              f"ms (share {t_b / t:.3f}), b1 tensor cores {t_tc:.4f} ms, "
+              f"CUDA-core popcounts {t_cc:.4f} ms (share {t_cc / t:.3f})",
+              flush=True)
+
+    b = cs.MAIN_BATCH
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    alpha = torch.ones(b, device=dev)
+    lib = KB.load("predict_group_margins")
+    pl = KP._plan_for(lib, "predict_group_margins", dev, 1, b, w, k, g)
+    gm = torch.empty((b, k // g), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+    def kernel(lb):
+        rc = lb.predict_group_margins(
+            x.data_ptr(), 1, pw.data_ptr(), alpha.data_ptr(), gm.data_ptr(),
+            cnt.data_ptr(), b, w, k, g, float(d), pl.tile, pl.cluster,
+            pl.unit_rows, pl.ctas, pl.rstride, pl.smem, stream)
+        if rc:
+            sys.exit(f"predict_step0: predict_group_margins failed ({rc})")
+
+    line = {
+        "launcher": cs.cuda_ms(lambda: KP.predict_group_margins(
+            pw, x, alpha, d_valid=d, group_size=g), iters=50, flush=flush),
+        "kernel alone": cs.cuda_ms(lambda: kernel(lib), iters=50,
+                                   flush=flush),
+        "nopack kernel": cs.cuda_ms(lambda: kernel(nopack), iters=50,
+                                    flush=flush),
+        "torch.zeros of cnt alone": cs.cuda_ms(lambda: torch.zeros(
+            (b,), dtype=torch.int32, device=dev), iters=50, flush=flush)}
+    print(f"[step0] predict_group_margins B={b}, ms: " + "; ".join(
+        f"{n} {t:.4f}" for n, t in line.items()), flush=True)
+    s = cs.MAIN_CHUNK
+    x = torch.randn((s, d), generator=gen, device=dev).to(torch.bfloat16)
+    alpha = torch.ones(s, device=dev)
+    t = cs.cuda_ms(lambda: KP.predict_chunk_group_margins(
+        pw, x, alpha, d_valid=d, group_size=g), iters=50, flush=flush)
+    print(f"[step0] predict_chunk_group_margins S={s} launcher: {t:.4f} ms",
+          flush=True)
+    print(f"[gpu] {cs.gpu_line()}", flush=True)
+
+
+def counts_ctas() -> None:
+    """The ``--counts-ctas`` part: see the module docstring."""
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import predictor as P
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+
+    if not torch.cuda.is_available():
+        sys.exit("predict_step0: no GPU")
+    print(f"[gpu] {cs.gpu_line()}", flush=True)
+    lib = KB.load("predict_counts")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pw = P.pack_signs(torch.randn((cs.K, cs.D), generator=gen, device=dev))
+    k, w = pw.shape
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def flush():
+        flush_buf.zero_()
+
+    for b in (1, 4, 16, 64, 128, 256):
+        px = P.pack_signs(torch.randn((b, cs.D), generator=gen, device=dev))
+        want = ref.predict_counts_ref(pw, px)
+        out = torch.empty((b, k), dtype=torch.int32, device=dev)
+        line = []
+        for n in (132, 264, 396, 528, 688, 1376, 2752):
+            pl = KP.margins_plan(b, w, k, 1, lambda c, smem: n, counts=True)
+
+            def run():
+                rc = lib.predict_counts(
+                    pw.data_ptr(), px.data_ptr(), out.data_ptr(), b, w, k,
+                    pl.tile, pl.cluster, pl.unit_rows, pl.ctas, pl.rstride,
+                    pl.smem, stream)
+                if rc:
+                    sys.exit(f"predict_step0: predict_counts failed ({rc})")
+            out.fill_(-1)
+            run()
+            if not torch.equal(out, want):
+                sys.exit(f"predict_step0: predict_counts is wrong at B={b} "
+                         f"on {pl.ctas} CTAs a tile")
+            fit = lib.predict_counts_max_clusters(w, pl.smem)
+            line.append(f"{pl.ctas} x {pl.token_tiles} CTAs of {pl.rows_max} "
+                        f"rows ({fit} at once) "
+                        f"{cs.cuda_ms(run, iters=50, flush=flush):.4f}")
+        print(f"[ctas] predict_counts B={b}, ms: {'; '.join(line)}",
+              flush=True)
+    print(f"[gpu] {cs.gpu_line()}", flush=True)
+
+
 def main() -> None:
+    if sys.argv[1:] == ["--counts-ctas"]:
+        return counts_ctas()
+    if len(sys.argv) == 3 and sys.argv[1] == "--counts":
+        return counts_step0(os.path.abspath(sys.argv[2]))
     if len(sys.argv) != 2:
         sys.exit(__doc__)
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
