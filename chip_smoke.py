@@ -64,11 +64,16 @@ Phases, in order; any failure exits non-zero:
              block 1/8/32, hd 64/256, and the cluster split's boundaries:
              idle CTAs, spans ending on a tile of every CTA, windows of 1
              row and of the last segment, none live, rep 8 at max_len
-             8192), each run twice and bitwise equal; the write bitwise
-             with collisions.  Each is timed at the main path's shape (B=4,
-             bf16 pool, 64-192 live tokens) beside its bound, its plain
-             version and a library call (attention: SDPA on a view gathered
-             beforehand, and gather + SDPA); the attention also with one
+             8192), each run twice and bitwise equal; the write bitwise,
+             each case twice: the single entry with collisions, the paired
+             entry (K and V in one launch, targets from the table) against
+             two plain writes with dead slots colliding, block-edge
+             positions, int32 and int64 cache_len.  Each is timed at the
+             main path's shape (B=4, bf16 pool, 64-192 live tokens) beside
+             its bound, its plain version and a library call (attention:
+             SDPA on a view gathered beforehand, and gather + SDPA; the
+             write: two index_put_ with the targets' arithmetic, and an
+             empty launch); the attention also with one
              live row per slot, at doubled and equal lengths (its scaling),
              at every cluster size, and at a long-context shape (B=16,
              max_len 4096, lengths 512-4095) with its share of the bound.
@@ -80,8 +85,8 @@ Phases, in order; any failure exits non-zero:
              (bf16 pool, block 16, paged_attn_kernel, chunked sparse
              prefill): a shared 128-token system prompt admitted by
              reference, a second serve() of two sessions' turn 2, exact
-             launch counts, and a reused-prefix request's tokens equal to a
-             fresh server's.
+             launch counts (one paged_kv_write a layer and step), and a
+             reused-prefix request's tokens equal to a fresh server's.
  10. sign kernels  sign_pack and predict_counts against their plain versions,
              bitwise, at full width: the gate weights (11008 x d) and x at B
              in {1, 4, 16, 24, 64, 65, 257} (64: a gather prefill chunk)
@@ -91,10 +96,14 @@ Phases, in order; any failure exits non-zero:
              in {1.0, 1.03, per-slot with a dead slot}; predict_counts twice
              a case, and at its edges (k in {11000, 24, 1000}, d in {4096,
              4000, 100}, B in {1, 5, 65, 257}, words random, all ones, all
-             ones against all zeros).  Timed at the main path's shapes (x
-             at B=4, the gate weights at load, counts at B=4 and S=64)
-             beside their bounds and plain versions; no PyTorch call packs
-             bits or counts popcounts, so no library yardstick.
+             ones against all zeros); sign_pack at its edges, each case
+             twice (d in {5, 24, 33, 1000, 5120, 11000}, B in {1, 5, 64,
+             257}, float32 and bf16, aligned and a 4-byte-offset view: the
+             vector and the scalar route).  Timed at the main path's shapes
+             (x at B=4, the gate weights at load, counts at B=4 and S=64)
+             beside their bounds, an empty launch and their plain versions;
+             no PyTorch call packs bits or counts popcounts, so no library
+             yardstick.
  11. strategies  the 2 full-width float32 layers of phase 3 with strategies
              masked and gather, 8 teacher-forced steps on the card against
              the CPU: logits within 1e-3, stats reported, launches exact;
@@ -114,6 +123,19 @@ Phases, in order; any failure exits non-zero:
  13. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
+
+    python3 chip_smoke.py --kv-ab OTHER_SRC
+
+times the KV write (#8) and sign_pack (#9) of another checkout's ``src``
+(say the parent commit's, unpacked by ``git archive``) beside this one's,
+in the order other, this, this, other, each in a process of its own: the
+decode step's K and V write at B=4 and 16 beside the single entry, two
+``index_put_`` and an empty launch; sign_pack on x at B in {1, 4, 64} and
+on the gate weights at load; the paged attention and the float32 decode
+and chunk MLPs (unchanged kernels, the yardstick); a profiled full-depth
+paged decode step and gather prefill chunk and decode step.  Every run's
+#8 and #9 outputs must be bitwise the first run's.  It runs no other
+phase.
 
     python3 chip_smoke.py --pred-ab OTHER_SRC
 
@@ -238,6 +260,47 @@ def cuda_ms(fn, iters: int = 20, flush=None) -> float:
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+_EMPTY: dict = {}
+
+
+def empty_kernel():
+    """``tools/launch_empty.cu`` built by nvcc (once a process, into
+    ``build/launch_empty/``) and loaded: an empty kernel, the floor of any
+    launch under ``cuda_ms``."""
+    lib = _EMPTY.get("lib")
+    if lib is None:
+        import ctypes
+        src = os.path.join(HERE, "tools", "launch_empty.cu")
+        out_dir = os.path.join(HERE, "build", "launch_empty")
+        os.makedirs(out_dir, exist_ok=True)
+        out = os.path.join(out_dir, f"liblaunch_empty.{os.getpid()}.so")
+        proc = subprocess.run(
+            ["/usr/local/cuda/bin/nvcc", "-gencode",
+             "arch=compute_90a,code=sm_90a", "-O3", "-shared", "-Xcompiler",
+             "-fPIC", "-o", out, src], capture_output=True, text=True)
+        if proc.returncode:
+            fail(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        lib = ctypes.CDLL(out)
+        lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+        lib.empty_launch.restype = ctypes.c_int
+        _EMPTY["lib"] = lib
+    return lib
+
+
+def empty_ms(blocks: int, flush=None, iters: int = 50) -> float:
+    """``cuda_ms`` of one empty launch of ``blocks`` 128-thread blocks."""
+    import torch
+    lib = empty_kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.empty_launch(blocks, 128, stream)
+        if rc:
+            fail(f"the empty launch of {blocks} blocks: CUDA error {rc}")
+    return cuda_ms(launch, iters=iters, flush=flush)
 
 
 def predict_work(rows: int, xbytes: int, d: int = D, k: int = K,
@@ -1972,14 +2035,15 @@ def profile_step(label: str, fn, steps: int = 3) -> None:
     seen = sum(e.count for e in events
                if e.key.removeprefix("void ").startswith(OWN_KERNELS))
     busy = sum(e.self_device_time_total for e in events) / steps / 1e3
+    per_step = sum(e.count for e in events) / steps
     if not events or seen != launched:
         print(f"[profile] {label}: {wall:.3f} ms host wall; device busy not "
               f"measured (the profiler recorded {seen} of {launched} "
               "launches of the port's kernels)", flush=True)
     else:
         print(f"[profile] {label}: {wall:.3f} ms host wall, {busy:.3f} ms "
-              f"device busy, idle share {max(0.0, 1 - busy / wall):.3f}",
-              flush=True)
+              f"device busy, idle share {max(0.0, 1 - busy / wall):.3f}, "
+              f"{per_step:.0f} device kernels a step", flush=True)
     # the 8 largest rows, then the port's kernels below them
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
@@ -2135,32 +2199,20 @@ def phase_paged_kernels(results: dict) -> None:
     t_k, t_p, t_lib, t_gl = _time_attention(q, kp, vp, table, lengths,
                                             flush, plain_iters=10)
     live, a_bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
-    # the decode step's write: each slot's row at its length
-    blk = table.gather(1, (lengths.long() // bs)[:, None])[:, 0]
-    off = lengths % bs
-    vals = torch.randn((b, kvh, hd), generator=gen, device=dev).to(
-        torch.bfloat16)
-    t_w = cuda_ms(lambda: KA.paged_kv_write(kp, vals, blk, off), iters=50)
-    t_wp = cuda_ms(lambda: ref.paged_kv_write_ref(kp, vals, blk, off),
-                   iters=20)
-    bl, ol = blk.long(), off.long()
-    t_wl = cuda_ms(lambda: kp.index_put_((bl, ol), vals), iters=50)
-    w_bound = bound_ms(2 * b * kvh * hd * 2 + 2 * b * 4, 0)
+    w = time_paged_write(kp, vp, table, lengths, gen)
     print(f"[paged] paged_attention B={b} bf16 lengths {list(MAIN_LIVE)} "
           f"({live} live rows; {pl}): max_abs_err {err:.3e}, bitwise "
           f"repeatable; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound "
           f"{a_bound[0]:.4f} ms ({a_bound[1]}) sdpa-on-gathered-view "
           f"{t_lib:.4f} ms gather+sdpa {t_gl:.4f} ms (kernel / sdpa "
           f"{t_k / t_lib:.3f})", flush=True)
-    print(f"[paged] paged_kv_write B={b} bf16: bitwise, kernel {t_w:.4f} ms"
-          f" plain {t_wp:.4f} ms bound {w_bound[0]:.5f} ms ({w_bound[1]}) "
-          f"index_put_ {t_wl:.4f} ms", flush=True)
     results["paged_attention"] = dict(
         max_abs_err=max(worst, err), ms=t_k, plain_ms=t_p,
         bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=t_lib)
     results["paged_kv_write"] = dict(
-        max_abs_err=0.0, ms=t_w, plain_ms=t_wp, bound_ms=w_bound[0],
-        bound_by=w_bound[1], library_ms=t_wl)
+        max_abs_err=0.0, ms=w["pair"], plain_ms=w["plain"],
+        bound_ms=w["bound"][0], bound_by=w["bound"][1],
+        library_ms=w["index_put_targets"])
     del q, kp, vp
     paged_scaling(gen, rng, flush)
     paged_long(gen, rng, flush)
@@ -2169,6 +2221,171 @@ def phase_paged_kernels(results: dict) -> None:
           f"abs err {worst:.3e}) and {n_edge} edge cases; "
           f"paged_kv_write is bitwise in {n_write} cases", flush=True)
     del flush_buf
+    torch.cuda.empty_cache()
+
+
+def write_times(kp, vp, kv, vv, table, cl) -> dict:
+    """#8 at one shape, without an L2 flush (the step's attention then
+    reads the rows it wrote): the decode step's K and V write (the paired
+    launch, or, in a checkout before it, the targets' arithmetic and two
+    launches), one and two launches of the single entry, the plain
+    version (the targets' arithmetic and two plain writes), the yardstick
+    (two ``index_put_``, with and without the targets' arithmetic in
+    front), an empty launch of 1 and of 2B blocks, and the byte bound."""
+    import torch
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    b, bs = kv.shape[0], kp.shape[1]
+    pair = getattr(KA, "paged_kv_write_pair", None)
+
+    def targets():     # the first port's per-layer arithmetic
+        blk = table.gather(1, (cl // bs)[:, None].to(torch.long))[:, 0]
+        return blk, (cl % bs).to(torch.int32)
+
+    def step():
+        if pair is not None:
+            pair(kp, vp, kv, vv, table, cl)
+        else:
+            blk, off = targets()
+            KA.paged_kv_write(kp, kv, blk, off)
+            KA.paged_kv_write(vp, vv, blk, off)
+
+    def plain():
+        blk, off = targets()
+        ref.paged_kv_write_ref(kp, kv, blk, off)
+        ref.paged_kv_write_ref(vp, vv, blk, off)
+
+    def library(with_targets: bool):
+        def fn():
+            blk, off = targets() if with_targets else given
+            at = (blk.long(), off.long()) if with_targets else idx
+            kp.index_put_(at, kv)
+            vp.index_put_(at, vv)
+        return fn
+
+    given = targets()
+    blk, off = given
+    idx = (blk.long(), off.long())
+    row_bytes = kv[0].numel() * kv.element_size()
+    return {
+        "route": "one launch" if pair is not None
+                 else "targets + two launches",
+        "pair": cuda_ms(step, iters=50),
+        "one": cuda_ms(lambda: KA.paged_kv_write(kp, kv, blk, off),
+                       iters=50),
+        "two": cuda_ms(lambda: (KA.paged_kv_write(kp, kv, blk, off),
+                                KA.paged_kv_write(vp, vv, blk, off)),
+                       iters=50),
+        "plain": cuda_ms(plain, iters=20),
+        "index_put": cuda_ms(library(False), iters=50),
+        "index_put_targets": cuda_ms(library(True), iters=50),
+        "empty1": empty_ms(1), "empty2b": empty_ms(2 * b),
+        # K and V rows read and written, a table entry and a length a slot
+        "bound": bound_ms(4 * b * row_bytes + b * (4 + cl.element_size()),
+                          0)}
+
+
+def write_line(tag: str, t: dict, b: int) -> str:
+    return (f"paged_kv_write {tag}: the decode step's K and V write "
+            f"{t['pair']:.4f} ms ({t['route']}); the single entry, one "
+            f"launch {t['one']:.4f}, two {t['two']:.4f}; plain "
+            f"{t['plain']:.4f}; index_put_ x2 {t['index_put']:.4f}, with "
+            f"the targets' arithmetic {t['index_put_targets']:.4f}; empty "
+            f"launch 1 block {t['empty1']:.4f}, {2 * b} blocks "
+            f"{t['empty2b']:.4f}; bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]})")
+
+
+def time_paged_write(kp, vp, table, lengths, gen) -> dict:
+    """#8 at the main path's shape: the attention's pool and table, each
+    slot writing at its length (int64, as the decode step holds it)."""
+    import torch
+    b = table.shape[0]
+    kv, vv = (torch.randn((b,) + kp.shape[2:], generator=gen,
+                          device=kp.device).to(kp.dtype) for _ in range(2))
+    t = write_times(kp, vp, kv, vv, table, lengths.long())
+    print(f"[paged] {write_line(f'B={b} bf16', t, b)}", flush=True)
+    return t
+
+
+def pack_line(tag: str, t: float, empty: float, bound: tuple) -> str:
+    return (f"sign_pack {tag}: kernel {t:.4f} ms; empty launch "
+            f"{empty:.4f} (kernel - empty {t - empty:+.4f}); bound "
+            f"{bound[0]:.5f} ms ({bound[1]}; share {bound[0] / t:.3f})")
+
+
+def time_write_and_pack(outputs: dict | None = None) -> None:
+    """#8 and #9 of the checkout whose ``repro_torch`` is imported, at the
+    main path's shapes, beside an empty launch: the decode step's K and V
+    write at B=4 and 16 (bf16 pool, 32 KV heads x hd 128, block 16), then
+    sign_pack on x at B in {1, 4, 64} (bf16, the L2 flushed, as in a
+    step) and on the gate weights at load ((11008, 4096) float32 and
+    bf16).  With ``outputs`` it keeps what they computed (the written rows
+    and a fingerprint of each pool, the sign words), for a bitwise check
+    across checkouts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sign_pack as KS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    kvh, hd, bs, nbps = 32, 128, PAGE_BLOCK, PAGED_NBPS[0]
+
+    def fingerprint(pool):
+        x = pool.view(torch.int16).flatten().long()
+        weight = torch.arange(x.numel(), device=dev) % 65521 + 1
+        return torch.stack([x.sum(), (x * weight).sum()]).cpu()
+
+    for b in (MAIN_BATCH, 16):
+        nb = b * nbps + 2
+        kp, vp = (torch.randn((nb, bs, kvh, hd), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        kv, vv = (torch.randn((b, kvh, hd), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        table = torch.as_tensor((rng.permutation(nb - 2)[: b * nbps] + 2)
+                                .reshape(b, nbps).astype(np.int32),
+                                device=dev)
+        cl = torch.as_tensor(rng.integers(0, nbps * bs, size=b), device=dev)
+        t = write_times(kp, vp, kv, vv, table, cl)
+        print(f"[kv] {write_line(f'B={b} bf16', t, b)}", flush=True)
+        if outputs is not None:
+            blk = table.gather(1, (cl // bs)[:, None])[:, 0].long()
+            outputs[f"write B={b}"] = [
+                kp[blk, cl % bs].cpu(), vp[blk, cl % bs].cpu(),
+                fingerprint(kp), fingerprint(vp)]
+        del kp, vp
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+    empty, empty_warm = empty_ms(1, flush=flush), empty_ms(1)
+    for b in (1, MAIN_BATCH, MAIN_CHUNK):
+        x = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16)
+        t = cuda_ms(lambda: KS.sign_pack(x), iters=50, flush=flush)
+        t_warm = cuda_ms(lambda: KS.sign_pack(x), iters=50)
+        bound = bound_ms(b * D * 2 + b * (D // 32) * 4, b * D)
+        print(f"[kv] {pack_line(f'x B={b} bf16', t, empty, bound)}; x in "
+              f"the L2 (as a step finds it): kernel {t_warm:.4f} ms, empty "
+              f"launch {empty_warm:.4f}", flush=True)
+        if outputs is not None:
+            outputs[f"sign_pack x B={b}"] = [KS.sign_pack(x).cpu()]
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    for dt in (torch.float32, torch.bfloat16):
+        w_t = wg.to(dt)
+        t = cuda_ms(lambda: KS.sign_pack(w_t), iters=10)
+        bound = bound_ms(K * D * w_t.element_size() + K * (D // 32) * 4,
+                         K * D)
+        tag = f"gate weights ({K}, {D}) {str(dt)[6:]} at load"
+        print(f"[kv] {pack_line(tag, t, empty_ms(1), bound)}", flush=True)
+        if outputs is not None:
+            outputs[f"sign_pack gate weights {dt}"] = [
+                KS.sign_pack(w_t).cpu()]
+        del w_t
+    del wg, flush_buf
     torch.cuda.empty_cache()
 
 
@@ -2332,9 +2549,13 @@ def phase_paged_edges() -> int:
 
 
 def phase_paged_write() -> int:
-    """paged_kv_write bitwise against its plain version, with several slots
-    on one row of the write-off block (the last one wins) and a row size
-    that is not a multiple of 16 bytes."""
+    """paged_kv_write bitwise against its plain version, each case run
+    twice: the single entry (targets given) with several slots on one row
+    of the write-off block (the last one wins) and a row size that is not
+    a multiple of 16 bytes; the paired entry (K and V in one launch, each
+    slot's target found in the table) against two plain writes, with dead
+    slots colliding on the write-off block, positions on block edges,
+    int32 and int64 cache_len, and rows of 4- and 2-byte copies."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_attn as KA
@@ -2343,31 +2564,118 @@ def phase_paged_write() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
     rng = np.random.default_rng(10)
+    bs = PAGE_BLOCK
     n = 0
     for dt in (torch.bfloat16, torch.float32):
         for b, row in ((16, (32, 128)), (4, (32, 128)), (9, (3, 5))):
-            pages = torch.randn((40, PAGE_BLOCK) + row, generator=gen,
+            pages = torch.randn((40, bs) + row, generator=gen,
                                 device=dev).to(dt)
             vals = torch.randn((b,) + row, generator=gen, device=dev).to(dt)
             blocks = rng.integers(2, 40, size=b)
-            offsets = rng.integers(0, PAGE_BLOCK, size=b)
+            offsets = rng.integers(0, bs, size=b)
             blocks[: b // 2] = 1                    # the write-off block
             offsets[: b // 2] = rng.integers(0, 2, size=b // 2)
             perm = rng.permutation(b)
             blk = torch.as_tensor(blocks[perm].astype(np.int32), device=dev)
             off = torch.as_tensor(offsets[perm].astype(np.int32), device=dev)
-            got, want = pages.clone(), pages.clone()
-            KA.paged_kv_write(got, vals, blk, off)
-            ref.paged_kv_write_ref(want, vals, blk, off)
-            torch.cuda.synchronize()
+            want = ref.paged_kv_write_ref(pages.clone(), vals, blk, off)
             last = max(i for i in range(b) if int(blk[i]) == int(blk[0])
                        and int(off[i]) == int(off[0]))
-            if not (torch.equal(got, want) and torch.equal(
-                    got[int(blk[0]), int(off[0])], vals[last])):
-                fail(f"paged_kv_write B={b} row={row} {dt}: differs from "
-                     "its plain version or the last slot did not win")
+            for run in range(2):
+                got = KA.paged_kv_write(pages.clone(), vals, blk, off)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(
+                        got[int(blk[0]), int(off[0])], vals[last])):
+                    fail(f"paged_kv_write B={b} row={row} {dt} (run "
+                         f"{run}): differs from its plain version or the "
+                         "last slot did not win")
             n += 1
+    # the paired entry: (B, row, blocks a slot); a third of the slots dead
+    for dt in (torch.bfloat16, torch.float32):
+        for b, row, nbps in ((4, (32, 128), 16), (16, (32, 128), 16),
+                             (9, (3, 5), 4), (64, (8, 64), 2)):
+            nb = b * nbps + 2
+            kp, vp = (torch.randn((nb, bs) + row, generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+            kv, vv = (torch.randn((b,) + row, generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+            table = (rng.permutation(nb - 2)[: b * nbps] + 2).reshape(
+                b, nbps).astype(np.int32)
+            lens = rng.integers(0, nbps * bs, size=b)
+            edges = [bs - 1, bs, 2 * bs - 1, 2 * bs, 0, nbps * bs - 1]
+            lens[: min(b, 6)] = [min(e, nbps * bs - 1)
+                                 for e in edges[: min(b, 6)]]
+            dead = b // 3
+            if dead:
+                table[b - dead:] = 1                # the write-off block
+                lens[b - dead:] = rng.integers(0, 2, size=dead)
+            tab = torch.as_tensor(table, device=dev)
+            for len_dt in (torch.int32, torch.int64):
+                cl = torch.as_tensor(lens, device=dev).to(len_dt)
+                wk, wv = kp.clone(), vp.clone()
+                ref.paged_kv_write_pair_ref(wk, wv, kv, vv, tab, cl)
+                blk, off = ref.paged_write_target(tab, cl, bs)
+                for run in range(2):
+                    gk, gv = kp.clone(), vp.clone()
+                    KA.paged_kv_write_pair(gk, gv, kv, vv, tab, cl)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+                        fail(f"paged_kv_write pair B={b} row={row} {dt} "
+                             f"cache_len {len_dt} (run {run}): differs "
+                             "from two plain writes")
+                    if dead > 1:
+                        s = b - dead
+                        last = max(i for i in range(b)
+                                   if int(blk[i]) == int(blk[s])
+                                   and int(off[i]) == int(off[s]))
+                        if not torch.equal(gk[int(blk[s]), int(off[s])],
+                                           kv[last]):
+                            fail(f"paged_kv_write pair B={b} row={row}: "
+                                 "the last colliding slot did not win")
+                n += 1
     return n
+
+
+def sign_pack_edges() -> int:
+    """sign_pack at its edges, bitwise against the plain version, each
+    case twice: both routes (rows of d * elem % 16 != 0 and a 4-byte-offset
+    base take the scalar route), the scalar tail of a partial last word,
+    x-sized and weight-sized rows, -0.0 and NaN."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_pack as KS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    e = 0
+    for d in (5, 24, 33, 1000, 5120, 11000):
+        for b in (1, 5, 64, 257):
+            base = torch.randn((b * d + 4,), generator=gen, device=dev)
+            base[::9] = -0.0
+            base[1::13] = float("nan")
+            for xdt in (torch.float32, torch.bfloat16):
+                buf = base.to(xdt)
+                views = {"aligned": buf[: b * d].view(b, d),
+                         "unaligned": buf[4 // buf.element_size():][
+                             : b * d].view(b, d)}
+                for kind, v in views.items():
+                    pl = KS.plan(b, d, v.element_size(), v.data_ptr())
+                    tag = (f"sign_pack B={b} d={d} {str(xdt)[6:]} {kind} "
+                           f"({pl.route})")
+                    want = ref.sign_pack_ref(v)
+                    for run in range(2):
+                        got = KS.sign_pack(v)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            fail(f"{tag} (run {run}): differs from its "
+                                 f"plain version in "
+                                 f"{int((got != want).sum())} words")
+                        e += 1
+    print(f"[signs] sign_pack edges bitwise equal to the plain version in "
+          f"{e} runs (d in {{5, 24, 33, 1000, 5120, 11000}}, B in {{1, 5, "
+          "64, 257}, float32 and bf16, an aligned and a 4-byte-offset view, "
+          "-0.0 and NaN; each case twice)", flush=True)
+    return e
 
 
 def phase_sign_kernels(results: dict) -> None:
@@ -2432,6 +2740,7 @@ def phase_sign_kernels(results: dict) -> None:
           f"{D_PAD}}}, B in {{1, 4, 16, 24, {MAIN_CHUNK}, 65, 257}} and "
           f"(2, {MAIN_BATCH}), float32 "
           f"and bf16, zeros and -0.0; predict_counts twice)", flush=True)
+    sign_pack_edges()
     # ---- predict_counts at its edges: k not a multiple of 16 rows (a
     # partial last unit), rows of 125 words (the 4-byte copies) and of 128
     # and 4 (bulk copies), partial last token tiles, words all ones (every
@@ -2473,6 +2782,7 @@ def phase_sign_kernels(results: dict) -> None:
     t_sw = cuda_ms(lambda: KS.sign_pack(wg), iters=10)
     t_sw_plain = cuda_ms(lambda: ref.sign_pack_ref(wg), iters=3)
     b_sw = bound_ms(K * D * 4 + K * w * 4, K * D)
+    e_x, e_w = empty_ms(1, flush=flush), empty_ms(1)
     t_c = cuda_ms(lambda: KP.predict_counts(pw, px), iters=50, flush=flush)
     t_c_plain = cuda_ms(lambda: ref.predict_counts_ref(pw, px), iters=5,
                         flush=flush)
@@ -2485,12 +2795,12 @@ def phase_sign_kernels(results: dict) -> None:
     t_c64 = cuda_ms(lambda: KP.predict_counts(pw, pxc), iters=50,
                     flush=flush)
     t_b64, t_tc64, t_cc64 = predict_work(MAIN_CHUNK, 4, counts=True)
-    print(f"[signs] sign_pack x B={b} bf16: kernel {t_sx:.4f} ms plain "
-          f"{t_sx_plain:.4f} ms bound {b_sx[0]:.5f} ms ({b_sx[1]})",
+    print(f"[signs] {pack_line(f'x B={b} bf16', t_sx, e_x, b_sx)}; plain "
+          f"{t_sx_plain:.4f} ms; no PyTorch call packs sign bits",
           flush=True)
-    print(f"[signs] sign_pack gate weights ({K}, {D}) float32 (at load): "
-          f"kernel {t_sw:.4f} ms plain {t_sw_plain:.4f} ms bound "
-          f"{b_sw[0]:.4f} ms ({b_sw[1]})", flush=True)
+    tag = f"gate weights ({K}, {D}) float32 at load"
+    print(f"[signs] {pack_line(tag, t_sw, e_w, b_sw)}; plain "
+          f"{t_sw_plain:.4f} ms", flush=True)
     print(f"[signs] predict_counts B={b}: kernel {t_c:.4f} ms plain "
           f"{t_c_plain:.4f} ms bound {b_c[0]:.4f} ms ({b_c[1]}; CUDA-core "
           f"popcounts {t_cc:.4f} ms)", flush=True)
@@ -2566,9 +2876,10 @@ def phase_paged_decode() -> None:
     counts = ops.launch_counts()
     L = cfg.n_layers
     if counts["paged_attention"] != L * steps or \
-            counts["paged_kv_write"] != 2 * L * steps:
+            counts["paged_kv_write"] != L * steps:
         fail(f"paged decode: launches {counts}, want {L * steps} "
-             f"paged_attention and {2 * L * steps} paged_kv_write")
+             f"paged_attention and {L * steps} paged_kv_write (K and V in "
+             "one launch a layer)")
     cpu = run(cfg, "cpu")
     gather = run(cfg.replace(paged_attn_kernel=False), "cuda")
     if not bool(torch.isfinite(kern[0]).all()):
@@ -2668,7 +2979,7 @@ def phase_serve_paged(results: dict) -> None:
         want.update({"predict_group_margins": L * steps,
                      "fused_sparse_mlp": L * steps,
                      "paged_attention": L * steps,
-                     "paged_kv_write": 2 * L * steps,
+                     "paged_kv_write": L * steps,
                      "predict_chunk_group_margins": L * chunks,
                      "fused_sparse_mlp_chunk": L * chunks})
         n_chunks = sum(-(-len(r.prompt) // MAIN_CHUNK) for r in batch)
@@ -3030,6 +3341,92 @@ def profile_gather_steps() -> None:
     torch.cuda.empty_cache()
 
 
+def profile_paged_steps() -> None:
+    """A full-depth paged decode step (bf16 pool, paged kernels, float32
+    MLP weights) profiled on its own server (random weights from seed 0),
+    as ``profile_paged_decode`` profiles the paged serve's: run from a
+    script that puts a checkout's ``src`` first on sys.path, it profiles
+    that checkout's step."""
+    import torch
+    from repro_torch.configs.base import PagedKVConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                       sparse=dataclasses.replace(
+                           base.sparse, strategy="pallas", enabled=True))
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, ServeConfig(
+        batch=MAIN_BATCH, max_len=256,
+        paged_kv=PagedKVConfig(block_size=PAGE_BLOCK)), params,
+        device="cuda")
+    del params
+    profile_paged_decode(srv, cfg)
+    del srv
+    torch.cuda.empty_cache()
+
+
+def kv_ab(other_src: str, src: str) -> None:
+    """#8 and #9 (``time_write_and_pack``), the unchanged kernels beside
+    them (the paged attention at the main shape, the float32 decode and
+    chunk MLPs), a profiled full-depth paged decode step and profiled
+    gather prefill chunk and decode step, of ``other_src`` and ``src`` in
+    the order other, this, this, other, each in a process of its own (one
+    package a process).  Every run's #8 and #9 outputs must be bitwise
+    the first run's."""
+    import torch
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        fail(f"no repro_torch in {other_src}")
+    out_dir = os.path.join(HERE, "build", "kv_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    saved = []
+    for i, path in enumerate((other_src, src, src, other_src)):
+        saved.append(os.path.join(out_dir, f"outputs{i}.pt"))
+        code = (f"import sys; sys.path[:0] = [{path!r}, {HERE!r}]; "
+                "import torch; torch.backends.cuda.matmul.allow_tf32 = "
+                "False; import chip_smoke as cs; out = {}; "
+                f"cs.time_write_and_pack(out); torch.save(out, "
+                f"{saved[-1]!r}); cs.time_attention_main(); cs.time_mlps(); "
+                "cs.profile_paged_steps(); cs.profile_gather_steps()")
+        print(f"[ab] {path}", flush=True)
+        if subprocess.run([sys.executable, "-c", code]).returncode:
+            fail(f"the write and sign-pack A/B run of {path} failed")
+    runs = [torch.load(f) for f in saved]
+    for name, first in runs[0].items():
+        if any(len(r[name]) != len(first) or not all(
+                torch.equal(a, b) for a, b in zip(r[name], first))
+               for r in runs[1:]):
+            fail(f"the write and sign-pack A/B: {name}'s outputs differ "
+                 "between runs")
+    print(f"[ab] #8's and #9's outputs ({len(runs[0])} cases: written rows "
+          "and pool fingerprints, sign words) bitwise equal in all four "
+          "runs", flush=True)
+
+
+def time_attention_main() -> None:
+    """The paged attention at the main path's shape (B=4, bf16 pool,
+    lengths 64-192, the L2 flushed): a yardstick of the A/B runs, whose
+    kernel is the same on both sides."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attn as KA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, kp, vp, table, lengths = _paged_inputs(
+        gen, np.random.default_rng(8), MAIN_BATCH, 32, 32, 128, PAGE_BLOCK,
+        PAGED_NBPS[0], torch.bfloat16, torch.bfloat16, lengths=MAIN_LIVE)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    t = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths),
+                iters=50, flush=flush_buf.zero_)
+    print(f"[ab] paged_attention B={MAIN_BATCH} bf16: {t:.4f} ms",
+          flush=True)
+    del q, kp, vp, flush_buf
+    torch.cuda.empty_cache()
+
+
 def pred_ab(other_src: str, src: str) -> None:
     """The predictors' scaling line (predict_counts' too), the two float32
     MLP kernels beside them and profiled full-depth prefill chunks and
@@ -3075,7 +3472,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repo")
     ab = {"--decode-q-ab": decode_q_ab, "--pred-ab": pred_ab,
-          "--decode-ab": decode_ab}
+          "--decode-ab": decode_ab, "--kv-ab": kv_ab}
     if sys.argv[1:2] and sys.argv[1] in ab and len(sys.argv) == 3:
         print(f"[gpu] {gpu_line()}", flush=True)
         ab[sys.argv[1]](os.path.abspath(sys.argv[2]), src)
@@ -3083,7 +3480,8 @@ def main() -> None:
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --decode-ab "
-             "OTHER_SRC, --decode-q-ab OTHER_SRC or --pred-ab OTHER_SRC")
+             "OTHER_SRC, --decode-q-ab OTHER_SRC, --pred-ab OTHER_SRC or "
+             "--kv-ab OTHER_SRC")
     sys.path.insert(0, src)
     # tolerances are set against full-float32 matrix products: TF32 keeps
     # ~3 decimal digits and would hide (or fake) a kernel fault

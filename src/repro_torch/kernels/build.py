@@ -57,9 +57,10 @@ SIGNATURES = {
         "paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
         "paged_attention_max_clusters": [_I] * 11},
-    "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                          _P]},
-    "sign_pack": {"sign_pack": [_P, _I, _P, _I, _I, _P]},
+    "paged_kv_write": {
+        "paged_kv_write": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "paged_kv_write_pair": [*[_P] * 6, *[_I] * 6, _P]},
+    "sign_pack": {"sign_pack": [_P, _I, _P, _I, _I, _I, _I, _P]},
     "predict_counts": {
         "predict_counts": [_P, _P, _P, *[_I] * 9, _P],
         "predict_counts_max_clusters": [_I] * 2},

@@ -203,7 +203,7 @@ def paged_attention(q, k_pages, v_pages, table, lengths, k_scale=None,
 
 
 def paged_kv_write(pages, vals, blocks, offsets):
-    """The decode step's KV write into the pool, in place:
+    """The reference's KV write into the pool, in place:
     ``pages[blocks[b], offsets[b]] = vals[b]``, the last slot winning on a
     collision.  Returns ``pages``."""
     if not pages.is_cuda:
@@ -211,3 +211,17 @@ def paged_kv_write(pages, vals, blocks, offsets):
     out = _paged.paged_kv_write(pages, vals, blocks, offsets)
     _LAUNCHES["paged_kv_write"] += 1
     return out
+
+
+def paged_kv_write_pair(k_pages, v_pages, k_vals, v_vals, table, cache_len):
+    """The decode step's K and V write into the pool, in place and in one
+    launch: slot b's rows land in block ``table[b, cache_len[b] // block]``
+    at row ``cache_len[b] % block``, the last slot winning on a collision.
+    Counts as one ``paged_kv_write`` launch."""
+    if not k_pages.is_cuda:
+        ref.paged_kv_write_pair_ref(k_pages, v_pages, k_vals, v_vals, table,
+                                    cache_len)
+        return
+    _paged.paged_kv_write_pair(k_pages, v_pages, k_vals, v_vals, table,
+                               cache_len)
+    _LAUNCHES["paged_kv_write"] += 1

@@ -5,8 +5,11 @@ Pallas kernels of ``repro/kernels/paged_attn.py``:
   every slot over its pool pages, read through its block table, by a
   thread-block cluster per (kv head, slot) that splits the slot's live
   span over up to 8 CTAs;
-* ``paged_kv_write`` (``csrc/paged_kv_write.cu``): the decode step's K or V
-  row of every slot written into its pool page, in place.
+* ``paged_kv_write_pair`` (``csrc/paged_kv_write.cu``): the decode step's
+  K and V rows of every slot written into their pool pages, in place, in
+  one launch that computes each slot's target from the block table and
+  ``cache_len``; ``paged_kv_write``, the same kernel on one pool with the
+  targets given (the reference's signature).
 
 ``plan`` is the attention launch's shape arithmetic (cluster size, tile
 rows, shared memory), kept on the host so that the CPU tests reach it.
@@ -238,28 +241,35 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def _check_write(name: str, pages: torch.Tensor, vals: torch.Tensor) -> int:
+    """Raise on what the write kernel does not take; its batch B."""
+    if pages.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16 pages, not "
+                         f"{pages.dtype}")
+    b = vals.shape[0]
+    if vals.shape[1:] != pages.shape[2:] or b < 1:
+        raise ValueError(f"bad shapes for {name}: pages="
+                         f"{tuple(pages.shape)} vals={tuple(vals.shape)}")
+    if not pages.is_contiguous():
+        raise ValueError(f"{name} writes in place: pages must be "
+                         "contiguous")
+    return b
+
+
 def paged_kv_write(pages: torch.Tensor, vals: torch.Tensor,
                    blocks: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
-    """One launch: pages (N, block, ...) float32 or bfloat16, written in
-    place at ``pages[blocks[b], offsets[b]] = vals[b]`` (vals (B, ...) cast
-    to the pages' dtype; the last slot wins on a collision).  Returns
-    ``pages``."""
+    """One launch, targets given: pages (N, block, ...) float32 or
+    bfloat16, written in place at ``pages[blocks[b], offsets[b]] =
+    vals[b]`` (vals (B, ...) cast to the pages' dtype; the last slot wins
+    on a collision).  Returns ``pages``."""
     _on_cuda("paged_kv_write", pages, vals, blocks, offsets)
-    if pages.dtype not in _DTYPES:
-        raise ValueError(f"paged_kv_write takes float32 or bfloat16 pages, "
-                         f"not {pages.dtype}")
-    b = vals.shape[0]
-    if (vals.shape[1:] != pages.shape[2:] or b < 1
-            or blocks.shape != (b,) or offsets.shape != (b,)):
+    b = _check_write("paged_kv_write", pages, vals)
+    if blocks.shape != (b,) or offsets.shape != (b,):
         raise ValueError(
-            f"bad shapes for paged_kv_write: pages={tuple(pages.shape)} "
-            f"vals={tuple(vals.shape)} blocks={tuple(blocks.shape)} "
-            f"offsets={tuple(offsets.shape)}")
-    if not pages.is_contiguous() or pages.data_ptr() % 16:
-        raise ValueError("paged_kv_write writes in place: pages must be "
-                         "contiguous and 16-byte aligned")
-    vals = _aligned(vals.to(pages.dtype))
+            f"bad shapes for paged_kv_write: vals={tuple(vals.shape)} "
+            f"blocks={tuple(blocks.shape)} offsets={tuple(offsets.shape)}")
+    vals = vals.to(pages.dtype).contiguous()
     blocks = blocks.to(torch.int32).contiguous()
     offsets = offsets.to(torch.int32).contiguous()
     n, bs = pages.shape[:2]
@@ -271,3 +281,46 @@ def paged_kv_write(pages: torch.Tensor, vals: torch.Tensor,
         torch.cuda.current_stream(pages.device).cuda_stream)
     build.check("paged_kv_write", rc)
     return pages
+
+
+_LEN_DTYPES = {torch.int32: 0, torch.int64: 1}
+
+
+def paged_kv_write_pair(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        k_vals: torch.Tensor, v_vals: torch.Tensor,
+                        table: torch.Tensor,
+                        cache_len: torch.Tensor) -> None:
+    """One launch for a decode step's K and V: pools (N, block, ...)
+    float32 or bfloat16 (one shape and dtype), rows (B, ...), table
+    (B, nbps) int32, cache_len (B,) int32 or int64.  Slot b writes both
+    rows at ``table[b, cache_len[b] // block]``, row ``cache_len[b] %
+    block``, the kernel computing the targets; the last slot wins on a
+    collision.  In place."""
+    _on_cuda("paged_kv_write", k_pages, v_pages, k_vals, v_vals, table,
+             cache_len)
+    b = _check_write("paged_kv_write", k_pages, k_vals)
+    if (v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype
+            or v_vals.shape != k_vals.shape or not v_pages.is_contiguous()
+            or table.ndim != 2 or table.shape[0] != b
+            or cache_len.shape != (b,)):
+        raise ValueError(
+            f"bad shapes for paged_kv_write: pages={tuple(k_pages.shape)}/"
+            f"{tuple(v_pages.shape)} vals={tuple(k_vals.shape)}/"
+            f"{tuple(v_vals.shape)} table={tuple(table.shape)} cache_len="
+            f"{tuple(cache_len.shape)}")
+    if table.dtype != torch.int32 or cache_len.dtype not in _LEN_DTYPES:
+        raise ValueError(f"paged_kv_write takes an int32 table and an "
+                         f"int32 or int64 cache_len, not {table.dtype} and "
+                         f"{cache_len.dtype}")
+    k_vals = k_vals.to(k_pages.dtype).contiguous()
+    v_vals = v_vals.to(v_pages.dtype).contiguous()
+    table, cache_len = table.contiguous(), cache_len.contiguous()
+    n, bs = k_pages.shape[:2]
+    lib = build.load("paged_kv_write")
+    rc = lib.paged_kv_write_pair(
+        k_pages.data_ptr(), v_pages.data_ptr(), k_vals.data_ptr(),
+        v_vals.data_ptr(), table.data_ptr(), cache_len.data_ptr(),
+        _LEN_DTYPES[cache_len.dtype], b, n, bs, table.shape[1],
+        k_pages[0, 0].numel() * k_pages.element_size(),
+        torch.cuda.current_stream(k_pages.device).cuda_stream)
+    build.check("paged_kv_write", rc)

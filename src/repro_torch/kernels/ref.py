@@ -266,3 +266,22 @@ def paged_kv_write_ref(pages: torch.Tensor, vals: torch.Tensor,
     pages[blocks.long()[keep], offsets.long()[keep]] = \
         vals[keep].to(pages.dtype)
     return pages
+
+
+def paged_write_target(table: torch.Tensor, cache_len: torch.Tensor,
+                       bs: int) -> tuple:
+    """Pool block and row of each slot's write position ``cache_len``:
+    ``table[b, cache_len[b] // bs]`` and ``cache_len[b] % bs``."""
+    blk = table.gather(1, (cache_len // bs)[:, None].to(torch.long))[:, 0]
+    return blk, (cache_len % bs).to(torch.int32)
+
+
+def paged_kv_write_pair_ref(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                            k_vals: torch.Tensor, v_vals: torch.Tensor,
+                            table: torch.Tensor,
+                            cache_len: torch.Tensor) -> None:
+    """Plain version of kernels.paged_attn.paged_kv_write_pair: the targets
+    from the table, then the K and the V write, in place."""
+    blk, off = paged_write_target(table, cache_len, k_pages.shape[1])
+    paged_kv_write_ref(k_pages, k_vals, blk, off)
+    paged_kv_write_ref(v_pages, v_vals, blk, off)

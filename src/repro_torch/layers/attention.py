@@ -277,19 +277,13 @@ def decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
 # softmax weight is exactly +0.0.  Like the dense cache, the pool is
 # updated in place.
 
-def _write_target(table: torch.Tensor, cache_len: torch.Tensor, bs: int):
-    """Pool block and row of each slot's write position ``cache_len``."""
-    blk = table.gather(1, (cache_len // bs)[:, None].to(torch.long))[:, 0]
-    return blk, (cache_len % bs).to(torch.int32)
-
-
 def paged_update_kv(pool: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                     table: torch.Tensor, cache_len: torch.Tensor) -> dict:
     """Write one token per slot into the pool, in place: (B, 1, K, hd) K/V
     at per-slot position ``cache_len`` lands in block
     ``table[b, pos // block]`` at row ``pos % block``.  Slots parked on the
     shared write-off block collide there; the last slot wins."""
-    blk, off = _write_target(table, cache_len, pool["k"].shape[1])
+    blk, off = ref.paged_write_target(table, cache_len, pool["k"].shape[1])
     if pool["k"].dtype == torch.int8:
         (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
         upd = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -318,7 +312,8 @@ def paged_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     updated in place).
 
     With ``cfg.paged_kernel`` and a float pool the K/V write and the
-    attention run on the paged kernels (``ops.paged_kv_write`` twice, then
+    attention run on the paged kernels (``ops.paged_kv_write_pair``, one
+    launch that finds each slot's target in the table, then
     ``ops.paged_attention``); an int8 pool always takes the gather route,
     as in the reference, where its scale epilogue lives."""
     cl = torch.as_tensor(cache_len, device=x.device)
@@ -331,9 +326,8 @@ def paged_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     if cfg.paged_kernel and pool["k"].dtype != torch.int8:
-        blk, off = _write_target(table, cl, pool["k"].shape[1])
-        ops.paged_kv_write(pool["k"], k[:, 0], blk, off)
-        ops.paged_kv_write(pool["v"], v[:, 0], blk, off)
+        ops.paged_kv_write_pair(pool["k"], pool["v"], k[:, 0], v[:, 0],
+                                table, cl)
         ctx = ops.paged_attention(q[:, 0], pool["k"], pool["v"], table, cl)
         b = x.shape[0]
         out = ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
