@@ -120,7 +120,27 @@ Phases, in order; any failure exits non-zero:
              With random weights the union demand stays near 1, so the
              ladder holds its top rung through the serve; a forced low
              demand estimate must then select the lowest rung.
- 13. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 13. serve-overload  all 32 layers (bf16 compute, bf16 paged pool, block
+             16, the paged kernels, chunked sparse prefill in chunks of 64),
+             batch 4, 12 requests of mixed tiers, 40-150-token prompts, 16
+             new tokens each, on the fault injector's virtual clock.  Masked
+             strategy (exact per slot): an unpressured serve, then the same
+             queue on a pool of 18 blocks (about half of what the resident
+             requests need) with preemption, a queue depth that sheds one
+             request, a tight deadline, an injected prefill fault and a
+             default deadline: every request ends completed or shed with a
+             reason, each of queue_depth, deadline, fault and a preemption
+             occurs, every completed request's tokens are bitwise the
+             unpressured run's, the pool's invariants hold, paged_stats and
+             throughput_report agree with the requests.  Then strategy
+             pallas with the per-tier controller and the metrics hub, every
+             sink written under build/metrics/: the JSONL validates, the
+             trace is JSON, the exposition holds the gauge, counter and
+             summary families, launches are exact; an injected decode fault
+             aborts a serve and resets the server; the queue served again
+             with the hub off gives the first serve's tokens bitwise, and
+             the watchdog armed by the first drain counts no first use.
+ 14. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -214,6 +234,7 @@ D_PAD = 4000              # a width that is not a multiple of 32
 # capacity fractions of the controller serve's ladder: 144, 288 and 560 of
 # the 1376 row groups
 CTRL_BUCKETS = (0.1, 0.2, 0.4)
+OVERLOAD_POOL = 18        # the overload phase's pool: about half the demand
 
 
 def fail(msg: str) -> None:
@@ -3193,6 +3214,249 @@ def profile_controller_steps(srv, cfg) -> None:
             collect_stats=True))
 
 
+def _overload_queue(vocab: int, tight: bool = True) -> list:
+    """The overload phase's queue: 12 requests, tiers in turn, 40-150-token
+    prompts, 16 new tokens each; with ``tight`` uid 7 has a deadline of 0.3
+    virtual seconds (30 scheduler iterations)."""
+    import numpy as np
+    from repro_torch.runtime.server import Request
+    rng = np.random.default_rng(13)
+    plens = rng.integers(40, 151, size=12)
+    tiers = ("latency", "balanced", "quality")
+    return [Request(uid=i, prompt=rng.integers(0, vocab, size=int(p)),
+                    max_new=16, sla=tiers[i % 3],
+                    deadline_s=0.3 if tight and i == 7 else 0.0)
+            for i, p in enumerate(plens)]
+
+
+def _overload_keys(rep: dict) -> dict:
+    return {k: v for k, v in rep.items()
+            if k in ("requests", "tokens", "completed", "shed", "shed_rate",
+                     "preempted", "preemptions") or k.startswith("shed_")}
+
+
+def _span_means_ms(trace: dict) -> dict:
+    """Mean duration in ms of each phase of a trace_event document."""
+    acc: dict = {}
+    for ev in trace["traceEvents"]:
+        if ev["ph"] == "X":
+            n, t = acc.get(ev["name"], (0, 0.0))
+            acc[ev["name"]] = (n + 1, t + ev["dur"] / 1e3)
+    return {k: round(t / n, 4) for k, (n, t) in sorted(acc.items())}
+
+
+def phase_serve_overload(results: dict) -> None:
+    """The overload handling and the metrics hub at full width: the masked
+    strategy's bitwise bar under a 2x oversubscribed pool, deadlines,
+    queue-depth shedding and injected faults, then the pallas serve with
+    every sink, a decode fault and the reset."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
+                                          PagedKVConfig)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime import faults as F
+    from repro_torch.runtime.metrics import MetricsHub, validate_jsonl
+    from repro_torch.runtime.server import (Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config("prosparse-llama2-7b")
+    L = base.n_layers
+
+    def model(strategy):
+        return base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                            sparse=dataclasses.replace(
+                                base.sparse, strategy=strategy, enabled=True,
+                                sparse_prefill=True,
+                                prefill_max_tokens=max(
+                                    base.sparse.prefill_max_tokens,
+                                    MAIN_CHUNK)))
+
+    def scfg(**kw):
+        return ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                           prefill_chunk=MAIN_CHUNK, **kw)
+
+    def check_done(done, label, n):
+        if len(done) != n or any(
+                r.outcome not in ("completed", "shed")
+                or (r.outcome == "shed" and not r.shed_reason)
+                or (r.outcome == "completed" and (
+                    len(r.out) != r.max_new
+                    or not ((r.out >= 0) & (r.out < base.vocab)).all()))
+                for r in done):
+            fail(f"serve-overload {label}: a request ended "
+                 f"{[(r.uid, r.outcome, r.shed_reason) for r in done]}")
+
+    # ---- masked: the bitwise bar under pressure
+    cfg = model("masked")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, "cuda")
+    ref = Server(lm, cfg, scfg(paged_kv=PagedKVConfig(block_size=PAGE_BLOCK)),
+                 params, device="cuda")
+    ref.attach_faults(F.FaultInjector(seed=0, virtual_clock=True))
+    t1 = time.perf_counter()
+    done = ref.serve(_overload_queue(cfg.vocab, tight=False))
+    torch.cuda.synchronize()
+    check_done(done, "unpressured", 12)
+    want = {r.uid: r.out for r in done}
+    print(f"[serve-overload] masked unpressured: {ref.kv_pool.n_blocks} "
+          f"blocks, serve {time.perf_counter() - t1:.1f} s (init "
+          f"{t1 - t0:.1f} s); {json.dumps(_overload_keys(throughput_report(done)))}",
+          flush=True)
+    del ref
+    srv = Server(lm, cfg, scfg(
+        paged_kv=PagedKVConfig(block_size=PAGE_BLOCK,
+                               pool_blocks=OVERLOAD_POOL),
+        preempt=True, max_queue_depth=11, default_deadline_s=100.0),
+        params, device="cuda")
+    fi = F.FaultInjector(seed=0, virtual_clock=True, tick_s=0.01)
+    srv.attach_faults(fi)
+    fi.arm("prefill", uid=2, times=1)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for layer in srv._pool["blocks"] for t in layer.values())
+    t1 = time.perf_counter()
+    done = srv.serve(_overload_queue(cfg.vocab))
+    torch.cuda.synchronize()
+    check_done(done, "pressured", 12)
+    rep = throughput_report(done)
+    st = srv.paged_stats()
+    print(f"[serve-overload] masked pressured: pool {OVERLOAD_POOL} blocks "
+          f"({pool_bytes / 2**20:.0f} MiB), serve "
+          f"{time.perf_counter() - t1:.1f} s, decode steps "
+          f"{srv.decode_steps}, prefill chunks {srv.prefill_chunks_run}; "
+          f"throughput_report {json.dumps(_overload_keys(rep))}; "
+          f"paged_stats {json.dumps(st)}", flush=True)
+    print(f"[serve-overload] masked pressured outcomes "
+          f"{sorted((r.uid, r.outcome, r.shed_reason, r.preemptions) for r in done)}",
+          flush=True)
+    reasons = {r.shed_reason for r in done if r.outcome == "shed"}
+    if not ({"queue_depth", "deadline", "fault"} <= reasons
+            and rep["preemptions"] >= 1):
+        fail(f"serve-overload: shed reasons {reasons}, preemptions "
+             f"{rep['preemptions']}: want queue_depth, deadline and fault "
+             "sheds and a preemption")
+    n_shed = sum(r.outcome == "shed" for r in done)
+    if (st["preemptions"], st["shed"]) != (rep["preemptions"], n_shed) or \
+            rep["completed"] + rep["shed"] != 12 or fi.fired["prefill"] != 1:
+        fail(f"serve-overload: paged_stats {st} and throughput_report {rep} "
+             "disagree with the requests")
+    for r in done:
+        if r.outcome == "completed" and not np.array_equal(r.out,
+                                                          want[r.uid]):
+            fail(f"serve-overload: uid {r.uid} emitted {r.out} under "
+                 f"pressure, {want[r.uid]} unpressured")
+    srv.kv_pool.check_invariants()
+    print(f"[serve-overload] masked: {rep['completed']} completed requests "
+          "bitwise the unpressured run's; pool invariants hold", flush=True)
+    del srv, params
+    torch.cuda.empty_cache()
+
+    # ---- pallas (the main path's) with the controller and every sink
+    cfg = model("pallas")
+    out_dir = os.path.join(HERE, "build", "metrics")
+    os.makedirs(out_dir, exist_ok=True)
+    sinks = {k: os.path.join(out_dir, f"serve.{k}")
+             for k in ("jsonl", "trace.json", "prom")}
+    for path in sinks.values():
+        if os.path.exists(path):
+            os.remove(path)
+    params = lm.init_lm(cfg, 0, "cuda")
+    srv = Server(lm, cfg, scfg(
+        paged_kv=PagedKVConfig(block_size=PAGE_BLOCK),
+        controller=ControllerConfig(enabled=True, per_tier=True),
+        metrics=MetricsConfig(enabled=True, jsonl_path=sinks["jsonl"],
+                              trace=True, trace_path=sinks["trace.json"],
+                              snapshot_path=sinks["prom"])),
+        params, device="cuda")
+    del params
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    done = srv.serve(_overload_queue(cfg.vocab, tight=False))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    check_done(done, "pallas", 12)
+    steps, chunks = srv.decode_steps, srv.prefill_chunks_run
+    want_l = {n: 0 for n in counts}
+    want_l.update({"predict_group_margins": L * steps,
+                   "fused_sparse_mlp": L * steps,
+                   "paged_attention": L * steps,
+                   "paged_kv_write": L * steps,
+                   "predict_chunk_group_margins": L * chunks,
+                   "fused_sparse_mlp_chunk": L * chunks})
+    if steps == 0 or counts != want_l:
+        fail(f"serve-overload pallas: launches {counts}, want {want_l}")
+    hub = srv.metrics
+    n_lines = validate_jsonl(sinks["jsonl"])
+    with open(sinks["trace.json"]) as f:
+        trace = json.load(f)
+    with open(sinks["prom"]) as f:
+        expo = f.read()
+    families = ("tier_realized_density", "alpha", "layer_density",
+                "kv_pool_pressure", "kv_pool_n_blocks", "latency_s",
+                "decode_step_s", "requests_completed")
+    missing = [n for n in families
+               if f"# TYPE sparseinfer_{n} " not in expo]
+    kinds = {e["kind"] for e in hub.events()}
+    if missing or 'sparseinfer_latency_s{tier="balanced",quantile="0.95"}' \
+            not in expo or not {"serve_start", "admit", "first_token",
+                                "complete", "serve_end"} <= kinds:
+        fail(f"serve-overload pallas: exposition lacks {missing} or events "
+             f"{kinds} lack a kind")
+    means = _span_means_ms(trace)
+    first = {r.uid: r.out for r in done}
+    rep = throughput_report(done)
+    mrep = srv.metrics_report()
+    print(f"[serve-overload] pallas + controller + metrics: serve "
+          f"{serve_s:.1f} s, decode steps {steps}, prefill chunks {chunks}; "
+          f"launches {counts}; throughput_report "
+          f"{json.dumps(_overload_keys(rep))}", flush=True)
+    print(f"[serve-overload] metrics_report: events {mrep['events']}, "
+          f"trace events {mrep['trace_events']}, JSONL lines {n_lines}, "
+          f"watchdog {json.dumps(mrep['watchdog'])}", flush=True)
+    print(f"[serve-overload] span means (ms, host wall): "
+          f"{json.dumps(means)}; p50/p95 latency "
+          f"{rep['p50_latency_s']:.3f}/{rep['p95_latency_s']:.3f} s, "
+          f"p50/p95 TTFT {rep['p50_ttft_s']:.3f}/{rep['p95_ttft_s']:.3f} s",
+          flush=True)
+    # a decode fault aborts the serve, and serve() resets the server
+    fi = F.FaultInjector(seed=0)
+    srv.attach_faults(fi)
+    fi.arm("decode", after=3, times=1)
+    try:
+        srv.serve(_overload_queue(cfg.vocab)[:4])
+        fail("serve-overload: the armed decode fault did not abort serve()")
+    except F.InjectedFault:
+        pass
+    if srv.kv_pool.snapshot()["live_refs"] or srv.shed_count or \
+            srv.preempt_count or srv.controller.state.steps:
+        fail("serve-overload: reset() left state behind after the decode "
+             "fault")
+    # the same queue again with the hub off: bitwise the first serve, and
+    # the first hub's watchdog (armed by its drain) sees no first use
+    armed = hub.watchdog
+    srv.faults = None
+    srv.metrics = MetricsHub(MetricsConfig())
+    done = srv.serve(_overload_queue(cfg.vocab, tight=False))
+    torch.cuda.synchronize()
+    check_done(done, "pallas metrics off", 12)
+    for r in done:
+        if not np.array_equal(r.out, first[r.uid]):
+            fail(f"serve-overload: uid {r.uid} emitted {r.out} after the "
+                 f"reset with the hub off, {first[r.uid]} before")
+    wd = armed.report()
+    if not wd["armed"] or wd["retraces_post_warmup"]:
+        fail(f"serve-overload: watchdog {wd} after warmup")
+    print(f"[serve-overload] after the decode fault and reset, the hub off: "
+          f"12 requests bitwise the metrics-on serve; watchdog "
+          f"{json.dumps(wd)}", flush=True)
+    hub.close()
+    del srv
+    torch.cuda.empty_cache()
+
+
 def decode_q_ab(other_src: str, src: str) -> None:
     """The int8 decode MLP's scaling line and int8 decode step profile of
     ``other_src`` and ``src``, in the order other, this, this, other, each
@@ -3504,7 +3768,8 @@ def main() -> None:
                         (phase_serve, (results,)),
                         (phase_serve_chunked, (results,)),
                         (phase_serve_paged, (results,)),
-                        (phase_serve_controller, (results,))):
+                        (phase_serve_controller, (results,)),
+                        (phase_serve_overload, (results,))):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

@@ -2,8 +2,7 @@
 
 Field names, types and defaults are the reference's own, so a port config
 compares field for field with its JAX twin.  Ported: ``ModelConfig``, the
-SLA tiers, ``ControllerConfig`` and ``PagedKVConfig``; the metrics config
-comes with its slice.
+SLA tiers, ``ControllerConfig``, ``PagedKVConfig`` and ``MetricsConfig``.
 """
 from __future__ import annotations
 
@@ -17,8 +16,8 @@ class SLATier:
     """One per-request service tier: a per-slot alpha offset added to the
     per-layer schedule and, under a per-tier controller, its own density
     target (``target``: the controller's ``target_density`` times
-    ``target_scale``).  ``priority`` ranks tiers for preemption, which is
-    not ported yet."""
+    ``target_scale``).  ``priority`` ranks tiers for preemption: victims
+    come from the lowest priority first."""
 
     name: str
     alpha_offset: float = 0.0
@@ -85,6 +84,34 @@ class PagedKVConfig:
                             # equivalent batch * max_len/block_size + 2
     prefix_cache: bool = True   # hash-trie admission of committed blocks
     max_sessions: int = 64  # LRU cap on retained session chains
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricsConfig:
+    """The serve path's observability (``runtime/metrics.py:MetricsHub``):
+    counters, gauges, histograms, phase spans and the JSONL, trace and
+    exposition sinks.  Disabled (the default) every emit method returns at
+    once and the serve path is bitwise the metrics-free one."""
+
+    enabled: bool = False
+    jsonl_path: str = ""        # JSONL event-stream sink ("" = in-memory
+                                # ring only; MetricsHub.events())
+    trace: bool = False         # record Chrome/Perfetto trace events even
+                                # with no trace_path
+    trace_path: str = ""        # write trace_event JSON here on flush()
+    snapshot_path: str = ""     # write the Prometheus-style exposition on
+                                # flush()
+    cadence: int = 8            # publish the gauge families (controller,
+                                # pool) every N decode steps
+    hist_max_exact: int = 2048  # histogram observations kept exact; past
+                                # the cap they fold into the bucket ladder
+                                # (0 = exact forever, as throughput_report)
+    hist_buckets: tuple = ()    # bucket upper bounds in seconds; () =
+                                # metrics.DEFAULT_BUCKETS
+    watchdog: bool = True       # warn and count any first use (a kernel
+                                # library load, a new capacity bucket)
+                                # after the first serve drain
+    events_keep: int = 4096     # in-memory ring sizes (events and trace)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,6 +68,7 @@ SIGNATURES = {
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}   # ptxas register/shared-memory report
+_LOAD_LISTENERS: list = []         # on_load callbacks
 
 
 def _nvcc() -> str:
@@ -127,7 +128,16 @@ def load(name: str) -> ctypes.CDLL:
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [_I], ctypes.c_char_p
         _LIBS[name] = lib
+        for fn in _LOAD_LISTENERS:
+            fn(name)
     return lib
+
+
+def on_load(fn) -> None:
+    """Call ``fn(name)`` after every kernel library this process loads
+    from now on (the metrics hub's first-use watchdog listens here)."""
+    if fn not in _LOAD_LISTENERS:
+        _LOAD_LISTENERS.append(fn)
 
 
 def n_loaded() -> int:

@@ -21,10 +21,19 @@ masked audit every 4th step (on the CPU: --reduced --device cpu):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch prosparse-llama2-7b --strategy gather --controller \
         --per-tier --audit-period 4 --sla-mix latency:1,balanced:1,quality:1
+Overload handling on an oversubscribed paged pool, with the metrics hub's
+sinks (on the CPU: --reduced --device cpu --max-len 64 --paged-kv 8):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch prosparse-llama2-7b --strategy pallas --max-len 256 \
+        --prefill-chunk 64 --paged-kv 16 --pool-blocks 18 --preempt \
+        --default-deadline 30 --max-queue-depth 12 --requests 16 \
+        --metrics-jsonl build/m.jsonl --metrics-trace build/t.json \
+        --metrics-snapshot build/s.prom
 
 Prints the reference's JSON throughput report (with ``paged``: the pool's
 counters, under --paged-kv; with ``controller``: its report, under
---controller).
+--controller; with ``metrics``: the hub's snapshot and the watchdog, under
+--metrics or any --metrics-* path).
 """
 from __future__ import annotations
 
@@ -35,7 +44,8 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.base import ControllerConfig, PagedKVConfig
+from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
+                                      PagedKVConfig)
 from repro_torch.configs.registry import arch_names, get_config, \
     reduced_config
 from repro_torch.device import resolve_device
@@ -75,6 +85,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--strategy", default=None,
                     choices=[None, "dense", "masked", "gather", "pallas"])
+    ap.add_argument("--alpha", type=float, default=None,
+                    help="the predictor's static alpha (the paper's knob): "
+                         "sets alpha_base and alpha_early")
     ap.add_argument("--sla-mix", default="balanced:1",
                     help="comma list tier:weight (latency, balanced, "
                          "quality), e.g. latency:1,balanced:2,quality:1")
@@ -128,7 +141,36 @@ def main(argv=None) -> dict:
                          "and sessions need the pool")
     ap.add_argument("--pool-blocks", type=int, default=0,
                     help="total pool blocks (0 = auto-size to exactly fit "
-                         "--batch x --max-len)")
+                         "--batch x --max-len; fewer oversubscribe the "
+                         "pool)")
+    ap.add_argument("--max-queue-depth", type=int, default=0,
+                    help="requests beyond this queue depth shed at once "
+                         "(outcome shed, reason queue_depth; 0 = "
+                         "unbounded)")
+    ap.add_argument("--default-deadline", type=float, default=0.0,
+                    help="seconds after admission before a request with no "
+                         "deadline of its own sheds (0 = none)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="tier-aware preemption on pool exhaustion: park the "
+                         "lowest-priority slot's prompt blocks in the trie "
+                         "and requeue it (its resume admits them by "
+                         "reference); needs --paged-kv")
+    ap.add_argument("--pressure-gate", type=float, default=1.0,
+                    help="defer admissions while pool pressure is at or "
+                         "above this fraction (1.0 = off; 0.8-0.95 is the "
+                         "useful range)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="enable the metrics hub (counters, gauges, "
+                         "histograms, the first-use watchdog) without file "
+                         "sinks; any --metrics-* path implies it")
+    ap.add_argument("--metrics-jsonl", default="", metavar="PATH",
+                    help="append the serve's events as JSON lines")
+    ap.add_argument("--metrics-trace", default="", metavar="PATH",
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "serve phases")
+    ap.add_argument("--metrics-snapshot", default="", metavar="PATH",
+                    help="write a Prometheus-style text exposition of every "
+                         "instrument at each drain")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
@@ -140,6 +182,9 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(sparse=dataclasses.replace(
             cfg.sparse, strategy=args.strategy,
             enabled=args.strategy != "dense"))
+    if args.alpha is not None:
+        cfg = cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, alpha_base=args.alpha, alpha_early=args.alpha))
     if args.capacity_buckets:
         cfg = cfg.replace(sparse=dataclasses.replace(
             cfg.sparse, capacity_buckets=tuple(
@@ -163,6 +208,11 @@ def main(argv=None) -> dict:
                             audit_period=args.audit_period,
                             adapt_capacity=args.adapt_capacity,
                             per_tier=args.per_tier)
+    mcfg = MetricsConfig(
+        enabled=bool(args.metrics or args.metrics_jsonl or args.metrics_trace
+                     or args.metrics_snapshot),
+        jsonl_path=args.metrics_jsonl, trace=bool(args.metrics_trace),
+        trace_path=args.metrics_trace, snapshot_path=args.metrics_snapshot)
     srv = Server(lm, cfg, ServeConfig(
         batch=args.batch, max_len=args.max_len, max_new_tokens=args.max_new,
         controller=ccfg, warm_buckets=args.warm_buckets,
@@ -170,7 +220,11 @@ def main(argv=None) -> dict:
         prefill_interleave=args.prefill_interleave,
         paged_kv=(PagedKVConfig(block_size=args.paged_kv,
                                 pool_blocks=args.pool_blocks)
-                  if args.paged_kv else None)), params, device=device)
+                  if args.paged_kv else None),
+        max_queue_depth=args.max_queue_depth,
+        default_deadline_s=args.default_deadline, preempt=args.preempt,
+        pressure_gate=args.pressure_gate, metrics=mcfg), params,
+        device=device)
     rng = np.random.default_rng(args.seed)
     slas = parse_sla_mix(args.sla_mix, args.requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab,
@@ -205,6 +259,13 @@ def main(argv=None) -> dict:
         rep["paged"] = srv.paged_stats()
     if srv.controller is not None:
         rep["controller"] = srv.controller.report()
+    if mcfg.enabled:
+        rep["metrics"] = srv.metrics_report()
+        rep["metrics"]["sinks"] = {
+            k: v for k, v in (("jsonl", args.metrics_jsonl),
+                              ("trace", args.metrics_trace),
+                              ("snapshot", args.metrics_snapshot)) if v}
+        srv.metrics.close()
     rep["device"] = str(device)
     print(json.dumps(rep, indent=1))
     return rep

@@ -24,8 +24,8 @@ frozen for that step.  ``capacity_hint`` sizes the capacity to the observed
 union demand plus slack; the server's bucket ladder reads it between steps.
 
 Not ported yet: ``DistributedController`` and ``remap_shard_ema`` (sharded
-serving), ``publish_metrics`` (the metrics hub) and the checkpoint helpers
-``save_controller`` / ``restore_controller``.
+serving) and the checkpoint helpers ``save_controller`` /
+``restore_controller``.
 """
 from __future__ import annotations
 
@@ -302,6 +302,48 @@ class AlphaController:
     @property
     def trajectory(self) -> list[dict]:
         return list(self._trajectory)
+
+    def publish_metrics(self, hub) -> None:
+        """Write the controller's state into a ``runtime.metrics.MetricsHub``
+        as gauges: per tier realized and predicted density and false-negative
+        rate, per layer alpha and density (tier-labelled when tiered), and
+        progress.  Host values only; no-op on a disabled hub."""
+        if not getattr(hub, "enabled", False):
+            return
+        s = self.state
+        hub.set_gauge("controller_steps", s.steps)
+        hub.set_gauge("controller_audits", s.audits)
+        hub.set_gauge("prefill_chunks", self.prefill_chunks)
+        hub.set_gauge("prefill_density", float(self.prefill_ema.mean()))
+        if self.tiers:
+            for i, t in enumerate(self.tiers):
+                lt = {"tier": t.name}
+                hub.set_gauge("tier_target_density",
+                              t.target(self.cfg.target_density), **lt)
+                hub.set_gauge("tier_realized_density",
+                              float(s.density_ema[i].mean()), **lt)
+                hub.set_gauge("tier_predicted_density",
+                              float(s.predicted_ema[i].mean()), **lt)
+                hub.set_gauge("tier_fn_rate",
+                              float(s.fn_ema[i].mean()), **lt)
+                hub.set_gauge("tier_overflow",
+                              float(s.overflow_ema[i].mean()), **lt)
+                for layer in range(self.num_layers):
+                    hub.set_gauge("alpha", float(s.alphas[i, layer]),
+                                  layer=layer, **lt)
+                    hub.set_gauge("layer_density",
+                                  float(s.density_ema[i, layer]),
+                                  layer=layer, **lt)
+        else:
+            hub.set_gauge("realized_density", float(s.density_ema.mean()))
+            hub.set_gauge("predicted_density",
+                          float(s.predicted_ema.mean()))
+            hub.set_gauge("fn_rate", float(s.fn_ema.mean()))
+            hub.set_gauge("overflow", float(s.overflow_ema.mean()))
+            for layer in range(self.num_layers):
+                hub.set_gauge("alpha", float(s.alphas[layer]), layer=layer)
+                hub.set_gauge("layer_density",
+                              float(s.density_ema[layer]), layer=layer)
 
     # -------------------------------------------------------- persistence --
     def state_dict(self) -> tuple[dict, dict]:

@@ -1,7 +1,6 @@
 """Host-side paged KV pool manager: block allocation, prefix-cache trie,
 sessions, copy-on-write forking and eviction — the port's own copy of
-``repro/runtime/kv_pool.py`` (host-only numpy; the metrics-hub mirror is
-left out with the hub).
+``repro/runtime/kv_pool.py`` (host-only numpy).
 
 The device side is one block pool per layer, leaves ``(N, block, ...)``
 (``models/lm.py:init_kv_pool``), indexed by per-slot block tables
@@ -259,6 +258,21 @@ class KVPool:
             "pressure": self.pressure(),
             **{k: int(v) for k, v in self.stats.items()},
         }
+
+    def publish_metrics(self, hub) -> None:
+        """Mirror occupancy and the monotonic counters into a
+        ``runtime.metrics.MetricsHub``: occupancy as ``kv_pool_*`` gauges,
+        the eviction, fork and dedup totals the pool keeps as counters.
+        No-op on a disabled hub."""
+        if not getattr(hub, "enabled", False):
+            return
+        snap = self.snapshot()
+        for key in ("n_blocks", "free_blocks", "parked_blocks",
+                    "committed_blocks", "live_refs", "sessions",
+                    "pressure"):
+            hub.set_gauge(f"kv_pool_{key}", snap[key])
+        for key, v in self.stats.items():
+            hub.set_counter(f"kv_pool_{key}", int(v))
 
     def check_invariants(self) -> None:
         """Reserved blocks unreferenced and uncommitted; every block in

@@ -38,16 +38,39 @@ union-demand hint picks a rung of the capacity ladder between steps;
 ``adapt_capacity`` without a ladder re-sizes the capacity at refill
 boundaries.  Sparse prefill chunks feed the controller's prefill rider.
 
-Not ported yet: sharded serving (``tp_shards``/``dp_shards``), controller
-checkpoints, overload handling (preemption, shedding, deadlines, the
-pressure gate: pool exhaustion raises ``PoolExhausted``) and the metrics
-hub.
+Overload handling, as the reference's.  ``max_queue_depth`` sheds the
+excess of a queue up front; a request past its deadline (``deadline_s``, or
+``default_deadline_s``) sheds with what it emitted, queued, mid-prefill or
+resident.  With ``preempt`` (paged pool) an exhausted pool parks the
+lowest-priority resident request (tier priority, then fewest emitted
+tokens, then slot index): its prompt blocks stay in the trie, so its resume
+admits them by reference, and it requeues; past ``max_preemptions`` it
+sheds.  A queue head that has waited half its deadline parks a
+strictly-lower-tier resident the same way.  ``pressure_gate`` defers
+admissions while the pool's pressure is at or above it.  Without
+``preempt`` an exhausted pool raises ``PoolExhausted``.  A
+``runtime.faults.FaultInjector`` (``attach_faults``) arms fault points
+(``prefill`` sheds its request, ``decode`` aborts the serve, which resets
+the server) and can replace the clock with a virtual one that ticks once a
+scheduler-loop iteration, so every overload decision is a function of
+scheduling alone.
+
+``ServeConfig.metrics`` enables the metrics hub (``runtime/metrics.py``):
+spans for admission, prefill, prefill chunks, the decode step and the
+controller update, events for every admission, first token, completion,
+shed, preemption and bucket switch, and the controller's and pool's gauges
+every ``cadence`` decode steps.  Spans close only where the loop already
+waits for the card (the decode step after its tokens are read, a
+monolithic prefill after its first token), so a prefill chunk's span is its
+host enqueue time.
+
+Not ported yet: sharded serving (``tp_shards``/``dp_shards``) and
+controller checkpoints.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-import math
 import time
 import warnings
 from typing import Optional
@@ -56,7 +79,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ControllerConfig,
-                                      ModelConfig, PagedKVConfig)
+                                      MetricsConfig, ModelConfig,
+                                      PagedKVConfig)
 from repro_torch.core.sparse_mlp import DEAD_SLOT_ALPHA
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
@@ -64,7 +88,9 @@ from repro_torch.models.common import greedy_sample
 from repro_torch.runtime.controller import (TRAJECTORY_KEEP,
                                             AlphaController,
                                             aggregate_tier_stats)
-from repro_torch.runtime.kv_pool import KVPool
+from repro_torch.runtime.faults import InjectedFault
+from repro_torch.runtime.kv_pool import KVPool, PoolExhausted
+from repro_torch.runtime.metrics import MetricsHub, note_first_use
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +121,23 @@ class ServeConfig:
     # per-slot caches.  block_size must divide max_len, and prefill_chunk
     # must be a multiple of it
     paged_kv: Optional[PagedKVConfig] = None
+    # ---- overload handling
+    # serve() takes at most this many requests; the rest shed up front
+    # ("queue_depth").  0 = unbounded
+    max_queue_depth: int = 0
+    # Request.deadline_s of requests that set none (0 = no deadline)
+    default_deadline_s: float = 0.0
+    # tier-aware preemption on pool exhaustion and deadline pressure (needs
+    # paged_kv); off, an exhausted pool raises PoolExhausted
+    preempt: bool = False
+    # KVPool.pressure() at or above which refills defer while anything is
+    # resident; 1.0 disables the gate
+    pressure_gate: float = 1.0
+    # preemptions a request takes before it sheds ("pool") instead
+    max_preemptions: int = 4
+    # the metrics hub; disabled (the default) it is a no-op and the serve is
+    # bitwise the metrics-free one
+    metrics: MetricsConfig = dataclasses.field(default_factory=MetricsConfig)
 
 
 @dataclasses.dataclass
@@ -110,12 +153,17 @@ class Request:
                                  # the session's SLA tier
     out: Optional[np.ndarray] = None
     latency_s: float = 0.0       # admission -> last token (incl. queue wait)
-    t_admit: float = 0.0         # perf_counter at admission (serve() entry)
-    t_start: float = 0.0         # perf_counter at dequeue
-    t_end: float = 0.0           # perf_counter at completion
+    t_admit: float = 0.0         # Server._now() at admission (serve() entry)
+    t_start: float = 0.0         # Server._now() at dequeue
+    t_end: float = 0.0           # Server._now() at completion
     queue_wait_s: float = 0.0    # admission -> dequeue
     ttft_s: float = 0.0          # admission -> first token
-    outcome: str = ""            # "completed" ("" = never served)
+    deadline_s: float = 0.0      # deadline after admission (0 = none; unset,
+                                 # ServeConfig.default_deadline_s fills it)
+    outcome: str = ""            # "completed" | "shed" ("" = never served)
+    shed_reason: str = ""        # of a shed: "deadline" | "pool" |
+                                 # "queue_depth" | "fault"
+    preemptions: int = 0         # times parked and requeued
 
 
 def _splice_slot(full: dict, one: dict, slot: int) -> None:
@@ -175,6 +223,20 @@ class Server:
             if cfg.family not in model_mod.CHUNK_PREFILL_FAMILIES:
                 raise NotImplementedError(
                     f"family {cfg.family!r} has no chunked prefill")
+        if scfg.preempt and scfg.paged_kv is None:
+            raise ValueError(
+                "ServeConfig.preempt needs the paged KV pool (paged_kv): "
+                "preemption parks the victim's block chain in the prefix "
+                "trie so its resume admits by reference")
+        if not 0.0 < scfg.pressure_gate <= 1.0:
+            raise ValueError(
+                f"pressure_gate={scfg.pressure_gate} must be in (0, 1]")
+        if scfg.max_queue_depth < 0 or scfg.default_deadline_s < 0.0 \
+                or scfg.max_preemptions < 1:
+            raise ValueError(
+                "max_queue_depth/default_deadline_s must be >= 0 and "
+                f"max_preemptions >= 1; got {scfg.max_queue_depth}/"
+                f"{scfg.default_deadline_s}/{scfg.max_preemptions}")
         pk = scfg.paged_kv
         if pk is not None:
             pfams = getattr(model_mod, "PAGED_KV_FAMILIES", ())
@@ -216,6 +278,16 @@ class Server:
                                           # (paged KV pool only)
         self.kv_pool: Optional[KVPool] = None
         self._pool: Optional[dict] = None
+        # ---- overload accounting and fault injection
+        self.faults = None                # runtime.faults.FaultInjector
+        self.preempt_count = 0            # victims parked and requeued
+        self.shed_count = 0               # terminal sheds, every reason
+        self.admissions_deferred = 0      # refills held back by the gate
+        # the hub reads the scheduler's clock: wall time until
+        # attach_faults binds the injector's.  Not ``self._now``: a bound
+        # method would make server and hub a reference cycle, which keeps
+        # the weights on the card until the cycle collector runs
+        self.metrics = MetricsHub(scfg.metrics)
         if pk is not None:
             self._nbps = scfg.max_len // pk.block_size
             self._init_paged_state()
@@ -248,9 +320,11 @@ class Server:
 
     def reset(self) -> None:
         """Restore the cross-serve state (controller, capacity bucket, KV
-        pool, admission counters) to its fresh-construction value, so the
-        next serve() is a new server's.  serve() calls it when the
-        scheduler raises."""
+        pool, admission and overload counters) to its fresh-construction
+        value, so the next serve() is a new server's.  serve() calls it
+        when the scheduler raises.  The hub's instruments are cumulative
+        across serves, as the reference's; its sinks are flushed, so what
+        the aborted serve recorded reaches its files."""
         if self.cfg is not self._cfg0:
             # maybe_adapt_capacity moved the capacity mid-serve
             self.cfg = self._cfg0
@@ -260,6 +334,86 @@ class Server:
             self._init_paged_state()
         self.prefill_chunks_run = 0
         self.prefill_chunks_skipped = 0
+        self.preempt_count = 0
+        self.shed_count = 0
+        self.admissions_deferred = 0
+        self.metrics.flush()
+
+    # ------------------------------------------------------ fault plumbing --
+    def attach_faults(self, injector) -> None:
+        """Install a ``runtime.faults.FaultInjector``: its armed points fire
+        through ``_fault``, and with ``virtual_clock`` every time the
+        scheduler reads (deadlines, stamps, queue waits, the hub's spans and
+        events) is ``injector.now()``, advanced one tick per loop
+        iteration."""
+        self.faults = injector
+        self.metrics.bind_clock(injector.time_source())
+
+    def _now(self) -> float:
+        f = self.faults
+        if f is not None and f.virtual_clock:
+            return f.now()
+        return time.perf_counter()
+
+    def _tick(self) -> None:
+        f = self.faults
+        if f is not None and f.virtual_clock:
+            f.tick()
+
+    def _fault(self, point: str, uid: Optional[int] = None) -> None:
+        if self.faults is not None:
+            self.faults.check(point, uid)
+
+    # -------------------------------------------------------- observability --
+    def publish_gauges(self) -> None:
+        """Refresh the hub's gauge families from host state: the
+        controller's per-tier and per-layer alphas and densities, the pool's
+        occupancy, pressure and counters, and the active capacity bucket
+        with its share of d_ff.  Host values the loop already holds: no
+        sync.  The scheduler calls it every ``MetricsConfig.cadence`` decode
+        steps and at each drain."""
+        hub = self.metrics
+        if not hub.enabled:
+            return
+        if self.controller is not None:
+            self.controller.publish_metrics(hub)
+        if self.kv_pool is not None:
+            self.kv_pool.publish_metrics(hub)
+        hub.set_gauge("admissions_deferred", self.admissions_deferred)
+        cap = getattr(self, "_active_cap", None)
+        if cap:
+            hub.set_gauge("capacity_bucket_groups", int(cap))
+            hub.set_gauge("bucket_occupancy",
+                          min(1.0, int(cap) * self.cfg.sparse.group_size
+                              / self.cfg.d_ff))
+
+    def _serve_epilogue(self) -> None:
+        """After a drain: refresh the gauges, record the drain, arm the
+        first-use watchdog (by the end of the first drain everything this
+        configuration uses has been built and used once) and flush the
+        sinks."""
+        hub = self.metrics
+        if not hub.enabled:
+            return
+        self.publish_gauges()
+        hub.event("serve_end",
+                  completed=int(hub.counter_value("requests_completed")),
+                  shed=self.shed_count, preemptions=self.preempt_count,
+                  retraces_post_warmup=hub.watchdog.retraces_post_warmup)
+        if self.scfg.metrics.watchdog:
+            hub.watchdog.arm()
+        hub.flush()
+
+    def metrics_report(self) -> dict:
+        """The hub's snapshot and the watchdog's state, for reports."""
+        hub = self.metrics
+        rep: dict = {"enabled": hub.enabled,
+                     "watchdog": hub.watchdog.report()}
+        if hub.enabled:
+            rep["snapshot"] = hub.snapshot()
+            rep["events"] = len(hub.events())
+            rep["trace_events"] = len(hub.trace_events()["traceEvents"])
+        return rep
 
     # ------------------------------------------------------- controller ---
     def _build_controller_fns(self) -> None:
@@ -314,8 +468,12 @@ class Server:
             maxlen=TRAJECTORY_KEEP)
 
     def _count_setup(self, key, loaded_before: int) -> None:
-        if key not in self._trace_counts or build.n_loaded() > loaded_before:
+        new = key not in self._trace_counts
+        loaded = build.n_loaded() > loaded_before
+        if new or loaded:
             self._trace_counts[key] += 1
+        if new and not loaded:    # a library load reports itself
+            note_first_use(f"capacity bucket {key}")
 
     def _select_bucket(self):
         """The smallest capacity bucket covering the controller's
@@ -520,15 +678,17 @@ class Server:
         return meta
 
     def paged_stats(self) -> dict:
-        """Pool occupancy and reuse counters plus admission chunk counts
-        (empty without ``ServeConfig.paged_kv``); the reference's keys,
-        its overload counters 0 (overload handling is not ported)."""
+        """Pool occupancy and reuse counters plus admission chunk and
+        overload counts (empty without ``ServeConfig.paged_kv``); the
+        reference's keys."""
         if self.kv_pool is None:
             return {}
         return {**self.kv_pool.snapshot(),
                 "prefill_chunks_run": self.prefill_chunks_run,
                 "prefill_chunks_skipped": self.prefill_chunks_skipped,
-                "preemptions": 0, "shed": 0, "admissions_deferred": 0}
+                "preemptions": self.preempt_count,
+                "shed": self.shed_count,
+                "admissions_deferred": self.admissions_deferred}
 
     # ----------------------------------------------------------- single ---
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
@@ -574,36 +734,61 @@ class Server:
                 lengths += 1
             return torch.cat(out, dim=1).cpu().numpy()
 
+
     # ------------------------------------------------------ batched queue --
     def serve(self, requests: list[Request]) -> list[Request]:
-        """Run a queue through the slot-refill scheduler; every request is
-        validated before any work starts."""
-        t_adm = time.perf_counter()
+        """Run a queue through the slot-refill scheduler.  Every request is
+        validated before any work starts; the excess over
+        ``max_queue_depth`` sheds at once ("queue_depth")."""
+        t_adm = self._now()           # latency clocks start here
         for r in requests:
             self._tier_of(r)
+            # every stamp serve() sets is reset: a re-served Request object
+            # would otherwise carry the previous run's into this report
             r.t_admit = t_adm
             r.t_start = r.t_end = 0.0
             r.queue_wait_s = r.ttft_s = r.latency_s = 0.0
             r.out = None
-            r.outcome = ""
+            r.outcome = r.shed_reason = ""
+            r.preemptions = 0
+            if r.deadline_s <= 0.0 and self.scfg.default_deadline_s > 0.0:
+                r.deadline_s = self.scfg.default_deadline_s
             if len(r.prompt) + r.max_new > self.scfg.max_len:
                 raise ValueError(
                     f"request {r.uid}: prompt {len(r.prompt)} + max_new "
                     f"{r.max_new} exceeds max_len {self.scfg.max_len}")
+        hub = self.metrics
+        hub.event("serve_start", requests=len(requests))
+        overflow: list[Request] = []
+        mqd = self.scfg.max_queue_depth
+        if mqd and len(requests) > mqd:
+            requests, overflow = requests[:mqd], requests[mqd:]
+            for r in overflow:
+                r.outcome, r.shed_reason = "shed", "queue_depth"
+                r.out = np.zeros(0, np.int32)
+                hub.inc("requests_shed", reason="queue_depth")
+                hub.event("shed", uid=r.uid, reason="queue_depth")
+            self.shed_count += len(overflow)
         with torch.inference_mode():
             try:
-                return self._serve_slot_refill(requests)
+                done = self._serve_slot_refill(requests)
             except Exception:
                 # the scheduler died with slots, pool and controller half
                 # updated: start the next serve from a fresh state
                 self.reset()
                 raise
+        self._serve_epilogue()
+        return done + overflow
 
     def _serve_slot_refill(self, requests: list[Request]) -> list[Request]:
-        B = self.scfg.batch
-        pc = self.scfg.prefill_chunk
+        scfg, B = self.scfg, self.scfg.batch
+        pc = scfg.prefill_chunk
+        hub = self.metrics            # every method a no-op when disabled
         queue = collections.deque(requests)
         done: list[Request] = []
+        # victims for preemption and shedding: lowest tier priority first,
+        # then fewest emitted tokens (least sunk work), then slot index
+        prio = np.asarray([t.priority for t in scfg.sla_tiers], np.int64)
         paged = self.kv_pool is not None
         pool_mgr = self.kv_pool
         if paged:
@@ -619,7 +804,7 @@ class Server:
             table = np.full((B, nbps), KVPool.TRASH, np.int32)
             slot_meta: list[Optional[dict]] = [None] * B
         else:
-            caches = self.mod.init_caches(self.cfg, B, self.scfg.max_len,
+            caches = self.mod.init_caches(self.cfg, B, scfg.max_len,
                                           self.device)
             table = None
         tok = np.zeros((B, 1), np.int32)
@@ -634,25 +819,124 @@ class Server:
         # the controller's prefill rider: telemetry of the chunks that run
         # sparse
         prefill_stats = ctl is not None and self.cfg.sparse.sparse_prefill
+        # admission back-off latch: set when a placement failed on an
+        # exhausted pool with resident work to wait for, cleared by every
+        # block release.  Preempting a peer at admission instead would
+        # ping-pong two equal-tier requests until both shed
+        pool_wait = [False]
+
+        def victim_key(j: int) -> tuple:
+            return (prio[tier_idx[j]], len(slot_out[j]), j)
 
         def finish(i: int) -> None:
             r = slot_req[i]
             r.out = np.asarray(slot_out[i][: r.max_new], np.int32)
             r.outcome = "completed"
-            r.t_end = time.perf_counter()
-            r.latency_s = r.t_end - r.t_admit
+            r.t_end = self._now()
+            r.latency_s = r.t_end - (r.t_admit if r.t_admit else r.t_start)
+            hub.inc("requests_completed")
+            hub.observe("latency_s", r.latency_s, tier=r.sla)
+            hub.event("complete", uid=r.uid, tier=r.sla,
+                      tokens=len(r.out), latency_s=r.latency_s)
             done.append(r)
             if paged:
-                release_slot(i, r)
+                _release_slot(i, r)
             slot_req[i] = None
             active[i] = False
 
-        def release_slot(i: int, r: Request) -> None:
+        def _expired(r: Request, now: float) -> bool:
+            return (r.deadline_s > 0.0 and r.t_admit > 0.0
+                    and now - r.t_admit > r.deadline_s)
+
+        def _shed(r: Request, reason: str, toks=None) -> None:
+            """Terminal shed: returned with the tokens it emitted, outside
+            the served throughput (t_end stays 0)."""
+            r.outcome, r.shed_reason = "shed", reason
+            r.out = np.asarray(toks if toks is not None else [], np.int32)
+            self.shed_count += 1
+            hub.inc("requests_shed", reason=reason)
+            hub.event("shed", uid=r.uid, tier=r.sla, reason=reason,
+                      tokens=len(r.out))
+            hub.instant("shed", uid=r.uid, reason=reason)
+            done.append(r)
+
+        def _clear_slot(i: int) -> None:
+            nonlocal alpha_mat
+            slot_req[i] = None
+            slot_out[i] = []
+            active[i] = False
+            alpha_mat = None
+
+        def _shed_slot(i: int, reason: str) -> None:
+            r = slot_req[i]
+            if paged:
+                _release_slot(i, r, store=False)
+            _shed(r, reason, toks=slot_out[i])
+            _clear_slot(i)
+
+        def _preempt_slot(i: int) -> None:
+            """Park slot i's prompt blocks in the trie (evictable yet
+            matchable, so the resume admits them by reference), free its
+            decode blocks and requeue the request; its emitted tokens are
+            decoded again on resume (decode-written KV is not bitwise
+            prefill KV, so re-prefilling them would not be exact).  Past
+            ``max_preemptions`` it sheds instead: the livelock guard for a
+            pool that can never hold it."""
+            r = slot_req[i]
+            if r.preemptions >= scfg.max_preemptions:
+                _shed_slot(i, "pool")
+                return
+            _release_slot(i, r, store=False)
+            r.preemptions += 1
+            r.outcome = "preempted"       # until it completes or sheds
+            self.preempt_count += 1
+            hub.inc("preemptions", tier=r.sla)
+            hub.event("preempt", uid=r.uid, tier=r.sla,
+                      preemptions=r.preemptions)
+            hub.instant("preempt", uid=r.uid)
+            _clear_slot(i)
+            queue.append(r)
+
+        def _relieve(exclude: Optional[int] = None,
+                     max_prio: Optional[int] = None) -> bool:
+            """Free pool headroom by preempting the first active slot in
+            victim order.  ``exclude`` (the slot that needs the block) is
+            chosen only when it is the sole candidate; ``max_prio``
+            (admission) admits only strictly lower tiers as victims."""
+            cands = [j for j in range(B) if active[j] and j != exclude
+                     and slot_meta[j] is not None
+                     and (max_prio is None or prio[tier_idx[j]] < max_prio)]
+            if (not cands and max_prio is None and exclude is not None
+                    and active[exclude] and slot_meta[exclude] is not None):
+                cands = [exclude]
+            if not cands:
+                return False
+            _preempt_slot(min(cands, key=victim_key))
+            return True
+
+        def _kill_pending(i: int, reason: str) -> None:
+            """Abort a mid-prefill admission (deadline or injected fault):
+            drop its scratch caches and every reference ``_match_reuse``
+            took, adopted and unconsumed copy-on-write candidates, and
+            shed it."""
+            pool_wait[0] = False
+            st = pending.pop(i)
+            m = st.get("meta")
+            if paged and m is not None:
+                for b in m["ids"] + m["cow_ids"]:
+                    pool_mgr.release(b)
+            _shed(st["req"], reason)
+
+        def _release_slot(i: int, r: Request, store: bool = True) -> None:
             """Retire slot i's table row: commit its prefill-origin full
             prompt blocks to the trie (deduplicated against existing
             chains), then keep the whole chain, reply blocks and partial
             tail included, under the request's session, or release every
-            reference (committed blocks park in the evictable LRU)."""
+            reference (committed blocks park in the evictable LRU).
+            ``store=False`` (preemption, shedding) keeps no session, but the
+            prompt blocks still commit: a preempted request's resume admits
+            them by reference."""
+            pool_wait[0] = False          # headroom is released below
             meta = slot_meta[i]
             written = int(lengths[i])          # prompt + decoded-token KV
             n_chain = -(-written // bs_) if written else 0
@@ -664,7 +948,7 @@ class Server:
                 meta["hashes"][:n_prompt_full], chain[:n_prompt_full],
                 owned_from=meta["adopted"])
             sid = r.session_id
-            if sid is not None:
+            if store and sid is not None:
                 hist = np.concatenate(
                     [np.asarray(r.prompt, np.int32),
                      np.asarray(slot_out[i], np.int32)])[:written]
@@ -677,13 +961,24 @@ class Server:
             slot_meta[i] = None
 
         def place(i: int, r: Request, first: int, t: int, one: dict,
-                  meta: Optional[dict] = None) -> None:
+                  meta: Optional[dict] = None) -> bool:
             """Activate slot i with a finished prefill: copy the batch-1
             caches into the slot (dense), or write them into blocks the slot
-            owns (paged)."""
+            owns (paged).  False when the pool cannot hold the request even
+            after relief: it is then requeued at the head (resident work
+            will release blocks) or shed ("pool"), and the slot left
+            empty."""
             nonlocal alpha_mat
-            r.ttft_s = time.perf_counter() - r.t_admit
             plen = len(r.prompt)
+            r.ttft_s = self._now() - (r.t_admit if r.t_admit else r.t_start)
+            hub.observe("ttft_s", r.ttft_s, tier=r.sla)
+            hub.event("first_token", uid=r.uid, tier=r.sla, ttft_s=r.ttft_s)
+            slot_req[i] = r
+            slot_out[i] = [first]
+            tok[i, 0] = first
+            lengths[i] = plen
+            tier_idx[i] = t
+            active[i] = True
             if paged:
                 meta = meta or {"adopted": 0, "ids": [], "cow_ids": [],
                                 "hashes": pool_mgr.block_hashes(
@@ -695,12 +990,38 @@ class Server:
                 # them for writing (copy-on-write forks the shared
                 # originals; the commit below rewrites every owned block,
                 # the matched ones with the same content).  Their reference
-                # was taken in _match_reuse; ensure_writable consumes it.
-                # Without overload handling an exhausted pool raises.
+                # was taken in _match_reuse; ensure_writable consumes it,
+                # and raises before consuming it when the fork finds no
+                # block
                 cow = meta["cow_ids"]
-                owned = [pool_mgr.ensure_writable(cow[j - nb_re])[0]
-                         if j - nb_re < len(cow) else pool_mgr.alloc()
-                         for j in range(nb_re, nb_prompt)]
+                owned: list[int] = []
+                j = nb_re
+                while j < nb_prompt:
+                    k = j - nb_re
+                    try:
+                        wid = (pool_mgr.ensure_writable(cow[k])[0]
+                               if k < len(cow) else pool_mgr.alloc())
+                    except PoolExhausted:
+                        if not scfg.preempt:
+                            raise
+                        # slot i holds no blocks yet, so it is never its
+                        # own victim; an admission displaces only strictly
+                        # lower tiers (peers wait, see pool_wait)
+                        if _relieve(exclude=i, max_prio=int(prio[t])):
+                            continue          # headroom freed: retry
+                        # roll back every reference this placement holds
+                        for b in owned + cow[k:] + meta["ids"]:
+                            pool_mgr.release(b)
+                        table[i, :] = KVPool.TRASH
+                        _clear_slot(i)
+                        if active.any() or pending:
+                            queue.appendleft(r)
+                            pool_wait[0] = True
+                        else:
+                            _shed(r, "pool")  # nothing resident to wait for
+                        return False
+                    owned.append(wid)
+                    j += 1
                 _commit_owned(caches, one,
                               torch.as_tensor(owned, dtype=torch.long,
                                               device=self.device), nb_re)
@@ -712,29 +1033,47 @@ class Server:
                 slot_meta[i] = meta
             else:
                 _splice_slot(caches, one, i)
-            slot_req[i] = r
-            slot_out[i] = [first]
-            tok[i, 0] = first
-            lengths[i] = plen
-            tier_idx[i] = t
-            active[i] = True
             alpha_mat = None
+            return True
 
         def admit(i: int) -> None:
-            """Fill slot i from the queue.  With chunked prefill the slot
-            goes pending (admitting by reference what the pool holds, when
-            paged); otherwise a batch-1 prefill at the prompt's natural
-            length is copied into the slot."""
+            """Fill slot i from the queue, as one "admission" span."""
+            if not queue:
+                return
+            with hub.span("admission", slot=i):
+                _admit(i)
+
+        def _admit(i: int) -> None:
+            """With chunked prefill the slot goes pending (admitting by
+            reference what the pool holds, when paged); otherwise a batch-1
+            prefill at the prompt's natural length is copied into the slot.
+            Requests that expired in the queue shed here."""
             while queue:
+                if pool_wait[0]:
+                    return        # exhaustion latch: wait for a release
+                if (paged and scfg.pressure_gate < 1.0
+                        and (active.any() or pending)
+                        and pool_mgr.pressure() >= scfg.pressure_gate):
+                    # admission backpressure: never with nothing resident,
+                    # so the loop always makes progress
+                    self.admissions_deferred += 1
+                    return
                 r = queue.popleft()
+                if _expired(r, self._now()):
+                    _shed(r, "deadline")
+                    continue
                 if paged:
                     sess = pool_mgr.lookup_session(r.session_id)
                     if sess is not None:
                         r.sla = sess["tier"]    # session-sticky tier
                 t = self._tier_of(r)
                 plen = len(r.prompt)
-                r.t_start = time.perf_counter()
-                r.queue_wait_s = r.t_start - r.t_admit
+                now = self._now()
+                r.t_start = now
+                r.queue_wait_s = now - r.t_admit if r.t_admit else 0.0
+                hub.observe("queue_wait_s", r.queue_wait_s, tier=r.sla)
+                hub.event("admit", uid=r.uid, tier=r.sla, plen=plen,
+                          queue_wait_s=r.queue_wait_s)
                 if pc:
                     toks = np.zeros((1, -(-plen // pc) * pc), np.int32)
                     toks[0, :plen] = np.asarray(r.prompt, np.int32)
@@ -753,15 +1092,25 @@ class Server:
                         self.prefill_chunks_skipped += st["off"] // pc
                     else:
                         st["caches"] = self.mod.init_caches(
-                            self.cfg, 1, self.scfg.max_len, self.device)
+                            self.cfg, 1, scfg.max_len, self.device)
                     pending[i] = st
                     return
-                prompt = torch.as_tensor(
-                    np.asarray(r.prompt, np.int32)[None, :],
-                    device=self.device)
-                logits, one = self.mod.prefill(self.params, self.cfg, prompt,
-                                               self.scfg.max_len)
-                place(i, r, int(greedy_sample(logits)[0]), t, one)
+                try:
+                    self._fault("prefill", r.uid)
+                except InjectedFault:
+                    _shed(r, "fault")     # the slot died mid-prefill
+                    continue
+                with hub.span("prefill", hist="prefill_s", slot=i,
+                              uid=r.uid):
+                    logits, one = self.mod.prefill(
+                        self.params, self.cfg, torch.as_tensor(
+                            np.asarray(r.prompt, np.int32)[None, :],
+                            device=self.device), scfg.max_len)
+                    first = int(greedy_sample(logits)[0])
+                if not place(i, r, first, t, one):
+                    if pool_wait[0]:
+                        return    # backpressure latched: stop admitting
+                    continue      # shed on pool exhaustion: try the next
                 if r.max_new <= 1:
                     finish(i)     # prefill alone satisfied it; keep draining
                     continue
@@ -776,14 +1125,23 @@ class Server:
                         break
                     st = pending[i]
                     r = st["req"]
+                    try:
+                        self._fault("prefill", r.uid)
+                    except InjectedFault:
+                        # the admission dies cleanly and the slot refills
+                        _kill_pending(i, "fault")
+                        admit(i)
+                        continue
                     chunk = torch.as_tensor(
                         st["tokens"][:, st["off"]:st["off"] + pc],
                         device=self.device)
-                    out = self.mod.prefill_chunk(
-                        self.params, self.cfg, chunk, st["caches"],
-                        st["off"], len(r.prompt),
-                        alphas=self._prefill_alphas(st["tier"]),
-                        collect_stats=prefill_stats)
+                    with hub.span("prefill_chunk", hist="prefill_chunk_s",
+                                  slot=i, uid=r.uid):
+                        out = self.mod.prefill_chunk(
+                            self.params, self.cfg, chunk, st["caches"],
+                            st["off"], len(r.prompt),
+                            alphas=self._prefill_alphas(st["tier"]),
+                            collect_stats=prefill_stats)
                     if prefill_stats:
                         logits, st["caches"], stats = out
                         ctl.observe_prefill(
@@ -796,54 +1154,111 @@ class Server:
                     budget -= 1
                     self.prefill_chunks_run += 1
                     if st["off"] >= st["tokens"].shape[1]:
+                        first = int(greedy_sample(logits)[0])
                         del pending[i]
-                        place(i, r, int(greedy_sample(logits)[0]),
-                              st["tier"], st["caches"], st.get("meta"))
-                        if r.max_new <= 1:
+                        if not place(i, r, first, st["tier"], st["caches"],
+                                     st.get("meta")):
+                            admit(i)   # requeued or shed; a no-op while
+                            #            the exhaustion latch holds
+                        elif r.max_new <= 1:
                             finish(i)
                             admit(i)   # refill: may go pending again
 
         def ensure_write_blocks() -> None:
             """Before a decode step every live slot's write position must
             land in a block it owns: allocate on first touch (TRASH lanes
-            are the unallocated tail)."""
+            are the unallocated tail).  Under ``preempt`` an exhausted pool
+            preempts a victim instead of raising, possibly the slot itself;
+            every retry preempts or sheds one slot, so this ends."""
             for i in range(B):
-                if active[i]:
-                    j = int(lengths[i]) // bs_
-                    if table[i, j] == KVPool.TRASH:
+                if not active[i]:
+                    continue
+                j = int(lengths[i]) // bs_
+                while active[i] and table[i, j] == KVPool.TRASH:
+                    try:
                         table[i, j] = pool_mgr.alloc()
+                    except PoolExhausted:
+                        if not scfg.preempt:
+                            raise
+                        _relieve(exclude=i)
 
         for i in range(B):
             admit(i)
+        # each iteration ticks the virtual clock and decodes, prefills,
+        # admits or sheds, so the loop ends; its order is the reference's,
+        # one iteration for one, so deadlines expire at the same steps
+        step_n = 0                    # decode steps (the gauge cadence)
         while active.any() or pending or queue:
-            if queue:
+            self._tick()
+            now = self._now()
+            # deadlines: resident and mid-prefill requests shed with what
+            # they emitted (queued ones shed at dequeue)
+            for i in range(B):
+                if active[i] and _expired(slot_req[i], now):
+                    _shed_slot(i, "deadline")
+            for i in [j for j in sorted(pending)
+                      if _expired(pending[j]["req"], now)]:
+                _kill_pending(i, "deadline")
+            # deadline pressure: a queue head that has waited half its
+            # deadline parks a strictly-lower-tier resident and takes its
+            # slot in this iteration
+            if scfg.preempt and queue:
+                h = queue[0]
+                if (h.deadline_s > 0.0 and h.t_admit > 0.0
+                        and now - h.t_admit >= 0.5 * h.deadline_s):
+                    cands = [j for j in range(B) if active[j]
+                             and prio[tier_idx[j]] < prio[self._tier_of(h)]]
+                    if cands:
+                        _preempt_slot(min(cands, key=victim_key))
+            # refill empty slots: deferred admissions retry and slots freed
+            # by sheds and preemptions fill
+            if queue and not pool_wait[0]:
                 for i in range(B):
                     if slot_req[i] is None and i not in pending:
                         admit(i)
             if pending:
                 # interleave admissions with decode steps
-                advance_prefill(self.scfg.prefill_interleave)
+                advance_prefill(scfg.prefill_interleave)
+                if not active.any():
+                    continue      # nothing decoding yet: keep prefilling
             if not active.any():
-                continue          # nothing decoding yet: keep prefilling
+                continue          # deferred or shed everything this pass
             if paged:
                 ensure_write_blocks()
+                if not active.any():
+                    continue      # exhaustion relief preempted every slot
+            self._fault("decode")   # fatal: aborts serve(), which resets
+            t_dec = hub.now() if hub.enabled else 0.0
             if ctl is not None:
                 # rebuilt every step: the controller adapts between steps
                 alphas = self._slot_alpha_matrix(tier_idx, active)
-                if self.scfg.warm_buckets and not self._warmed_buckets:
+                if scfg.warm_buckets and not self._warmed_buckets:
                     self._warm_bucket_ladder(tok, caches, lengths, alphas,
                                              table)
                 audit = ctl.is_audit_step()
+                prev_cap = self._active_cap
                 self._select_bucket()      # between-step bucket switch
+                if hub.enabled and self._active_cap != prev_cap:
+                    hub.inc("bucket_switches")
+                    hub.event("bucket_switch", bucket=self._active_cap)
+                    hub.instant("bucket_switch")
                 ntok, caches, stats = self._decode_ctrl(
                     audit, tok, caches, lengths, alphas, table)
-                self._observe_step(stats, tier_idx, active, audit)
+                with hub.span("controller_update",
+                              hist="controller_update_s"):
+                    self._observe_step(stats, tier_idx, active, audit)
             else:
                 if alpha_mat is None:
                     alpha_mat = self._slot_alpha_matrix(tier_idx, active)
                 ntok, caches = self._decode(tok, caches, lengths, alpha_mat,
                                             table)
             ntok = ntok.cpu().numpy()
+            # the step ends where the host reads its tokens; under the
+            # virtual clock the span has no duration
+            hub.complete("decode_step", t_dec, hist="decode_step_s")
+            step_n += 1
+            if hub.enabled and step_n % scfg.metrics.cadence == 0:
+                self.publish_gauges()
             refill = []
             for i in range(B):
                 if not active[i]:
@@ -858,53 +1273,58 @@ class Server:
                 alpha_mat = None
                 if queue:
                     self.maybe_adapt_capacity()   # a refill boundary
-                for i in refill:
-                    admit(i)
+                    for i in refill:
+                        admit(i)
         if paged:
             self._pool = caches
         return done
 
 
-def _nearest_rank_pct(vals: list, q: float) -> float:
-    """Nearest-rank percentile, rank = ceil(q*n) with float fuzz rounded
-    away (as the reference's metrics.nearest_rank_pct)."""
-    if not vals:
-        return 0.0
-    vals = sorted(vals)
-    rank = math.ceil(round(q * len(vals), 9))
-    return vals[min(len(vals) - 1, max(0, rank - 1))]
-
-
 def throughput_report(requests: list[Request]) -> dict:
     """Tokens over the true wall-clock window (first dequeue to last
-    completion) plus per-request latency, TTFT and queue-wait statistics;
-    the reference's report keys.  Shedding and preemption are not ported,
-    so their counts are 0 here."""
+    completion), per-request latency, TTFT and queue-wait statistics, and
+    the overload outcomes; the reference's keys.  Its percentiles come from
+    an exact-mode ``MetricsHub`` (``hist_max_exact=0``): nearest rank for
+    any queue size."""
+    # served = completion stamped (t_start may be the clock's 0.0)
     served = [r for r in requests if r.t_end > 0.0 and r.t_end >= r.t_start]
     toks = sum(len(r.out) for r in served if r.out is not None)
     wall = (max(r.t_end for r in served) - min(r.t_start for r in served)
             if served else 0.0)
-    lat = [r.latency_s for r in served]
-    ttft = [r.ttft_s for r in served if r.ttft_s > 0.0]
-    qw = [r.queue_wait_s for r in served if r.t_admit > 0.0]
-
-    def mean(v):
-        return float(sum(v) / len(v)) if v else 0.0
+    hub = MetricsHub(MetricsConfig(enabled=True, hist_max_exact=0,
+                                   watchdog=False))
+    for r in served:
+        hub.observe("latency_s", r.latency_s)
+        if r.ttft_s > 0.0:
+            hub.observe("ttft_s", r.ttft_s)
+        if r.t_admit > 0.0:
+            hub.observe("queue_wait_s", r.queue_wait_s)
+    pct = hub.percentile
+    # every request the scheduler touched ends "completed" or "shed" (with
+    # a reason); a preempted request that completed counts in both
+    # "completed" and "preempted"
     n_shed = sum(1 for r in requests if r.outcome == "shed")
+    shed_reasons: dict = {}
+    for r in requests:
+        if r.outcome == "shed" and r.shed_reason:
+            k = f"shed_{r.shed_reason}"
+            shed_reasons[k] = shed_reasons.get(k, 0) + 1
     return {"requests": len(requests), "tokens": toks,
             "completed": sum(1 for r in requests
                              if r.outcome == "completed"),
             "shed": n_shed,
             "shed_rate": float(n_shed / len(requests)) if requests else 0.0,
-            "preempted": 0, "preemptions": 0,
+            **shed_reasons,
+            "preempted": sum(1 for r in requests if r.preemptions > 0),
+            "preemptions": sum(r.preemptions for r in requests),
             "total_s": wall,
             "tok_per_s": float(toks / wall) if wall > 0.0 else 0.0,
-            "mean_latency_s": mean(lat),
-            "p50_latency_s": _nearest_rank_pct(lat, 0.5),
-            "p95_latency_s": _nearest_rank_pct(lat, 0.95),
-            "mean_ttft_s": mean(ttft),
-            "p50_ttft_s": _nearest_rank_pct(ttft, 0.5),
-            "p95_ttft_s": _nearest_rank_pct(ttft, 0.95),
-            "mean_queue_wait_s": mean(qw),
-            "p50_queue_wait_s": _nearest_rank_pct(qw, 0.5),
-            "p95_queue_wait_s": _nearest_rank_pct(qw, 0.95)}
+            "mean_latency_s": hub.hist_mean("latency_s"),
+            "p50_latency_s": pct("latency_s", 0.5),
+            "p95_latency_s": pct("latency_s", 0.95),
+            "mean_ttft_s": hub.hist_mean("ttft_s"),
+            "p50_ttft_s": pct("ttft_s", 0.5),
+            "p95_ttft_s": pct("ttft_s", 0.95),
+            "mean_queue_wait_s": hub.hist_mean("queue_wait_s"),
+            "p50_queue_wait_s": pct("queue_wait_s", 0.5),
+            "p95_queue_wait_s": pct("queue_wait_s", 0.95)}
