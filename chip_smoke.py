@@ -140,7 +140,28 @@ Phases, in order; any failure exits non-zero:
              aborts a serve and resets the server; the queue served again
              with the hub off gives the first serve's tokens bitwise, and
              the watchdog armed by the first drain counts no first use.
- 14. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 14. archs   the other dense archs (prosparse-llama2-13b, qwen3-8b,
+             qwen1.5-32b, granite-34b, gemma2-2b) at full width and 2
+             layers (gemma2: one local, one global), float32 compute,
+             weights bridged from seeded numpy draws: 8 teacher-forced
+             decode steps card against CPU on the dense cache (float32,
+             then the config's own KV dtype), on a fragmented float32 pool
+             with the paged kernels (and an int8 pool on the gather route
+             for the int8 configs), a 160-token chunked sparse prefill;
+             gemma2 also at per-slot lengths 4095, 4096, 4097 and 4500, its
+             window of 4096 binding in the paged kernel, and the window
+             against none with sparsity off.  Launches exact.  Then the
+             paged attention at gemma2's shape (hd 256, softcap 50) and
+             granite's (MQA) and the decode MLP at granite's ungated
+             d=6144 and qwen1.5's d=5120, each against its plain version
+             and timed beside its bound, the plain version and a library
+             yardstick.
+ 15. serve-gemma2  gemma2-2b at full width and all 26 layers through
+             Server.serve: bf16 paged pool, block 16, the paged kernels,
+             chunked sparse prefill in chunks of 64, batch 4, 8 requests of
+             mixed tiers with 96-192-token prompts; launches exact; a
+             profiled paged decode step.
+ 16. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -235,6 +256,20 @@ D_PAD = 4000              # a width that is not a multiple of 32
 # the 1376 row groups
 CTRL_BUCKETS = (0.1, 0.2, 0.4)
 OVERLOAD_POOL = 18        # the overload phase's pool: about half the demand
+# the archs phase's logits tolerance by KV dtype, card against CPU: with a
+# float32 cache the two differ in float32 summation order only (phase 3's
+# 1e-3); a bf16 or int8 cache rounds q (and, int8, p) to bf16 before the
+# products, where the card's float32 drift can move a value by one bf16
+# ulp (2^-8 relative)
+ARCH_TOL = {"float32": 1e-3, "bfloat16": 5e-2, "int8": 5e-2}
+# ... and each stat entry's allowance in selection groups (G / k each).
+# float32: phase 3's 2 (an input element within rounding of 0 taking the
+# other sign bit moves every margin by 1 + alpha and can carry a group
+# across 0).  bf16/int8: that rounding moves the MLP's input by ~1e-3
+# relative (the logits 3e-3 to 7e-3 apart on an H100), so a few of its d
+# elements take the other sign bit and a row's counts move by several
+# groups: seen up to 12 (prosparse-llama2-13b's int8 decode), allowed 16
+ARCH_STAT_GROUPS = {"float32": 2, "bfloat16": 16, "int8": 16}
 
 
 def fail(msg: str) -> None:
@@ -2860,36 +2895,19 @@ def phase_paged_decode() -> None:
     params = {"cuda": lm.prepare_sparse(lm.init_lm(cfg, 0, "cuda"))}
     params["cpu"] = _to(params["cuda"], "cpu")
     rng = np.random.default_rng(11)
-    n = 2 + b * nbps + 3
-    table = (rng.permutation(n - 2)[: b * nbps] + 2).reshape(b, nbps)
-    table[1, 0] = table[0, 0]            # a shared prefix block, read only
-    table = table.astype(np.int32)
+    n, table = _fragmented_table(rng, b, nbps)
     lens0 = np.asarray([20, 17, 33, 47])
     # stale random content everywhere: the history of the live lanes
     shape = (n, bs, cfg.n_kv_heads, cfg.resolved_head_dim)
-    pool_np = [{k: rng.standard_normal(shape).astype(np.float32)
-                for k in ("k", "v")} for _ in range(cfg.n_layers)]
+    pool = [{k: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for k in ("k", "v")} for _ in range(cfg.n_layers)]
     forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
     alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
         np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
 
     def run(run_cfg, dev):
-        pool = {"blocks": [{k: torch.from_numpy(v).to(dev)
-                            for k, v in layer.items()}
-                           for layer in pool_np]}
-        tab = torch.as_tensor(table, device=dev)
-        out_l, out_s = [], []
-        with torch.inference_mode():
-            for t in range(steps):
-                lg, pool, st = lm.decode_step(
-                    params[dev], run_cfg,
-                    torch.as_tensor(forced[t], device=dev), pool,
-                    torch.as_tensor(lens0 + t, device=dev), alphas=alphas,
-                    collect_stats=True, block_table=tab)
-                out_l.append(lg.float().cpu())
-                out_s.append({k: v.cpu() for k, v in st.items()})
-        return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
-                                    for k in MLP_STAT_KEYS}
+        return _paged_forced(params[dev], run_cfg, dev, pool, table, lens0,
+                             forced, alphas)
 
     ops.reset_launch_counts()
     kern = run(cfg, "cuda")
@@ -3457,6 +3475,583 @@ def phase_serve_overload(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+NEW_ARCHS = ("prosparse-llama2-13b", "qwen3-8b", "qwen1.5-32b", "granite-34b",
+             "gemma2-2b")
+# gemma2's window check: per-slot lengths on both sides of its window of
+# 4096 and far past it, in a pool of 4608 positions a slot
+WINDOW_LENS = (4095, 4096, 4097, 4500)
+WINDOW_MAX_LEN = 4608
+
+
+def _numpy_tree(cfg, seed: int) -> dict:
+    """The reference's parameter tree for ``cfg`` (blocks stacked along a
+    leading layer axis, float32 numpy leaves) drawn from seeded numpy
+    generators at the reference's init scales: each leaf in 32 pieces, each
+    piece from its own generator spawned from ``seed`` (so the draws do
+    not depend on the number of threads that fill them).  The reference
+    starts norm scales and QKV biases at zero; here they are drawn too
+    (0.3 N(0, 1)), so qk-norm, the biases and the post-block norms act."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    seeds = np.random.SeedSequence(seed)
+    d, n, k = cfg.d_model, cfg.n_layers, cfg.d_ff
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    pool = ThreadPoolExecutor(os.cpu_count() or 1)
+
+    def draw(shape, scale, parts=32):
+        out = np.empty(shape, np.float32)
+        flat = out.reshape(-1)
+        cut = np.linspace(0, flat.size, parts + 1).astype(np.int64)
+
+        def fill(i, ss):
+            piece = flat[cut[i]:cut[i + 1]]
+            np.random.default_rng(ss).standard_normal(out=piece,
+                                                      dtype=np.float32)
+            piece *= np.float32(scale)
+        list(pool.map(fill, range(parts), seeds.spawn(parts)))
+        return out
+
+    def norm(width, layers=True):
+        return {"scale": draw((n, width) if layers else (width,), 0.3)}
+    attn = {"wq": draw((n, d, h * hd), d ** -0.5),
+            "wk": draw((n, d, kvh * hd), d ** -0.5),
+            "wv": draw((n, d, kvh * hd), d ** -0.5),
+            "wo": draw((n, h * hd, d), (h * hd) ** -0.5)}
+    if cfg.qkv_bias:
+        attn.update(bq=draw((n, h * hd), 0.3), bk=draw((n, kvh * hd), 0.3),
+                    bv=draw((n, kvh * hd), 0.3))
+    if cfg.qk_norm:
+        attn.update(q_norm=norm(hd), k_norm=norm(hd))
+    mlp = {"wg_t": draw((n, k, d), d ** -0.5)}
+    if cfg.gated_mlp:
+        mlp["wu_t"] = draw((n, k, d), d ** -0.5)
+    mlp["wd_t"] = draw((n, k, d), k ** -0.5)
+    blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d), "mlp": mlp}
+    if cfg.post_block_norm:
+        blocks.update(ln1_post=norm(d), ln2_post=norm(d))
+    tree = {"embed": {"table": draw((cfg.vocab_padded, d), d ** -0.5)},
+            "final_norm": norm(d, layers=False), "blocks": blocks}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = {"table": draw((cfg.vocab_padded, d), d ** -0.5)}
+    pool.shutdown()
+    return tree
+
+
+def _hold(label: str, card, cpu, cfg, kv: str) -> None:
+    """Card against CPU runs of the same steps: (logits (steps, B, V),
+    stats {key: (steps, L, B)}).  Logits within ``ARCH_TOL[kv]``; each
+    stat entry within ``ARCH_STAT_GROUPS[kv]`` selection groups.  The
+    number of entries that differ at all is printed."""
+    import torch
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    if not bool(torch.isfinite(card[0]).all()):
+        fail(f"archs {label}: non-finite logits on the card")
+    diff = (card[0] - cpu[0]).abs()
+    tol = ARCH_TOL[kv]
+    stat_tol = ARCH_STAT_GROUPS[kv] * cfg.sparse.group_size / cfg.d_ff
+    n_diff = sum(int((card[1][k] != cpu[1][k]).sum()) for k in MLP_STAT_KEYS)
+    worst = max(float((card[1][k] - cpu[1][k]).abs().max())
+                for k in MLP_STAT_KEYS)
+    n_all = sum(card[1][k].numel() for k in MLP_STAT_KEYS)
+    print(f"[archs] {label}: logits max abs diff {float(diff.max()):.3e}, "
+          f"median {float(diff.median()):.3e} (tolerance {tol}); {n_diff} of "
+          f"{n_all} stat entries differ, by at most {worst:.3e} (tolerance "
+          f"{stat_tol:.3e})", flush=True)
+    if float(diff.max()) > tol or worst > stat_tol:
+        fail(f"archs {label}: logits differ by {float(diff.max())} or a "
+             f"stat by {worst}")
+
+
+def _want_launches(counts: dict, **n) -> dict:
+    return {k: n.get(k, 0) for k in counts}
+
+
+def _random_pool(cfg, n_blocks: int, kv_dtype, seed: int) -> list:
+    """A seeded pool of stale random K/V, per layer, on the CPU: float
+    values N(0, 1), or int8 values with bfloat16 scales in [0.005, 0.05]."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    shape = (n_blocks, PAGE_BLOCK, cfg.n_kv_heads, cfg.resolved_head_dim)
+    out = []
+    for _ in range(cfg.n_layers):
+        if kv_dtype == torch.int8:
+            layer = {n: torch.randint(-127, 128, shape, generator=gen,
+                                      dtype=torch.int8) for n in ("k", "v")}
+            layer.update({n: (torch.rand(shape[:3], generator=gen) * 0.045
+                              + 0.005).to(torch.bfloat16)
+                          for n in ("k_scale", "v_scale")})
+        else:
+            layer = {n: torch.randn(shape, generator=gen).to(kv_dtype)
+                     for n in ("k", "v")}
+        out.append(layer)
+    return out
+
+
+def _paged_forced(params, cfg, dev, pool, table, lens0, forced, alphas):
+    """Teacher-forced decode steps against a copy of ``pool`` (per-layer
+    CPU tensors) on ``dev`` -> (logits (steps, B, V), stats {key: (steps,
+    L, B)}) on the CPU."""
+    import torch
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.models import lm
+    pool = {"blocks": [{k: v.to(dev) for k, v in layer.items()}
+                       for layer in pool]}
+    tab = torch.as_tensor(table, device=dev)
+    out_l, out_s = [], []
+    with torch.inference_mode():
+        for t in range(len(forced)):
+            lg, pool, st = lm.decode_step(
+                params, cfg, torch.as_tensor(forced[t], device=dev), pool,
+                torch.as_tensor(lens0 + t, device=dev), alphas=alphas,
+                collect_stats=True, block_table=tab)
+            out_l.append(lg.float().cpu())
+            out_s.append({k: v.cpu() for k, v in st.items()})
+    return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
+                                for k in MLP_STAT_KEYS}
+
+
+def _fragmented_table(rng, b: int, nbps: int):
+    """A shuffled block table over 2 reserved blocks, b * nbps blocks of
+    the slots and 3 spare; slots 0 and 1 share their first block."""
+    import numpy as np
+    n = 2 + b * nbps + 3
+    table = (rng.permutation(n - 2)[: b * nbps] + 2).reshape(b, nbps)
+    table[1, 0] = table[0, 0]
+    return n, table.astype(np.int32)
+
+
+def _arch_chunks(params, cfg, tag: str) -> None:
+    """One 160-token sparse prefill in chunks of 64 (the last holds 32 pad
+    rows), card against CPU: the last chunk's logits within 1e-3, every
+    chunk's stats within 2 groups, two launches per sparse MLP a chunk."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cfg = cfg.replace(sparse=dataclasses.replace(
+        cfg.sparse, sparse_prefill=True))
+    plen, chunk, L = 160, MAIN_CHUNK, cfg.n_layers
+    n_chunks = -(-plen // chunk)
+    rng = np.random.default_rng(5)
+    tokens = np.zeros((1, n_chunks * chunk), np.int64)
+    tokens[0, :plen] = rng.integers(0, cfg.vocab, size=plen)
+    alphas = cfg.sparse.alpha_schedule().alphas(L)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        caches = lm.init_caches(cfg, 1, 256, dev)
+        logits, stats = [], []
+        with torch.inference_mode():
+            for off in range(0, n_chunks * chunk, chunk):
+                lg, caches, st = lm.prefill_chunk(
+                    params[dev], cfg,
+                    torch.as_tensor(tokens[:, off:off + chunk], device=dev),
+                    caches, off, plen, alphas=alphas, collect_stats=True)
+                logits.append(lg.float().cpu())
+                stats.append({k: v.cpu() for k, v in st.items()})
+        out[dev] = (torch.stack(logits)[-1:],
+                    {k: torch.stack([s[k] for s in stats])
+                     for k in MLP_STAT_KEYS}, ops.launch_counts())
+    counts = out["cuda"][2]
+    want = _want_launches(counts, predict_chunk_group_margins=L * n_chunks,
+                          fused_sparse_mlp_chunk=L * n_chunks)
+    if counts != want:
+        fail(f"archs {tag} chunked prefill: launches {counts}, want {want}")
+    _hold(f"{tag} chunked sparse prefill ({plen} tokens, chunks of {chunk}, "
+          f"{cfg.kv_cache_dtype} KV cache; {time.perf_counter() - t0:.1f} s)",
+          out["cuda"][:2], out["cpu"][:2], cfg, cfg.kv_cache_dtype)
+
+
+def _gemma2_window(params, cfg) -> None:
+    """gemma2's local layer on the model path with the window binding in
+    the paged kernel: 2 decode steps at per-slot lengths 4095, 4096, 4097
+    and 4500 on a float32 pool of seeded K/V, the kernel route on the card
+    against the plain route on the CPU, launches exact.  Then, sparsity
+    off (so no batch union couples the slots), the kernel route with the
+    window against one with a window past every length: the slot at 4095
+    (all its keys inside the window) bitwise the same, the other three
+    different."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    b, steps, L = len(WINDOW_LENS), 2, cfg.n_layers
+    nbps = WINDOW_MAX_LEN // PAGE_BLOCK
+    rng = np.random.default_rng(14)
+    n, table = _fragmented_table(rng, b, nbps)
+    pool = _random_pool(cfg, n, torch.float32, 14)
+    lens0 = np.asarray(WINDOW_LENS)
+    forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
+    alphas = cfg.sparse.alpha_schedule().alphas(L)
+    kcfg = cfg.replace(kv_cache_dtype="float32", paged_attn_kernel=True)
+    ops.reset_launch_counts()
+    card = _paged_forced(params["cuda"], kcfg, "cuda", pool, table, lens0,
+                         forced, alphas)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = _want_launches(counts, predict_group_margins=L * steps,
+                          fused_sparse_mlp=L * steps,
+                          paged_attention=L * steps,
+                          paged_kv_write=L * steps)
+    if counts != want:
+        fail(f"archs gemma2 window: launches {counts}, want {want}")
+    cpu = _paged_forced(params["cpu"], kcfg, "cpu", pool, table, lens0,
+                        forced, alphas)
+    _hold(f"gemma2-2b window {cfg.window} at lengths {list(WINDOW_LENS)} "
+          f"(+{steps - 1}), kernel route vs CPU", card, cpu, cfg, "float32")
+    dense = kcfg.replace(sparse=dataclasses.replace(cfg.sparse,
+                                                    enabled=False))
+    outs = [_paged_forced(params["cuda"], c, "cuda", pool, table, lens0,
+                          forced[:1], alphas)[0][0]
+            for c in (dense, dense.replace(window=10 ** 9))]
+    moved = (outs[0] - outs[1]).abs().amax(-1)
+    print(f"[archs] gemma2-2b window vs none (sparsity off), logits max abs "
+          f"diff per slot at lengths {list(WINDOW_LENS)}: "
+          f"{[f'{float(v):.3e}' for v in moved]}", flush=True)
+    if float(moved[0]) != 0.0 or not bool((moved[1:] > 0).all()):
+        fail("archs gemma2 window: the window moved the slot with every key "
+             "inside it, or left a slot with keys outside it unchanged")
+
+
+def _decode_pair(params, cfg, label: str, want: dict) -> None:
+    """8 teacher-forced decode steps on the dense cache, card against CPU
+    (``_teacher_forced``), the card's launches exactly ``want``."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    card = _teacher_forced(params["cuda"], cfg, "cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts != _want_launches(counts, **want):
+        fail(f"archs {label}: launches {counts}, want {want}")
+    cpu = _teacher_forced(params["cpu"], cfg, "cpu")
+    _hold(f"{label} ({time.perf_counter() - t0:.1f} s)", card, cpu, cfg,
+          cfg.kv_cache_dtype)
+
+
+def phase_archs() -> None:
+    """The other dense archs at full width and 2 layers (gemma2: one local
+    and one global layer), float32 compute, weights bridged from seeded
+    numpy draws to the CPU and copied to the card: 8 teacher-forced decode
+    steps on the dense cache (float32, then the config's own KV dtype, then
+    float32 with sparsity off: the arch's own silu or gelu) and on a
+    fragmented float32 pool with the paged kernels (int8 configs also on an
+    int8 pool, the gather route), a 160-token chunked sparse prefill, and
+    for gemma2 decode steps at lengths on both sides of its window.
+
+    The selection runs at capacity 1.0 here.  With random weights ~99.8%
+    of groups predict active, so a binding capacity clamp cuts among
+    near-equal margins, and one input element within rounding of 0 taking
+    the other sign bit on the card moves every margin and so the whole
+    selection: logits O(1) apart (seen on an H100 at capacity 0.2:
+    qwen1.5-32b's float32 decode 1.26, the bf16 and int8 caches 0.3-2.4).
+    Without the clamp such a flip moves a group across 0 at most for one
+    row, within the stat allowance, and the union and the output stay.
+    The clamp is held at full width by phase 2 and the serves."""
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    for i, arch in enumerate(NEW_ARCHS):
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        cfg = base.replace(n_layers=2, dtype="float32",
+                           sparse=dataclasses.replace(
+                               base.sparse, strategy="pallas", enabled=True,
+                               capacity_frac=1.0))
+        L, steps = cfg.n_layers, DEC_STEPS
+        raw = bridge.params_from_numpy(_numpy_tree(cfg, 100 + i), cfg,
+                                       device="cpu")
+        params = {"cpu": lm.prepare_sparse(raw),
+                  "cuda": lm.prepare_sparse(_to(raw, "cuda"))}
+        del raw
+        print(f"[archs] {arch}: d={cfg.d_model} H={cfg.n_heads} "
+              f"K={cfg.n_kv_heads} hd={cfg.resolved_head_dim} k={cfg.d_ff} "
+              f"vocab={cfg.vocab} {'gated' if cfg.gated_mlp else 'ungated'} "
+              f"{cfg.activation}, KV {base.kv_cache_dtype}, windows "
+              f"{lm._layer_windows(cfg)}, softcaps {cfg.attn_softcap}/"
+              f"{cfg.final_softcap}; weights built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        sparse = dict(predict_group_margins=L * steps,
+                      fused_sparse_mlp=L * steps)
+        for kv in dict.fromkeys(("float32", base.kv_cache_dtype)):
+            _decode_pair(params, cfg.replace(kv_cache_dtype=kv),
+                         f"{arch} decode, {kv} KV cache", sparse)
+        _decode_pair(params, cfg.replace(
+            kv_cache_dtype="float32", sparse=dataclasses.replace(
+                cfg.sparse, enabled=False)),
+            f"{arch} decode, sparsity off ({cfg.activation}), float32 KV "
+            "cache", {})
+        rng = np.random.default_rng(12)
+        n, table = _fragmented_table(rng, DEC_BATCH, 4)
+        lens0 = np.asarray([20, 17, 33, 47])
+        forced = rng.integers(0, cfg.vocab, size=(steps, DEC_BATCH, 1))
+        alphas = cfg.sparse.alpha_schedule().alphas(L)[:, None] + \
+            np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
+        pools = [("float32", True)]
+        if base.kv_cache_dtype == "int8":
+            pools.append(("int8", False))
+        for kv, kernel_route in pools:
+            t1 = time.perf_counter()
+            run_cfg = cfg.replace(kv_cache_dtype=kv, paged_attn_kernel=True)
+            pool = _random_pool(cfg, n, getattr(torch, kv), 12)
+            ops.reset_launch_counts()
+            card = _paged_forced(params["cuda"], run_cfg, "cuda", pool,
+                                 table, lens0, forced, alphas)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            paged = L * steps if kernel_route else 0
+            want = _want_launches(counts, paged_attention=paged,
+                                  paged_kv_write=paged, **sparse)
+            if counts != want:
+                fail(f"archs {arch} paged decode: launches {counts}, want "
+                     f"{want}")
+            cpu = _paged_forced(params["cpu"], run_cfg, "cpu", pool, table,
+                                lens0, forced, alphas)
+            route = "kernel" if kernel_route else "gather"
+            _hold(f"{arch} paged decode, {kv} pool, {route} route "
+                  f"({time.perf_counter() - t1:.1f} s)", card, cpu, cfg, kv)
+        _arch_chunks(params, cfg.replace(kv_cache_dtype=base.kv_cache_dtype),
+                     arch)
+        if cfg.window:
+            _gemma2_window(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        print(f"[archs] {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _sdpa(q, k, v, mask):
+    """SDPA with K/V heads shared by groups of query heads (``enable_gqa``
+    where this PyTorch has it, else K/V repeated beforehand)."""
+    import torch.nn.functional as F
+    rep = q.shape[1] // k.shape[1]
+    if rep == 1:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+    try:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                       enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    except TypeError:
+        k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+
+
+def phase_arch_kernel_times() -> None:
+    """The paged attention and the float32-weight decode MLP at shapes the
+    new archs bring, each checked against its plain version and timed
+    beside its bound, the plain version and a library yardstick: the
+    attention at gemma2's shape (H=8, K=4, hd 256, softcap 50, window
+    4096) and granite's (H=48, K=1: MQA), B=4, bf16 pool, the main
+    lengths; the MLP at granite's ungated d=6144, k=24576 and qwen1.5's
+    d=5120, k=27392, B=4, bf16 x, the alpha-1.0 selection."""
+    import numpy as np
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.default_rng(21)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+    b, nbps = MAIN_BATCH, PAGED_NBPS[0]
+    for name, h, kvh, hd, softcap, window in (
+            ("gemma2-2b", 8, 4, 256, 50.0, 4096),
+            ("granite-34b", 48, 1, 128, 0.0, 0)):
+        q, kp, vp, table, lengths = _paged_inputs(
+            gen, rng, b, h, kvh, hd, PAGE_BLOCK, nbps, torch.bfloat16,
+            torch.bfloat16, lengths=MAIN_LIVE)
+        kw = dict(softcap=softcap, window=window)
+        err = _check_attention(
+            f"{name} shape", _same_twice(
+                f"{name} shape", lambda: KA.paged_attention(
+                    q, kp, vp, table, lengths, **kw)),
+            ref.paged_attention_ref(q, kp, vp, table, lengths, **kw), vp)
+        t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths,
+                                                 **kw), iters=50, flush=flush)
+        t_p = cuda_ms(lambda: ref.paged_attention_ref(
+            q, kp, vp, table, lengths, **kw), iters=10, flush=flush)
+        s_max = nbps * PAGE_BLOCK
+        tab = table.long()
+        view = [p[tab].reshape(b, s_max, kvh, hd).transpose(1, 2).contiguous()
+                for p in (kp, vp)]
+        mask = (torch.arange(s_max, device=dev)[None, :]
+                <= lengths[:, None])[:, None, None, :]
+        t_lib = cuda_ms(_sdpa(q[:, :, None, :], *view, mask), iters=50,
+                        flush=flush)
+        live, bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
+        print(f"[arch-kernels] paged_attention {name} shape B={b} H={h} "
+              f"K={kvh} hd={hd} softcap={softcap} window={window} bf16 "
+              f"lengths {list(MAIN_LIVE)} ({live} live rows; "
+              f"{KA.launch_plan(q, kp, table)}): max_abs_err {err:.3e}, "
+              f"bitwise repeatable; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+              f"bound {bound[0]:.4f} ms ({bound[1]}; share "
+              f"{bound[0] / t_k:.3f}) sdpa-on-gathered-view {t_lib:.4f} ms"
+              f"{' (no softcap: SDPA has none)' if softcap else ''}",
+              flush=True)
+        del q, kp, vp, view
+    for name, d, k, gated in (("granite-34b", 6144, 24576, False),
+                              ("qwen1.5-32b", 5120, 27392, True)):
+        wg = torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+        wu = (torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+              if gated else None)
+        wd = torch.randn((k, d), generator=gen, device=dev) * k ** -0.5
+        sign_wg = P.pack_signs(wg)
+        cap = SparseInferConfig().capacity(k)
+        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+        alpha = torch.ones(b, device=dev)
+        gm, _ = KP.predict_group_margins(sign_wg, x, alpha, d_valid=d,
+                                         group_size=G)
+        sel, _ = S.capacity_select_with_stats(S.union_margin(gm), cap)
+        count = int(sel.count)
+        y = _same_twice(f"{name} shape", lambda: KF.fused_sparse_mlp(
+            x, wg, wu, wd, sel.indices, sel.count, group_size=G),
+            name="fused_sparse_mlp")
+        y_r = ref.fused_sparse_mlp_ref(x, wg, wu, wd, sel.indices, sel.count,
+                                       group_size=G)
+        torch.cuda.synchronize()
+        # as phase 2: bf16 x rounds h to bf16, one ulp (2^-8) apart at most
+        scale = float(y_r.abs().max()) or 1.0
+        err = float((y - y_r).abs().max())
+        if err > 2e-3 * scale:
+            fail(f"fused_sparse_mlp {name} shape: max abs err {err:.3e} > "
+                 f"2e-3 x max|y| {scale:.3e}")
+        t_k = cuda_ms(lambda: KF.fused_sparse_mlp(
+            x, wg, wu, wd, sel.indices, sel.count, group_size=G), flush=flush)
+        t_p = cuda_ms(lambda: ref.fused_sparse_mlp_ref(
+            x, wg, wu, wd, sel.indices, sel.count, group_size=G),
+            flush=flush)
+        rows = sel.indices[:count].long()
+        take = [m.reshape(k // G, G, d)[rows].reshape(-1, d).contiguous()
+                for m in (wg, wu, wd) if m is not None]
+        xf = x.float()
+        if gated:
+            lib = lambda: (torch.relu(xf @ take[0].T)  # noqa: E731
+                           * (xf @ take[1].T)) @ take[2]
+        else:
+            lib = lambda: torch.relu(xf @ take[0].T) @ take[1]  # noqa: E731
+        t_lib = cuda_ms(lib, flush=flush)
+        n_mats = 3 if gated else 2
+        bound = bound_ms(n_mats * count * G * d * 4 + b * d * 2 + cap * 4
+                         + b * d * 4, 2 * n_mats * b * count * G * d)
+        print(f"[arch-kernels] fused_sparse_mlp {name} shape B={b} d={d} "
+              f"k={k} {'gated' if gated else 'ungated'} x=bfloat16 "
+              f"count={count}/{cap}: max_abs_err {err:.3e}, bitwise "
+              f"repeatable; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound "
+              f"{bound[0]:.4f} ms ({bound[1]}; share {bound[0] / t_k:.3f}) "
+              f"gathered-rows-{n_mats}-matmul {t_lib:.4f} ms", flush=True)
+        del wg, wu, wd, sign_wg, take, lib
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
+def phase_serve_gemma2() -> None:
+    """gemma2-2b at full width and all 26 layers (about 10.5 GB of float32
+    weights, bf16 compute) through Server.serve: bf16 paged pool, block
+    16, the paged kernels, chunked sparse prefill in chunks of 64,
+    strategy pallas, batch 4, 8 requests of mixed tiers with 96-192-token
+    prompts and 16 new tokens each; launches exact; one profiled paged
+    decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import PagedKVConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config("gemma2-2b")
+    cfg = base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                       sparse=dataclasses.replace(
+                           base.sparse, strategy="pallas", enabled=True,
+                           sparse_prefill=True,
+                           prefill_max_tokens=max(
+                               base.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                       prefill_chunk=MAIN_CHUNK,
+                       paged_kv=PagedKVConfig(block_size=PAGE_BLOCK))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, "cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    srv = Server(lm, cfg, scfg, params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    print(f"[serve-gemma2] {cfg.n_layers} layers (windows "
+          f"{lm._windows(cfg)} alternating), d={cfg.d_model}, "
+          f"hd={cfg.resolved_head_dim}, weights {n_bytes / 1e9:.2f} GB "
+          f"{cfg.param_dtype}, compute {cfg.dtype}, {cfg.kv_cache_dtype} "
+          f"pool of {srv.kv_pool.n_blocks} blocks; init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(25)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab, size=int(rng.integers(96, 193))),
+                max_new=16, sla=tiers[i % 3]) for i in range(8)]
+    L = cfg.n_layers
+    ops.reset_launch_counts()
+    steps0, run0 = srv.decode_steps, srv.prefill_chunks_run
+    t1 = time.perf_counter()
+    done = srv.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    steps = srv.decode_steps - steps0
+    chunks = srv.prefill_chunks_run - run0
+    if len(done) != len(reqs) or any(
+            r.outcome != "completed" or len(r.out) != 16
+            or not ((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done):
+        fail("serve-gemma2: not every request completed with 16 valid "
+             "tokens")
+    n_chunks = sum(-(-len(r.prompt) // MAIN_CHUNK) for r in reqs)
+    want = _want_launches(counts, predict_group_margins=L * steps,
+                          fused_sparse_mlp=L * steps,
+                          paged_attention=L * steps,
+                          paged_kv_write=L * steps,
+                          predict_chunk_group_margins=L * chunks,
+                          fused_sparse_mlp_chunk=L * chunks)
+    if steps == 0 or counts != want or chunks != n_chunks:
+        fail(f"serve-gemma2: launches {counts}, want {want} ({steps} decode "
+             f"steps, {chunks} of {n_chunks} chunks)")
+    rep = throughput_report(done)
+    print(f"[serve-gemma2] throughput_report {json.dumps(rep)}", flush=True)
+    print(f"[serve-gemma2] {wall:.1f} s; decode steps {steps}; prefill "
+          f"chunks {chunks}; launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile_paged_decode(srv, cfg)
+    del srv
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def decode_q_ab(other_src: str, src: str) -> None:
     """The int8 decode MLP's scaling line and int8 decode step profile of
     ``other_src`` and ``src``, in the order other, this, this, other, each
@@ -3769,7 +4364,9 @@ def main() -> None:
                         (phase_serve_chunked, (results,)),
                         (phase_serve_paged, (results,)),
                         (phase_serve_controller, (results,)),
-                        (phase_serve_overload, (results,))):
+                        (phase_serve_overload, (results,)),
+                        (phase_archs, ()), (phase_arch_kernel_times, ()),
+                        (phase_serve_gemma2, ())):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

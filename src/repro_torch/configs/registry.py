@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus the reduced
 (CPU smoke) variant — the counterpart of ``repro/configs/registry.py``.
 
-Only ``prosparse-llama2-7b`` is registered; other archs come with their
+The dense family is registered: prosparse-llama2-7b and -13b, qwen3-8b,
+qwen1.5-32b, granite-34b and gemma2-2b.  The other families come with their
 slices of the port."""
 from __future__ import annotations
 
@@ -52,6 +53,8 @@ def reduced_config(name: str) -> ModelConfig:
     )
     kw["n_kv_heads"] = (1 if cfg.n_kv_heads == 1
                         else 4 if cfg.n_kv_heads == cfg.n_heads else 2)
+    if cfg.window:
+        kw["window"] = 8
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue A)")
@@ -62,4 +65,7 @@ def reduced_config(name: str) -> ModelConfig:
 
 
 # arch modules register themselves on import (bottom: decorator exists)
-from repro_torch.configs import prosparse_llama2_7b  # noqa: E402,F401
+from repro_torch.configs import (  # noqa: E402,F401
+    gemma2_2b, granite_34b, qwen3_8b, qwen1_5_32b, prosparse_llama2_7b,
+    prosparse_llama2_13b,
+)

@@ -14,8 +14,8 @@ import torch
 
 PACK = 32  # sign bits per packed word (int32)
 
-# popcount rows per chunk in neg_counts: bounds the (B, rows, w) int64
-# intermediate of the plain version
+# weight rows per chunk in neg_counts: bounds the (rows, 32 w) float32
+# bit matrix of the plain version
 _COUNT_CHUNK = 1024
 
 
@@ -46,25 +46,29 @@ def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
     return bits[..., :d].to(torch.bool)
 
 
-def _popcount32(v: torch.Tensor) -> torch.Tensor:
-    """Bit count of the low 32 bits of an int64 tensor (SWAR)."""
-    v = v & 0xFFFFFFFF
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+def _bits(packed: torch.Tensor) -> torch.Tensor:
+    """All 32 bits of each (R, w) word, LSB-first -> (R, 32 w) float32 0/1:
+    each byte of the little-endian words through a 256 x 8 table."""
+    table = ((torch.arange(256, device=packed.device)[:, None]
+              >> torch.arange(8, device=packed.device)) & 1).to(torch.float32)
+    octets = packed.contiguous().view(torch.uint8).long()     # (R, 4 w)
+    return table[octets].reshape(packed.shape[0], -1)
 
 
 def neg_counts(packed_w: torch.Tensor, packed_x: torch.Tensor) -> torch.Tensor:
     """(k, w) x (..., w) -> (..., k) int32 predicted-negative product counts
-    (sign bits that differ)."""
+    (sign bits that differ, over all 32 bits of every word).
+
+    popc(x ^ w) = popc(x) + popc(w) - 2 popc(x & w), the last term a
+    product of 0/1 bit matrices: every partial sum is an integer of at most
+    32 w < 2^24, so float32 holds it exactly in any summation order."""
     lead = packed_x.shape[:-1]
-    px = packed_x.reshape(-1, 1, packed_x.shape[-1]).to(torch.int64)
-    pw = packed_w.to(torch.int64)
+    xb = _bits(packed_x.reshape(-1, packed_x.shape[-1]))      # (R, 32 w)
+    nx = xb.sum(-1, keepdim=True)
     out = []
-    for r0 in range(0, pw.shape[0], _COUNT_CHUNK):
-        xor = px ^ pw[None, r0:r0 + _COUNT_CHUNK]
-        out.append(_popcount32(xor).sum(-1))
+    for r0 in range(0, packed_w.shape[0], _COUNT_CHUNK):
+        wb = _bits(packed_w[r0:r0 + _COUNT_CHUNK])
+        out.append(nx + wb.sum(-1) - 2 * (xb @ wb.T))
     return torch.cat(out, dim=-1).to(torch.int32).reshape(
         lead + (packed_w.shape[0],))
 
@@ -79,6 +83,13 @@ def margins(packed_w: torch.Tensor, packed_x: torch.Tensor, d_valid: int,
     """
     return margins_from_counts(neg_counts(packed_w, packed_x), d_valid,
                                alpha)
+
+
+def predict_sparse(packed_w: torch.Tensor, packed_x: torch.Tensor,
+                   d_valid: int, alpha: torch.Tensor | float = 1.0
+                   ) -> torch.Tensor:
+    """Boolean skip mask (..., k): True = predicted sparse (skippable)."""
+    return margins(packed_w, packed_x, d_valid, alpha) > 0
 
 
 def margins_from_counts(n_neg: torch.Tensor, d_valid: int,

@@ -117,6 +117,14 @@ def mask_from_selection(sel: Selection, k: int) -> torch.Tensor:
                              sel.valid.to(torch.int32)) > 0
 
 
+def actual_sparsity_mask(h1: torch.Tensor,
+                         threshold: float = 0.0) -> torch.Tensor:
+    """The paper's +AS mask (§IV, actual sparsity): the exact zeros after
+    the gate projection.  h1: post-activation gate values; returns the
+    keep-mask of the same shape, True where the neuron is live."""
+    return h1 > threshold
+
+
 def expected_capacity(k: int, sparsity: float, slack: float = 1.3,
                       multiple: int = 128) -> int:
     """Default capacity: expected density with slack, rounded up to a

@@ -1,9 +1,9 @@
-"""Attention for the dense decode path: counterpart of
-``repro/layers/attention.py`` (causal self-attention with GQA; prefill
-attention; KV-cache decode, int8 KV included; decode against the paged KV
-pool).  The reference's other
-flavours (QKV bias, qk-norm, logit softcap, sliding window, cross
-attention) are not ported; ``models/lm.py`` rejects configs that set them.
+"""Attention for the dense family: counterpart of
+``repro/layers/attention.py``: causal self-attention with GQA/MQA, QKV
+bias, per-head qk RMSNorm, a logit softcap and a sliding window; prefill
+and chunked-prefill attention; KV-cache decode, int8 KV included; decode
+against the paged KV pool.  The reference's cross attention (the vlm and
+encdec families) is not ported.
 
 Layouts are the reference's: q (B, S, H, hd), caches (B, S, K, hd).  Unlike
 the functional reference, the KV cache is updated in place (no copy of the
@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.layers.rope import apply_rope
 
 NEG_INF = -1e30
@@ -29,7 +30,11 @@ class AttentionConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    qkv_bias: bool = False          # qwen1.5
+    qk_norm: bool = False           # qwen3
+    softcap: float = 0.0            # gemma2 attention logit softcap
     rope_theta: float = 10000.0
+    window: int = 0                 # sliding window; 0 = full attention
     # paged decode through the paged-attention kernels (float pools only)
     paged_kernel: bool = False
 
@@ -41,34 +46,69 @@ def init_attention(generator: torch.Generator, cfg: AttentionConfig,
     def draw(shape, scale):
         return (torch.randn(shape, generator=generator, device=device)
                 * scale).to(dtype)
-    return {
+    params = {
         "wq": draw((d, h * hd), d ** -0.5),
         "wk": draw((d, kvh * hd), d ** -0.5),
         "wv": draw((d, kvh * hd), d ** -0.5),
         "wo": draw((h * hd, d), (h * hd) ** -0.5),
     }
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * hd), ("bk", kvh * hd),
+                            ("bv", kvh * hd)):
+            params[name] = torch.zeros((width,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        params["q_norm"] = init_rmsnorm(hd, dtype, device)
+        params["k_norm"] = init_rmsnorm(hd, dtype, device)
+    return params
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig):
+    """Q, K and V in the reference's order: projection, bias, heads, then
+    the per-head RMSNorm (RoPE follows at the caller).  The attention width
+    ``n_heads * head_dim`` need not be ``d_model`` (gemma2: 2048 vs 2304)."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, -1, h, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, -1, kvh, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, -1, kvh, hd)
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(b, -1, h, hd)
+    k = k.reshape(b, -1, kvh, hd)
+    v = v.reshape(b, -1, kvh, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
     return q, k, v
 
 
-def flash_attention(q, k, v, q_positions: torch.Tensor,
+def _softcap(s: torch.Tensor, cfg: AttentionConfig) -> torch.Tensor:
+    """The logit softcap on scaled scores, in the reference's order:
+    ``tanh(s / softcap) * softcap``."""
+    if cfg.softcap > 0.0:
+        return torch.tanh(s / cfg.softcap) * cfg.softcap
+    return s
+
+
+def flash_attention(q, k, v, cfg: AttentionConfig, q_positions: torch.Tensor,
                     k_positions: torch.Tensor) -> torch.Tensor:
     """Causal softmax attention in float32 over the whole sequence (the
     reference chunks it with a running max/sum; the result is the same up
-    to float rounding).  q: (B, Sq, H, hd); k, v: (B, Sk, K, hd)."""
+    to float rounding), with the softcap and the sliding window: a key is
+    live when ``k_pos <= q_pos`` and ``q_pos - k_pos < window``.
+    q: (B, Sq, H, hd); k, v: (B, Sk, K, hd)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     rep = h // kvh
     qg = q.reshape(b, sq, kvh, rep, hd).float()
     s = torch.einsum("bqkrh,btkh->bkrqt", qg, k.float()) * (hd ** -0.5)
+    s = _softcap(s, cfg)
     mask = q_positions[:, None] >= k_positions[None, :]
+    if cfg.window > 0:
+        mask = mask & ((q_positions[:, None] - k_positions[None, :])
+                       < cfg.window)
     s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkrqt,btkh->bqkrh", p, v.float())
@@ -82,7 +122,7 @@ def attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     q, k, v = _project_qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, positions, positions)
+    out = flash_attention(q, k, v, cfg, positions, positions)
     b, s = x.shape[0], x.shape[1]
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ \
         params["wo"].to(x.dtype)
@@ -169,7 +209,7 @@ def chunk_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     else:
         ck, cv = ck.to(x.dtype), cv.to(x.dtype)
     k_pos = torch.arange(ck.shape[1], device=x.device)
-    out = flash_attention(q, ck, cv, q_pos, k_pos)
+    out = flash_attention(q, ck, cv, cfg, q_pos, k_pos)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), cache
 
@@ -184,7 +224,7 @@ def _as_compute(t: torch.Tensor) -> torch.Tensor:
 
 def decode_scores(q, cache_k, cfg: AttentionConfig):
     """q (B, 1, H, hd) vs cache (B, S, K, hd) -> float32 scores
-    (B, K, rep, S), unmasked.
+    (B, K, rep, S), scaled and softcapped, unmasked.
 
     The reference multiplies in the cache's dtype (bfloat16 for an int8
     cache) with float32 accumulation; here both operands are rounded to that
@@ -195,16 +235,19 @@ def decode_scores(q, cache_k, cfg: AttentionConfig):
     op_dtype = torch.bfloat16 if cache_k.dtype == torch.int8 \
         else cache_k.dtype
     qg = q.reshape(b, kvh, h // kvh, hd).to(op_dtype).float()
-    return torch.einsum("bkrh,btkh->bkrt", qg,
-                        _as_compute(cache_k)) * (hd ** -0.5)
+    s = torch.einsum("bkrh,btkh->bkrt", qg,
+                     _as_compute(cache_k)) * (hd ** -0.5)
+    return _softcap(s, cfg)
 
 
 def decode_attend_partial(q, cache_k, cache_v, cfg: AttentionConfig,
                           kv_positions: torch.Tensor, q_position,
                           k_scale=None, v_scale=None):
     """Unnormalized decode attention over the cache: (o, l, m).
-    ``kv_positions`` (S,) or (B, S); ``q_position`` scalar or (B,).
-    int8 caches pass their scales, applied to the scores and folded into p.
+    ``kv_positions`` (S,) or (B, S); ``q_position`` scalar or (B,); a key
+    is live at ``kv_pos <= q_pos`` and, with a window, ``q_pos - kv_pos <
+    window``.  int8 caches pass their scales, applied to the (softcapped)
+    scores and folded into p, in the reference's order.
     """
     s = decode_scores(q, cache_k, cfg)                        # (B,K,rep,S)
     if k_scale is not None:
@@ -213,6 +256,8 @@ def decode_attend_partial(q, cache_k, cache_v, cfg: AttentionConfig,
     if q_pos.ndim:
         q_pos = q_pos[:, None]
     mask = kv_positions <= q_pos
+    if cfg.window > 0:
+        mask = mask & ((q_pos - kv_positions) < cfg.window)
     if mask.ndim == 2:                                        # (B, S)
         mask = mask[:, None, None, :]
     s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
@@ -314,8 +359,12 @@ def paged_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     With ``cfg.paged_kernel`` and a float pool the K/V write and the
     attention run on the paged kernels (``ops.paged_kv_write_pair``, one
     launch that finds each slot's target in the table, then
-    ``ops.paged_attention``); an int8 pool always takes the gather route,
-    as in the reference, where its scale epilogue lives."""
+    ``ops.paged_attention`` with the softcap and window); an int8 pool
+    always takes the gather route, as in the reference, where its scale
+    epilogue lives.  The kernel folds ``hd^-0.5 / softcap`` into one
+    constant where the gather route scales, then divides (the reference's
+    order), so with a softcap the two routes agree to float32 rounding,
+    not bit for bit."""
     cl = torch.as_tensor(cache_len, device=x.device)
     if cl.ndim != 1:
         raise ValueError("paged decode runs per slot: cache_len must be "
@@ -328,7 +377,8 @@ def paged_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     if cfg.paged_kernel and pool["k"].dtype != torch.int8:
         ops.paged_kv_write_pair(pool["k"], pool["v"], k[:, 0], v[:, 0],
                                 table, cl)
-        ctx = ops.paged_attention(q[:, 0], pool["k"], pool["v"], table, cl)
+        ctx = ops.paged_attention(q[:, 0], pool["k"], pool["v"], table, cl,
+                                  softcap=cfg.softcap, window=cfg.window)
         b = x.shape[0]
         out = ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
         return out @ params["wo"].to(x.dtype), pool

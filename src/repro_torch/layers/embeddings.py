@@ -14,6 +14,13 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
 init_unembed = init_embedding
 
 
-def embed(params: dict, tokens: torch.Tensor,
+def embed(params: dict, tokens: torch.Tensor, scale_by_sqrt_d: bool = False,
           dtype=torch.bfloat16) -> torch.Tensor:
-    return params["table"][tokens.long()].to(dtype)
+    """Table rows of ``tokens`` in ``dtype``; ``scale_by_sqrt_d`` (gemma)
+    multiplies them by sqrt(d), rounded to ``dtype`` first as the reference
+    does."""
+    x = params["table"][tokens.long()].to(dtype)
+    if scale_by_sqrt_d:
+        x = x * torch.tensor(params["table"].shape[-1] ** 0.5, dtype=dtype,
+                             device=x.device)
+    return x

@@ -16,10 +16,14 @@ def norm_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
     return rmsnorm(params, x)
 
 
-def attn_cfg(cfg: ModelConfig) -> AttentionConfig:
+def attn_cfg(cfg: ModelConfig, window: int = 0) -> AttentionConfig:
+    """The attention of a block; ``window`` is the layer's own (gemma2's
+    local layers), not ``cfg.window``."""
     return AttentionConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+        qk_norm=cfg.qk_norm, softcap=cfg.attn_softcap,
+        rope_theta=cfg.rope_theta, window=window,
         paged_kernel=cfg.paged_attn_kernel)
 
 
@@ -36,12 +40,51 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.param_dtype)
 
 
-def head_logits(hidden: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Full float32 logits for decode steps: (..., d) -> (..., V)."""
-    return hidden.float() @ table.float().T
+def stacked_init(init_fn, generator: torch.Generator, n: int) -> dict:
+    """``n`` draws of ``init_fn(generator)`` stacked along a leading axis:
+    the reference's layer-stacked pytree (its ``vmap`` over split keys), one
+    draw after another from the one generator."""
+    return _stack([init_fn(generator) for _ in range(n)])
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def take_layer(stacked, i: int):
+    """Layer ``i`` of a stacked tree (leading-axis index on every leaf)."""
+    if isinstance(stacked, dict):
+        return {k: take_layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def head_logits(hidden: torch.Tensor, table: torch.Tensor,
+                softcap: float = 0.0) -> torch.Tensor:
+    """Full float32 logits for decode steps: (..., d) -> (..., V), with
+    gemma2's final ``tanh(logits / softcap) * softcap``."""
+    logits = hidden.float() @ table.float().T
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the vocab; torch.argmax returns the first maximal index,
     as jnp.argmax does."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def temperature_sample(generator: torch.Generator, logits: torch.Tensor,
+                       temperature: float = 1.0) -> torch.Tensor:
+    """A draw from softmax(logits / temperature) over the last axis, from
+    ``generator`` (the reference's ``jax.random.categorical`` under a key;
+    the draws differ, the distribution is the same); temperature <= 0 is
+    greedy."""
+    if temperature <= 0.0:
+        return greedy_sample(logits)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    out = torch.multinomial(flat, 1, generator=generator)
+    return out.reshape(probs.shape[:-1]).to(torch.int32)

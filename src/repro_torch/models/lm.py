@@ -1,5 +1,10 @@
 """Decoder-only LM, dense family: counterpart of ``repro/models/lm.py``.
 
+Every dense arch of the reference runs: GQA/MQA, QKV bias, qk-norm,
+gemma2's alternating local (sliding-window) and global layers, attention
+and final logit softcaps, post-block norms and the embedding scale; gated
+and ungated MLPs.  ``first_dense_layers`` (a moe setting) is not ported.
+
 Params are dicts of tensors; the layer stack is a list of per-layer block
 dicts (the reference stacks them along a leading axis for ``lax.scan``; a
 Python loop over layers takes the scan's place).  Caches are
@@ -30,10 +35,8 @@ from repro_torch.models import common as C
 
 
 # ModelConfig flavours the port does not run yet (they arrive with the
-# archs that use them): a config that sets one is rejected, not run wrong
-_UNPORTED = ("qkv_bias", "qk_norm", "attn_softcap", "final_softcap",
-             "window", "local_global_period", "embed_scale",
-             "post_block_norm", "first_dense_layers")
+# families that use them): a config that sets one is rejected, not run wrong
+_UNPORTED = ("first_dense_layers",)
 
 # families whose prefill runs in fixed-size chunks against the decode cache
 CHUNK_PREFILL_FAMILIES = ("dense",)
@@ -52,6 +55,21 @@ def _check_family(cfg: ModelConfig) -> None:
             f"{unported or [cfg.family, cfg.norm]}")
 
 
+def _windows(cfg: ModelConfig) -> tuple:
+    """Sliding window per position of the layer pattern: gemma2 alternates
+    local (``cfg.window``) and global (0) layers; layer ``i`` takes
+    ``windows[i % len(windows)]``."""
+    if cfg.local_global_period:
+        return tuple(cfg.window if i % 2 == 0 else 0
+                     for i in range(cfg.local_global_period))
+    return (cfg.window,)
+
+
+def _layer_windows(cfg: ModelConfig) -> list:
+    w = _windows(cfg)
+    return [w[i % len(w)] for i in range(cfg.n_layers)]
+
+
 def _mlp_sparse_cfg(cfg: ModelConfig) -> SM.SparseInferConfig:
     act = cfg.sparse.activation if cfg.sparse.enabled else cfg.activation
     return dataclasses.replace(cfg.sparse, activation=act)
@@ -63,13 +81,17 @@ def _alphas(cfg: ModelConfig) -> np.ndarray:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     pd = C.param_dtype(cfg)
-    return {
+    blk = {
         "ln1": C.norm_init(cfg, device),
         "attn": A.init_attention(gen, C.attn_cfg(cfg), pd, device),
         "ln2": C.norm_init(cfg, device),
         "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, pd,
                         device),
     }
+    if cfg.post_block_norm:
+        blk["ln1_post"] = C.norm_init(cfg, device)
+        blk["ln2_post"] = C.norm_init(cfg, device)
+    return blk
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -79,6 +101,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     ``repro_torch.bridge``).  Raises without a GPU unless ``device`` is
     ``"cpu"``."""
     _check_family(cfg)
+    if cfg.n_layers % len(_windows(cfg)):
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
+                         f"multiple of local_global_period="
+                         f"{cfg.local_global_period}")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     pd = C.param_dtype(cfg)
@@ -100,7 +126,8 @@ def _head_table(params: dict) -> torch.Tensor:
 
 
 def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    return E.embed(params["embed"], tokens, C.compute_dtype(cfg))
+    return E.embed(params["embed"], tokens, cfg.embed_scale,
+                   C.compute_dtype(cfg))
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -128,15 +155,23 @@ def init_kv_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
     return init_caches(cfg, n_blocks, block_size, device)
 
 
+def _post_norm(cfg: ModelConfig, blk: dict, name: str, h: torch.Tensor):
+    """gemma2's norm on a sublayer's output before the residual add."""
+    if cfg.post_block_norm:
+        return C.norm_apply(cfg, blk[name], h)
+    return h
+
+
 def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor):
+               positions: torch.Tensor, window: int):
     """One transformer block over a prompt (dense MLP).  Returns (x, kv)."""
     h = C.norm_apply(cfg, blk["ln1"], x)
-    h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg), positions,
+    h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg, window), positions,
                      return_kv=True)
-    x = x + h
+    x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
-    return x + mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg)), kv
+    h = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg))
+    return x + _post_norm(cfg, blk, "ln2_post", h), kv
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -149,37 +184,37 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=dev)
     kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
     caches = []
-    for blk in params["blocks"]:
-        x, (k, v) = _block_fwd(blk, x, cfg, positions)
+    for blk, window in zip(params["blocks"], _layer_windows(cfg)):
+        x, (k, v) = _block_fwd(blk, x, cfg, positions, window)
         cache = A.init_kv_cache(tokens.shape[0], max_len, C.attn_cfg(cfg),
                                 kv_dt, dev)
         caches.append(A.update_kv_cache(cache, k, v, 0))
     x = C.norm_apply(cfg, params["final_norm"], x)
-    logits = C.head_logits(x[:, -1], _head_table(params))
+    logits = C.head_logits(x[:, -1], _head_table(params), cfg.final_softcap)
     return logits, {"blocks": caches}
 
 
 def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                  cache_len, alpha, collect_stats: bool = False,
+                  cache_len, window: int, alpha, collect_stats: bool = False,
                   block_table=None):
     """One block, single-token decode.  Returns (x, cache, stats or None).
     ``block_table`` switches the attention onto the paged KV pool
     (``cache`` is then this layer's pool leaves)."""
     h = C.norm_apply(cfg, blk["ln1"], x)
+    acfg = C.attn_cfg(cfg, window)
     if block_table is not None:
-        h, cache = A.paged_decode_attend(blk["attn"], h, C.attn_cfg(cfg),
-                                         cache, cache_len, block_table)
+        h, cache = A.paged_decode_attend(blk["attn"], h, acfg, cache,
+                                         cache_len, block_table)
     else:
-        h, cache = A.decode_attend(blk["attn"], h, C.attn_cfg(cfg), cache,
-                                   cache_len)
-    x = x + h
+        h, cache = A.decode_attend(blk["attn"], h, acfg, cache, cache_len)
+    x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), decode=True,
                     alpha=alpha, return_stats=collect_stats)
+    stats = None
     if collect_stats:
-        h, stats = out
-        return x + h, cache, stats
-    return x + out, cache, None
+        out, stats = out
+    return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
 
 
 def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -195,9 +230,9 @@ def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"alphas {tuple(alphas.shape)}: need n_layers="
                          f"{cfg.n_layers} rows")
     new, stats = [], []
-    for i, (blk, cache) in enumerate(zip(params["blocks"],
-                                         caches["blocks"])):
-        x, cache, st = _block_decode(blk, x, cfg, cache, cache_len,
+    for i, (blk, cache, window) in enumerate(zip(
+            params["blocks"], caches["blocks"], _layer_windows(cfg))):
+        x, cache, st = _block_decode(blk, x, cfg, cache, cache_len, window,
                                      alphas[i], collect_stats=collect_stats,
                                      block_table=block_table)
         new.append(cache)
@@ -227,7 +262,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                                            alphas, collect_stats,
                                            block_table)
     x = C.norm_apply(cfg, params["final_norm"], x)
-    logits = C.head_logits(x[:, 0], _head_table(params))
+    logits = C.head_logits(x[:, 0], _head_table(params), cfg.final_softcap)
     if collect_stats:
         return logits, caches, stats
     return logits, caches
@@ -244,16 +279,16 @@ def _chunk_stat_mean(a: torch.Tensor, tok_mask: torch.Tensor):
 
 
 def _block_chunk_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
-                     cache: dict, offset: int, valid, alpha, tok_mask,
-                     collect_stats: bool = False):
+                     cache: dict, offset: int, valid, window: int, alpha,
+                     tok_mask, collect_stats: bool = False):
     """One block over a prefill chunk, writing K/V into the decode cache at
     ``offset``.  ``tok_mask`` (B, S) marks real prompt positions: pad rows
     enter the sparse union with ``DEAD_SLOT_ALPHA`` (they predict
     all-sparse and leave the chunk union) and stay out of the stats."""
     h = C.norm_apply(cfg, blk["ln1"], x)
-    h, cache = A.chunk_attend(blk["attn"], h, C.attn_cfg(cfg), cache, offset,
-                              valid)
-    x = x + h
+    h, cache = A.chunk_attend(blk["attn"], h, C.attn_cfg(cfg, window), cache,
+                              offset, valid)
+    x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     al = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
     if al.ndim == 1:                                       # per slot (B,)
@@ -262,11 +297,11 @@ def _block_chunk_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
         SM.DEAD_SLOT_ALPHA, device=x.device)).reshape(-1)
     out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), prefill=True,
                     alpha=a_tok, return_stats=collect_stats)
-    if not collect_stats:
-        return x + out, cache, None
-    h, st = out
-    return x + h, cache, {k: _chunk_stat_mean(v, tok_mask)
-                          for k, v in st.items()}
+    stats = None
+    if collect_stats:
+        out, st = out
+        stats = {k: _chunk_stat_mean(v, tok_mask) for k, v in st.items()}
+    return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
 
 
 def _dense_stack_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -277,10 +312,11 @@ def _dense_stack_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
     alphas = torch.as_tensor(_alphas(cfg) if alphas is None else alphas,
                              dtype=torch.float32, device=x.device)
     new, stats = [], []
-    for i, (blk, cache) in enumerate(zip(params["blocks"],
-                                         caches["blocks"])):
+    for i, (blk, cache, window) in enumerate(zip(
+            params["blocks"], caches["blocks"], _layer_windows(cfg))):
         x, cache, st = _block_chunk_fwd(blk, x, cfg, cache, offset, valid,
-                                        alphas[i], tok_mask, collect_stats)
+                                        window, alphas[i], tok_mask,
+                                        collect_stats)
         new.append(cache)
         stats.append(st)
     if collect_stats:
@@ -321,7 +357,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = C.norm_apply(cfg, params["final_norm"], x)
     last = torch.clamp(vld - 1 - offset, 0, s - 1)            # (B,)
     logits = C.head_logits(x[torch.arange(b, device=dev), last],
-                           _head_table(params))
+                           _head_table(params), cfg.final_softcap)
     if collect_stats:
         return logits, caches, stats
     return logits, caches

@@ -9,19 +9,24 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
 
 ARCH = "prosparse-llama2-7b"
+# the dense family: every arch the port registers
+ARCHS = ("prosparse-llama2-7b", "prosparse-llama2-13b", "qwen3-8b",
+         "qwen1.5-32b", "granite-34b", "gemma2-2b")
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("make", ["get_config", "reduced_config"])
-def test_model_config_fields_equal(make):
-    ref = getattr(jreg, make)(ARCH)
-    port = getattr(treg, make)(ARCH)
+def test_model_config_fields_equal(make, arch):
+    ref = getattr(jreg, make)(arch)
+    port = getattr(treg, make)(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.vocab_padded == ref.vocab_padded
     assert port.resolved_head_dim == ref.resolved_head_dim
 
 
 def test_registry_and_sla_tiers():
-    assert ARCH in treg.arch_names()
+    assert treg.arch_names() == sorted(ARCHS)
+    assert set(treg.arch_names()) <= set(jreg.arch_names())
     assert [dataclasses.asdict(t) for t in tbase.DEFAULT_SLA_TIERS] == \
         [dataclasses.asdict(t) for t in jbase.DEFAULT_SLA_TIERS]
     with pytest.raises(KeyError):

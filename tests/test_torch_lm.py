@@ -101,7 +101,8 @@ def test_static_schedule_and_scalar_cache_len():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("flavour", [{"window": 8}, {"qk_norm": True},
+@pytest.mark.parametrize("flavour", [{"first_dense_layers": 1},
+                                     {"norm": "layernorm"},
                                      {"family": "moe"}])
 def test_unported_model_flavours_raise(flavour):
     _, tcfg = _cfgs("float32")

@@ -43,7 +43,12 @@ K = 512
 
 
 def _popc(v: torch.Tensor) -> torch.Tensor:
-    return P._popcount32(v)
+    """Bit count of the low 32 bits of an int64 tensor (SWAR)."""
+    v = v & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
 def _words(packed: torch.Tensor) -> torch.Tensor:
