@@ -41,10 +41,16 @@ Phases, in order; any failure exits non-zero:
              4096, 5120}, G in {1, 8, 16}, x random, all negative and all
              +-0.0, the chunk kernel and the decode kernel on 16-row
              slices bitwise equal to the plain version.
-  3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute
-             and KV cache: 8 teacher-forced decode steps on the card against
-             the same weights on the CPU (plain kernel versions), logits and
-             stats.
+  3. decode  prosparse-llama2-7b at full width, 2 layers, float32 compute,
+             a float32 and then an int8 KV cache: 8 teacher-forced decode
+             steps on the card against the same weights on the CPU (plain
+             kernel versions), each MLP call on the CPU fed the card's
+             input of the same call, so the selections must be equal even
+             where the capacity clamp binds: each call's output within
+             phase 2's tolerance, its stats equal (the active and
+             false-negative counts up to gate values within rounding of
+             0), the logits within 1e-3 (int8 cache: 5e-2).  Phases 4, 8,
+             11 and 14 compare card and CPU the same way.
   4. prefill the same 2 layers: a 160-token prompt in chunks of 64 through
              sparse prefill on the card against the CPU, with float32 and
              with int8 MLP weights.
@@ -106,9 +112,9 @@ Phases, in order; any failure exits non-zero:
              yardstick.
  11. strategies  the 2 full-width float32 layers of phase 3 with strategies
              masked and gather, 8 teacher-forced steps on the card against
-             the CPU: logits within 1e-3, stats reported, launches exact;
-             then a 64-row gather sparse-prefill chunk (the controller
-             serve's chunk MLP), card against CPU, logits within 1e-3.
+             the CPU, launches exact; then a 100-token gather sparse
+             prefill in chunks of 64 rows (the controller serve's chunk
+             MLP), card against CPU.
  12. serve-controller  all 32 layers through Server.serve with the
              adaptive-alpha controller per SLA tier (batch 4, 8 requests of
              mixed tiers, chunked sparse prefill feeding the prefill rider,
@@ -142,8 +148,9 @@ Phases, in order; any failure exits non-zero:
              the watchdog armed by the first drain counts no first use.
  14. archs   the other dense archs (prosparse-llama2-13b, qwen3-8b,
              qwen1.5-32b, granite-34b, gemma2-2b) at full width and 2
-             layers (gemma2: one local, one global), float32 compute,
-             weights bridged from seeded numpy draws: 8 teacher-forced
+             layers (gemma2: one local, one global), float32 compute, the
+             config's own selection (capacity 20%, binding), weights
+             bridged from seeded numpy draws: 8 teacher-forced
              decode steps card against CPU on the dense cache (float32,
              then the config's own KV dtype), on a fragmented float32 pool
              with the paged kernels (and an int8 pool on the gather route
@@ -151,11 +158,15 @@ Phases, in order; any failure exits non-zero:
              gemma2 also at per-slot lengths 4095, 4096, 4097 and 4500, its
              window of 4096 binding in the paged kernel, and the window
              against none with sparsity off.  Launches exact.  Then the
-             paged attention at gemma2's shape (hd 256, softcap 50) and
-             granite's (MQA) and the decode MLP at granite's ungated
-             d=6144 and qwen1.5's d=5120, each against its plain version
-             and timed beside its bound, the plain version and a library
-             yardstick.
+             kernels at the new shapes against their plain versions:
+             sign_pack, both predictors and both float32-weight MLPs (bf16
+             x, S=64 and B=4, each config's capacity) at gemma2's d=2304,
+             k=9216, granite's ungated d=6144, k=24576 and qwen1.5's
+             d=5120, k=27392; the paged attention and the paired KV write
+             into a bf16 pool at gemma2's shape (hd 256, K=4, softcap 50,
+             window 4096) and granite's (MQA, K=1); the decode MLP and the
+             attention timed beside their bounds, plain versions and a
+             library yardstick.
  15. serve-gemma2  gemma2-2b at full width and all 26 layers through
              Server.serve: bf16 paged pool, block 16, the paged kernels,
              chunked sparse prefill in chunks of 64, batch 4, 8 requests of
@@ -207,6 +218,7 @@ step.  It runs no other phase.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -256,20 +268,17 @@ D_PAD = 4000              # a width that is not a multiple of 32
 # the 1376 row groups
 CTRL_BUCKETS = (0.1, 0.2, 0.4)
 OVERLOAD_POOL = 18        # the overload phase's pool: about half the demand
-# the archs phase's logits tolerance by KV dtype, card against CPU: with a
-# float32 cache the two differ in float32 summation order only (phase 3's
-# 1e-3); a bf16 or int8 cache rounds q (and, int8, p) to bf16 before the
-# products, where the card's float32 drift can move a value by one bf16
-# ulp (2^-8 relative)
-ARCH_TOL = {"float32": 1e-3, "bfloat16": 5e-2, "int8": 5e-2}
-# ... and each stat entry's allowance in selection groups (G / k each).
-# float32: phase 3's 2 (an input element within rounding of 0 taking the
-# other sign bit moves every margin by 1 + alpha and can carry a group
-# across 0).  bf16/int8: that rounding moves the MLP's input by ~1e-3
-# relative (the logits 3e-3 to 7e-3 apart on an H100), so a few of its d
-# elements take the other sign bit and a row's counts move by several
-# groups: seen up to 12 (prosparse-llama2-13b's int8 decode), allowed 16
-ARCH_STAT_GROUPS = {"float32": 2, "bfloat16": 16, "int8": 16}
+# the model-level checks' logits tolerance by KV dtype (``_hold``: card
+# against CPU, each MLP fed the same input): with a float32 cache the two
+# differ in float32 summation order only; a bf16 or int8 cache rounds q
+# (and, int8, p) to bf16 before the products, where the card's float32
+# drift can move a value by one bf16 ulp (2^-8 relative)
+LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2, "int8": 5e-2}
+# the stats that follow from the selection alone (``_hold`` holds them
+# equal); the active and false-negative counts also read the gate values'
+# signs, which two sums in another order may disagree on near 0
+SELECTION_STATS = ("predicted_density", "realized_density", "overflow_frac",
+                   "union_demand_frac")
 
 
 def fail(msg: str) -> None:
@@ -1566,20 +1575,12 @@ def phase_big_decode_batch() -> None:
 def phase_prefill() -> None:
     """Two full-width float32 layers, sparse prefill of a 160-token prompt
     in chunks of 64: card (CUDA kernels) vs CPU (plain versions), with
-    float32 and with int8 MLP weights."""
-    import numpy as np
+    float32 and with int8 MLP weights (``_prefill_chunks``)."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     base = get_config("prosparse-llama2-7b")
-    plen, chunk, max_len = 160, MAIN_CHUNK, 256
-    n_chunks = -(-plen // chunk)
-    rng = np.random.default_rng(5)
-    tokens = np.zeros((1, n_chunks * chunk), np.int64)
-    tokens[0, :plen] = rng.integers(0, base.vocab, size=plen)
     fp = lm.init_lm(base.replace(n_layers=2), 0, "cuda")
     for weights in ("", "int8"):
         cfg = base.replace(
@@ -1590,53 +1591,11 @@ def phase_prefill() -> None:
                 quant_group_size=QG))
         params = {"cuda": lm.prepare_sparse(fp, cfg.sparse)}
         params["cpu"] = _to(params["cuda"], "cpu")
-        alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            ops.reset_launch_counts()
-            caches = lm.init_caches(cfg, 1, max_len, dev)
-            logits, stats = [], []
-            with torch.inference_mode():
-                for off in range(0, n_chunks * chunk, chunk):
-                    lg, caches, st = lm.prefill_chunk(
-                        params[dev], cfg,
-                        torch.as_tensor(tokens[:, off:off + chunk],
-                                        device=dev),
-                        caches, off, plen, alphas=alphas,
-                        collect_stats=True)
-                    logits.append(lg.float().cpu())
-                    stats.append({k: v.cpu() for k, v in st.items()})
-            out[dev] = (torch.stack(logits), stats, ops.launch_counts())
-        counts = out["cuda"][2]
         fused = "fused_sparse_mlp_chunk_q" if weights \
             else "fused_sparse_mlp_chunk"
-        want = {n: (cfg.n_layers * n_chunks
-                    if n in ("predict_chunk_group_margins", fused) else 0)
-                for n in counts}
-        if counts != want:
-            fail(f"prefill: launches {counts}, want {want}")
-        lg_c, lg_p = out["cuda"][0], out["cpu"][0]
-        if not bool(torch.isfinite(lg_c).all()):
-            fail("prefill: non-finite logits on the card")
-        # the logits of the chunk that holds the last prompt token
-        diff = (lg_c[-1] - lg_p[-1]).abs()
-        n_diff = sum(int((a[k] != b[k]).sum())
-                     for a, b in zip(out["cuda"][1], out["cpu"][1])
-                     for k in MLP_STAT_KEYS)
-        n_all = len(MLP_STAT_KEYS) * cfg.n_layers * n_chunks
-        worst = max(float((a[k] - b[k]).abs().max())
-                    for a, b in zip(out["cuda"][1], out["cpu"][1])
-                    for k in MLP_STAT_KEYS)
-        tol = 1e-3
-        print(f"[prefill] {weights or 'float32'} weights, {plen} tokens in "
-              f"{n_chunks} chunks of {chunk}: logits max abs diff "
-              f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} "
-              f"(tolerance {tol}); {n_diff} of {n_all} stat entries differ, "
-              f"by at most {worst:.3e}; launches {counts}", flush=True)
-        stat_tol = 2 * cfg.sparse.group_size / cfg.d_ff
-        if float(diff.max()) > tol or worst > stat_tol:
-            fail(f"prefill: logits differ by {float(diff.max())} or a stat "
-                 f"by {worst} (tolerance {stat_tol})")
+        _prefill_chunks(f"[prefill] {weights or 'float32'} weights", params,
+                        cfg, 160, 5, 256,
+                        ("predict_chunk_group_margins", fused))
         del params
     del fp
     torch.cuda.empty_cache()
@@ -1720,70 +1679,27 @@ def phase_serve_chunked(results: dict) -> None:
 
 
 def phase_decode() -> None:
-    """Two full-width float32 layers: card (CUDA kernels) vs CPU (plain)."""
+    """Two full-width float32 layers, 8 teacher-forced decode steps: card
+    (CUDA kernels) vs CPU (plain versions) on a float32 KV cache, then on
+    an int8 one (``_hold``)."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
     from repro_torch.models import lm
 
-    # float32 compute AND KV cache for the check: the int8 cache rounds q
-    # and p to bf16, which amplifies the card's float32 drift from the CPU
-    # enough to reorder a capacity-clamped selection (with random weights
-    # ~99.8% of groups predict active, so the top-C cut falls among
-    # near-equal margins).  The int8 cache is run after it, reported only;
-    # phase 4 serves it.
     base = get_config("prosparse-llama2-7b")
-    cfg = base.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32",
+    cfg = base.replace(n_layers=2, dtype="float32",
                        sparse=dataclasses.replace(base.sparse,
                                                   strategy="pallas",
                                                   enabled=True))
-    b, steps = DEC_BATCH, DEC_STEPS
+    L = cfg.n_layers
     params = {"cuda": lm.prepare_sparse(lm.init_lm(cfg, 0, "cuda"))}
     params["cpu"] = _to(params["cuda"], "cpu")
-
-    def run(run_cfg, dev):
-        return _teacher_forced(params[dev], run_cfg, dev)
-
-    logits, stats = {}, {}
-    for dev in ("cuda", "cpu"):
-        logits[dev], stats[dev] = run(cfg, dev)
-    if not bool(torch.isfinite(logits["cuda"]).all()):
-        fail("decode: non-finite logits on the card")
-    diff = (logits["cuda"] - logits["cpu"]).abs()
-    # tolerance: float32 sums taken in another order on the card (logits
-    # are O(1); ~1e-5 apart when both pick the same groups)
-    tol = 1e-3
-    print(f"[decode] logits max abs diff {float(diff.max()):.3e}, median "
-          f"{float(diff.median()):.3e} (tolerance {tol})", flush=True)
-    if float(diff.max()) > tol:
-        fail(f"decode: logits differ by {float(diff.max())}")
-    # stats: an input element within rounding of 0 may take the other sign
-    # bit on the card, which moves every margin by 1 + alpha and can carry
-    # a group across 0; each entry must lie within 2 groups (2 G / k), and
-    # the count of entries that differ at all is printed
-    stat_tol = 2 * cfg.sparse.group_size / cfg.d_ff
-    for k in MLP_STAT_KEYS:
-        a, r = stats["cuda"][k], stats["cpu"][k]
-        n_diff = int((a != r).sum())
-        worst = float((a - r).abs().max())
-        print(f"[decode] stat {k}: {n_diff} of {a.numel()} (step, layer, "
-              f"slot) entries differ, by at most {worst:.3e} (tolerance "
-              f"{stat_tol:.3e})", flush=True)
-        if worst > stat_tol:
-            fail(f"decode: stat {k} differs by {worst}")
-    same = int((logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)).sum())
-    print(f"[decode] greedy tokens equal in {same} of {b * steps} (reported "
-          "only: random weights give near-flat logits)", flush=True)
-    # the int8 cache, reported only (see above)
-    q8 = cfg.replace(kv_cache_dtype="int8")
-    l8 = {dev: run(q8, dev) for dev in ("cuda", "cpu")}
-    d8 = (l8["cuda"][0] - l8["cpu"][0]).abs()
-    n8 = sum(int((l8["cuda"][1][k] != l8["cpu"][1][k]).sum())
-             for k in MLP_STAT_KEYS)
-    print(f"[decode] int8 KV (reported only): logits max abs diff "
-          f"{float(d8.max()):.3e}, median {float(d8.median()):.3e}; "
-          f"{n8} of {len(MLP_STAT_KEYS) * b * steps * cfg.n_layers} stat "
-          "entries differ", flush=True)
+    for kv in ("float32", "int8"):
+        run_cfg = cfg.replace(kv_cache_dtype=kv)
+        _hold(f"[decode] {kv} KV cache",
+              lambda dev: _teacher_forced(params[dev], run_cfg, dev),
+              LOGIT_TOL[kv], dict(predict_group_margins=L * DEC_STEPS,
+                                  fused_sparse_mlp=L * DEC_STEPS))
     del params
     torch.cuda.empty_cache()
 
@@ -1791,13 +1707,126 @@ def phase_decode() -> None:
 DEC_BATCH, DEC_PLEN, DEC_STEPS, DEC_MAX_LEN = 4, 16, 8, 32
 
 
+@contextlib.contextmanager
+def _mlp_tap(fn):
+    """Inside the block every MLP call of ``models.lm`` goes through
+    ``fn(mlp_apply, params, x, cfg, **kw)``."""
+    from repro_torch.models import lm
+    orig = lm.mlp_apply
+    lm.mlp_apply = lambda params, x, cfg, **kw: fn(orig, params, x, cfg,
+                                                    **kw)
+    try:
+        yield
+    finally:
+        lm.mlp_apply = orig
+
+
+def _near_zero(x, w):
+    """Per row of ``x`` (..., d): how many rows of ``w`` (n, d) give a
+    product within float rounding of 0 (|x w| <= 1e-5 sum |x| |w|, as
+    ``_check_telemetry`` counts them), where two sums in another order may
+    disagree on its sign."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    wf = w.float()
+    return ((xf @ wf.T).abs() <= 1e-5 * (xf.abs() @ wf.abs().T)).sum(-1)
+
+
+def _hold(label: str, run, tol: float, want: dict | None = None,
+          ref=None) -> None:
+    """Two runs of the same steps, each returning its logits on the CPU:
+    ``run("cuda")`` with the card's launches counted (exactly ``want``,
+    {kernel: n}, when given), then ``ref()`` (by default ``run("cpu")``,
+    the plain versions) with every MLP call fed the input that the card's
+    run gave the same call.  So both sides select the same row groups,
+    also where the capacity clamp binds: with random weights ~99.8% of
+    groups predict active, the clamp cuts among near-equal margins, and
+    one input element within rounding of 0 taking the other sign bit would
+    move every margin and so the whole selection.  Each MLP call: its
+    output within phase 2's tolerance of the card's (1e-4 x max|y|, 2e-3
+    for bf16 x); its stats in rows (stat x k) equal, except the active and
+    false-negative counts, each of which may move by the gate values of
+    its row within rounding of 0.  Then the logits within ``tol``."""
+    import torch
+    from repro_torch.core import quantize as Q
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    calls, seen = [], {"n": 0, "y": 0.0, "x": 0.0, "moved": 0}
+
+    def record(mlp, params, x, cfg, **kw):
+        out = mlp(params, x, cfg, **kw)
+        y, st = out if kw.get("return_stats") else (out, None)
+        calls.append((x.cpu(), y.cpu(), st and {n: v.cpu()
+                                                for n, v in st.items()}))
+        return out
+
+    def replay(mlp, params, x, cfg, **kw):
+        i = seen["n"]
+        if i == len(calls):
+            fail(f"{label}: more MLP calls than on the card")
+        seen["n"] += 1
+        x_c, y_c, st_c = calls[i]
+        seen["x"] = max(seen["x"], float((x.cpu() - x_c).abs().max()))
+        out = mlp(params, x_c.to(x.device), cfg, **kw)
+        y, st = out if st_c is not None else (out, None)
+        rtol = 2e-3 if x.dtype == torch.bfloat16 else 1e-4
+        rel = float((y.cpu() - y_c).abs().max()) / (
+            float(y_c.abs().max()) or 1.0)
+        seen["y"] = max(seen["y"], rel)
+        if rel > rtol:
+            fail(f"{label}: MLP call {i}'s output {rel:.3e} x max|y| from "
+                 f"the card's (tolerance {rtol})")
+        if st_c is None:
+            return out
+        k = Q.mlp_hidden_rows(params)
+        for n in st_c:
+            moved = (torch.round(st[n].cpu() * k)
+                     - torch.round(st_c[n] * k)).abs().reshape(-1)
+            if not bool(moved.any()):
+                continue
+            near = _near_zero(x_c, Q.dense_view(params)["wg_t"].cpu())
+            if n in SELECTION_STATS or bool((moved > near).any()):
+                fail(f"{label}: MLP call {i}'s {n} moved by "
+                     f"{moved.tolist()} rows, where {near.tolist()} gate "
+                     "values lie within rounding of 0")
+            seen["moved"] += int(moved.sum())
+        return out
+
+    ops.reset_launch_counts()
+    with _mlp_tap(record):
+        card = run("cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if want is not None and counts != _want_launches(counts, **want):
+        fail(f"{label}: launches {counts}, want {want}")
+    if not bool(torch.isfinite(card).all()):
+        fail(f"{label}: non-finite logits on the card")
+    with _mlp_tap(replay):
+        other = ref() if ref is not None else run("cpu")
+    if seen["n"] != len(calls):
+        fail(f"{label}: {seen['n']} MLP calls, {len(calls)} on the card")
+    diff = (card - other).abs()
+    print(f"{label}: logits max abs diff {float(diff.max()):.3e}, median "
+          f"{float(diff.median()):.3e} (tolerance {tol}); {len(calls)} MLP "
+          f"calls on the card's inputs (the sides' own inputs up to "
+          f"{seen['x']:.3e} apart): outputs within {seen['y']:.3e} x "
+          f"max|y|, selections equal, {seen['moved']} active or "
+          f"false-negative row counts moved by rounding; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if float(diff.max()) > tol:
+        fail(f"{label}: logits differ by {float(diff.max())}")
+
+
+def _want_launches(counts: dict, **n) -> dict:
+    return {k: n.get(k, 0) for k in counts}
+
+
 def _teacher_forced(params, cfg, dev):
     """Prefill a seeded batch of 4 prompts, then 8 teacher-forced decode
-    steps with per-slot alphas (the schedule plus SLA-like offsets) ->
-    (logits (steps, B, V), stats {key: (steps, L, B)}) on the CPU."""
+    steps with per-slot alphas (the schedule plus SLA-like offsets) and
+    the MLP stats on -> logits (steps, B, V) on the CPU."""
     import numpy as np
     import torch
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
     from repro_torch.models import lm
     b, plen, steps = DEC_BATCH, DEC_PLEN, DEC_STEPS
     rng = np.random.default_rng(0)
@@ -1809,27 +1838,24 @@ def _teacher_forced(params, cfg, dev):
         lg, caches = lm.prefill(params, cfg,
                                 torch.as_tensor(prompt, device=dev),
                                 DEC_MAX_LEN)
-        out_l, out_s = [], []
+        out = []
         for t in range(steps):
-            lg, caches, st = lm.decode_step(
+            lg, caches, _ = lm.decode_step(
                 params, cfg, torch.as_tensor(forced[t], device=dev), caches,
                 torch.full((b,), plen + t, device=dev), alphas=alphas,
                 collect_stats=True)
-            out_l.append(lg.float().cpu())
-            out_s.append({k: v.cpu() for k, v in st.items()})
-    return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
-                                for k in MLP_STAT_KEYS}
+            out.append(lg.float().cpu())
+    return torch.stack(out)
 
 
 def phase_decode_strategies() -> None:
     """The two layers of phase_decode with strategies masked and gather:
     their margins run the sign_pack and predict_counts kernels on the card
     (one launch each per layer and step) and the plain versions on the
-    CPU."""
+    CPU; then a gather sparse prefill, as the controller serve runs its
+    prompts."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     base = get_config("prosparse-llama2-7b")
@@ -1840,105 +1866,51 @@ def phase_decode_strategies() -> None:
     for strategy in ("masked", "gather"):
         cfg = cfg0.replace(sparse=dataclasses.replace(
             base.sparse, strategy=strategy, enabled=True))
-        ops.reset_launch_counts()
-        card = _teacher_forced(params["cuda"], cfg, "cuda")
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        want = {n: L * DEC_STEPS if n in ("sign_pack", "predict_counts")
-                else 0 for n in counts}
-        if counts != want:
-            fail(f"{strategy} decode: launches {counts}, want {want}")
-        cpu = _teacher_forced(params["cpu"], cfg, "cpu")
-        if not bool(torch.isfinite(card[0]).all()):
-            fail(f"{strategy} decode: non-finite logits on the card")
-        diff = (card[0] - cpu[0]).abs()
-        # tolerance as phase_decode: float32 sums in another order
-        tol = 1e-3
-        n_diff = sum(int((card[1][k] != cpu[1][k]).sum())
-                     for k in MLP_STAT_KEYS)
-        worst = max(float((card[1][k] - cpu[1][k]).abs().max())
-                    for k in MLP_STAT_KEYS)
-        print(f"[strategies] {strategy}: logits max abs diff "
-              f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} "
-              f"(tolerance {tol}); {n_diff} of "
-              f"{len(MLP_STAT_KEYS) * DEC_STEPS * L * DEC_BATCH} stat "
-              f"entries differ, by at most {worst:.3e}; launches {counts}",
-              flush=True)
-        for k in MLP_STAT_KEYS:
-            print(f"[strategies] {strategy} stat {k}: card mean "
-                  f"{float(card[1][k].mean()):.5f}, CPU mean "
-                  f"{float(cpu[1][k].mean()):.5f}", flush=True)
-        if float(diff.max()) > tol:
-            fail(f"{strategy} decode: logits differ by {float(diff.max())}")
-    _gather_prefill_chunks(params, cfg0)
+        _hold(f"[strategies] {strategy} decode",
+              lambda dev: _teacher_forced(params[dev], cfg, dev),
+              LOGIT_TOL["float32"], dict(sign_pack=L * DEC_STEPS,
+                                         predict_counts=L * DEC_STEPS))
+    # a 100-token prompt: a full chunk, then 36 rows and 28 pad rows, each
+    # chunk's 64 rows one union selection
+    cfg = cfg0.replace(sparse=dataclasses.replace(
+        cfg0.sparse, strategy="gather", enabled=True, sparse_prefill=True,
+        prefill_max_tokens=max(cfg0.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    _prefill_chunks("[strategies] gather sparse prefill", params, cfg, 100,
+                    11, DEC_MAX_LEN * 4, ("sign_pack", "predict_counts"))
     del params
     torch.cuda.empty_cache()
 
 
-def _gather_prefill_chunks(params, cfg0) -> None:
-    """Strategy gather with sparse prefill, as the controller serve runs
-    its prompts: a 100-token prompt in chunks of 64 (a full chunk, then 36
-    rows and 28 pad rows), each chunk's 64 rows one union selection, card
-    against CPU.  Logits of the last chunk within 1e-3; each stat entry
-    within 2 groups, as phase_prefill holds them."""
+def _prefill_chunks(label: str, params, cfg, plen: int, seed: int,
+                    max_len: int, kernels: tuple) -> None:
+    """A seeded ``plen``-token prompt through ``prefill_chunk`` in chunks
+    of 64 (the last padded), with ``cfg``'s strategy and sparse prefill,
+    card against CPU (``_hold``): the logits of the last chunk, which
+    holds the last prompt token; one launch of each of ``kernels`` a layer
+    and chunk."""
     import numpy as np
     import torch
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
-    cfg = cfg0.replace(sparse=dataclasses.replace(
-        cfg0.sparse, strategy="gather", enabled=True, sparse_prefill=True,
-        prefill_max_tokens=max(cfg0.sparse.prefill_max_tokens, MAIN_CHUNK)))
-    plen, chunk, L = 100, MAIN_CHUNK, cfg.n_layers
+    chunk, L = MAIN_CHUNK, cfg.n_layers
     n_chunks = -(-plen // chunk)
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     tokens = np.zeros((1, n_chunks * chunk), np.int64)
     tokens[0, :plen] = rng.integers(0, cfg.vocab, size=plen)
     alphas = cfg.sparse.alpha_schedule().alphas(L)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        ops.reset_launch_counts()
-        caches = lm.init_caches(cfg, 1, DEC_MAX_LEN * 4, dev)
-        logits, stats = [], []
+
+    def run(dev):
+        caches = lm.init_caches(cfg, 1, max_len, dev)
         with torch.inference_mode():
             for off in range(0, n_chunks * chunk, chunk):
-                lg, caches, st = lm.prefill_chunk(
+                lg, caches, _ = lm.prefill_chunk(
                     params[dev], cfg,
                     torch.as_tensor(tokens[:, off:off + chunk], device=dev),
                     caches, off, plen, alphas=alphas, collect_stats=True)
-                logits.append(lg.float().cpu())
-                stats.append({k: v.cpu() for k, v in st.items()})
-        out[dev] = (logits[-1], stats, ops.launch_counts())
-    counts = out["cuda"][2]
-    want = {n: L * n_chunks if n in ("sign_pack", "predict_counts") else 0
-            for n in counts}
-    if counts != want:
-        fail(f"gather prefill: launches {counts}, want {want}")
-    lg_c, lg_p = out["cuda"][0], out["cpu"][0]
-    if not bool(torch.isfinite(lg_c).all()):
-        fail("gather prefill: non-finite logits on the card")
-    diff = (lg_c - lg_p).abs()
-    pairs = list(zip(out["cuda"][1], out["cpu"][1]))
-    n_diff = sum(int((a[k] != b[k]).sum()) for a, b in pairs
-                 for k in MLP_STAT_KEYS)
-    worst = max(float((a[k] - b[k]).abs().max()) for a, b in pairs
-                for k in MLP_STAT_KEYS)
-    tol, stat_tol = 1e-3, 2 * cfg.sparse.group_size / cfg.d_ff
-    print(f"[strategies] gather sparse prefill, {plen} tokens in {n_chunks} "
-          f"chunks of {chunk}: logits max abs diff {float(diff.max()):.3e}, "
-          f"median {float(diff.median()):.3e} (tolerance {tol}); {n_diff} of "
-          f"{len(MLP_STAT_KEYS) * L * n_chunks} stat entries differ, by at "
-          f"most {worst:.3e} (tolerance {stat_tol:.3e}); launches {counts}",
-          flush=True)
-    for k in MLP_STAT_KEYS:
-        print(f"[strategies] gather prefill stat {k}: card "
-              f"{[round(float(a[k].mean()), 5) for a, _ in pairs]}, CPU "
-              f"{[round(float(b[k].mean()), 5) for _, b in pairs]}",
-              flush=True)
-    if float(diff.max()) > tol or worst > stat_tol:
-        fail(f"gather prefill: logits differ by {float(diff.max())} or a "
-             f"stat by {worst}")
+        return lg.float().cpu()
+    _hold(f"{label}, {plen} tokens in {n_chunks} chunks of {chunk}, "
+          f"{cfg.kv_cache_dtype} KV cache", run, LOGIT_TOL[cfg.kv_cache_dtype],
+          {n: L * n_chunks for n in kernels})
 
 
 def _to(tree, device):
@@ -2457,37 +2429,46 @@ def _same_twice(tag, fn, name="paged_attention"):
     return a
 
 
-def _time_attention(q, kp, vp, table, lengths, flush, plain_iters):
+def _time_attention(q, kp, vp, table, lengths, flush, plain_iters,
+                    softcap: float = 0.0, window: int = 0):
     """The kernel, its plain version, SDPA on a dense (B, K, S, hd) view
     gathered beforehand (the gather left out of its time), and the gather
-    and SDPA together (H = K: SDPA takes no GQA here)."""
+    and SDPA together.  SDPA's mask drops the dead rows and, with
+    ``window``, the rows outside it; with K < H it shares each K/V head
+    among its query heads (``enable_gqa``, PyTorch 2.5 on); it has no
+    softcap."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attn as KA
     from repro_torch.kernels import ref
 
-    b, _, hd = q.shape
+    b, h, hd = q.shape
     kvh = kp.shape[2]
     s_max = table.shape[1] * kp.shape[1]
     tab = table.long()
+    kw = dict(softcap=softcap, window=window)
 
     def view(pages):
         return pages[tab].reshape(b, s_max, kvh, hd).transpose(1, 2)
-    live_mask = (torch.arange(s_max, device=q.device)[None, :]
-                 <= lengths[:, None])[:, None, None, :]
+    back = lengths[:, None] - torch.arange(s_max, device=q.device)[None, :]
+    live = back >= 0
+    if window:
+        live &= back < window
+    sdpa = dict(attn_mask=live[:, None, None, :])
+    if kvh != h:
+        sdpa["enable_gqa"] = True
     qd = q[:, :, None, :]
-    t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths),
-                  iters=50, flush=flush)
+    t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths,
+                                             **kw), iters=50, flush=flush)
     t_p = cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
-                                                  lengths),
+                                                  lengths, **kw),
                   iters=plain_iters, flush=flush)
     kd, vd = view(kp).contiguous(), view(vp).contiguous()
     t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=live_mask), iters=50, flush=flush)
+        qd, kd, vd, **sdpa), iters=50, flush=flush)
     del kd, vd
     t_gl = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qd, view(kp), view(vp), attn_mask=live_mask), iters=20,
-        flush=flush)
+        qd, view(kp), view(vp), **sdpa), iters=20, flush=flush)
     return t_k, t_p, t_lib, t_gl
 
 
@@ -2877,12 +2858,10 @@ def phase_sign_kernels(results: dict) -> None:
 def phase_paged_decode() -> None:
     """Two full-width float32 layers decoding against a fragmented float32
     pool: the kernel route on the card against the plain route on the CPU
-    and against the gather route on the card."""
+    and against the gather route on the card (``_hold``)."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     base = get_config("prosparse-llama2-7b")
@@ -2905,42 +2884,18 @@ def phase_paged_decode() -> None:
     alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
         np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
 
-    def run(run_cfg, dev):
-        return _paged_forced(params[dev], run_cfg, dev, pool, table, lens0,
-                             forced, alphas)
-
-    ops.reset_launch_counts()
-    kern = run(cfg, "cuda")
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
     L = cfg.n_layers
-    if counts["paged_attention"] != L * steps or \
-            counts["paged_kv_write"] != L * steps:
-        fail(f"paged decode: launches {counts}, want {L * steps} "
-             f"paged_attention and {L * steps} paged_kv_write (K and V in "
-             "one launch a layer)")
-    cpu = run(cfg, "cpu")
-    gather = run(cfg.replace(paged_attn_kernel=False), "cuda")
-    if not bool(torch.isfinite(kern[0]).all()):
-        fail("paged decode: non-finite logits on the card")
-    # as phase 3: float32 sums in another order; a stat may move by 2 groups
-    tol, stat_tol = 1e-3, 2 * cfg.sparse.group_size / cfg.d_ff
-    for name, other in (("CPU plain route", cpu),
-                        ("card gather route", gather)):
-        diff = (kern[0] - other[0]).abs()
-        worst = max(float((kern[1][k] - other[1][k]).abs().max())
-                    for k in MLP_STAT_KEYS)
-        n_diff = sum(int((kern[1][k] != other[1][k]).sum())
-                     for k in MLP_STAT_KEYS)
-        print(f"[paged-decode] kernel route vs {name}: logits max abs diff "
-              f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} "
-              f"(tolerance {tol}); {n_diff} of "
-              f"{len(MLP_STAT_KEYS) * steps * L * b} stat entries differ, by"
-              f" at most {worst:.3e}", flush=True)
-        if float(diff.max()) > tol or worst > stat_tol:
-            fail(f"paged decode vs {name}: logits differ by "
-                 f"{float(diff.max())} or a stat by {worst}")
-    print(f"[paged-decode] launches on the card {counts}", flush=True)
+    want = dict(predict_group_margins=L * steps, fused_sparse_mlp=L * steps,
+                paged_attention=L * steps, paged_kv_write=L * steps)
+
+    def run(run_cfg):
+        return lambda dev: _paged_forced(params[dev], run_cfg, dev, pool,
+                                         table, lens0, forced, alphas)
+    _hold("[paged-decode] kernel route vs the CPU plain route", run(cfg),
+          LOGIT_TOL["float32"], want)
+    _hold("[paged-decode] kernel route vs the card's gather route",
+          run(cfg), LOGIT_TOL["float32"], want,
+          ref=lambda: run(cfg.replace(paged_attn_kernel=False))("cuda"))
     del params
     torch.cuda.empty_cache()
 
@@ -3537,35 +3492,6 @@ def _numpy_tree(cfg, seed: int) -> dict:
     return tree
 
 
-def _hold(label: str, card, cpu, cfg, kv: str) -> None:
-    """Card against CPU runs of the same steps: (logits (steps, B, V),
-    stats {key: (steps, L, B)}).  Logits within ``ARCH_TOL[kv]``; each
-    stat entry within ``ARCH_STAT_GROUPS[kv]`` selection groups.  The
-    number of entries that differ at all is printed."""
-    import torch
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
-    if not bool(torch.isfinite(card[0]).all()):
-        fail(f"archs {label}: non-finite logits on the card")
-    diff = (card[0] - cpu[0]).abs()
-    tol = ARCH_TOL[kv]
-    stat_tol = ARCH_STAT_GROUPS[kv] * cfg.sparse.group_size / cfg.d_ff
-    n_diff = sum(int((card[1][k] != cpu[1][k]).sum()) for k in MLP_STAT_KEYS)
-    worst = max(float((card[1][k] - cpu[1][k]).abs().max())
-                for k in MLP_STAT_KEYS)
-    n_all = sum(card[1][k].numel() for k in MLP_STAT_KEYS)
-    print(f"[archs] {label}: logits max abs diff {float(diff.max()):.3e}, "
-          f"median {float(diff.median()):.3e} (tolerance {tol}); {n_diff} of "
-          f"{n_all} stat entries differ, by at most {worst:.3e} (tolerance "
-          f"{stat_tol:.3e})", flush=True)
-    if float(diff.max()) > tol or worst > stat_tol:
-        fail(f"archs {label}: logits differ by {float(diff.max())} or a "
-             f"stat by {worst}")
-
-
-def _want_launches(counts: dict, **n) -> dict:
-    return {k: n.get(k, 0) for k in counts}
-
-
 def _random_pool(cfg, n_blocks: int, kv_dtype, seed: int) -> list:
     """A seeded pool of stale random K/V, per layer, on the CPU: float
     values N(0, 1), or int8 values with bfloat16 scales in [0.005, 0.05]."""
@@ -3589,25 +3515,22 @@ def _random_pool(cfg, n_blocks: int, kv_dtype, seed: int) -> list:
 
 def _paged_forced(params, cfg, dev, pool, table, lens0, forced, alphas):
     """Teacher-forced decode steps against a copy of ``pool`` (per-layer
-    CPU tensors) on ``dev`` -> (logits (steps, B, V), stats {key: (steps,
-    L, B)}) on the CPU."""
+    CPU tensors) on ``dev``, the MLP stats on -> logits (steps, B, V) on
+    the CPU."""
     import torch
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
     from repro_torch.models import lm
     pool = {"blocks": [{k: v.to(dev) for k, v in layer.items()}
                        for layer in pool]}
     tab = torch.as_tensor(table, device=dev)
-    out_l, out_s = [], []
+    out = []
     with torch.inference_mode():
         for t in range(len(forced)):
-            lg, pool, st = lm.decode_step(
+            lg, pool, _ = lm.decode_step(
                 params, cfg, torch.as_tensor(forced[t], device=dev), pool,
                 torch.as_tensor(lens0 + t, device=dev), alphas=alphas,
                 collect_stats=True, block_table=tab)
-            out_l.append(lg.float().cpu())
-            out_s.append({k: v.cpu() for k, v in st.items()})
-    return torch.stack(out_l), {k: torch.stack([s[k] for s in out_s])
-                                for k in MLP_STAT_KEYS}
+            out.append(lg.float().cpu())
+    return torch.stack(out)
 
 
 def _fragmented_table(rng, b: int, nbps: int):
@@ -3620,63 +3543,17 @@ def _fragmented_table(rng, b: int, nbps: int):
     return n, table.astype(np.int32)
 
 
-def _arch_chunks(params, cfg, tag: str) -> None:
-    """One 160-token sparse prefill in chunks of 64 (the last holds 32 pad
-    rows), card against CPU: the last chunk's logits within 1e-3, every
-    chunk's stats within 2 groups, two launches per sparse MLP a chunk."""
-    import numpy as np
-    import torch
-    from repro_torch.core.sparse_mlp import MLP_STAT_KEYS
-    from repro_torch.kernels import ops
-    from repro_torch.models import lm
-
-    t0 = time.perf_counter()
-    cfg = cfg.replace(sparse=dataclasses.replace(
-        cfg.sparse, sparse_prefill=True))
-    plen, chunk, L = 160, MAIN_CHUNK, cfg.n_layers
-    n_chunks = -(-plen // chunk)
-    rng = np.random.default_rng(5)
-    tokens = np.zeros((1, n_chunks * chunk), np.int64)
-    tokens[0, :plen] = rng.integers(0, cfg.vocab, size=plen)
-    alphas = cfg.sparse.alpha_schedule().alphas(L)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        ops.reset_launch_counts()
-        caches = lm.init_caches(cfg, 1, 256, dev)
-        logits, stats = [], []
-        with torch.inference_mode():
-            for off in range(0, n_chunks * chunk, chunk):
-                lg, caches, st = lm.prefill_chunk(
-                    params[dev], cfg,
-                    torch.as_tensor(tokens[:, off:off + chunk], device=dev),
-                    caches, off, plen, alphas=alphas, collect_stats=True)
-                logits.append(lg.float().cpu())
-                stats.append({k: v.cpu() for k, v in st.items()})
-        out[dev] = (torch.stack(logits)[-1:],
-                    {k: torch.stack([s[k] for s in stats])
-                     for k in MLP_STAT_KEYS}, ops.launch_counts())
-    counts = out["cuda"][2]
-    want = _want_launches(counts, predict_chunk_group_margins=L * n_chunks,
-                          fused_sparse_mlp_chunk=L * n_chunks)
-    if counts != want:
-        fail(f"archs {tag} chunked prefill: launches {counts}, want {want}")
-    _hold(f"{tag} chunked sparse prefill ({plen} tokens, chunks of {chunk}, "
-          f"{cfg.kv_cache_dtype} KV cache; {time.perf_counter() - t0:.1f} s)",
-          out["cuda"][:2], out["cpu"][:2], cfg, cfg.kv_cache_dtype)
-
-
 def _gemma2_window(params, cfg) -> None:
     """gemma2's local layer on the model path with the window binding in
     the paged kernel: 2 decode steps at per-slot lengths 4095, 4096, 4097
     and 4500 on a float32 pool of seeded K/V, the kernel route on the card
-    against the plain route on the CPU, launches exact.  Then, sparsity
-    off (so no batch union couples the slots), the kernel route with the
-    window against one with a window past every length: the slot at 4095
-    (all its keys inside the window) bitwise the same, the other three
-    different."""
+    against the plain route on the CPU (``_hold``), launches exact.  Then,
+    sparsity off (so no batch union couples the slots), the kernel route
+    with the window against one with a window past every length: the slot
+    at 4095 (all its keys inside the window) bitwise the same, the other
+    three different."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops
 
     b, steps, L = len(WINDOW_LENS), 2, cfg.n_layers
     nbps = WINDOW_MAX_LEN // PAGE_BLOCK
@@ -3687,25 +3564,19 @@ def _gemma2_window(params, cfg) -> None:
     forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
     alphas = cfg.sparse.alpha_schedule().alphas(L)
     kcfg = cfg.replace(kv_cache_dtype="float32", paged_attn_kernel=True)
-    ops.reset_launch_counts()
-    card = _paged_forced(params["cuda"], kcfg, "cuda", pool, table, lens0,
-                         forced, alphas)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    want = _want_launches(counts, predict_group_margins=L * steps,
-                          fused_sparse_mlp=L * steps,
-                          paged_attention=L * steps,
-                          paged_kv_write=L * steps)
-    if counts != want:
-        fail(f"archs gemma2 window: launches {counts}, want {want}")
-    cpu = _paged_forced(params["cpu"], kcfg, "cpu", pool, table, lens0,
-                        forced, alphas)
-    _hold(f"gemma2-2b window {cfg.window} at lengths {list(WINDOW_LENS)} "
-          f"(+{steps - 1}), kernel route vs CPU", card, cpu, cfg, "float32")
+
+    def run(run_cfg, steps_forced):
+        return lambda dev: _paged_forced(params[dev], run_cfg, dev, pool,
+                                         table, lens0, steps_forced, alphas)
+    per = L * steps
+    _hold(f"[archs] gemma2-2b window {cfg.window} at lengths "
+          f"{list(WINDOW_LENS)} (+{steps - 1}), kernel route vs CPU",
+          run(kcfg, forced), LOGIT_TOL["float32"],
+          dict(predict_group_margins=per, fused_sparse_mlp=per,
+               paged_attention=per, paged_kv_write=per))
     dense = kcfg.replace(sparse=dataclasses.replace(cfg.sparse,
                                                     enabled=False))
-    outs = [_paged_forced(params["cuda"], c, "cuda", pool, table, lens0,
-                          forced[:1], alphas)[0][0]
+    outs = [run(c, forced[:1])("cuda")[0]
             for c in (dense, dense.replace(window=10 ** 9))]
     moved = (outs[0] - outs[1]).abs().amax(-1)
     print(f"[archs] gemma2-2b window vs none (sparsity off), logits max abs "
@@ -3716,47 +3587,22 @@ def _gemma2_window(params, cfg) -> None:
              "inside it, or left a slot with keys outside it unchanged")
 
 
-def _decode_pair(params, cfg, label: str, want: dict) -> None:
-    """8 teacher-forced decode steps on the dense cache, card against CPU
-    (``_teacher_forced``), the card's launches exactly ``want``."""
-    import torch
-    from repro_torch.kernels import ops
-    t0 = time.perf_counter()
-    ops.reset_launch_counts()
-    card = _teacher_forced(params["cuda"], cfg, "cuda")
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    if counts != _want_launches(counts, **want):
-        fail(f"archs {label}: launches {counts}, want {want}")
-    cpu = _teacher_forced(params["cpu"], cfg, "cpu")
-    _hold(f"{label} ({time.perf_counter() - t0:.1f} s)", card, cpu, cfg,
-          cfg.kv_cache_dtype)
-
-
 def phase_archs() -> None:
     """The other dense archs at full width and 2 layers (gemma2: one local
-    and one global layer), float32 compute, weights bridged from seeded
-    numpy draws to the CPU and copied to the card: 8 teacher-forced decode
-    steps on the dense cache (float32, then the config's own KV dtype, then
-    float32 with sparsity off: the arch's own silu or gelu) and on a
-    fragmented float32 pool with the paged kernels (int8 configs also on an
-    int8 pool, the gather route), a 160-token chunked sparse prefill, and
-    for gemma2 decode steps at lengths on both sides of its window.
-
-    The selection runs at capacity 1.0 here.  With random weights ~99.8%
-    of groups predict active, so a binding capacity clamp cuts among
-    near-equal margins, and one input element within rounding of 0 taking
-    the other sign bit on the card moves every margin and so the whole
-    selection: logits O(1) apart (seen on an H100 at capacity 0.2:
-    qwen1.5-32b's float32 decode 1.26, the bf16 and int8 caches 0.3-2.4).
-    Without the clamp such a flip moves a group across 0 at most for one
-    row, within the stat allowance, and the union and the output stay.
-    The clamp is held at full width by phase 2 and the serves."""
+    and one global layer), float32 compute, the config's own selection
+    (capacity 20%: the clamp binds), weights bridged from seeded numpy
+    draws to the CPU and copied to the card, each run card against CPU
+    through ``_hold`` (every MLP call on the card's input, selections
+    equal): 8 teacher-forced decode steps on the dense cache (float32,
+    then the config's own KV dtype, then float32 with sparsity off: the
+    arch's own silu or gelu) and on a fragmented float32 pool with the
+    paged kernels (int8 configs also on an int8 pool, the gather route), a
+    160-token chunked sparse prefill, and for gemma2 decode steps at
+    lengths on both sides of its window."""
     import numpy as np
     import torch
     from repro_torch import bridge
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     for i, arch in enumerate(NEW_ARCHS):
@@ -3764,8 +3610,7 @@ def phase_archs() -> None:
         base = get_config(arch)
         cfg = base.replace(n_layers=2, dtype="float32",
                            sparse=dataclasses.replace(
-                               base.sparse, strategy="pallas", enabled=True,
-                               capacity_frac=1.0))
+                               base.sparse, strategy="pallas", enabled=True))
         L, steps = cfg.n_layers, DEC_STEPS
         raw = bridge.params_from_numpy(_numpy_tree(cfg, 100 + i), cfg,
                                        device="cpu")
@@ -3777,18 +3622,24 @@ def phase_archs() -> None:
               f"vocab={cfg.vocab} {'gated' if cfg.gated_mlp else 'ungated'} "
               f"{cfg.activation}, KV {base.kv_cache_dtype}, windows "
               f"{lm._layer_windows(cfg)}, softcaps {cfg.attn_softcap}/"
-              f"{cfg.final_softcap}; weights built in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{cfg.final_softcap}, capacity "
+              f"{cfg.sparse.capacity(cfg.d_ff)} of {cfg.d_ff // G} groups; "
+              f"weights built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
         sparse = dict(predict_group_margins=L * steps,
                       fused_sparse_mlp=L * steps)
+
+        def decode(run_cfg):
+            return lambda dev: _teacher_forced(params[dev], run_cfg, dev)
         for kv in dict.fromkeys(("float32", base.kv_cache_dtype)):
-            _decode_pair(params, cfg.replace(kv_cache_dtype=kv),
-                         f"{arch} decode, {kv} KV cache", sparse)
-        _decode_pair(params, cfg.replace(
-            kv_cache_dtype="float32", sparse=dataclasses.replace(
-                cfg.sparse, enabled=False)),
-            f"{arch} decode, sparsity off ({cfg.activation}), float32 KV "
-            "cache", {})
+            _hold(f"[archs] {arch} decode, {kv} KV cache",
+                  decode(cfg.replace(kv_cache_dtype=kv)), LOGIT_TOL[kv],
+                  sparse)
+        _hold(f"[archs] {arch} decode, sparsity off ({cfg.activation}), "
+              "float32 KV cache", decode(cfg.replace(
+                  kv_cache_dtype="float32", sparse=dataclasses.replace(
+                      cfg.sparse, enabled=False))),
+              LOGIT_TOL["float32"], {})
         rng = np.random.default_rng(12)
         n, table = _fragmented_table(rng, DEC_BATCH, 4)
         lens0 = np.asarray([20, 17, 33, 47])
@@ -3799,27 +3650,22 @@ def phase_archs() -> None:
         if base.kv_cache_dtype == "int8":
             pools.append(("int8", False))
         for kv, kernel_route in pools:
-            t1 = time.perf_counter()
             run_cfg = cfg.replace(kv_cache_dtype=kv, paged_attn_kernel=True)
             pool = _random_pool(cfg, n, getattr(torch, kv), 12)
-            ops.reset_launch_counts()
-            card = _paged_forced(params["cuda"], run_cfg, "cuda", pool,
-                                 table, lens0, forced, alphas)
-            torch.cuda.synchronize()
-            counts = ops.launch_counts()
             paged = L * steps if kernel_route else 0
-            want = _want_launches(counts, paged_attention=paged,
-                                  paged_kv_write=paged, **sparse)
-            if counts != want:
-                fail(f"archs {arch} paged decode: launches {counts}, want "
-                     f"{want}")
-            cpu = _paged_forced(params["cpu"], run_cfg, "cpu", pool, table,
-                                lens0, forced, alphas)
-            route = "kernel" if kernel_route else "gather"
-            _hold(f"{arch} paged decode, {kv} pool, {route} route "
-                  f"({time.perf_counter() - t1:.1f} s)", card, cpu, cfg, kv)
-        _arch_chunks(params, cfg.replace(kv_cache_dtype=base.kv_cache_dtype),
-                     arch)
+            _hold(f"[archs] {arch} paged decode, {kv} pool, "
+                  f"{'kernel' if kernel_route else 'gather'} route",
+                  lambda dev: _paged_forced(params[dev], run_cfg, dev, pool,
+                                            table, lens0, forced, alphas),
+                  LOGIT_TOL[kv], dict(paged_attention=paged,
+                                      paged_kv_write=paged, **sparse))
+        _prefill_chunks(
+            f"[archs] {arch} chunked sparse prefill", params,
+            cfg.replace(kv_cache_dtype=base.kv_cache_dtype,
+                        sparse=dataclasses.replace(cfg.sparse,
+                                                   sparse_prefill=True)),
+            160, 5, 256,
+            ("predict_chunk_group_margins", "fused_sparse_mlp_chunk"))
         if cfg.window:
             _gemma2_window(params, cfg)
         del params
@@ -3827,40 +3673,91 @@ def phase_archs() -> None:
         print(f"[archs] {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def _sdpa(q, k, v, mask):
-    """SDPA with K/V heads shared by groups of query heads (``enable_gqa``
-    where this PyTorch has it, else K/V repeated beforehand)."""
-    import torch.nn.functional as F
-    rep = q.shape[1] // k.shape[1]
-    if rep == 1:
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      attn_mask=mask)
-    try:
-        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                       enable_gqa=True)
-        return lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True)
-    except TypeError:
-        k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      attn_mask=mask)
+def _served_mlp_checks(name: str, d: int, k: int, gated: bool, cap: int,
+                       gen) -> tuple:
+    """A sparse MLP call's kernels at one arch's served widths against
+    their plain versions, bf16 x, float32 weights, G=8: sign_pack of the
+    gate weights (at load) and of x, bitwise; predict_chunk_group_margins
+    at S=64 (pad rows at the end) and predict_group_margins at B=4,
+    bitwise; fused_sparse_mlp_chunk and fused_sparse_mlp over the
+    selection at the arch's capacity ``cap`` within phase 2's 2e-3 x
+    max|y| (h rounded to bf16), twice bitwise equal and equal with and
+    without telemetry, the telemetry as phase 2 holds it.  Returns (wg,
+    wu, wd, x, selection, max abs err) of the B=4 call."""
+    import torch
+    from repro_torch.core import selection as S
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_pack as KS
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    wg = torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+    wu = (torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
+          if gated else None)
+    wd = torch.randn((k, d), generator=gen, device=dev) * k ** -0.5
+    sign_wg = KS.sign_pack(wg)
+    if not torch.equal(sign_wg, ref.sign_pack_ref(wg)):
+        fail(f"sign_pack {name} gate weights ({k} x {d}): differs from its "
+             "plain version")
+    for rows, chunk in ((MAIN_CHUNK, True), (MAIN_BATCH, False)):
+        tag = (f"{name} shape {'S' if chunk else 'B'}={rows} d={d} k={k} "
+               f"{'gated' if gated else 'ungated'} x=bfloat16")
+        x = torch.randn((rows, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        alpha = _chunk_alphas(rows, dev) if chunk else \
+            torch.linspace(0.9, 1.1, rows, device=dev)
+        if not torch.equal(KS.sign_pack(x), ref.sign_pack_ref(x)):
+            fail(f"sign_pack {tag}: differs from its plain version")
+        pred = "predict_chunk_group_margins" if chunk \
+            else "predict_group_margins"
+        mlp = "fused_sparse_mlp_chunk" if chunk else "fused_sparse_mlp"
+        gm, cnt = getattr(KP, pred)(sign_wg, x, alpha, d_valid=d,
+                                    group_size=G)
+        # one plain version serves both: a row's math is the same
+        gm_r, cnt_r = ref.predict_group_margins_ref(sign_wg, x, d, alpha, G)
+        torch.cuda.synchronize()
+        if not (torch.equal(gm, gm_r) and torch.equal(cnt, cnt_r)):
+            fail(f"{pred} {tag}: differs from its plain version")
+        sel, sst = S.capacity_select_with_stats(S.union_margin(gm), cap)
+        count = int(sel.count)
+        args = (x, wg, wu, wd, sel.indices, sel.count)
+        y, tel = getattr(KF, mlp)(*args, gm, group_size=G,
+                                  collect_stats=True)
+        y0 = _same_twice(f"{tag} without telemetry",
+                         lambda: getattr(KF, mlp)(*args, group_size=G),
+                         name=mlp)
+        y_r, tel_r = ref.fused_sparse_mlp_stats_ref(*args, gm, group_size=G,
+                                                   collect_stats=True)
+        torch.cuda.synchronize()
+        scale = float(y_r.abs().max()) or 1.0
+        err = float((y - y_r).abs().max())
+        if err > 2e-3 * scale or not torch.equal(y, y0):
+            fail(f"{mlp} {tag}: max abs err {err:.3e} > 2e-3 x max|y| "
+                 f"{scale:.3e}, or y differs with/without telemetry")
+        _check_telemetry(tel, tel_r, x, wg, sel.indices, count, tag)
+        print(f"[arch-kernels] {tag}: sign_pack (x and the gate weights) "
+              f"and {pred} bitwise; {mlp} over {count} of {cap} groups "
+              f"({int(sst.predicted)} predicted active) max_abs_err "
+              f"{err:.3e} (tolerance {2e-3 * scale:.3e}), bitwise "
+              "repeatable, telemetry held", flush=True)
+    return wg, wu, wd, x, sel, err
 
 
 def phase_arch_kernel_times() -> None:
-    """The paged attention and the float32-weight decode MLP at shapes the
-    new archs bring, each checked against its plain version and timed
-    beside its bound, the plain version and a library yardstick: the
-    attention at gemma2's shape (H=8, K=4, hd 256, softcap 50, window
-    4096) and granite's (H=48, K=1: MQA), B=4, bf16 pool, the main
-    lengths; the MLP at granite's ungated d=6144, k=24576 and qwen1.5's
-    d=5120, k=27392, B=4, bf16 x, the alpha-1.0 selection."""
+    """The kernels at the shapes the new archs bring, against their plain
+    versions: a sparse MLP call's five (``_served_mlp_checks``) at
+    gemma2-2b's served widths (d=2304, k=9216), granite-34b's ungated
+    d=6144, k=24576 and qwen1.5-32b's d=5120, k=27392, each at its
+    config's capacity, the decode MLP timed at B=4; the paged attention
+    and the paired KV write (bitwise, twice) into a bf16 pool at gemma2's
+    shape (H=8, K=4, hd 256, softcap 50, window 4096) and granite's (H=48,
+    K=1: MQA), B=4, the main lengths, the attention timed.  Each time
+    beside its bound, the plain version and a library yardstick."""
     import numpy as np
     import torch
-    from repro_torch.core import predictor as P
-    from repro_torch.core import selection as S
-    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import paged_attn as KA
-    from repro_torch.kernels import predict as KP
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_mlp_fused as KF
 
@@ -3872,67 +3769,51 @@ def phase_arch_kernel_times() -> None:
     def flush():
         flush_buf.zero_()
     b, nbps = MAIN_BATCH, PAGED_NBPS[0]
-    for name, h, kvh, hd, softcap, window in (
-            ("gemma2-2b", 8, 4, 256, 50.0, 4096),
-            ("granite-34b", 48, 1, 128, 0.0, 0)):
+    for name in ("gemma2-2b", "granite-34b"):
+        cfg = get_config(name)
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        kw = dict(softcap=cfg.attn_softcap, window=cfg.window)
         q, kp, vp, table, lengths = _paged_inputs(
             gen, rng, b, h, kvh, hd, PAGE_BLOCK, nbps, torch.bfloat16,
             torch.bfloat16, lengths=MAIN_LIVE)
-        kw = dict(softcap=softcap, window=window)
+        tag = f"{name} shape B={b} H={h} K={kvh} hd={hd}"
         err = _check_attention(
-            f"{name} shape", _same_twice(
-                f"{name} shape", lambda: KA.paged_attention(
-                    q, kp, vp, table, lengths, **kw)),
+            tag, _same_twice(tag, lambda: KA.paged_attention(
+                q, kp, vp, table, lengths, **kw)),
             ref.paged_attention_ref(q, kp, vp, table, lengths, **kw), vp)
-        t_k = cuda_ms(lambda: KA.paged_attention(q, kp, vp, table, lengths,
-                                                 **kw), iters=50, flush=flush)
-        t_p = cuda_ms(lambda: ref.paged_attention_ref(
-            q, kp, vp, table, lengths, **kw), iters=10, flush=flush)
-        s_max = nbps * PAGE_BLOCK
-        tab = table.long()
-        view = [p[tab].reshape(b, s_max, kvh, hd).transpose(1, 2).contiguous()
-                for p in (kp, vp)]
-        mask = (torch.arange(s_max, device=dev)[None, :]
-                <= lengths[:, None])[:, None, None, :]
-        t_lib = cuda_ms(_sdpa(q[:, :, None, :], *view, mask), iters=50,
-                        flush=flush)
+        kv_new = [torch.randn((b, kvh, hd), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2)]
+        wk, wv = kp.clone(), vp.clone()
+        ref.paged_kv_write_pair_ref(wk, wv, *kv_new, table, lengths)
+        for run in range(2):
+            gk, gv = kp.clone(), vp.clone()
+            KA.paged_kv_write_pair(gk, gv, *kv_new, table, lengths)
+            torch.cuda.synchronize()
+            if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+                fail(f"paged_kv_write pair {tag} bf16 pool (run {run}): "
+                     "differs from two plain writes")
+        del wk, wv, gk, gv
+        t_k, t_p, t_lib, t_gl = _time_attention(
+            q, kp, vp, table, lengths, flush, plain_iters=10, **kw)
         live, bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
-        print(f"[arch-kernels] paged_attention {name} shape B={b} H={h} "
-              f"K={kvh} hd={hd} softcap={softcap} window={window} bf16 "
-              f"lengths {list(MAIN_LIVE)} ({live} live rows; "
-              f"{KA.launch_plan(q, kp, table)}): max_abs_err {err:.3e}, "
-              f"bitwise repeatable; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-              f"bound {bound[0]:.4f} ms ({bound[1]}; share "
-              f"{bound[0] / t_k:.3f}) sdpa-on-gathered-view {t_lib:.4f} ms"
-              f"{' (no softcap: SDPA has none)' if softcap else ''}",
-              flush=True)
-        del q, kp, vp, view
-    for name, d, k, gated in (("granite-34b", 6144, 24576, False),
-                              ("qwen1.5-32b", 5120, 27392, True)):
-        wg = torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
-        wu = (torch.randn((k, d), generator=gen, device=dev) * d ** -0.5
-              if gated else None)
-        wd = torch.randn((k, d), generator=gen, device=dev) * k ** -0.5
-        sign_wg = P.pack_signs(wg)
-        cap = SparseInferConfig().capacity(k)
-        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
-        alpha = torch.ones(b, device=dev)
-        gm, _ = KP.predict_group_margins(sign_wg, x, alpha, d_valid=d,
-                                         group_size=G)
-        sel, _ = S.capacity_select_with_stats(S.union_margin(gm), cap)
+        print(f"[arch-kernels] paged_attention {tag} softcap={kw['softcap']}"
+              f" window={kw['window']} bf16 lengths {list(MAIN_LIVE)} ({live}"
+              f" live rows; {KA.launch_plan(q, kp, table)}): max_abs_err "
+              f"{err:.3e}, bitwise repeatable; kernel {t_k:.4f} ms plain "
+              f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
+              f"{bound[0] / t_k:.3f}) sdpa-on-gathered-view {t_lib:.4f} ms "
+              f"gather+sdpa {t_gl:.4f} ms"
+              f"{' (no softcap: SDPA has none)' if kw['softcap'] else ''}; "
+              f"paged_kv_write pair bitwise twice", flush=True)
+        del q, kp, vp
+    for name in ("gemma2-2b", "granite-34b", "qwen1.5-32b"):
+        cfg = get_config(name)
+        d, k, gated = cfg.d_model, cfg.d_ff, cfg.gated_mlp
+        cap = cfg.sparse.capacity(k)
+        wg, wu, wd, x, sel, err = _served_mlp_checks(name, d, k, gated, cap,
+                                                     gen)
         count = int(sel.count)
-        y = _same_twice(f"{name} shape", lambda: KF.fused_sparse_mlp(
-            x, wg, wu, wd, sel.indices, sel.count, group_size=G),
-            name="fused_sparse_mlp")
-        y_r = ref.fused_sparse_mlp_ref(x, wg, wu, wd, sel.indices, sel.count,
-                                       group_size=G)
-        torch.cuda.synchronize()
-        # as phase 2: bf16 x rounds h to bf16, one ulp (2^-8) apart at most
-        scale = float(y_r.abs().max()) or 1.0
-        err = float((y - y_r).abs().max())
-        if err > 2e-3 * scale:
-            fail(f"fused_sparse_mlp {name} shape: max abs err {err:.3e} > "
-                 f"2e-3 x max|y| {scale:.3e}")
         t_k = cuda_ms(lambda: KF.fused_sparse_mlp(
             x, wg, wu, wd, sel.indices, sel.count, group_size=G), flush=flush)
         t_p = cuda_ms(lambda: ref.fused_sparse_mlp_ref(
@@ -3953,11 +3834,11 @@ def phase_arch_kernel_times() -> None:
                          + b * d * 4, 2 * n_mats * b * count * G * d)
         print(f"[arch-kernels] fused_sparse_mlp {name} shape B={b} d={d} "
               f"k={k} {'gated' if gated else 'ungated'} x=bfloat16 "
-              f"count={count}/{cap}: max_abs_err {err:.3e}, bitwise "
-              f"repeatable; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound "
-              f"{bound[0]:.4f} ms ({bound[1]}; share {bound[0] / t_k:.3f}) "
+              f"count={count}/{cap}: max_abs_err {err:.3e}; kernel "
+              f"{t_k:.4f} ms plain {t_p:.4f} ms bound {bound[0]:.4f} ms "
+              f"({bound[1]}; share {bound[0] / t_k:.3f}) "
               f"gathered-rows-{n_mats}-matmul {t_lib:.4f} ms", flush=True)
-        del wg, wu, wd, sign_wg, take, lib
+        del wg, wu, wd, take, lib
     del flush_buf
     torch.cuda.empty_cache()
 

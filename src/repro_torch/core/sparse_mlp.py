@@ -138,12 +138,6 @@ MLP_STAT_KEYS = (
     "union_demand_frac",
 )
 
-# The sharded serve's per-shard rider stats, under the reference's names
-# (the sharded formulation is not ported: nothing here emits them)
-SHARD_STAT_KEY = "shard_realized_density"
-SHARD_UNION_KEY = "shard_union_frac"
-SHARD_RIDER_KEYS = (SHARD_STAT_KEY, SHARD_UNION_KEY)
-
 # Alpha that makes any row predict all-sparse, so a dead slot drops out of
 # the batch-union selection.
 DEAD_SLOT_ALPHA = -1e9
