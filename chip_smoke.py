@@ -172,7 +172,34 @@ Phases, in order; any failure exits non-zero:
              chunked sparse prefill in chunks of 64, batch 4, 8 requests of
              mixed tiers with 96-192-token prompts; launches exact; a
              profiled paged decode step.
- 16. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 16. sharded  the sparse MLP under SparseInferConfig.tp_shards (ms) and
+             dp_shards (ds), each (data block, model shard) tile with its
+             own union selection: (a) predict_group_margins and
+             fused_sparse_mlp at the shard-local k/ms = 5504 and 2752 rows
+             (C/ms = 144 and 72 groups, B in {2, 4}, bf16 x, on one shard's
+             row views of the full weights), fused_sparse_mlp_q at 5504
+             (qg 128) and predict_counts at 5504, B=2, against their plain
+             versions, each twice bitwise, timed beside their bounds, plain
+             versions and (the float32 MLP) the gathered-rows 3-matmul, and
+             the ms shards' launches against one unsharded launch of the
+             same work; (b) the 2 full-width float32 layers of phase 3, 8
+             teacher-forced decode steps card against CPU (``_hold``, the
+             per-shard riders held with the selection stats) for masked,
+             gather and pallas at (ds, ms) = (2, 2) and (1, 4), int8 MLP
+             weights at (1, 2) and per-shard bucket tuples at (2, 2),
+             launches exactly ds * ms a tile kernel; (c) all 32 layers
+             through Server.serve at ds = ms = 2 (pallas, batch 4, 8
+             requests of mixed tiers, the per-tier controller over the
+             CTRL_BUCKETS ladder: 9 bucket tuples, warmed; a bf16 paged
+             pool of 16-token blocks, chunks of 64, dense under sharding):
+             launches exact from load to drain, the tuple sequence and
+             shard_skew printed, forced per-shard demands picking a rung
+             per shard, and a profiled paged decode step beside the
+             unsharded one of the same shape; (d) int8 weights at
+             tp_shards=4 rejected at Server construction, and the ms=4
+             ladder (81 tuples) falling back to uniform tuples with a
+             warning.
+ 17. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -278,7 +305,8 @@ LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2, "int8": 5e-2}
 # equal); the active and false-negative counts also read the gate values'
 # signs, which two sums in another order may disagree on near 0
 SELECTION_STATS = ("predicted_density", "realized_density", "overflow_frac",
-                   "union_demand_frac")
+                   "union_demand_frac", "shard_realized_density",
+                   "shard_union_frac")
 
 
 def fail(msg: str) -> None:
@@ -3922,6 +3950,427 @@ def phase_serve_gemma2() -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- phase 16: sharded --
+
+SHARD_GRIDS = ((2, 2), (1, 4))          # (dp_shards, tp_shards) of (b)
+
+
+def _shard_kernel_cases(results: dict, gen, flush) -> None:
+    """(a): the kernels of a sharded MLP call at shard-local widths against
+    their plain versions, on one shard's row views of the full weights
+    (the last shard: the largest offset)."""
+    import torch
+    from repro_torch.core import quantize as Q
+    from repro_torch.core import selection as S
+    from repro_torch.core.sparse_mlp import SparseInferConfig
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_pack as KS
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    wg = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wu = torch.randn((K, D), generator=gen, device=dev) * D ** -0.5
+    wd = torch.randn((K, D), generator=gen, device=dev) * K ** -0.5
+    sign_wg = KS.sign_pack(wg)
+    cap = SparseInferConfig().capacity(K)
+    for ms in (2, 4):
+        k_l, cap_l = K // ms, cap // ms
+        s = ms - 1
+        rows = slice(s * k_l, (s + 1) * k_l)
+        sign_l, wg_l, wu_l, wd_l = (t[rows] for t in (sign_wg, wg, wu, wd))
+        if wg_l.data_ptr() != wg.data_ptr() + s * k_l * D * 4:
+            fail("sharded: a shard's weight rows are not a view")
+        for b in (2, 4):
+            tag = f"k_l={k_l} C_l={cap_l} B={b} x=bfloat16 (shard {s}/{ms})"
+            x = torch.randn((b, D), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            alpha = torch.linspace(0.95, 1.05, b, device=dev)
+            gm, cnt = KP.predict_group_margins(sign_l, x, alpha, d_valid=D,
+                                               group_size=G)
+            gm2, _ = KP.predict_group_margins(sign_l, x, alpha, d_valid=D,
+                                              group_size=G)
+            gm_r, cnt_r = ref.predict_group_margins_ref(sign_l, x, D, alpha,
+                                                        G)
+            torch.cuda.synchronize()
+            if not (torch.equal(gm, gm_r) and torch.equal(cnt, cnt_r)
+                    and torch.equal(gm, gm2)):
+                fail(f"predict_group_margins {tag}: differs from its plain "
+                     "version or between two runs")
+            sel, sst = S.capacity_select_with_stats(S.union_margin(gm),
+                                                    cap_l)
+            count = int(sel.count)
+            args = (x, wg_l, wu_l, wd_l, sel.indices, sel.count)
+            y, tel = KF.fused_sparse_mlp(*args, gm, group_size=G,
+                                         collect_stats=True)
+            y0 = _same_twice(f"{tag} without telemetry",
+                             lambda: KF.fused_sparse_mlp(*args,
+                                                         group_size=G),
+                             name="fused_sparse_mlp")
+            y_r, tel_r = ref.fused_sparse_mlp_stats_ref(
+                *args, gm, group_size=G, collect_stats=True)
+            torch.cuda.synchronize()
+            scale = float(y_r.abs().max()) or 1.0
+            err = float((y - y_r).abs().max())
+            if err > 2e-3 * scale or not torch.equal(y, y0):
+                fail(f"fused_sparse_mlp {tag}: max abs err {err:.3e} > 2e-3"
+                     f" x max|y| {scale:.3e}, or y differs with/without "
+                     "telemetry")
+            _check_telemetry(tel, tel_r, x, wg_l, sel.indices, count, tag)
+            print(f"[sharded] {tag}: predict_group_margins bitwise, twice; "
+                  f"fused_sparse_mlp over {count} of {cap_l} groups "
+                  f"({int(sst.predicted)} predicted active) max_abs_err "
+                  f"{err:.3e} (tolerance {2e-3 * scale:.3e}), bitwise "
+                  "repeatable, telemetry held", flush=True)
+            if b != MAIN_BATCH:
+                continue
+            # ---- times at B=4: the shard's launch, then all ms shards'
+            # launches against the one unsharded launch of the same work
+            t_pred = cuda_ms(lambda: KP.predict_group_margins(
+                sign_l, x, alpha, d_valid=D, group_size=G), flush=flush)
+            t_pred_plain = cuda_ms(lambda: ref.predict_group_margins_ref(
+                sign_l, x, D, alpha, G), iters=5, flush=flush)
+            pw = predict_work(b, 2, k=k_l)
+            p_bound = (max(pw[0], pw[1]),
+                       "bytes" if pw[0] >= pw[1] else "operations")
+            t_mlp = cuda_ms(lambda: KF.fused_sparse_mlp(*args, group_size=G),
+                            flush=flush)
+            t_mlp_plain = cuda_ms(lambda: ref.fused_sparse_mlp_ref(
+                *args, group_size=G), flush=flush)
+            take = [m.reshape(k_l // G, G, D)[sel.indices[:count].long()]
+                    .reshape(-1, D).contiguous() for m in (wg_l, wu_l, wd_l)]
+            xf = x.float()
+            t_lib = cuda_ms(lambda: (torch.relu(xf @ take[0].T)
+                                     * (xf @ take[1].T)) @ take[2],
+                            flush=flush)
+            del take
+            m_bound = bound_ms(3 * count * G * D * 4 + b * D * 2
+                               + cap_l * 4 + b * D * 4,
+                               6 * b * count * G * D)
+            shards = [(sign_wg[i * k_l:(i + 1) * k_l], wg[i * k_l:(i + 1)
+                       * k_l], wu[i * k_l:(i + 1) * k_l],
+                       wd[i * k_l:(i + 1) * k_l]) for i in range(ms)]
+            sels = [S.capacity_select(S.union_margin(KP.predict_group_margins(
+                sh[0], x, alpha, d_valid=D, group_size=G)[0]), cap_l)
+                for sh in shards]
+            t_pred_all = cuda_ms(lambda: [KP.predict_group_margins(
+                sh[0], x, alpha, d_valid=D, group_size=G) for sh in shards],
+                flush=flush)
+            t_pred_one = cuda_ms(lambda: KP.predict_group_margins(
+                sign_wg, x, alpha, d_valid=D, group_size=G), flush=flush)
+            t_mlp_all = cuda_ms(lambda: [KF.fused_sparse_mlp(
+                x, *sh[1:], sl.indices, sl.count, group_size=G)
+                for sh, sl in zip(shards, sels)], flush=flush)
+            sel1 = S.capacity_select(S.union_margin(KP.predict_group_margins(
+                sign_wg, x, alpha, d_valid=D, group_size=G)[0]), cap)
+            t_mlp_one = cuda_ms(lambda: KF.fused_sparse_mlp(
+                x, wg, wu, wd, sel1.indices, sel1.count, group_size=G),
+                flush=flush)
+            n_sel = sum(int(sl.count) for sl in sels)
+            print(f"[sharded] predict_group_margins k_l={k_l} B={b} "
+                  f"x=bfloat16: max_abs_err 0 (bitwise) kernel "
+                  f"{t_pred:.4f} ms plain {t_pred_plain:.4f} ms bound "
+                  f"{p_bound[0]:.4f} ms ({p_bound[1]}; share "
+                  f"{p_bound[0] / t_pred:.3f}); the {ms} shards' launches "
+                  f"{t_pred_all:.4f} ms against one unsharded launch (k="
+                  f"{K}) {t_pred_one:.4f} ms", flush=True)
+            print(f"[sharded] fused_sparse_mlp k_l={k_l} B={b} x=bfloat16 "
+                  f"count={count}/{cap_l}: max_abs_err {err:.3e} kernel "
+                  f"{t_mlp:.4f} ms plain {t_mlp_plain:.4f} ms bound "
+                  f"{m_bound[0]:.4f} ms ({m_bound[1]}; share "
+                  f"{m_bound[0] / t_mlp:.3f}) gathered-rows-3-matmul "
+                  f"{t_lib:.4f} ms; the {ms} shards' launches ({n_sel} "
+                  f"groups) {t_mlp_all:.4f} ms against one unsharded launch "
+                  f"({int(sel1.count)} of {cap} groups) {t_mlp_one:.4f} ms",
+                  flush=True)
+            results[f"sharded_1_ms{ms}"] = dict(
+                ms=t_pred, plain_ms=t_pred_plain, bound_ms=p_bound[0],
+                all_ms=t_pred_all, one_ms=t_pred_one)
+            results[f"sharded_2_ms{ms}"] = dict(
+                ms=t_mlp, plain_ms=t_mlp_plain, bound_ms=m_bound[0],
+                library_ms=t_lib, all_ms=t_mlp_all, one_ms=t_mlp_one)
+            if ms == 2:
+                results["sharded_case"] = (x, alpha, sel, gm)
+    # ---- #5: the int8 fused MLP at k_l=5504, qg=128, on shard 1's views
+    k_l, cap_l = K // 2, cap // 2
+    qn = Q.quantize_mlp_node({"wg_t": wg, "wu_t": wu, "wd_t": wd}, QG, G)
+    q_l = [qn[n][k_l * qn[n].shape[0] // K:] for n in QNAMES]
+    x, alpha, sel, gm = results.pop("sharded_case")
+    tag = f"k_l={k_l} C_l={cap_l} qg={QG} B={MAIN_BATCH} x=bfloat16 " \
+          "(shard 1/2)"
+    y, tel = KF.fused_sparse_mlp_q(x, *q_l, sel.indices, sel.count, gm,
+                                   group_size=G, collect_stats=True)
+    y0 = _same_twice(tag, lambda: KF.fused_sparse_mlp_q(
+        x, *q_l, sel.indices, sel.count, group_size=G),
+        name="fused_sparse_mlp_q")
+    y_r, tel_r = ref.fused_sparse_mlp_q_ref(x, *q_l, sel.indices, sel.count,
+                                            gm, group_size=G,
+                                            collect_stats=True)
+    torch.cuda.synchronize()
+    scale = float(y_r.abs().max()) or 1.0
+    err = float((y - y_r).abs().max())
+    if err > 2e-3 * scale or not torch.equal(y, y0):
+        fail(f"fused_sparse_mlp_q {tag}: max abs err {err:.3e} > 2e-3 x "
+             f"max|y| {scale:.3e}, or y differs with/without telemetry")
+    wg_view = Q.dense_view({n: t for n, t in zip(QNAMES, q_l)})["wg_t"]
+    _check_telemetry(tel, tel_r, x, wg_view, sel.indices, int(sel.count),
+                     tag)
+    count = int(sel.count)
+    t_q = cuda_ms(lambda: KF.fused_sparse_mlp_q(
+        x, *q_l, sel.indices, sel.count, group_size=G), flush=flush)
+    t_q_plain = cuda_ms(lambda: ref.fused_sparse_mlp_q_ref(
+        x, *q_l, sel.indices, sel.count, group_size=G), iters=5, flush=flush)
+    n_bytes, flops = chunk_q_work(MAIN_BATCH, count, cap_l, 2,
+                                  sel.indices[:count].long())[:2]
+    q_bound = bound_ms(n_bytes, flops)
+    print(f"[sharded] fused_sparse_mlp_q {tag} count={count}/{cap_l}: "
+          f"max_abs_err {err:.3e} (tolerance {2e-3 * scale:.3e}), bitwise "
+          f"repeatable, telemetry held; kernel {t_q:.4f} ms plain "
+          f"{t_q_plain:.4f} ms bound {q_bound[0]:.4f} ms ({q_bound[1]}; "
+          f"share {q_bound[0] / t_q:.3f}); no library call takes int8 "
+          "weights with group scales", flush=True)
+    results["sharded_5"] = dict(ms=t_q, plain_ms=t_q_plain,
+                                bound_ms=q_bound[0])
+    del qn, q_l
+    # ---- #10: the counts kernel at k_l=5504, B=2
+    sign_l = sign_wg[k_l:]
+    xs = KS.sign_pack(torch.randn((2, D), generator=gen,
+                                  device=dev).to(torch.bfloat16))
+    c = _same_twice("k_l=5504 B=2", lambda: KP.predict_counts(sign_l, xs),
+                    name="predict_counts")
+    if not torch.equal(c, ref.predict_counts_ref(sign_l, xs)):
+        fail("predict_counts k_l=5504 B=2: differs from its plain version")
+    t_c = cuda_ms(lambda: KP.predict_counts(sign_l, xs), flush=flush)
+    t_c_plain = cuda_ms(lambda: ref.predict_counts_ref(sign_l, xs), iters=5,
+                        flush=flush)
+    cw = predict_work(2, 4, k=k_l, counts=True)
+    c_bound = (max(cw[0], cw[1]), "bytes" if cw[0] >= cw[1] else
+               "operations")
+    print(f"[sharded] predict_counts k_l={k_l} B=2: bitwise, twice; kernel "
+          f"{t_c:.4f} ms plain {t_c_plain:.4f} ms bound {c_bound[0]:.4f} ms "
+          f"({c_bound[1]}; share {c_bound[0] / t_c:.3f})", flush=True)
+    results["sharded_10"] = dict(ms=t_c, plain_ms=t_c_plain,
+                                 bound_ms=c_bound[0])
+    del wg, wu, wd, sign_wg
+
+
+def _shard_layers() -> None:
+    """(b): two full-width float32 layers, 8 teacher-forced decode steps,
+    card against CPU through ``_hold`` (selections equal, riders and stats
+    held as the selection stats), launches exact: ds * ms launches of each
+    tile kernel per layer and step, x's sign pack once a data block."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    base = get_config("prosparse-llama2-7b")
+    cfg0 = base.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
+    raw = lm.init_lm(cfg0, 0, "cuda")
+    L, n = cfg0.n_layers, cfg0.n_layers * DEC_STEPS
+    cases = []
+    for ds, ms in SHARD_GRIDS:
+        for strategy in ("masked", "gather", "pallas"):
+            cases.append((strategy, ds, ms, {}))
+    cases.append(("pallas", 1, 2, {"weight_dtype": "int8",
+                                   "quant_group_size": QG}))
+    cases.append(("pallas", 2, 2, {"shard_bucket_caps": (72, 144),
+                                   "capacity_override": 288}))
+    cases.append(("gather", 2, 2, {"shard_bucket_caps": (144, 72),
+                                   "capacity_override": 288}))
+    for strategy, ds, ms, extra in cases:
+        sp = dataclasses.replace(base.sparse, strategy=strategy,
+                                 enabled=True, tp_shards=ms,
+                                 dp_shards=ds if ds > 1 else 0, **extra)
+        cfg = cfg0.replace(sparse=sp)
+        params = {"cuda": lm.prepare_sparse(raw, sp)}
+        params["cpu"] = _to(params["cuda"], "cpu")
+        tiles = n * ds * ms
+        if strategy == "pallas":
+            mlp = ("fused_sparse_mlp_q" if extra.get("weight_dtype")
+                   else "fused_sparse_mlp")
+            want = {"predict_group_margins": tiles, mlp: tiles}
+        else:
+            want = {"sign_pack": n * ds, "predict_counts": tiles}
+        label = ", ".join(f"{k}={v}" for k, v in extra.items()
+                          if k != "quant_group_size")
+        _hold(f"[sharded] {strategy} ds={ds} ms={ms}"
+              f"{', ' + label if label else ''}",
+              lambda dev: _teacher_forced(params[dev], cfg, dev),
+              LOGIT_TOL["float32"], want)
+        del params
+    del raw
+    torch.cuda.empty_cache()
+
+
+def _shard_serve(results: dict) -> None:
+    """(c): all 32 layers, tp_shards=2, dp_shards=2, batch 4, 8 requests of
+    mixed tiers, strategy pallas, the per-tier controller over the
+    CTRL_BUCKETS ladder (9 bucket tuples, warmed), a bf16 paged pool of
+    16-token blocks, chunks of 64 (the sharded prefill runs dense)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ControllerConfig, PagedKVConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config("prosparse-llama2-7b")
+    sp = dataclasses.replace(base.sparse, strategy="pallas", enabled=True,
+                             sparse_prefill=True, tp_shards=2, dp_shards=2,
+                             capacity_buckets=CTRL_BUCKETS)
+    cfg = base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                       sparse=sp)
+    scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                       prefill_chunk=MAIN_CHUNK, warm_buckets=True,
+                       paged_kv=PagedKVConfig(block_size=PAGE_BLOCK),
+                       controller=ControllerConfig(enabled=True,
+                                                   per_tier=True))
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, "cuda")
+    ops.reset_launch_counts()
+    srv = Server(lm, cfg, scfg, params, device="cuda")
+    del params
+    rng = np.random.default_rng(26)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab, size=int(rng.integers(64, 129))),
+                max_new=16, sla=tiers[i % 3]) for i in range(8)]
+    t1 = time.perf_counter()
+    done = srv.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    steps, warm = srv.decode_steps, srv.warmup_steps
+    ctl, L = srv.controller, cfg.n_layers
+    if len(done) != 8 or any(
+            r.outcome != "completed" or len(r.out) != 16
+            or not ((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done):
+        fail("sharded serve: not every request completed with 16 valid "
+             "tokens")
+    tiles = L * (steps + warm) * 4
+    want = _want_launches(counts, sign_pack=L, predict_group_margins=tiles,
+                          fused_sparse_mlp=tiles,
+                          paged_attention=L * (steps + warm),
+                          paged_kv_write=L * (steps + warm))
+    if steps == 0 or counts != want:
+        fail(f"sharded serve: launches {counts}, want {want} ({steps} "
+             f"decode steps + {warm} warmup, 4 tiles a sparse MLP)")
+    n_tuples = len(srv._bucket_cfgs)
+    if n_tuples != 9 or warm != 9 or set(srv._trace_counts.values()) != {1}:
+        fail(f"sharded serve: {n_tuples} bucket tuples, {warm} warmup "
+             f"steps, setups {dict(srv._trace_counts)}; want 9, 9, all 1")
+    print(f"[sharded] serve ds=2 ms=2: init {t1 - t0:.1f} s, serve "
+          f"{wall:.1f} s; throughput_report "
+          f"{json.dumps(throughput_report(done))}", flush=True)
+    print(f"[sharded] serve: decode steps {steps} (+{warm} warmup), "
+          f"prefill chunks {srv.prefill_chunks_run} (dense); launches "
+          f"{counts}", flush=True)
+    print(f"[sharded] serve: local ladder {list(srv._local_ladder)}, "
+          f"bucket tuples {sorted(srv._bucket_cfgs)}; sequence "
+          f"{list(srv.bucket_history)}", flush=True)
+    print(f"[sharded] serve: shard_skew {json.dumps(ctl.shard_skew())}",
+          flush=True)
+    # random weights hold every shard's union demand near 1: a forced
+    # per-shard estimate must pick a rung per shard (slack 1.3 of the
+    # 5504 local rows, in groups: 0.05 -> 45 -> 72, 0.15 -> 135 -> 144,
+    # 0.9 -> 688 -> 280)
+    held = ctl.shard_union_ema
+    picks = {}
+    for pair in ((0.05, 0.9), (0.15, 0.05), (0.9, 0.9)):
+        ctl.shard_union_ema = np.tile(np.asarray(pair, np.float32), (L, 1))
+        picks[pair] = srv._select_bucket()
+    ctl.shard_union_ema = held
+    print(f"[sharded] serve: forced per-shard union demand -> bucket tuple "
+          f"{picks}", flush=True)
+    if list(picks.values()) != [(72, 280), (144, 72), (280, 280)]:
+        fail(f"sharded serve: forced demands picked {picks}")
+    srv.kv_pool.check_invariants()
+    # one paged decode step at the widest tuple, and the unsharded step of
+    # the same serve shape (capacity 560 = 2 x 280)
+    b, nbps = MAIN_BATCH, srv._nbps
+    pool = lm.init_kv_pool(cfg, b * nbps + 2, PAGE_BLOCK, "cuda")
+    table = (torch.arange(b * nbps, dtype=torch.int32, device="cuda")
+             + 2).reshape(b, nbps)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    lengths = torch.full((b,), 64, device="cuda")
+    alphas = srv._slot_alpha_matrix(np.full(b, srv._tier_index["balanced"]))
+    flat = cfg.replace(sparse=dataclasses.replace(
+        sp, tp_shards=0, dp_shards=0, capacity_override=560))
+    for label, c in (("sharded ds=2 ms=2, bucket (280, 280)",
+                      srv._bucket_cfgs[(280, 280)]),
+                     ("unsharded, capacity 560", flat)):
+        profile_step(f"paged decode step (B={b}, {L} layers, bf16 pool, "
+                     f"{label}, telemetry on)",
+                     lambda c=c: lm.decode_step(
+                         srv.params, c, tok, pool, lengths, alphas=alphas,
+                         collect_stats=True, block_table=table))
+    del srv, pool
+    torch.cuda.empty_cache()
+
+
+def _shard_rejections() -> None:
+    """(d): int8 weights at tp_shards=4 (2752 rows a shard: 21.5 quant
+    groups of 128) raise at Server construction; the ms=4 ladder (81
+    tuples > bucket_tuple_cap 16) warns and keeps the 3 uniform ones."""
+    import warnings
+    import torch
+    from repro_torch.configs.base import ControllerConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server, ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    cfg = base.replace(n_layers=2)
+    params = lm.init_lm(cfg, 0, "cuda")
+    bad = cfg.replace(sparse=dataclasses.replace(
+        base.sparse, strategy="pallas", enabled=True, tp_shards=4,
+        weight_dtype="int8", quant_group_size=QG))
+    try:
+        Server(lm, bad, ServeConfig(batch=MAIN_BATCH), params, device="cuda")
+        fail("sharded: int8 at tp_shards=4 built a Server")
+    except ValueError as e:
+        print(f"[sharded] int8 at tp_shards=4 rejected at construction: {e}",
+              flush=True)
+    ladder = cfg.replace(sparse=dataclasses.replace(
+        base.sparse, strategy="pallas", enabled=True, tp_shards=4,
+        capacity_buckets=CTRL_BUCKETS))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        srv = Server(lm, ladder, ServeConfig(
+            batch=MAIN_BATCH, controller=ControllerConfig(enabled=True)),
+            params, device="cuda")
+    msgs = [str(w.message) for w in rec if "bucket_tuple_cap" in
+            str(w.message)]
+    keys = sorted(srv._bucket_cfgs)
+    print(f"[sharded] ms=4 ladder: warnings {msgs}; bucket tuples {keys}",
+          flush=True)
+    if len(msgs) != 1 or keys != [(36,) * 4, (72,) * 4, (140,) * 4]:
+        fail(f"sharded: the ms=4 ladder gave {keys} with warnings {msgs}")
+    del srv, params
+    torch.cuda.empty_cache()
+
+
+def phase_sharded(results: dict) -> None:
+    """Sharded sparse decode (tp_shards/dp_shards) on the card: (a) the
+    kernels at shard-local widths, (b) two full-width layers card against
+    CPU, (c) a full-depth sharded serve, (d) the rejections."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for step, fn in (("a", lambda: _shard_kernel_cases(
+            results, gen, flush_buf.zero_)), ("b", _shard_layers),
+            ("c", lambda: _shard_serve(results)), ("d", _shard_rejections)):
+        t = time.perf_counter()
+        fn()
+        print(f"[sharded] ({step}) {time.perf_counter() - t:.1f} s",
+              flush=True)
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4247,7 +4696,8 @@ def main() -> None:
                         (phase_serve_controller, (results,)),
                         (phase_serve_overload, (results,)),
                         (phase_archs, ()), (phase_arch_kernel_times, ()),
-                        (phase_serve_gemma2, ())):
+                        (phase_serve_gemma2, ()),
+                        (phase_sharded, (results,))):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

@@ -58,8 +58,9 @@ class ControllerConfig:
                                    # under a capacity-bucket ladder)
     per_tier: bool = False         # one (alpha vector, density target) per
                                    # ServeConfig.sla_tiers entry: (T, L)
-    # the sharded serve's per-shard bucket ladder (not ported: the fields
-    # keep the reference's config shape)
+    # the sharded serve's per-shard bucket ladder: each model shard picks
+    # its own rung when len(ladder) ** tp_shards <= bucket_tuple_cap, from
+    # its union demand times shard_slack
     per_shard_buckets: bool = True
     bucket_tuple_cap: int = 16
     shard_slack: float = 1.3

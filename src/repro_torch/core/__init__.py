@@ -3,10 +3,7 @@ paper's primary contribution), the counterpart of ``repro/core``.
 
 The reference's ``coactivation_permutation`` and
 ``apply_neuron_permutation`` (offline neuron reordering) are not ported
-yet: they come with ROADMAP Queue A item 16 (training and tooling).
-Neither are the sharded serve's rider stat names (``SHARD_STAT_KEY``,
-``SHARD_UNION_KEY``, ``SHARD_RIDER_KEYS``): nothing here emits them until
-item 14 ports the sharded serve."""
+yet: they come with ROADMAP Queue A item 17 (training and tooling)."""
 from repro_torch.core.predictor import (
     AlphaSchedule,
     margins,
@@ -35,6 +32,9 @@ from repro_torch.core.selection import (
 )
 from repro_torch.core.sparse_mlp import (
     MLP_STAT_KEYS,
+    SHARD_RIDER_KEYS,
+    SHARD_STAT_KEY,
+    SHARD_UNION_KEY,
     SparseInferConfig,
     apply,
     dense_mlp,

@@ -66,9 +66,9 @@ def clamp_selection(sel: Selection, stats: SelectionStats, capacity
     entries a contiguous prefix, so keeping the first ``capacity`` entries
     equals selecting with that capacity directly.  The shape stays at the
     wide ``len(sel.indices)``; clamped-off entries are re-pointed at group 0
-    and marked invalid, like capacity padding.  Kept for parity with the
-    reference, whose sharded per-shard ladder calls it; nothing in the
-    unsharded port does yet."""
+    and marked invalid, like capacity padding.  The sharded strategies
+    clamp each shard to its entry of ``shard_bucket_caps`` with it
+    (``runtime/distributed.py``)."""
     cap_max = sel.indices.shape[-1]
     dev = sel.indices.device
     cap = torch.as_tensor(capacity, dtype=torch.int32, device=dev)

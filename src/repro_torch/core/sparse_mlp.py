@@ -90,6 +90,35 @@ class SparseInferConfig:
             caps.add(min(cap, n_groups))
         return tuple(sorted(caps))
 
+    def shard_capacity(self, k: int) -> int:
+        """Per-shard selection capacity (groups) under ``tp_shards``: the
+        global capacity must split evenly, so every shard selects at one
+        width.  With ``shard_bucket_caps`` (a per-shard bucket tuple) the
+        width is the tuple's largest entry, and each shard clamps its own
+        count to its entry (``runtime/distributed.py``)."""
+        ms = max(1, self.tp_shards)
+        if self.shard_bucket_caps:
+            caps = tuple(int(c) for c in self.shard_bucket_caps)
+            if len(caps) != ms:
+                raise ValueError(
+                    f"shard_bucket_caps has {len(caps)} entries but "
+                    f"tp_shards={ms}")
+            n_local = (k // self.group_size) // ms
+            if any(c < 1 or c > n_local for c in caps):
+                raise ValueError(
+                    f"shard_bucket_caps {caps} out of range [1, {n_local}] "
+                    f"local groups for k={k}, tp_shards={ms}, "
+                    f"group_size={self.group_size}")
+            return max(caps)
+        cap = self.capacity(k)
+        if cap % ms or (k // self.group_size) % ms:
+            raise ValueError(
+                f"capacity {cap} groups / k={k} not divisible by "
+                f"tp_shards={ms} (group_size={self.group_size}): pick "
+                "bucket fractions whose aligned group counts divide the "
+                "shard count, or another group_size")
+        return cap // ms
+
 
 def init_gated_mlp(generator: torch.Generator, d: int, k: int,
                    dtype=torch.float32, gated: bool = True,
@@ -138,14 +167,30 @@ MLP_STAT_KEYS = (
     "union_demand_frac",
 )
 
+# Per-shard telemetry of a sharded (``tp_shards``) strategy, shaped token
+# dims + (tp_shards,), beside the MLP_STAT_KEYS: each shard's realized
+# density and its union's selection demand (selected + clamp-dropped
+# groups), both as fractions of its own k/tp_shards rows.  The serve path's
+# DistributedController pops them before aggregating the rest.
+SHARD_STAT_KEY = "shard_realized_density"
+SHARD_UNION_KEY = "shard_union_frac"
+SHARD_RIDER_KEYS = (SHARD_STAT_KEY, SHARD_UNION_KEY)
+
 # Alpha that makes any row predict all-sparse, so a dead slot drops out of
 # the batch-union selection.
 DEAD_SLOT_ALPHA = -1e9
 
 
-def zero_mlp_stats(shape: tuple = (), device="cpu") -> dict:
-    return {k: torch.zeros(shape, dtype=torch.float32, device=device)
-            for k in MLP_STAT_KEYS}
+def zero_mlp_stats(shape: tuple = (), device="cpu",
+                   tp_shards: int = 0) -> dict:
+    """Zero telemetry; ``tp_shards`` > 0 adds the per-shard riders, shaped
+    ``shape + (tp_shards,)``."""
+    out = {k: torch.zeros(shape, dtype=torch.float32, device=device)
+           for k in MLP_STAT_KEYS}
+    for k in SHARD_RIDER_KEYS if tp_shards else ():
+        out[k] = torch.zeros(shape + (tp_shards,), dtype=torch.float32,
+                             device=device)
+    return out
 
 
 def _stats(shape: tuple, device, **kw) -> dict:
@@ -218,8 +263,8 @@ def gather_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
     """Capacity-gather path: x (d,), (B, d) (one batch union) or (G, B, d)
     (a union and a selection per group G).  Per group: the batch-union
     margins, a top-C selection of row groups, the gather of those rows and
-    compact matmuls.  Unsharded: the reference's per-shard local selection
-    needs ``tp_shards`` (not ported)."""
+    compact matmuls.  A sharded config (``tp_shards``/``dp_shards``) runs
+    its shard-local selections in ``runtime/distributed.py`` instead."""
     params = Q.dense_view(params)
     act = _act(cfg)
     squeeze = x.ndim == 1
@@ -357,10 +402,13 @@ def apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
             f"SparseInfer needs a ReLU-fied activation, got {cfg.activation!r}")
     if alpha is None:
         alpha = cfg.alpha_schedule().alpha_for_layer(layer_idx, num_layers)
-    if cfg.tp_shards or cfg.dp_shards:
-        raise NotImplementedError(
-            "sharded sparse decode is not ported yet (ROADMAP Queue A, "
-            "sharded semantics)")
+    if ((cfg.tp_shards or cfg.dp_shards)
+            and strategy in ("masked", "gather", "pallas")):
+        # shard-local selections over the (dp_shards, tp_shards) grid; a
+        # local import, since runtime imports core
+        from repro_torch.runtime import distributed as DD
+        return DD.sharded_apply(params, x, cfg, alpha, strategy=strategy,
+                                **kw)
     if strategy == "dense":
         return dense_mlp(params, x, cfg, **kw)
     if strategy == "masked":

@@ -25,7 +25,8 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig, *,
     union selection, as a decode batch's slots do); dense otherwise.  More
     rows than ``prefill_max_tokens`` (prefill) or ``sparse_max_batch``
     (decode) also run dense — the reference's own semantics (one union
-    selection serves at most that many rows), not a device fallback.
+    selection serves at most that many rows), not a device fallback.  A
+    sharded config (``tp_shards``/``dp_shards``) keeps prefill dense.
     ``alpha`` overrides the layer's schedule: a scalar or one value per
     row."""
     shape = x.shape
@@ -33,7 +34,19 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig, *,
     def finish(out):
         if return_stats:
             y, stats = out
-            stats = {k: stats[k].float() for k in SM.MLP_STAT_KEYS}
+            # the contract's keys, plus the sharded strategies' per-shard
+            # riders; a dense path of a tensor-sharded config emits zero
+            # riders, so its stats stack against the sharded layers'
+            keys = SM.MLP_STAT_KEYS + tuple(
+                k for k in SM.SHARD_RIDER_KEYS if k in stats)
+            stats = {k: stats[k].float() for k in keys}
+            if cfg.tp_shards:
+                tok = stats["realized_density"].shape
+                for rk in SM.SHARD_RIDER_KEYS:
+                    if rk not in stats:
+                        stats[rk] = torch.zeros(
+                            tok + (cfg.tp_shards,), dtype=torch.float32,
+                            device=x.device)
             return y.reshape(shape).to(x.dtype), stats
         return out.reshape(shape).to(x.dtype)
 

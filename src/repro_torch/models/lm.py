@@ -238,9 +238,15 @@ def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         new.append(cache)
         stats.append(st)
     if collect_stats:
-        return x, {"blocks": new}, {k: torch.stack([s[k] for s in stats])
-                                    for k in SM.MLP_STAT_KEYS}
+        return x, {"blocks": new}, _stack_stats(stats)
     return x, {"blocks": new}, None
+
+
+def _stack_stats(stats: list) -> dict:
+    """Per-layer MLP stats -> (L, B, ...) tensors: the ``MLP_STAT_KEYS``
+    (L, B) and, for a tensor-sharded config, the per-shard riders
+    (L, B, tp_shards)."""
+    return {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -249,7 +255,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     """One decode step.  token (B, 1) -> (logits (B, V) float32, caches
     [, stats]).  ``cache_len``: scalar shared length or (B,) per-slot
     lengths.  With ``collect_stats`` the stats are a dict over
-    ``MLP_STAT_KEYS`` of (L, B) float32 tensors.  ``block_table``
+    ``MLP_STAT_KEYS`` of (L, B) float32 tensors, and with ``tp_shards``
+    also the per-shard riders (L, B, tp_shards).  ``block_table``
     (B, nbps) int32: ``caches`` is a paged KV pool (``init_kv_pool``) and
     ``cache_len`` must be per slot."""
     _check_family(cfg)
@@ -269,12 +276,14 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
 
 def _chunk_stat_mean(a: torch.Tensor, tok_mask: torch.Tensor):
-    """One chunk's per-row MLP stats, (B*S,) from the sparse path or (B, S)
-    from the dense one, reduced to (B,): the mean over the chunk's real
-    prompt positions only (pad rows carry dead-alpha values)."""
+    """One chunk's per-row MLP stats, (B*S, ...) from the sparse path or
+    (B, S, ...) from the dense one (``...``: a sharded config's shard
+    axis), reduced to (B, ...): the mean over the chunk's real prompt
+    positions only (pad rows carry dead-alpha values)."""
     b, s = tok_mask.shape
-    a = a.reshape(b, s)
-    wm = tok_mask.float()
+    if tuple(a.shape[:2]) != (b, s):
+        a = a.reshape((b, s) + tuple(a.shape[1:]))
+    wm = tok_mask.float().reshape((b, s) + (1,) * (a.ndim - 2))
     return (a * wm).sum(1) / torch.clamp(wm.sum(1), min=1.0)
 
 
@@ -320,8 +329,7 @@ def _dense_stack_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
         new.append(cache)
         stats.append(st)
     if collect_stats:
-        return x, {"blocks": new}, {k: torch.stack([s[k] for s in stats])
-                                    for k in SM.MLP_STAT_KEYS}
+        return x, {"blocks": new}, _stack_stats(stats)
     return x, {"blocks": new}, None
 
 

@@ -23,14 +23,19 @@ regulates toward its own target; tiers with no live slot in a step are
 frozen for that step.  ``capacity_hint`` sizes the capacity to the observed
 union demand plus slack; the server's bucket ladder reads it between steps.
 
-Not ported yet: ``DistributedController`` and ``remap_shard_ema`` (sharded
-serving) and the checkpoint helpers ``save_controller`` /
-``restore_controller``.
+A sharded config (``tp_shards``) wraps the controller in
+``DistributedController``, which takes the per-shard riders off each
+step's stats and keeps per-(layer, shard) EMAs for the skew report and the
+per-shard bucket ladder.
+
+Not ported yet: the checkpoint helpers ``save_controller`` /
+``restore_controller`` (controller checkpoints on disk).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,6 +43,8 @@ import numpy as np
 from repro_torch.configs.base import ControllerConfig, SLATier
 from repro_torch.core.predictor import AlphaSchedule
 from repro_torch.core.selection import expected_capacity
+from repro_torch.core.sparse_mlp import (SHARD_RIDER_KEYS, SHARD_STAT_KEY,
+                                         SHARD_UNION_KEY)
 
 # the step-by-step trace is a reporting aid and must not grow without bound
 TRAJECTORY_KEEP = 4096
@@ -405,3 +412,185 @@ class AlphaController:
             if arr.shape == s.alphas.shape:
                 self.prefill_ema = arr
         self.prefill_chunks = int(meta.get("prefill_chunks", 0))
+
+
+def remap_shard_ema(ema: np.ndarray, ms_new: int) -> np.ndarray:
+    """Per-(layer, shard) EMAs of an ``ms_old``-way split carried onto
+    ``ms_new`` model shards (a restart on another grid).  Shard s of the
+    old split owns the neuron tile [s/ms_old, (s+1)/ms_old) of a layer;
+    new shard t gets the overlap-weighted mean of the old tiles it covers,
+    which keeps each layer's mean across shards."""
+    ema = np.asarray(ema, np.float32)
+    ms_old = ema.shape[-1]
+    if ms_old == ms_new:
+        return ema.copy()
+    # w[t, s] = |tile_t_new & tile_s_old| / |tile_t_new|: rows sum to 1
+    lo_new = np.arange(ms_new, dtype=np.float64)[:, None] / ms_new
+    hi_new = lo_new + 1.0 / ms_new
+    lo_old = np.arange(ms_old, dtype=np.float64)[None, :] / ms_old
+    hi_old = lo_old + 1.0 / ms_old
+    overlap = np.clip(np.minimum(hi_new, hi_old)
+                      - np.maximum(lo_new, lo_old), 0.0, None)
+    w = (overlap * ms_new).astype(np.float32)            # (ms_new, ms_old)
+    return np.einsum("ls,ts->lt", ema, w)
+
+
+class DistributedController:
+    """:class:`AlphaController` for a tensor-sharded config.
+
+    The sharded strategies reduce their telemetry to the (L, B)
+    ``MLP_STAT_KEYS`` the inner controller takes, and add two riders
+    (``core.sparse_mlp.SHARD_RIDER_KEYS``, (L, B, ms) a step): each
+    shard's realized density and its union's selection demand.  This
+    wrapper pops them before the per-tier or batch aggregation sees the
+    stats, keeps per-(layer, shard) EMAs of both, and feeds two readers:
+    ``shard_skew`` (a hot neuron block concentrating demand on one shard)
+    and ``shard_capacity_hints`` (each shard's rung of the per-shard bucket
+    ladder, sized to its own union demand).  It records the (data, model)
+    grid it served; a snapshot of another grid is remapped
+    (:func:`remap_shard_ema`), not rejected.  Everything else is the inner
+    controller's."""
+
+    def __init__(self, inner: AlphaController, n_shards: int,
+                 n_data_shards: int = 1):
+        self.inner = inner
+        self.n_shards = int(n_shards)
+        self.n_data_shards = int(n_data_shards)
+        self.shard_density_ema = np.zeros(
+            (inner.num_layers, self.n_shards), np.float32)
+        self.shard_union_ema = np.zeros(
+            (inner.num_layers, self.n_shards), np.float32)
+        self._shard_steps = 0
+        self.stats_regrids = 0   # snapshots of another grid absorbed
+
+    def __getattr__(self, name):
+        # only reached for names this wrapper lacks: the inner controller's
+        return getattr(self.inner, name)
+
+    def consume_shard_stats(self, stats: dict,
+                            active: Optional[np.ndarray] = None,
+                            fold: bool = True) -> dict:
+        """Pop the riders from a decode step's stats, fold them into the
+        shard EMAs over the live slots, and return the (L, B) rest.
+        ``fold=False`` only strips them (audit steps: the masked path's
+        realized densities are on another scale than the serving
+        strategy's)."""
+        if SHARD_STAT_KEY not in stats:
+            return stats
+        stats = dict(stats)
+        riders = {k: np.asarray(stats.pop(k), np.float32)
+                  for k in SHARD_RIDER_KEYS if k in stats}
+        if not fold:
+            return stats
+        for k, v in riders.items():
+            if v.ndim != 3 or v.shape[-1] != self.n_shards:
+                raise ValueError(
+                    f"per-shard telemetry {k} shape {v.shape} != "
+                    f"(L, B, {self.n_shards})")
+        if active is not None:
+            sel = np.asarray(active, bool)
+            if not sel.any():
+                return stats
+            riders = {k: v[:, sel] for k, v in riders.items()}
+        beta = np.float32(self.inner.cfg.ema)
+
+        def fold_ema(prev, v):
+            obs = v.mean(axis=1)                              # (L, ms)
+            if self._shard_steps == 0:
+                return obs
+            return (1 - beta) * prev + beta * obs
+
+        self.shard_density_ema = fold_ema(self.shard_density_ema,
+                                          riders[SHARD_STAT_KEY])
+        union = riders.get(SHARD_UNION_KEY)
+        if union is not None:
+            self.shard_union_ema = fold_ema(self.shard_union_ema, union)
+        self._shard_steps += 1
+        return stats
+
+    def shard_capacity_hints(self, k: int) -> np.ndarray:
+        """(ms,) local capacities in neurons: each shard's union demand
+        (the largest over layers of its EMA, a fraction of its k/ms rows)
+        times ``shard_slack``.  The server rounds them up to ladder rungs
+        between decode steps."""
+        k_local = k // self.n_shards
+        slack = float(getattr(self.inner.cfg, "shard_slack", 1.3))
+        demand = np.clip(self.shard_union_ema.max(axis=0) * slack, 0.0, 1.0)
+        return np.maximum(1, np.ceil(demand * k_local)).astype(np.int64)
+
+    def shard_skew(self) -> dict:
+        """Per-layer imbalance of realized density across the model shards:
+        (max - min) / mean (0 = balanced)."""
+        e = self.shard_density_ema
+        spread = e.max(-1) - e.min(-1)
+        mean = np.maximum(e.mean(-1), 1e-9)
+        return {
+            "per_layer_skew": [round(float(v), 4) for v in spread / mean],
+            "max_skew": float((spread / mean).max()),
+            "mean_shard_density": [round(float(v), 4) for v in e.mean(0)],
+            "mean_shard_union_demand": [round(float(v), 4)
+                                        for v in self.shard_union_ema
+                                        .mean(0)],
+        }
+
+    def report(self) -> dict:
+        rep = self.inner.report()
+        rep["n_shards"] = self.n_shards
+        rep["n_data_shards"] = self.n_data_shards
+        rep["shard_skew"] = self.shard_skew()
+        return rep
+
+    def publish_metrics(self, hub) -> None:
+        """The inner controller's gauges and the sharded ones: realized
+        density and union demand per (layer, shard), and the largest
+        skew."""
+        if not getattr(hub, "enabled", False):
+            return
+        self.inner.publish_metrics(hub)
+        from repro_torch.runtime.distributed import shard_gauge_rows
+        for layer, shard, dens, union in shard_gauge_rows(
+                self.shard_density_ema, self.shard_union_ema):
+            hub.set_gauge("shard_density", dens, layer=layer, shard=shard)
+            if union is not None:
+                hub.set_gauge("shard_union_demand", union,
+                              layer=layer, shard=shard)
+        hub.set_gauge("shard_max_skew", self.shard_skew()["max_skew"])
+
+    def state_dict(self) -> tuple[dict, dict]:
+        tree, meta = self.inner.state_dict()
+        tree = dict(tree, shard_density_ema=self.shard_density_ema,
+                    shard_union_ema=self.shard_union_ema)
+        meta = dict(meta, n_shards=self.n_shards,
+                    n_data_shards=self.n_data_shards,
+                    shard_steps=self._shard_steps)
+        return tree, meta
+
+    def load_state_dict(self, tree: dict, meta: dict) -> None:
+        """Restore a :meth:`state_dict` snapshot.  One of another (data,
+        model) grid has its shard EMAs remapped onto this one (the inner
+        state does not depend on the grid) and counts in
+        ``stats_regrids``."""
+        saved_ms = int(meta.get("n_shards", self.n_shards))
+        saved_ds = int(meta.get("n_data_shards", self.n_data_shards))
+        regrid = (saved_ms, saved_ds) != (self.n_shards, self.n_data_shards)
+        tree = dict(tree)
+        shard_ema = tree.pop("shard_density_ema", None)
+        union_ema = tree.pop("shard_union_ema", None)
+        self.inner.load_state_dict(tree, meta)
+        for name, arr in (("shard_density_ema", shard_ema),
+                          ("shard_union_ema", union_ema)):
+            if arr is None:
+                continue
+            arr = np.asarray(arr, np.float32)
+            if arr.shape != (self.inner.num_layers, saved_ms):
+                raise ValueError(
+                    f"controller checkpoint {name} shape {arr.shape} != "
+                    f"({self.inner.num_layers}, {saved_ms})")
+            setattr(self, name, remap_shard_ema(arr, self.n_shards))
+        if regrid:
+            warnings.warn(
+                "controller snapshot of (data, model) grid "
+                f"{(saved_ds, saved_ms)} remapped onto "
+                f"{(self.n_data_shards, self.n_shards)}", stacklevel=2)
+            self.stats_regrids += 1
+        self._shard_steps = int(meta.get("shard_steps", 0))

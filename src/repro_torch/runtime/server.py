@@ -64,13 +64,24 @@ waits for the card (the decode step after its tokens are read, a
 monolithic prefill after its first token), so a prefill chunk's span is its
 host enqueue time.
 
-Not ported yet: sharded serving (``tp_shards``/``dp_shards``) and
-controller checkpoints.
+A sharded config (``SparseInferConfig.tp_shards``/``dp_shards``) decodes
+through the shard-local selections of ``runtime/distributed.py`` on the
+one device; its prefill stays dense.  The controller is then a
+``DistributedController``, and with a capacity ladder each model shard
+picks its own rung from its own union demand: the ladder's keys are bucket
+tuples, the full ``len(ladder) ** tp_shards`` product when that is at most
+``ControllerConfig.bucket_tuple_cap``, else one rung shared by every shard.
+Every tuple's local shapes are checked against the kernels' plans at
+construction and as it activates.
+
+Not ported yet: controller checkpoints, and placing a shard grid on
+several devices (the reference's ``mesh``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import time
 import warnings
 from typing import Optional
@@ -81,16 +92,25 @@ import torch
 from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ControllerConfig,
                                       MetricsConfig, ModelConfig,
                                       PagedKVConfig)
+from repro_torch.core.predictor import packed_width
 from repro_torch.core.sparse_mlp import DEAD_SLOT_ALPHA
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels import predict as KP
+from repro_torch.kernels import sparse_mlp_fused as KF
 from repro_torch.models.common import greedy_sample
 from repro_torch.runtime.controller import (TRAJECTORY_KEEP,
                                             AlphaController,
+                                            DistributedController,
                                             aggregate_tier_stats)
 from repro_torch.runtime.faults import InjectedFault
 from repro_torch.runtime.kv_pool import KVPool, PoolExhausted
 from repro_torch.runtime.metrics import MetricsHub, note_first_use
+from repro_torch.sharding import sparse as SSP
+
+# SMs of the card the shard-grid checks plan for (an H100's); the shapes a
+# kernel refuses do not depend on it
+_PLAN_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +230,7 @@ class Server:
     def __init__(self, model_mod, cfg: ModelConfig, scfg: ServeConfig,
                  params: dict, device="cuda"):
         self.device = resolve_device(device)
+        self._grids_checked: set = set()   # (bucket, shard) plans asked
         if scfg.prefill_chunk:
             if scfg.prefill_chunk < 1 or scfg.max_len % scfg.prefill_chunk:
                 raise ValueError(
@@ -261,9 +282,10 @@ class Server:
             raise NotImplementedError("only greedy decoding is ported")
         if cfg.sparse.enabled and (cfg.sparse.tp_shards
                                    or cfg.sparse.dp_shards):
-            raise NotImplementedError(
-                "sharded sparse decode is not ported yet (ROADMAP Queue A, "
-                "sharded semantics)")
+            # the grid must take the batch, and every shard whole row
+            # groups, int8 quant groups and ladder rungs
+            _, ms = SSP.resolve_grid(cfg.sparse, scfg.batch)
+            SSP.validate_shardable(cfg.sparse, cfg.d_ff, ms)
         self.mod = model_mod
         self.cfg = cfg
         self.scfg = scfg
@@ -304,6 +326,12 @@ class Server:
                 stacklevel=2)
         if scfg.controller.enabled and cfg.sparse.enabled:
             self._build_controller_fns()
+        if cfg.sparse.enabled and cfg.sparse.tp_shards \
+                and cfg.sparse.strategy == "pallas":
+            # the static capacity's shard grid; a ladder's tuples are
+            # checked as they activate
+            self._check_shard_grids(
+                (cfg.sparse.shard_capacity(cfg.d_ff),) * cfg.sparse.tp_shards)
         self._init_controller_state()
         self._cfg0 = self.cfg          # reset() restores it
 
@@ -381,11 +409,18 @@ class Server:
             self.kv_pool.publish_metrics(hub)
         hub.set_gauge("admissions_deferred", self.admissions_deferred)
         cap = getattr(self, "_active_cap", None)
-        if cap:
+        g = self.cfg.sparse.group_size
+        if isinstance(cap, tuple):
+            k_local = self.cfg.d_ff // max(1, len(cap))
+            for s, c in enumerate(cap):
+                hub.set_gauge("capacity_bucket_groups", int(c), shard=s)
+                hub.set_gauge("bucket_occupancy",
+                              min(1.0, int(c) * g / max(1, k_local)),
+                              shard=s)
+        elif cap:
             hub.set_gauge("capacity_bucket_groups", int(cap))
             hub.set_gauge("bucket_occupancy",
-                          min(1.0, int(cap) * self.cfg.sparse.group_size
-                              / self.cfg.d_ff))
+                          min(1.0, int(cap) * g / self.cfg.d_ff))
 
     def _serve_epilogue(self) -> None:
         """After a drain: refresh the gauges, record the drain, arm the
@@ -420,8 +455,11 @@ class Server:
         """The controller's decode configurations against the current
         ``self.cfg``: one per capacity bucket of a ``capacity_buckets``
         ladder (gather, pallas), else one, plus the audit configuration
-        (strategy masked).  Switching buckets between decode steps is a
-        dict lookup.  ``_trace_counts`` counts, per bucket, its first
+        (strategy masked).  A tensor-sharded config keys its buckets by
+        tuples of per-shard local rungs: all ``len(ladder) ** tp_shards``
+        of them when that is at most ``bucket_tuple_cap``, else the uniform
+        ones (with a warning).  Switching buckets between decode steps is
+        a dict lookup.  ``_trace_counts`` counts, per bucket, its first
         decode step and every later one during which a kernel library had
         to be built or loaded: the CUDA kernels take every shape without a
         rebuild, so after warmup each bucket stays at 1."""
@@ -429,7 +467,40 @@ class Server:
         self._trace_counts: collections.Counter = collections.Counter()
         self._bucket_cfgs: dict = {}
         self._warmed_buckets = False
-        if cfg.sparse.capacity_buckets and cfg.sparse.strategy in (
+        self._local_ladder: tuple = ()
+        self._per_shard_buckets = False
+        ms = max(1, cfg.sparse.tp_shards or 1)
+        if (cfg.sparse.capacity_buckets
+                and cfg.sparse.strategy in ("gather", "pallas")
+                and cfg.sparse.tp_shards):
+            # (every rung splits evenly over the shards: checked at
+            # construction)
+            sc = self.scfg.controller
+            local = tuple(capg // ms
+                          for capg in cfg.sparse.capacity_ladder(cfg.d_ff))
+            self._local_ladder = local
+            n_tuples = len(local) ** ms
+            self._per_shard_buckets = (sc.per_shard_buckets
+                                       and n_tuples <= sc.bucket_tuple_cap)
+            if sc.per_shard_buckets and not self._per_shard_buckets:
+                warnings.warn(
+                    f"per-shard bucket ladder would need {n_tuples} "
+                    f"configurations (len(ladder)={len(local)} ** "
+                    f"tp_shards={ms}) > bucket_tuple_cap="
+                    f"{sc.bucket_tuple_cap}: falling back to uniform bucket "
+                    "tuples (every shard shares one ladder rung); shrink "
+                    "the ladder or raise the cap", stacklevel=2)
+            tuples = (itertools.product(local, repeat=ms)
+                      if self._per_shard_buckets
+                      else [(c,) * ms for c in local])
+            for t in map(tuple, tuples):
+                self._bucket_cfgs[t] = cfg.replace(
+                    sparse=dataclasses.replace(
+                        cfg.sparse, capacity_override=max(t) * ms,
+                        shard_bucket_caps=t))
+            self._active_cap = (max(local),) * ms     # start the widest
+            self._check_shard_grids(self._active_cap)
+        elif cfg.sparse.capacity_buckets and cfg.sparse.strategy in (
                 "gather", "pallas"):
             for capg in cfg.sparse.capacity_ladder(cfg.d_ff):
                 self._bucket_cfgs[capg] = cfg.replace(
@@ -459,9 +530,16 @@ class Server:
             return
         tiers = scfg.sla_tiers if scfg.controller.per_tier else None
         # one alpha per layer: the dense family, the only one ported
-        self.controller = AlphaController(
+        ctl = AlphaController(
             scfg.controller, cfg.sparse.alpha_schedule(), cfg.n_layers,
             tiers=tiers, native_fn=cfg.sparse.strategy == "pallas")
+        if cfg.sparse.tp_shards:
+            # the sharded strategies' per-shard riders: skew, per-shard
+            # bucket hints, and stripped before the aggregation
+            ctl = DistributedController(
+                ctl, cfg.sparse.tp_shards,
+                n_data_shards=max(1, cfg.sparse.dp_shards or 1))
+        self.controller = ctl
         self._active_cap = self._initial_cap
         # the active bucket of every controller decode step
         self.bucket_history: collections.deque = collections.deque(
@@ -475,14 +553,77 @@ class Server:
         if new and not loaded:    # a library load reports itself
             note_first_use(f"capacity bucket {key}")
 
+    @staticmethod
+    def _pick_rung(ladder: tuple, need: int) -> int:
+        """The smallest rung of a sorted ladder covering ``need`` groups
+        (the widest if none does)."""
+        for rung in ladder:
+            if rung >= need:
+                return rung
+        return ladder[-1]
+
+    def _check_shard_grids(self, caps: tuple) -> None:
+        """Ask the kernels' plans for each model shard's local shape under
+        the bucket tuple ``caps`` (strategy pallas): the predictor's at
+        (B/ds, d/32 words, k/ms rows, G) and the fused MLP's at (B/ds, d,
+        C_l*G rows).  The port has no fallback kernel, so a shape they
+        refuse raises here, once per (bucket, shard), before a decode step
+        meets it.  Batches past a decode launch take the chunk kernels,
+        which take every row count."""
+        sp = self.cfg.sparse
+        if sp.strategy != "pallas":
+            return
+        ds = max(1, sp.dp_shards or 1)
+        bt = max(1, self.scfg.batch // ds)
+        if bt > KF.MAX_BATCH:
+            return
+        d, g = self.cfg.d_model, sp.group_size
+        k_l = self.cfg.d_ff // len(caps)
+        for s, capg in enumerate(caps):
+            if (capg, s) in self._grids_checked:
+                continue
+            try:
+                KP.margins_plan(bt, packed_width(d), k_l, g,
+                                lambda cluster, smem: _PLAN_SMS // cluster)
+                if sp.weight_dtype == "int8":
+                    KF.decode_q_plan(bt, d, capg * g, g, sp.quant_group_size,
+                                     _PLAN_SMS, lambda nb, mode, smem: 1)
+                else:
+                    KF.decode_plan(bt, d, capg * g, g, _PLAN_SMS,
+                                   lambda nb, smem: 1)
+            except ValueError as e:
+                raise ValueError(
+                    f"shard {s} at bucket {capg} local groups: the kernels "
+                    f"refuse its local shape ({e})") from None
+            self._grids_checked.add((capg, s))
+
     def _select_bucket(self):
         """The smallest capacity bucket covering the controller's
-        union-demand hint, picked between decode steps."""
+        union-demand hint, picked between decode steps.  Under the
+        per-shard ladder each model shard's rung covers its own union
+        demand (``shard_capacity_hints``), so a skewed shard widens only
+        itself."""
         ctl = self.controller
         if ctl is None or len(self._bucket_cfgs) <= 1 or ctl.state.steps == 0:
             return self._active_cap
-        need = -(-ctl.capacity_hint(self.cfg.d_ff)
-                 // self.cfg.sparse.group_size)      # neurons -> groups
+        g = self.cfg.sparse.group_size
+        if isinstance(self._active_cap, tuple):
+            ms = len(self._active_cap)
+            if (self._per_shard_buckets
+                    and isinstance(ctl, DistributedController)
+                    and ctl._shard_steps > 0):
+                needs = [-(-int(h) // g)                     # local groups
+                         for h in ctl.shard_capacity_hints(self.cfg.d_ff)]
+            else:
+                need = -(-ctl.capacity_hint(self.cfg.d_ff) // g)
+                needs = [-(-need // ms)] * ms                 # C -> C/ms
+            t = tuple(self._pick_rung(self._local_ladder, n) for n in needs)
+            if t not in self._bucket_cfgs:        # uniform tuples only
+                t = (max(t),) * ms
+            self._active_cap = t
+            self._check_shard_grids(t)
+            return t
+        need = -(-ctl.capacity_hint(self.cfg.d_ff) // g)  # neurons -> groups
         for capg in sorted(self._bucket_cfgs):
             if capg >= need:
                 self._active_cap = capg
@@ -526,6 +667,13 @@ class Server:
             self.cfg.sparse, capacity_frac=min(1.0, hint / k)))
         if new_cfg.sparse.capacity(k) == self.cfg.sparse.capacity(k):
             return False
+        if new_cfg.sparse.tp_shards:
+            # a capacity that does not split over the shards would raise
+            # mid-serve: keep the current one
+            try:
+                new_cfg.sparse.shard_capacity(k)
+            except ValueError:
+                return False
         self.cfg = new_cfg
         self._build_controller_fns()
         return True
@@ -536,6 +684,11 @@ class Server:
         tier when tiered, else the mean over the live slots (``active``
         None: every slot, as in generate())."""
         ctl = self.controller
+        if isinstance(ctl, DistributedController):
+            # take the per-shard riders off before the (L, B) aggregation;
+            # an audit step's only go (masked densities are on another
+            # scale than the serving strategy's)
+            stats = ctl.consume_shard_stats(stats, active, fold=not audit)
         if ctl.tiers:
             agg, counts = aggregate_tier_stats(stats, tier_idx, ctl.n_tiers,
                                                active)
@@ -818,7 +971,10 @@ class Server:
         ctl = self.controller
         # the controller's prefill rider: telemetry of the chunks that run
         # sparse
-        prefill_stats = ctl is not None and self.cfg.sparse.sparse_prefill
+        # (a sharded config's prefill runs dense: no rider)
+        prefill_stats = (ctl is not None and self.cfg.sparse.sparse_prefill
+                         and not (self.cfg.sparse.tp_shards
+                                  or self.cfg.sparse.dp_shards))
         # admission back-off latch: set when a placement failed on an
         # exhausted pool with resident work to wait for, cleared by every
         # block release.  Preempting a peer at admission instead would

@@ -142,15 +142,14 @@ def test_relufy_matches_reference(name):
 
 def test_core_exports_are_the_references():
     """``repro_torch.core`` exports the reference's names, less the two
-    offline permutation helpers (ROADMAP Queue A item 16) and the sharded
-    serve's rider stat names (item 14)."""
+    offline permutation helpers (ROADMAP Queue A item 17)."""
     pub = lambda m: {n for n in dir(m) if not n.startswith("_")}  # noqa
-    left = {"coactivation_permutation", "apply_neuron_permutation",
-            "SHARD_RIDER_KEYS", "SHARD_STAT_KEY", "SHARD_UNION_KEY"}
+    left = {"coactivation_permutation", "apply_neuron_permutation"}
     modules = {"predictor", "relufication", "selection", "sparse_mlp",
                "quantize"}
     assert pub(tcore) - modules == pub(jcore) - modules - left
     assert tcore.MLP_STAT_KEYS == jcore.MLP_STAT_KEYS
+    assert tcore.SHARD_RIDER_KEYS == jcore.SHARD_RIDER_KEYS
 
 
 # ----------------------------------------------------------- models/common

@@ -115,12 +115,16 @@ def test_serve_validates_queue_and_config():
     with pytest.raises(ValueError, match="SLA tier"):
         srv.serve([Request(uid=0, prompt=np.zeros(4, np.int64), sla="gold")])
     for strategy in ("masked", "gather"):
-        # ported; their sharded formulation is not, and is refused up front
+        # ported, sharded too; a shard grid the batch does not split is
+        # refused up front
         Server(lm, _cfg(strategy), ServeConfig(), params, device="cpu")
         sharded = _cfg(strategy)
         sharded = sharded.replace(sparse=dataclasses.replace(
             sharded.sparse, tp_shards=2))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Server(lm, sharded, ServeConfig(), params, device="cpu")
+        sharded = sharded.replace(sparse=dataclasses.replace(
+            sharded.sparse, dp_shards=3))
+        with pytest.raises(ValueError, match="dp_shards"):
             Server(lm, sharded, ServeConfig(), params, device="cpu")
     with pytest.raises(NotImplementedError):
         Server(lm, cfg, ServeConfig(slot_refill=False), params, device="cpu")

@@ -90,13 +90,18 @@ def test_mlp_apply_dense_fallback_past_sparse_max_batch():
 
 @pytest.mark.parametrize("strategy", ["masked", "gather"])
 def test_unported_strategies_raise(strategy):
-    """masked and gather run (tests/test_torch_strategies.py); their
-    sharded formulation is not ported and raises."""
+    """masked and gather run (tests/test_torch_strategies.py), and so does
+    their sharded formulation (held to the reference in
+    tests/test_torch_distributed.py), with the per-shard riders; only the
+    grouped (G, B, d) layout, which has no sharded form, raises."""
     _, port_cfg = _cfgs()
     _, tp = _params(3)
     y = TSM.apply(tp, torch.zeros((1, D)), dataclasses.replace(
         port_cfg, strategy=strategy))
     assert y.shape == (1, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSM.apply(tp, torch.zeros((1, D)), dataclasses.replace(
-            port_cfg, strategy=strategy, tp_shards=2))
+    sharded = dataclasses.replace(port_cfg, strategy=strategy, tp_shards=2)
+    y, st = TSM.apply(tp, torch.zeros((1, D)), sharded, return_stats=True)
+    assert y.shape == (1, D)
+    assert st[TSM.SHARD_STAT_KEY].shape == (1, 2)
+    with pytest.raises(ValueError, match="tp_shards"):
+        TSM.apply(tp, torch.zeros((2, 1, D)), sharded)
