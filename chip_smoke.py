@@ -199,7 +199,35 @@ Phases, in order; any failure exits non-zero:
              tp_shards=4 rejected at Server construction, and the ms=4
              ladder (81 tuples) falling back to uniform tuples with a
              warning.
- 17. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 17. moe     the moe family (deepseek-moe-16b: a dense first layer on the
+             sparse MLP kernels, then MoE layers of 64 experts, top-6, 2
+             shared experts; olmoe-1b-7b: MoE layers only, top-8, qk-norm):
+             (a) the kernels at deepseek's first-layer widths (d=2048,
+             k=1408, C=48 of 176 groups, bf16 x) against their plain
+             versions: sign_pack of x, of the gate weights and of one MoE
+             layer's expert-stack gate weights at load (64 x 1408 rows),
+             both predictors, both float32 MLPs, both int8 MLPs (qg 128)
+             and predict_counts, twice bitwise where a kernel must be; the
+             paged attention and the paired KV write at H=K=16, hd 128
+             into a bf16 pool; each timed beside its bound, plain version
+             and library yardstick; (b) both archs at full width and 2
+             layers (deepseek: the dense layer and one MoE layer), float32
+             compute, card against CPU through ``_hold``, whose CPU MoE
+             calls also take the card's inputs: routing (the kept slots)
+             equal but for tokens at a near tie in float32 rounding,
+             printed with their gaps and counted; 8 teacher-forced decode
+             steps (pallas, masked, gather; int8 MLP weights), a
+             fragmented float32 pool on both routes, a 160-token chunked
+             sparse prefill (float32 and int8 weights); launches exact;
+             (c) olmoe-1b-7b (16 layers, 27.3 GB float32) and
+             deepseek-moe-16b (28 layers, 64.4 GB float32 + 0.6 GB of
+             sign packs) at full depth through Server.serve: the per-tier
+             controller on pallas, a bf16 paged pool, chunked sparse
+             prefill in chunks of 64, batch 4, 8 requests of mixed tiers
+             with 96-192-token prompts; launches exact from load (the
+             load-time sign packs of every MLP, expert stack and shared
+             expert); a profiled paged decode step each.
+ 18. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -1736,17 +1764,71 @@ DEC_BATCH, DEC_PLEN, DEC_STEPS, DEC_MAX_LEN = 4, 16, 8, 32
 
 
 @contextlib.contextmanager
-def _mlp_tap(fn):
-    """Inside the block every MLP call of ``models.lm`` goes through
-    ``fn(mlp_apply, params, x, cfg, **kw)``."""
+def _mlp_tap(fn, name: str = "mlp_apply"):
+    """Inside the block every MLP call of ``models.lm`` (``name``
+    "moe_apply": every MoE layer's call) goes through ``fn(orig, params,
+    x, cfg, **kw)``."""
     from repro_torch.models import lm
-    orig = lm.mlp_apply
-    lm.mlp_apply = lambda params, x, cfg, **kw: fn(orig, params, x, cfg,
-                                                    **kw)
+    orig = getattr(lm, name)
+    setattr(lm, name, lambda params, x, cfg, **kw: fn(orig, params, x, cfg,
+                                                      **kw))
     try:
         yield
     finally:
-        lm.mlp_apply = orig
+        setattr(lm, name, orig)
+
+
+def _kept(params, x, cfg):
+    """An MoE call's routing on its own device: router probabilities
+    (G, Tg, E), and the kept slots as a (G, Tg, E) mask (the top-k after
+    the capacity drop), on the CPU."""
+    import torch
+    from repro_torch.layers import moe
+    probs, w, idx = moe.route(params, x, cfg)
+    sl = moe.dispatch_slots(w, idx, cfg)
+    g, tg = idx.shape[:2]
+    mask = torch.zeros((g, tg, cfg.n_experts), dtype=torch.bool,
+                       device=x.device)
+    gi = torch.arange(g, device=x.device)[:, None].expand_as(sl.token)
+    mask[gi[sl.keep], sl.token[sl.keep], sl.expert[sl.keep]] = True
+    return probs.cpu(), w.cpu(), idx.cpu(), sl, mask.cpu()
+
+
+def _route_flips(label, i, cfg, card, cpu) -> tuple:
+    """Where the card's and the CPU's kept slots differ: each differing
+    token must sit at a near tie, by float32 rounding, of the contest it
+    lost or won: its k-th and (k+1)-th router probabilities (top-k), or
+    the cap-th and (cap+1)-th weights of the expert it entered (capacity).
+    Returns (the groups touched, the number of tokens flipped)."""
+    import torch
+    probs, w, idx, sl, mask = cpu
+    diff = (mask != card[4]).any(-1)                       # (G, Tg)
+    k = cfg.top_k
+    top = torch.sort(probs, dim=-1, descending=True).values
+    gap_k = top[..., k - 1] - top[..., k] if k < cfg.n_experts else \
+        torch.full(top.shape[:-1], float("inf"))
+    groups = set()
+    for g, t in diff.nonzero().tolist():
+        rel_k = float(gap_k[g, t]) / float(top[g, t, k - 1])
+        near = rel_k <= 1e-5
+        gaps = [f"top-k gap {float(gap_k[g, t]):.3e} ({rel_k:.1e} rel)"]
+        for e in (mask[g, t] ^ card[4][g, t]).nonzero()[:, 0].tolist():
+            ws = torch.sort(sl.weight[g][sl.expert[g] == e].cpu(),
+                            descending=True).values
+            if ws.numel() > sl.cap:
+                gap_c = float(ws[sl.cap - 1] - ws[sl.cap])
+                rel_c = gap_c / float(ws[sl.cap - 1])
+                gaps.append(f"expert {e} capacity gap {gap_c:.3e} "
+                            f"({rel_c:.1e} rel)")
+                near |= rel_c <= 1e-5
+        print(f"{label}: MoE call {i} group {g} token {t} routed "
+              f"differently on the card and the CPU: {'; '.join(gaps)}",
+              flush=True)
+        if not near:
+            fail(f"{label}: MoE call {i} group {g} token {t}: the routing "
+                 "differs with no gap within float32 rounding of 0")
+        groups.add(g)
+    return groups, int(diff.sum())
 
 
 def _near_zero(x, w):
@@ -1780,6 +1862,40 @@ def _hold(label: str, run, tol: float, want: dict | None = None,
 
     t0 = time.perf_counter()
     calls, seen = [], {"n": 0, "y": 0.0, "x": 0.0, "moved": 0}
+    moe_calls, moe_seen = [], {"n": 0, "y": 0.0, "flips": 0}
+
+    def record_moe(moe_apply, params, x, cfg):
+        out = moe_apply(params, x, cfg)
+        moe_calls.append((x.cpu(), out[0].cpu(), _kept(params, x, cfg)))
+        return out
+
+    def replay_moe(moe_apply, params, x, cfg):
+        """The CPU's MoE call on the card's input: routing equal up to
+        near ties (``_route_flips``), the output within phase 2's
+        tolerance on every group routed alike; a group routed differently
+        takes the card's output, so the flip does not reach the logits."""
+        i = moe_seen["n"]
+        if i == len(moe_calls):
+            fail(f"{label}: more MoE calls than on the card")
+        moe_seen["n"] += 1
+        x_c, y_c, card = moe_calls[i]
+        y, aux = moe_apply(params, x_c.to(x.device), cfg)
+        groups, flips = _route_flips(label, i, cfg, card,
+                                     _kept(params, x_c.to(x.device), cfg))
+        moe_seen["flips"] += flips
+        rtol = 2e-3 if x.dtype == torch.bfloat16 else 1e-4
+        yg, ycg = (v.reshape(card[4].shape[:2] + (-1,))
+                   for v in (y.cpu(), y_c))
+        same = [g for g in range(yg.shape[0]) if g not in groups]
+        rel = float((yg[same] - ycg[same]).abs().max()) / (
+            float(ycg[same].abs().max()) or 1.0) if same else 0.0
+        moe_seen["y"] = max(moe_seen["y"], rel)
+        if rel > rtol:
+            fail(f"{label}: MoE call {i}'s output {rel:.3e} x max|y| from "
+                 f"the card's (tolerance {rtol})")
+        if groups:
+            y = y_c.to(y.device)
+        return y, aux
 
     def record(mlp, params, x, cfg, **kw):
         out = mlp(params, x, cfg, **kw)
@@ -1821,7 +1937,7 @@ def _hold(label: str, run, tol: float, want: dict | None = None,
         return out
 
     ops.reset_launch_counts()
-    with _mlp_tap(record):
+    with _mlp_tap(record), _mlp_tap(record_moe, "moe_apply"):
         card = run("cuda")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
@@ -1829,10 +1945,18 @@ def _hold(label: str, run, tol: float, want: dict | None = None,
         fail(f"{label}: launches {counts}, want {want}")
     if not bool(torch.isfinite(card).all()):
         fail(f"{label}: non-finite logits on the card")
-    with _mlp_tap(replay):
+    with _mlp_tap(replay), _mlp_tap(replay_moe, "moe_apply"):
         other = ref() if ref is not None else run("cpu")
     if seen["n"] != len(calls):
         fail(f"{label}: {seen['n']} MLP calls, {len(calls)} on the card")
+    if moe_seen["n"] != len(moe_calls):
+        fail(f"{label}: {moe_seen['n']} MoE calls, {len(moe_calls)} on the "
+             "card")
+    if moe_calls:
+        print(f"{label}: {len(moe_calls)} MoE calls on the card's inputs: "
+              f"routing equal but for {moe_seen['flips']} tokens at near "
+              f"ties, outputs within {moe_seen['y']:.3e} x max|y|",
+              flush=True)
     diff = (card - other).abs()
     print(f"{label}: logits max abs diff {float(diff.max()):.3e}, median "
           f"{float(diff.median()):.3e} (tolerance {tol}); {len(calls)} MLP "
@@ -1920,12 +2044,12 @@ def _prefill_chunks(label: str, params, cfg, plen: int, seed: int,
     import torch
     from repro_torch.models import lm
 
-    chunk, L = MAIN_CHUNK, cfg.n_layers
+    chunk, L = MAIN_CHUNK, _mlp_layers(cfg)
     n_chunks = -(-plen // chunk)
     rng = np.random.default_rng(seed)
     tokens = np.zeros((1, n_chunks * chunk), np.int64)
     tokens[0, :plen] = rng.integers(0, cfg.vocab, size=plen)
-    alphas = cfg.sparse.alpha_schedule().alphas(L)
+    alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
 
     def run(dev):
         caches = lm.init_caches(cfg, 1, max_len, dev)
@@ -1939,6 +2063,12 @@ def _prefill_chunks(label: str, params, cfg, plen: int, seed: int,
     _hold(f"{label}, {plen} tokens in {n_chunks} chunks of {chunk}, "
           f"{cfg.kv_cache_dtype} KV cache", run, LOGIT_TOL[cfg.kv_cache_dtype],
           {n: L * n_chunks for n in kernels})
+
+
+def _mlp_layers(cfg) -> int:
+    """The layers that run the sparse MLP: every one of a dense config, a
+    moe config's dense first layers."""
+    return cfg.first_dense_layers if cfg.family == "moe" else cfg.n_layers
 
 
 def _to(tree, device):
@@ -3057,9 +3187,10 @@ def phase_serve_paged(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_paged_decode(srv, cfg) -> None:
+def profile_paged_decode(srv, cfg, tok=None) -> None:
     """Where one full-depth paged decode step's time goes: B=4, every slot
-    at length 64 over its own 16 pool blocks (a pool of its own)."""
+    at length 64 over its own 16 pool blocks (a pool of its own), token 0
+    in every slot unless ``tok`` (B, 1) tokens are given."""
     import torch
     from repro_torch.models import lm
 
@@ -3067,7 +3198,8 @@ def profile_paged_decode(srv, cfg) -> None:
     pool = lm.init_kv_pool(cfg, b * nbps + 2, PAGE_BLOCK, "cuda")
     table = (torch.arange(b * nbps, dtype=torch.int32, device="cuda")
              + 2).reshape(b, nbps)
-    tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    tok = (torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+           if tok is None else torch.as_tensor(tok, device="cuda"))
     lengths = torch.full((b,), 64, device="cuda")
     profile_step(f"paged decode step (B={b}, {cfg.n_layers} layers, "
                  f"{cfg.kv_cache_dtype} pool, paged kernels)",
@@ -3772,6 +3904,93 @@ def _served_mlp_checks(name: str, d: int, k: int, gated: bool, cap: int,
     return wg, wu, wd, x, sel, err
 
 
+def _served_attention(label: str, name: str, cfg, gen, rng, flush):
+    """The paged attention (twice bitwise) and the paired KV write (twice
+    bitwise) against their plain versions at ``cfg``'s attention shape,
+    B=4, a bf16 pool, the main lengths; the attention timed beside its
+    bound, plain version and SDPA.  Returns (kp, vp, table, lengths, the
+    written K and V)."""
+    import torch
+    from repro_torch.kernels import paged_attn as KA
+    from repro_torch.kernels import ref
+
+    b, nbps = MAIN_BATCH, PAGED_NBPS[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kw = dict(softcap=cfg.attn_softcap, window=cfg.window)
+    q, kp, vp, table, lengths = _paged_inputs(
+        gen, rng, b, h, kvh, hd, PAGE_BLOCK, nbps, torch.bfloat16,
+        torch.bfloat16, lengths=MAIN_LIVE)
+    tag = f"{name} shape B={b} H={h} K={kvh} hd={hd}"
+    err = _check_attention(
+        tag, _same_twice(tag, lambda: KA.paged_attention(
+            q, kp, vp, table, lengths, **kw)),
+        ref.paged_attention_ref(q, kp, vp, table, lengths, **kw), vp)
+    kv_new = [torch.randn((b, kvh, hd), generator=gen,
+                          device=q.device).to(torch.bfloat16)
+              for _ in range(2)]
+    wk, wv = kp.clone(), vp.clone()
+    ref.paged_kv_write_pair_ref(wk, wv, *kv_new, table, lengths)
+    for run in range(2):
+        gk, gv = kp.clone(), vp.clone()
+        KA.paged_kv_write_pair(gk, gv, *kv_new, table, lengths)
+        torch.cuda.synchronize()
+        if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+            fail(f"paged_kv_write pair {tag} bf16 pool (run {run}): "
+                 "differs from two plain writes")
+    del wk, wv, gk, gv
+    t_k, t_p, t_lib, t_gl = _time_attention(
+        q, kp, vp, table, lengths, flush, plain_iters=10, **kw)
+    live, bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
+    print(f"[{label}] paged_attention {tag} softcap={kw['softcap']}"
+          f" window={kw['window']} bf16 lengths {list(MAIN_LIVE)} ({live}"
+          f" live rows; {KA.launch_plan(q, kp, table)}): max_abs_err "
+          f"{err:.3e}, bitwise repeatable; kernel {t_k:.4f} ms plain "
+          f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
+          f"{bound[0] / t_k:.3f}) sdpa-on-gathered-view {t_lib:.4f} ms "
+          f"gather+sdpa {t_gl:.4f} ms"
+          f"{' (no softcap: SDPA has none)' if kw['softcap'] else ''}; "
+          f"paged_kv_write pair bitwise twice", flush=True)
+    return kp, vp, table, lengths, kv_new
+
+
+def _served_mlp_time(label: str, name: str, checked: tuple, k: int,
+                     cap: int, flush) -> None:
+    """The float32 decode MLP at B=4 on ``checked`` (the B=4 call of
+    ``_served_mlp_checks``) timed beside its bound, plain version and the
+    matmuls on the selected rows gathered beforehand."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    wg, wu, wd, x, sel, err = checked
+    b, d = x.shape
+    gated = wu is not None
+    count = int(sel.count)
+    t_k = cuda_ms(lambda: KF.fused_sparse_mlp(
+        x, wg, wu, wd, sel.indices, sel.count, group_size=G), flush=flush)
+    t_p = cuda_ms(lambda: ref.fused_sparse_mlp_ref(
+        x, wg, wu, wd, sel.indices, sel.count, group_size=G), flush=flush)
+    rows = sel.indices[:count].long()
+    take = [m.reshape(k // G, G, d)[rows].reshape(-1, d).contiguous()
+            for m in (wg, wu, wd) if m is not None]
+    xf = x.float()
+    if gated:
+        lib = lambda: (torch.relu(xf @ take[0].T)  # noqa: E731
+                       * (xf @ take[1].T)) @ take[2]
+    else:
+        lib = lambda: torch.relu(xf @ take[0].T) @ take[1]  # noqa: E731
+    t_lib = cuda_ms(lib, flush=flush)
+    n_mats = 3 if gated else 2
+    bound = bound_ms(n_mats * count * G * d * 4 + b * d * 2 + cap * 4
+                     + b * d * 4, 2 * n_mats * b * count * G * d)
+    print(f"[{label}] fused_sparse_mlp {name} shape B={b} d={d} k={k} "
+          f"{'gated' if gated else 'ungated'} x=bfloat16 count={count}/"
+          f"{cap}: max_abs_err {err:.3e}; kernel {t_k:.4f} ms plain "
+          f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
+          f"{bound[0] / t_k:.3f}) gathered-rows-{n_mats}-matmul "
+          f"{t_lib:.4f} ms", flush=True)
+
+
 def phase_arch_kernel_times() -> None:
     """The kernels at the shapes the new archs bring, against their plain
     versions: a sparse MLP call's five (``_served_mlp_checks``) at
@@ -3785,9 +4004,6 @@ def phase_arch_kernel_times() -> None:
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import paged_attn as KA
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import sparse_mlp_fused as KF
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -3796,77 +4012,17 @@ def phase_arch_kernel_times() -> None:
 
     def flush():
         flush_buf.zero_()
-    b, nbps = MAIN_BATCH, PAGED_NBPS[0]
     for name in ("gemma2-2b", "granite-34b"):
-        cfg = get_config(name)
-        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        kw = dict(softcap=cfg.attn_softcap, window=cfg.window)
-        q, kp, vp, table, lengths = _paged_inputs(
-            gen, rng, b, h, kvh, hd, PAGE_BLOCK, nbps, torch.bfloat16,
-            torch.bfloat16, lengths=MAIN_LIVE)
-        tag = f"{name} shape B={b} H={h} K={kvh} hd={hd}"
-        err = _check_attention(
-            tag, _same_twice(tag, lambda: KA.paged_attention(
-                q, kp, vp, table, lengths, **kw)),
-            ref.paged_attention_ref(q, kp, vp, table, lengths, **kw), vp)
-        kv_new = [torch.randn((b, kvh, hd), generator=gen,
-                              device=dev).to(torch.bfloat16)
-                  for _ in range(2)]
-        wk, wv = kp.clone(), vp.clone()
-        ref.paged_kv_write_pair_ref(wk, wv, *kv_new, table, lengths)
-        for run in range(2):
-            gk, gv = kp.clone(), vp.clone()
-            KA.paged_kv_write_pair(gk, gv, *kv_new, table, lengths)
-            torch.cuda.synchronize()
-            if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
-                fail(f"paged_kv_write pair {tag} bf16 pool (run {run}): "
-                     "differs from two plain writes")
-        del wk, wv, gk, gv
-        t_k, t_p, t_lib, t_gl = _time_attention(
-            q, kp, vp, table, lengths, flush, plain_iters=10, **kw)
-        live, bound = _attention_bound(lengths, b, h, kvh, hd, nbps, 2)
-        print(f"[arch-kernels] paged_attention {tag} softcap={kw['softcap']}"
-              f" window={kw['window']} bf16 lengths {list(MAIN_LIVE)} ({live}"
-              f" live rows; {KA.launch_plan(q, kp, table)}): max_abs_err "
-              f"{err:.3e}, bitwise repeatable; kernel {t_k:.4f} ms plain "
-              f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
-              f"{bound[0] / t_k:.3f}) sdpa-on-gathered-view {t_lib:.4f} ms "
-              f"gather+sdpa {t_gl:.4f} ms"
-              f"{' (no softcap: SDPA has none)' if kw['softcap'] else ''}; "
-              f"paged_kv_write pair bitwise twice", flush=True)
-        del q, kp, vp
+        pool = _served_attention("arch-kernels", name, get_config(name),
+                                 gen, rng, flush)
+        del pool
     for name in ("gemma2-2b", "granite-34b", "qwen1.5-32b"):
         cfg = get_config(name)
-        d, k, gated = cfg.d_model, cfg.d_ff, cfg.gated_mlp
-        cap = cfg.sparse.capacity(k)
-        wg, wu, wd, x, sel, err = _served_mlp_checks(name, d, k, gated, cap,
-                                                     gen)
-        count = int(sel.count)
-        t_k = cuda_ms(lambda: KF.fused_sparse_mlp(
-            x, wg, wu, wd, sel.indices, sel.count, group_size=G), flush=flush)
-        t_p = cuda_ms(lambda: ref.fused_sparse_mlp_ref(
-            x, wg, wu, wd, sel.indices, sel.count, group_size=G),
-            flush=flush)
-        rows = sel.indices[:count].long()
-        take = [m.reshape(k // G, G, d)[rows].reshape(-1, d).contiguous()
-                for m in (wg, wu, wd) if m is not None]
-        xf = x.float()
-        if gated:
-            lib = lambda: (torch.relu(xf @ take[0].T)  # noqa: E731
-                           * (xf @ take[1].T)) @ take[2]
-        else:
-            lib = lambda: torch.relu(xf @ take[0].T) @ take[1]  # noqa: E731
-        t_lib = cuda_ms(lib, flush=flush)
-        n_mats = 3 if gated else 2
-        bound = bound_ms(n_mats * count * G * d * 4 + b * d * 2 + cap * 4
-                         + b * d * 4, 2 * n_mats * b * count * G * d)
-        print(f"[arch-kernels] fused_sparse_mlp {name} shape B={b} d={d} "
-              f"k={k} {'gated' if gated else 'ungated'} x=bfloat16 "
-              f"count={count}/{cap}: max_abs_err {err:.3e}; kernel "
-              f"{t_k:.4f} ms plain {t_p:.4f} ms bound {bound[0]:.4f} ms "
-              f"({bound[1]}; share {bound[0] / t_k:.3f}) "
-              f"gathered-rows-{n_mats}-matmul {t_lib:.4f} ms", flush=True)
-        del wg, wu, wd, take, lib
+        cap = cfg.sparse.capacity(cfg.d_ff)
+        checked = _served_mlp_checks(name, cfg.d_model, cfg.d_ff,
+                                     cfg.gated_mlp, cap, gen)
+        _served_mlp_time("arch-kernels", name, checked, cfg.d_ff, cap, flush)
+        del checked
     del flush_buf
     torch.cuda.empty_cache()
 
@@ -4371,6 +4527,391 @@ def phase_sharded(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 17: moe --
+
+MOE_ARCHS = ("deepseek-moe-16b", "olmoe-1b-7b")
+
+
+def _moe_kernel_cases(gen, flush) -> None:
+    """(a): the kernels at deepseek-moe-16b's first-layer widths (d=2048,
+    k=1408: 176 groups, capacity 48 of them), bf16 x, against their plain
+    versions: sign_pack (x, the gate weights, and one MoE layer's
+    expert-stack gate weights (64 x 1408 rows) at load), both predictors
+    and both float32 MLPs (``_served_mlp_checks``: bitwise, the MLPs
+    twice bitwise), the int8 MLPs (qg 128) at B=4 and S=64 twice bitwise,
+    predict_counts at B=4 twice bitwise; the paged attention and the
+    paired KV write at H=K=16, hd 128 into a bf16 pool.  Each timed at the
+    main path's shape beside its bound, plain version and library
+    yardstick."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import quantize as Q
+    from repro_torch.core import selection as S
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_pack as KS
+    from repro_torch.kernels import sparse_mlp_fused as KF
+
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-moe-16b")
+    d, k, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    cap = cfg.sparse.capacity(k)
+    tag0 = f"deepseek-moe-16b layer 0 d={d} k={k}"
+    # ---- #9 on an expert stack at load (the gate weights of 64 experts)
+    stack = torch.randn((e, k, d), generator=gen, device=dev) * d ** -0.5
+    packed = _same_twice(f"expert stack {e}x{k}x{d}",
+                         lambda: KS.sign_pack(stack.reshape(-1, d)),
+                         name="sign_pack")
+    if not torch.equal(packed, ref.sign_pack_ref(stack.reshape(-1, d))):
+        fail(f"sign_pack expert stack {e}x{k}x{d}: differs from its plain "
+             "version")
+    t_k = cuda_ms(lambda: KS.sign_pack(stack.reshape(-1, d)), flush=flush)
+    t_p = cuda_ms(lambda: ref.sign_pack_ref(stack.reshape(-1, d)), iters=5,
+                  flush=flush)
+    bound = bound_ms(stack.numel() * 4 + packed.numel() * 4, 0)
+    print(f"[moe-kernels] sign_pack expert stack ({e} x {k} rows, d={d}, "
+          f"float32, at load): bitwise, twice; kernel {t_k:.4f} ms plain "
+          f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
+          f"{bound[0] / t_k:.3f})", flush=True)
+    del stack, packed
+    # ---- #1-#4 and #9 (x, gate weights): bitwise / twice bitwise
+    checked = _served_mlp_checks("deepseek-moe-16b layer 0", d, k, True,
+                                 cap, gen)
+    wg, wu, wd, x, sel, _ = checked
+    sign_wg = KS.sign_pack(wg)
+    alpha = torch.linspace(0.9, 1.1, MAIN_BATCH, device=dev)
+    t_pred = cuda_ms(lambda: KP.predict_group_margins(
+        sign_wg, x, alpha, d_valid=d, group_size=G), flush=flush)
+    t_pred_p = cuda_ms(lambda: ref.predict_group_margins_ref(
+        sign_wg, x, d, alpha, G), iters=5, flush=flush)
+    pw = predict_work(MAIN_BATCH, 2, d, k)
+    pb = (max(pw[0], pw[1]), "bytes" if pw[0] >= pw[1] else "operations")
+    print(f"[moe-kernels] predict_group_margins {tag0} B={MAIN_BATCH} "
+          f"x=bfloat16: kernel {t_pred:.4f} ms plain {t_pred_p:.4f} ms bound "
+          f"{pb[0]:.4f} ms ({pb[1]}; share {pb[0] / t_pred:.3f})",
+          flush=True)
+    _served_mlp_time("moe-kernels", "deepseek-moe-16b layer 0", checked, k,
+                     cap, flush)
+    del checked
+    # ---- the chunk kernels (#3, #4) timed at S=64
+    xs = torch.randn((MAIN_CHUNK, d), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    a_s = _chunk_alphas(MAIN_CHUNK, dev)
+    gm_s, _ = KP.predict_chunk_group_margins(sign_wg, xs, a_s, d_valid=d,
+                                             group_size=G)
+    sel_s, _ = S.capacity_select_with_stats(S.union_margin(gm_s), cap)
+    count_s = int(sel_s.count)
+    t_cp = cuda_ms(lambda: KP.predict_chunk_group_margins(
+        sign_wg, xs, a_s, d_valid=d, group_size=G), flush=flush)
+    t_cp_p = cuda_ms(lambda: ref.predict_chunk_group_margins_ref(
+        sign_wg, xs, d, a_s, G), iters=5, flush=flush)
+    pw = predict_work(MAIN_CHUNK, 2, d, k)
+    pbc = (max(pw[0], pw[1]), "bytes" if pw[0] >= pw[1] else "operations")
+    cargs = (xs, wg, wu, wd, sel_s.indices, sel_s.count)
+    y_c = KF.fused_sparse_mlp_chunk(*cargs, group_size=G)
+    y_cr = ref.fused_sparse_mlp_chunk_ref(*cargs, group_size=G)
+    err_c = float((y_c - y_cr).abs().max())
+    if err_c > 2e-3 * (float(y_cr.abs().max()) or 1.0):
+        fail(f"fused_sparse_mlp_chunk {tag0}: max abs err {err_c:.3e}")
+    t_c = cuda_ms(lambda: KF.fused_sparse_mlp_chunk(*cargs, group_size=G),
+                  flush=flush)
+    t_c_p = cuda_ms(lambda: ref.fused_sparse_mlp_chunk_ref(
+        *cargs, group_size=G), iters=5, flush=flush)
+    rows_s = sel_s.indices[:count_s].long()
+    take_s = [m.reshape(k // G, G, d)[rows_s].reshape(-1, d).contiguous()
+              for m in (wg, wu, wd)]
+    xsf = xs.float()
+    t_c_lib = cuda_ms(lambda: (torch.relu(xsf @ take_s[0].T)
+                               * (xsf @ take_s[1].T)) @ take_s[2],
+                      flush=flush)
+    c_bytes = (3 * count_s * G * d * 4 + MAIN_CHUNK * d * 2 + cap * 4 + 4
+               + MAIN_CHUNK * d * 4)
+    cb = tc_bound_ms(c_bytes, 2 * 6 * MAIN_CHUNK * count_s * G * d)
+    print(f"[moe-kernels] predict_chunk_group_margins {tag0} S={MAIN_CHUNK} "
+          f"x=bfloat16: kernel {t_cp:.4f} ms plain {t_cp_p:.4f} ms bound "
+          f"{pbc[0]:.4f} ms ({pbc[1]}; share {pbc[0] / t_cp:.3f})",
+          flush=True)
+    print(f"[moe-kernels] fused_sparse_mlp_chunk {tag0} S={MAIN_CHUNK} "
+          f"x=bfloat16 count={count_s}/{cap}: max_abs_err {err_c:.3e}; "
+          f"kernel {t_c:.4f} ms plain {t_c_p:.4f} ms bound {cb[0]:.4f} ms "
+          f"({cb[1]}, TF32 x2 passes; share {cb[0] / t_c:.3f}) "
+          f"gathered-rows-3-matmul {t_c_lib:.4f} ms", flush=True)
+    del take_s
+    # ---- #5, #6: int8 weights, qg 128, twice bitwise
+    qn = Q.quantize_mlp_node({"wg_t": wg, "wu_t": wu, "wd_t": wd}, QG, G)
+    qargs = [qn[n] for n in QNAMES]
+    for qname, xq, sq, plain_iters in (
+            ("fused_sparse_mlp_q", x, sel, 20),
+            ("fused_sparse_mlp_chunk_q", xs, sel_s, 5)):
+        cnt_q = int(sq.count)
+        fn = getattr(KF, qname)
+        y = _same_twice(f"{tag0} rows={xq.shape[0]}", lambda: fn(
+            xq, *qargs, sq.indices, sq.count, group_size=G), name=qname)
+        y_r = ref.fused_sparse_mlp_q_ref(xq, *qargs, sq.indices, sq.count,
+                                         group_size=G)
+        torch.cuda.synchronize()
+        scale = float(y_r.abs().max()) or 1.0
+        err_q = float((y - y_r).abs().max())
+        if err_q > 1e-4 * scale:
+            fail(f"{qname} {tag0}: max abs err {err_q:.3e} > 1e-4 x max|y| "
+                 f"{scale:.3e}")
+        t_q = cuda_ms(lambda: fn(xq, *qargs, sq.indices, sq.count,
+                                 group_size=G), flush=flush)
+        t_qp = cuda_ms(lambda: ref.fused_sparse_mlp_q_ref(
+            xq, *qargs, sq.indices, sq.count, group_size=G),
+            iters=plain_iters, flush=flush)
+        rows_q = xq.shape[0]
+        q_rows = int(torch.unique(sq.indices[:cnt_q].long()
+                                  // (QG // G)).numel())
+        qb = bound_ms(3 * cnt_q * G * d + 2 * cnt_q * G * (d // QG) * 4
+                      + q_rows * d * 4 + rows_q * d * 2 + cap * 4 + 4
+                      + rows_q * d * 4, 6 * rows_q * cnt_q * G * d)
+        print(f"[moe-kernels] {qname} {tag0} rows={rows_q} x=bfloat16 "
+              f"qg={QG} count={cnt_q}/{cap}: max_abs_err {err_q:.3e}, "
+              f"bitwise twice; kernel {t_q:.4f} ms plain {t_qp:.4f} ms bound "
+              f"{qb[0]:.4f} ms ({qb[1]}; share {qb[0] / t_q:.3f})",
+              flush=True)
+    del qn, qargs
+    # ---- #10 at B=4
+    xp = KS.sign_pack(x)
+    cnt = _same_twice(f"{tag0} B={MAIN_BATCH}",
+                      lambda: KP.predict_counts(sign_wg, xp),
+                      name="predict_counts")
+    if not torch.equal(cnt, ref.predict_counts_ref(sign_wg, xp)):
+        fail(f"predict_counts {tag0}: differs from its plain version")
+    t_n = cuda_ms(lambda: KP.predict_counts(sign_wg, xp), flush=flush)
+    t_np = cuda_ms(lambda: ref.predict_counts_ref(sign_wg, xp), iters=5,
+                   flush=flush)
+    nw = predict_work(MAIN_BATCH, 2, d, k, counts=True)
+    nb = (max(nw[0], nw[1]), "bytes" if nw[0] >= nw[1] else "operations")
+    print(f"[moe-kernels] predict_counts {tag0} B={MAIN_BATCH}: bitwise, "
+          f"twice; kernel {t_n:.4f} ms plain {t_np:.4f} ms bound "
+          f"{nb[0]:.4f} ms ({nb[1]}; share {nb[0] / t_n:.3f})", flush=True)
+    del wg, wu, wd, sign_wg
+    # ---- #7, #8 at H=K=16, hd 128, bf16 pool; the write timed too
+    kp, vp, table, lengths, kv_new = _served_attention(
+        "moe-kernels", "deepseek-moe-16b", cfg, gen,
+        np.random.default_rng(27), flush)
+    t = write_times(kp, vp, *kv_new, table, lengths.long())
+    print(f"[moe-kernels] {write_line('B=4 H=K=16 hd=128 bf16', t, 4)}",
+          flush=True)
+
+
+def _moe_layers() -> None:
+    """(b): deepseek-moe-16b (its dense first layer and one MoE layer) and
+    olmoe-1b-7b (two MoE layers) at full width, float32 compute, the
+    config's own selection (capacity 48 of 176 groups: the clamp binds),
+    card against CPU through ``_hold``: every MLP and MoE call on the
+    CPU fed the card's input of the same call, routing held to near ties.
+    8 teacher-forced decode steps on the dense cache with strategies
+    pallas, masked and gather (deepseek; olmoe has no sparse MLP layer and
+    runs pallas only), int8 MLP weights (qg 128, deepseek), a fragmented
+    float32 pool on the kernel route and on the gather route, and a
+    160-token chunked sparse prefill (deepseek also with int8 weights).
+    Launches exact."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    for i, arch in enumerate(MOE_ARCHS):
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        cfg = base.replace(n_layers=2, dtype="float32",
+                           kv_cache_dtype="float32",
+                           sparse=dataclasses.replace(
+                               base.sparse, strategy="pallas", enabled=True))
+        Ls, steps = _mlp_layers(cfg), DEC_STEPS
+        raw = lm.init_lm(cfg, 170 + i, "cuda")
+        print(f"[moe] {arch}: d={cfg.d_model} H={cfg.n_heads} "
+              f"K={cfg.n_kv_heads} hd={cfg.resolved_head_dim} experts "
+              f"{cfg.n_experts} x f={cfg.d_ff} top-{cfg.top_k} shared "
+              f"{cfg.n_shared_experts} norm_topk {cfg.router_norm_topk} "
+              f"qk_norm {cfg.qk_norm} vocab {cfg.vocab}; layers "
+              f"{['mlp' if 'mlp' in b else 'moe' for b in raw['blocks']]}"
+              + (f"; layer-0 capacity {cfg.sparse.capacity(cfg.d_ff)} of "
+                 f"{cfg.d_ff // G} groups" if Ls else ""), flush=True)
+        strategies = ("pallas", "masked", "gather") if Ls else ("pallas",)
+        for weights in ("", "int8") if Ls else ("",):
+            wcfg = cfg.replace(sparse=dataclasses.replace(
+                cfg.sparse, weight_dtype=weights, quant_group_size=QG))
+            params = {"cuda": lm.prepare_sparse(raw, wcfg.sparse)}
+            params["cpu"] = _to(params["cuda"], "cpu")
+            for strategy in strategies if not weights else ("pallas",):
+                run_cfg = wcfg.replace(sparse=dataclasses.replace(
+                    wcfg.sparse, strategy=strategy))
+                if strategy == "pallas":
+                    fused = "fused_sparse_mlp_q" if weights \
+                        else "fused_sparse_mlp"
+                    want = {"predict_group_margins": Ls * steps,
+                            fused: Ls * steps}
+                else:
+                    want = dict(sign_pack=Ls * steps,
+                                predict_counts=Ls * steps)
+                _hold(f"[moe] {arch} decode, {strategy}, "
+                      f"{weights or 'float32'} MLP weights",
+                      lambda dev, c=run_cfg: _teacher_forced(params[dev], c,
+                                                             dev),
+                      LOGIT_TOL["float32"], want)
+            chunk_cfg = wcfg.replace(sparse=dataclasses.replace(
+                wcfg.sparse, sparse_prefill=True,
+                prefill_max_tokens=max(wcfg.sparse.prefill_max_tokens,
+                                       MAIN_CHUNK)))
+            fused = "fused_sparse_mlp_chunk_q" if weights \
+                else "fused_sparse_mlp_chunk"
+            _prefill_chunks(f"[moe] {arch} chunked sparse prefill, "
+                            f"{weights or 'float32'} MLP weights", params,
+                            chunk_cfg, 160, 5 + i, 256,
+                            ("predict_chunk_group_margins", fused))
+            if weights:
+                del params
+                continue
+            rng = np.random.default_rng(17 + i)
+            n, table = _fragmented_table(rng, DEC_BATCH, 4)
+            lens0 = np.asarray([20, 17, 33, 47])
+            forced = rng.integers(0, cfg.vocab, size=(steps, DEC_BATCH, 1))
+            alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
+            pool = _random_pool(cfg, n, torch.float32, 17 + i)
+            for kernel_route in (True, False):
+                run_cfg = cfg.replace(paged_attn_kernel=kernel_route)
+                paged = cfg.n_layers * steps if kernel_route else 0
+                _hold(f"[moe] {arch} paged decode, float32 pool, "
+                      f"{'kernel' if kernel_route else 'gather'} route",
+                      lambda dev, c=run_cfg: _paged_forced(
+                          params[dev], c, dev, pool, table, lens0, forced,
+                          alphas),
+                      LOGIT_TOL["float32"],
+                      dict(paged_attention=paged, paged_kv_write=paged,
+                           predict_group_margins=Ls * steps,
+                           fused_sparse_mlp=Ls * steps))
+            del params, pool
+        del raw
+        torch.cuda.empty_cache()
+        print(f"[moe] {arch} layers: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def _moe_serve(arch: str) -> None:
+    """(c): ``arch`` at full width and full depth (random float32 weights
+    from a seed, bf16 compute) through Server.serve: the per-tier
+    controller on strategy pallas, a bf16 paged pool of 16-token blocks
+    with the paged kernels, chunked sparse prefill in chunks of 64, batch
+    4, 8 requests of mixed tiers with 96-192-token prompts and 16 new
+    tokens each.  Launch counters reset before the server is built, so
+    the load-time sign packs (each MLP, each expert stack, each shared
+    expert) count; launches exact; a profiled paged decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ControllerConfig, PagedKVConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    base = get_config(arch)
+    cfg = base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                       sparse=dataclasses.replace(
+                           base.sparse, strategy="pallas", enabled=True,
+                           sparse_prefill=True,
+                           prefill_max_tokens=max(
+                               base.sparse.prefill_max_tokens, MAIN_CHUNK)))
+    scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                       prefill_chunk=MAIN_CHUNK,
+                       paged_kv=PagedKVConfig(block_size=PAGE_BLOCK),
+                       controller=ControllerConfig(enabled=True,
+                                                   per_tier=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, "cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    ops.reset_launch_counts()
+    srv = Server(lm, cfg, scfg, params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    load = ops.launch_counts()
+    Ls = _mlp_layers(cfg)
+    n_moe = cfg.n_layers - Ls
+    packs = Ls + n_moe * (2 if cfg.n_shared_experts else 1)
+    if load != _want_launches(load, sign_pack=packs):
+        fail(f"serve-{arch}: load launches {load}, want {packs} sign packs")
+    print(f"[moe-serve] {arch}: {cfg.n_layers} layers ({Ls} dense, {n_moe} "
+          f"MoE of {cfg.n_experts} experts, top-{cfg.top_k}), weights "
+          f"{n_bytes / 1e9:.2f} GB {cfg.param_dtype}, compute {cfg.dtype}, "
+          f"{cfg.kv_cache_dtype} pool of {srv.kv_pool.n_blocks} blocks; "
+          f"{packs} sign packs at load; memory after load "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(28)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab, size=int(rng.integers(96, 193))),
+                max_new=16, sla=tiers[i % 3]) for i in range(8)]
+    steps0, run0 = srv.decode_steps, srv.prefill_chunks_run
+    t1 = time.perf_counter()
+    done = srv.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    steps = srv.decode_steps - steps0
+    chunks = srv.prefill_chunks_run - run0
+    if len(done) != len(reqs) or any(
+            r.outcome != "completed" or len(r.out) != 16
+            or not ((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done):
+        fail(f"serve-{arch}: not every request completed with 16 valid "
+             "tokens")
+    n_chunks = sum(-(-len(r.prompt) // MAIN_CHUNK) for r in reqs)
+    L = cfg.n_layers
+    want = _want_launches(counts, sign_pack=packs,
+                          predict_group_margins=Ls * steps,
+                          fused_sparse_mlp=Ls * steps,
+                          paged_attention=L * steps,
+                          paged_kv_write=L * steps,
+                          predict_chunk_group_margins=Ls * chunks,
+                          fused_sparse_mlp_chunk=Ls * chunks)
+    if steps == 0 or counts != want or chunks != n_chunks:
+        fail(f"serve-{arch}: launches {counts}, want {want} ({steps} decode "
+             f"steps, {chunks} of {n_chunks} chunks)")
+    rep = throughput_report(done)
+    print(f"[moe-serve] {arch} throughput_report {json.dumps(rep)}",
+          flush=True)
+    ctl = srv.controller.report()
+    print(f"[moe-serve] {arch} controller: steps {ctl['steps']}, prefill "
+          f"chunks {ctl['prefill_chunks']}, audits {ctl['audits']}",
+          flush=True)
+    print(f"[moe-serve] {arch}: {wall:.1f} s; decode steps {steps}; prefill "
+          f"chunks {chunks}; launches from load {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profile_paged_decode(srv, cfg,
+                         rng.integers(0, cfg.vocab, size=(MAIN_BATCH, 1)))
+    del srv
+    torch.cuda.empty_cache()
+
+
+def phase_moe(results: dict) -> None:
+    """The moe family on the card: (a) the kernels at deepseek-moe-16b's
+    first-layer and attention shapes, (b) two full-width layers of each
+    arch card against CPU, (c) olmoe-1b-7b and deepseek-moe-16b served at
+    full depth."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for step, fn in (("a", lambda: _moe_kernel_cases(gen, flush_buf.zero_)),
+                     ("b", _moe_layers),
+                     ("c olmoe-1b-7b", lambda: _moe_serve("olmoe-1b-7b")),
+                     ("c deepseek-moe-16b",
+                      lambda: _moe_serve("deepseek-moe-16b"))):
+        t = time.perf_counter()
+        fn()
+        print(f"[moe] ({step}) {time.perf_counter() - t:.1f} s", flush=True)
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4697,7 +5238,8 @@ def main() -> None:
                         (phase_serve_overload, (results,)),
                         (phase_archs, ()), (phase_arch_kernel_times, ()),
                         (phase_serve_gemma2, ()),
-                        (phase_sharded, (results,))):
+                        (phase_sharded, (results,)),
+                        (phase_moe, (results,))):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

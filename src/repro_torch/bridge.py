@@ -1,16 +1,20 @@
 """Carry a reference parameter tree over to the port.
 
 The JAX package's ``init_lm`` stacks every layer's leaves along a leading
-(L, ...) axis under ``params["blocks"]``; the port keeps one dict per layer.
+(L, ...) axis under ``params["blocks"]`` (a moe config's dense first layers
+apart, under ``params["first_blocks"]``); the port keeps one dict per
+layer, in layer order.
 ``params_from_numpy`` takes that tree with numpy leaves (a caller converts
 with ``jax.tree.map(np.asarray, params)``) and returns the port's params.
 It imports nothing of JAX: a bfloat16 leaf arrives as an ``ml_dtypes``
 numpy array and is widened to float32 (exactly) before the cast back.
 A quantized MLP node (the reference's ``prepare_sparse`` with int8 weights:
 int8 leaves, float32 scales and the int32 ``sign_wg``) carries over leaf
-for leaf, in its own dtypes.  ``pool_from_numpy`` does the same for a
-paged KV pool (the reference's ``init_kv_pool`` tree: leaves
-(L, N, block, ...) under ``blocks``).
+for leaf, in its own dtypes; an MoE node (router, expert stacks
+(E, f, d), their sign pack, the shared expert) carries over the same way.
+``pool_from_numpy`` does the same for a paged KV pool (the reference's
+``init_kv_pool`` tree: leaves (L, N, block, ...) under ``blocks``, and
+under ``first`` for a moe config's first layers).
 """
 from __future__ import annotations
 
@@ -35,33 +39,57 @@ def _convert(node, device, index=None):
     return _tensor(node if index is None else np.asarray(node)[index], device)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """Reference params (numpy leaves, layer-stacked ``blocks``) -> the
-    port's params on ``device`` with a per-layer ``blocks`` list.  Raises
-    without a GPU unless ``device`` is ``"cpu"``."""
-    if cfg.family != "dense" or "first_blocks" in tree:
-        raise NotImplementedError("only the dense family is ported")
-    device = resolve_device(device)
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "blocks"}
-    n = np.asarray(tree["blocks"]["ln1"]["scale"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"blocks hold {n} layers, config has "
+def _n_stacked(node) -> int:
+    """The leading (layer) extent of a stacked subtree."""
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return np.asarray(node).shape[0]
+
+
+def _per_layer(tree: dict, cfg: ModelConfig, stacks: tuple, device,
+               what: str) -> list:
+    """The stacked subtrees ``stacks`` (first layers, then the rest) ->
+    one converted dict a layer, in layer order."""
+    fam = ("dense", "moe")
+    if cfg.family not in fam:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only {fam} are ported")
+    first = stacks[0]
+    if (first in tree) != bool(cfg.first_dense_layers):
+        raise ValueError(f"{what}: {first!r} present must match "
+                         f"first_dense_layers={cfg.first_dense_layers}")
+    layers = []
+    for name in stacks:
+        if name in tree:
+            layers += [_convert(tree[name], device, i)
+                       for i in range(_n_stacked(tree[name]))]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{what} hold {len(layers)} layers, config has "
                          f"{cfg.n_layers}")
-    out["blocks"] = [_convert(tree["blocks"], device, i) for i in range(n)]
+    return layers
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Reference params (numpy leaves, layer-stacked ``blocks`` and, for a
+    moe config's dense first layers, ``first_blocks``) -> the port's
+    params on ``device`` with a per-layer ``blocks`` list.  Raises without
+    a GPU unless ``device`` is ``"cpu"``."""
+    device = resolve_device(device)
+    out = {k: _convert(v, device) for k, v in tree.items()
+           if k not in ("first_blocks", "blocks")}
+    out["blocks"] = _per_layer(tree, cfg, ("first_blocks", "blocks"),
+                               device, "blocks")
     return out
 
 
 def pool_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference paged KV pool (numpy leaves (L, N, block, ...) under
-    ``blocks``) -> the port's pool ``{"blocks": [per-layer {"k", "v"[,
-    "k_scale", "v_scale"]}]}`` on ``device``.  Raises without a GPU unless
-    ``device`` is ``"cpu"``."""
-    if cfg.family != "dense" or set(tree) != {"blocks"}:
-        raise NotImplementedError("only the dense family's pool is ported")
+    ``blocks``, a moe config's first layers under ``first``) -> the port's
+    pool ``{"blocks": [per-layer {"k", "v"[, "k_scale", "v_scale"]}]}`` on
+    ``device``.  Raises without a GPU unless ``device`` is ``"cpu"``."""
     device = resolve_device(device)
-    n = np.asarray(tree["blocks"]["k"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"pool holds {n} layers, config has "
-                         f"{cfg.n_layers}")
-    return {"blocks": [_convert(tree["blocks"], device, i)
-                       for i in range(n)]}
+    if not set(tree) <= {"first", "blocks"}:
+        raise ValueError(f"pool tree keys {sorted(tree)}: want 'blocks' "
+                         "and, with first_dense_layers, 'first'")
+    return {"blocks": _per_layer(tree, cfg, ("first", "blocks"), device,
+                                 "pool")}

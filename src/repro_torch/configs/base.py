@@ -1,7 +1,8 @@
 """Model configuration: the counterpart of ``repro/configs/base.py``.
 
 Field names, types and defaults are the reference's own, so a port config
-compares field for field with its JAX twin.  Ported: ``ModelConfig``, the
+compares field for field with its JAX twin.  Ported: ``ModelConfig`` (with
+``d_expert``, ``param_count`` and ``active_param_count``), the
 SLA tiers, ``ControllerConfig``, ``PagedKVConfig`` and ``MetricsConfig``.
 """
 from __future__ import annotations
@@ -194,6 +195,47 @@ class ModelConfig:
     @property
     def vocab_padded(self) -> int:
         return -(-self.vocab // 256) * 256
+
+    @property
+    def d_expert(self) -> int:
+        return self.d_ff  # for MoE configs d_ff is the per-expert width
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the
+        reference's formula."""
+        d, v = self.d_model, self.vocab
+        hd = self.resolved_head_dim
+        attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.family == "moe":
+            ffn = 3 * d * self.d_ff * self.n_experts
+            ffn += 3 * d * self.d_ff * self.n_shared_experts \
+                + d * self.n_experts
+        elif self.family == "xlstm":
+            di = 2 * d
+            ffn = d * 2 * di + 3 * di * di + di * d
+            attn = 0
+        elif self.family == "hybrid":
+            di = 2 * d
+            ffn = d * (2 * di + 2 * self.ssm_state
+                       + di // self.ssm_head_dim) + di * d
+            ffn += (attn + 3 * d * self.d_ff) / max(1, self.attn_every)
+            attn = 0
+        else:
+            ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
+        layers = self.n_layers + self.n_enc_layers
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return int(layers * (attn + ffn) + emb)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        hd = self.resolved_head_dim
+        attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ffn = 3 * d * self.d_ff * (self.top_k + self.n_shared_experts)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return int(self.n_layers * (attn + ffn) + emb)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

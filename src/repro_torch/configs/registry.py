@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus the reduced
 (CPU smoke) variant — the counterpart of ``repro/configs/registry.py``.
 
-The dense family is registered: prosparse-llama2-7b and -13b, qwen3-8b,
-qwen1.5-32b, granite-34b and gemma2-2b.  The other families come with their
-slices of the port."""
+Registered: the dense family (prosparse-llama2-7b and -13b, qwen3-8b,
+qwen1.5-32b, granite-34b, gemma2-2b) and the moe family (deepseek-moe-16b,
+olmoe-1b-7b).  The other families come with their slices of the port."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,7 +43,9 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced_config(name: str) -> ModelConfig:
-    """Tiny same-family config for CPU smoke tests (dense family only)."""
+    """Tiny same-family config for CPU smoke tests: the reference's cut for
+    each ported family (dense: two of its layer pattern; moe: the dense
+    first layers plus 3 MoE layers of 8 experts, top-k at most 2)."""
     cfg = get_config(name)
     kw: dict = dict(
         d_model=64, d_ff=0 if cfg.d_ff == 0 else 128, vocab=512,
@@ -55,10 +57,17 @@ def reduced_config(name: str) -> ModelConfig:
                         else 4 if cfg.n_kv_heads == cfg.n_heads else 2)
     if cfg.window:
         kw["window"] = 8
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        kw["n_layers"] = 2 * (cfg.local_global_period or 1)
+    elif cfg.family == "moe":
+        kw["n_layers"] = cfg.first_dense_layers + 3
+        kw["n_experts"] = 8
+        kw["top_k"] = min(cfg.top_k, 2)
+        kw["d_ff"] = 32
+        kw["capacity_factor"] = 4.0
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue A)")
-    kw["n_layers"] = 2 * (cfg.local_global_period or 1)
     if cfg.sparse.enabled:
         kw["sparse"] = dataclasses.replace(cfg.sparse, capacity_frac=0.5)
     return cfg.replace(name=cfg.name + "-reduced", **kw)
@@ -66,6 +75,6 @@ def reduced_config(name: str) -> ModelConfig:
 
 # arch modules register themselves on import (bottom: decorator exists)
 from repro_torch.configs import (  # noqa: E402,F401
-    gemma2_2b, granite_34b, qwen3_8b, qwen1_5_32b, prosparse_llama2_7b,
-    prosparse_llama2_13b,
+    gemma2_2b, granite_34b, qwen3_8b, qwen1_5_32b, deepseek_moe_16b,
+    olmoe_1b_7b, prosparse_llama2_7b, prosparse_llama2_13b,
 )

@@ -1,14 +1,20 @@
-"""Decoder-only LM, dense family: counterpart of ``repro/models/lm.py``.
+"""Decoder-only LM, dense and moe families: counterpart of
+``repro/models/lm.py``.
 
 Every dense arch of the reference runs: GQA/MQA, QKV bias, qk-norm,
 gemma2's alternating local (sliding-window) and global layers, attention
 and final logit softcaps, post-block norms and the embedding scale; gated
-and ungated MLPs.  ``first_dense_layers`` (a moe setting) is not ported.
+and ungated MLPs.  The moe family (deepseek-moe, olmoe) replaces the MLP
+by a routed MoE layer (``layers/moe.py``) after its ``first_dense_layers``
+dense layers, which run the sparse MLP; an MoE layer reports zero MLP
+stats, so the per-layer stats and alphas keep one row a layer.
 
 Params are dicts of tensors; the layer stack is a list of per-layer block
-dicts (the reference stacks them along a leading axis for ``lax.scan``; a
-Python loop over layers takes the scan's place).  Caches are
-``{"blocks": [per-layer {"k", "v"[, "k_scale", "v_scale"]}]}``.
+dicts, in layer order, each with an ``"mlp"`` or a ``"moe"`` node (the
+reference stacks them along a leading axis for ``lax.scan``, the dense
+first layers apart under ``first_blocks``; a Python loop over layers takes
+the scan's place).  Caches are ``{"blocks": [per-layer {"k", "v"[,
+"k_scale", "v_scale"]}]}``, one entry a layer.
 
 Public API: init_lm, init_caches, init_kv_pool, prefill, prefill_chunk,
 decode_step, prepare_sparse.  ``init_lm``, ``init_caches`` and
@@ -28,31 +34,49 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_mlp as SM
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as A
 from repro_torch.layers import embeddings as E
 from repro_torch.layers.mlp import init_mlp, mlp_apply
+from repro_torch.layers.moe import MoEConfig, init_moe, moe_apply
 from repro_torch.models import common as C
 
 
-# ModelConfig flavours the port does not run yet (they arrive with the
-# families that use them): a config that sets one is rejected, not run wrong
-_UNPORTED = ("first_dense_layers",)
-
 # families whose prefill runs in fixed-size chunks against the decode cache
-CHUNK_PREFILL_FAMILIES = ("dense",)
+CHUNK_PREFILL_FAMILIES = ("dense", "moe")
 
 # families whose caches are pure per-layer KV and can live in the paged
 # block pool
-PAGED_KV_FAMILIES = ("dense",)
+PAGED_KV_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    unported = [f for f in _UNPORTED if getattr(cfg, f)]
-    if cfg.family != "dense" or cfg.norm != "rmsnorm" or unported:
+    if cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: only the plain dense family is ported (ROADMAP "
-            f"Queue A, other model families); unported settings "
-            f"{unported or [cfg.family, cfg.norm]}")
+            f"{cfg.name}: only the dense and moe families are ported "
+            f"(ROADMAP Queue A, other model families); got "
+            f"{[cfg.family, cfg.norm]}")
+
+
+def moe_cfg(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(
+        d_model=cfg.d_model, d_expert=cfg.d_ff, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, n_shared=cfg.n_shared_experts,
+        d_shared=cfg.d_ff * max(1, cfg.n_shared_experts),
+        capacity_factor=cfg.capacity_factor,
+        router_norm_topk=cfg.router_norm_topk,
+        activation=(cfg.sparse.activation if cfg.sparse.enabled
+                    else cfg.activation))
+
+
+def _is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    return cfg.family == "moe" and i >= cfg.first_dense_layers
+
+
+def has_sparse_mlp(cfg: ModelConfig) -> bool:
+    """Whether any layer runs the (sparse) MLP: every dense layer does, a
+    moe config only in its ``first_dense_layers``."""
+    return cfg.family != "moe" or cfg.first_dense_layers > 0
 
 
 def _windows(cfg: ModelConfig) -> tuple:
@@ -79,15 +103,19 @@ def _alphas(cfg: ModelConfig) -> np.ndarray:
     return cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, device,
+                moe_block: bool) -> dict:
     pd = C.param_dtype(cfg)
     blk = {
         "ln1": C.norm_init(cfg, device),
         "attn": A.init_attention(gen, C.attn_cfg(cfg), pd, device),
         "ln2": C.norm_init(cfg, device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, pd,
-                        device),
     }
+    if moe_block:
+        blk["moe"] = init_moe(gen, moe_cfg(cfg), pd, device)
+    else:
+        blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, pd,
+                              device)
     if cfg.post_block_norm:
         blk["ln1_post"] = C.norm_init(cfg, device)
         blk["ln2_post"] = C.norm_init(cfg, device)
@@ -116,8 +144,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = E.init_unembed(gen, cfg.vocab_padded,
                                            cfg.d_model, pd, device)
-    params["blocks"] = [_init_block(gen, cfg, device)
-                        for _ in range(cfg.n_layers)]
+    params["blocks"] = [_init_block(gen, cfg, device, _is_moe_layer(cfg, i))
+                        for i in range(cfg.n_layers)]
     return params
 
 
@@ -164,13 +192,17 @@ def _post_norm(cfg: ModelConfig, blk: dict, name: str, h: torch.Tensor):
 
 def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, window: int):
-    """One transformer block over a prompt (dense MLP).  Returns (x, kv)."""
+    """One transformer block over a prompt (dense MLP, or the MoE layer
+    routing each sequence as a group).  Returns (x, kv)."""
     h = C.norm_apply(cfg, blk["ln1"], x)
     h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg, window), positions,
                      return_kv=True)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
-    h = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg))
+    if "moe" in blk:
+        h, _ = moe_apply(blk["moe"], h, moe_cfg(cfg))
+    else:
+        h = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg))
     return x + _post_norm(cfg, blk, "ln2_post", h), kv
 
 
@@ -194,6 +226,18 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, {"blocks": caches}
 
 
+def _moe_block(blk: dict, h: torch.Tensor, cfg: ModelConfig,
+               collect_stats: bool):
+    """The MoE layer in place of the MLP over (B, S, d) ``h``.  Its stats
+    are zeros (B,), with the per-shard riders under ``tp_shards``, so they
+    stack against the MLP layers'."""
+    out, _ = moe_apply(blk["moe"], h, moe_cfg(cfg))
+    stats = (SM.zero_mlp_stats((h.shape[0],), h.device,
+                               cfg.sparse.tp_shards)
+             if collect_stats else None)
+    return out, stats
+
+
 def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                   cache_len, window: int, alpha, collect_stats: bool = False,
                   block_table=None):
@@ -209,6 +253,9 @@ def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
         h, cache = A.decode_attend(blk["attn"], h, acfg, cache, cache_len)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
+    if "moe" in blk:                      # each slot a group of one token
+        out, stats = _moe_block(blk, h, cfg, collect_stats)
+        return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
     out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), decode=True,
                     alpha=alpha, return_stats=collect_stats)
     stats = None
@@ -299,6 +346,9 @@ def _block_chunk_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
                               offset, valid)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
+    if "moe" in blk:         # each sequence's chunk a group, pad rows too
+        out, stats = _moe_block(blk, h, cfg, collect_stats)
+        return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
     al = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
     if al.ndim == 1:                                       # per slot (B,)
         al = al[:, None]
@@ -371,14 +421,32 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, caches
 
 
+def _prepare_node(node: dict, sparse) -> dict:
+    """The reference's walk over one gated node: an MLP node gets its
+    gate-weight sign pack (int8 weights: quantized, ``core/quantize.py``);
+    an MoE node (it has a ``router``) keeps its float expert stacks and
+    gets their sign pack (E, f, d/32), and its shared expert is an MLP
+    node.  A node already quantized passes through."""
+    if "router" in node:
+        out = dict(node)
+        if "shared" in node:
+            out["shared"] = _prepare_node(node["shared"], sparse)
+        out["sign_wg"] = kops.sign_pack(node["wg_t"])
+        return out
+    if "wg_t" not in node:
+        return node
+    return SM.prepare_sparse_params(node, sparse)
+
+
 def prepare_sparse(params: dict, sparse: Optional[SM.SparseInferConfig] = None
                    ) -> dict:
-    """Offline step for serving: pack each layer's gate-weight sign bits;
-    with ``sparse.weight_dtype == "int8"`` also quantize each layer's MLP
-    (``core/quantize.py``).  A node already quantized passes through."""
+    """Offline step for serving: pack the gate-weight sign bits of every
+    gated node (each MLP, each MoE layer's expert stacks and its shared
+    expert); with ``sparse.weight_dtype == "int8"`` also quantize every
+    MLP node, the shared experts included, while the expert stacks stay
+    float."""
     out = dict(params)
-    out["blocks"] = [dict(blk, mlp=SM.prepare_sparse_params(blk["mlp"],
-                                                            sparse))
-                     if "wg_t" in blk["mlp"] else blk
+    out["blocks"] = [{k: _prepare_node(v, sparse) if k in ("mlp", "moe")
+                      else v for k, v in blk.items()}
                      for blk in params["blocks"]]
     return out

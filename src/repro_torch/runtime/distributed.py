@@ -25,6 +25,10 @@ atomic), its integer-valued counts summed exactly, so the result is bitwise
 the same in every run.  The rows of each weight leaf a shard reads are a
 view of the layer's leaf, never a copy.  Placing the grid on several
 devices (the reference's ``shard_map_apply``) is not ported.
+
+A moe config's MoE layers run no sparse MLP: they report zero stats with
+zero riders (``models/lm.py``), so its dense first layers' riders stack
+against them, one row a layer.
 """
 from __future__ import annotations
 

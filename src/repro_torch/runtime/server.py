@@ -282,10 +282,12 @@ class Server:
             raise NotImplementedError("only greedy decoding is ported")
         if cfg.sparse.enabled and (cfg.sparse.tp_shards
                                    or cfg.sparse.dp_shards):
-            # the grid must take the batch, and every shard whole row
-            # groups, int8 quant groups and ladder rungs
+            # the grid must take the batch, and every shard of a sparse
+            # MLP layer whole row groups, int8 quant groups and ladder
+            # rungs (a moe config's MoE layers run no sparse MLP)
             _, ms = SSP.resolve_grid(cfg.sparse, scfg.batch)
-            SSP.validate_shardable(cfg.sparse, cfg.d_ff, ms)
+            if model_mod.has_sparse_mlp(cfg):
+                SSP.validate_shardable(cfg.sparse, cfg.d_ff, ms)
         self.mod = model_mod
         self.cfg = cfg
         self.scfg = scfg
@@ -529,7 +531,8 @@ class Server:
             self.controller = None
             return
         tiers = scfg.sla_tiers if scfg.controller.per_tier else None
-        # one alpha per layer: the dense family, the only one ported
+        # one alpha per layer, as the reference counts them for dense and
+        # moe: an MoE layer's row sees its zero stats
         ctl = AlphaController(
             scfg.controller, cfg.sparse.alpha_schedule(), cfg.n_layers,
             tiers=tiers, native_fn=cfg.sparse.strategy == "pallas")
@@ -571,7 +574,7 @@ class Server:
         meets it.  Batches past a decode launch take the chunk kernels,
         which take every row count."""
         sp = self.cfg.sparse
-        if sp.strategy != "pallas":
+        if sp.strategy != "pallas" or not self.mod.has_sparse_mlp(self.cfg):
             return
         ds = max(1, sp.dp_shards or 1)
         bt = max(1, self.scfg.batch // ds)

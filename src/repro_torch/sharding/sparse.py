@@ -30,7 +30,9 @@ def resolve_grid(sparse, batch: int) -> tuple[int, int]:
 def validate_shardable(sparse, k: int, ms: int) -> None:
     """Fail fast if ``sparse`` cannot split ``k`` rows ``ms`` ways: every
     shard needs whole row groups, whole int8 quant groups, and every rung
-    of the capacity ladder must split evenly over the shards."""
+    of the capacity ladder must split evenly over the shards.  ``k`` is
+    the sparse MLP layers' width: a moe config with no dense first layer
+    has none to check (the server skips it)."""
     if ms <= 1:
         return
     g = sparse.group_size

@@ -9,9 +9,10 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
 
 ARCH = "prosparse-llama2-7b"
-# the dense family: every arch the port registers
+# the dense and moe families: every arch the port registers
 ARCHS = ("prosparse-llama2-7b", "prosparse-llama2-13b", "qwen3-8b",
-         "qwen1.5-32b", "granite-34b", "gemma2-2b")
+         "qwen1.5-32b", "granite-34b", "gemma2-2b", "deepseek-moe-16b",
+         "olmoe-1b-7b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -46,3 +47,18 @@ def test_capacity_and_alpha_schedule(kw):
     for n in (2, 32):
         assert port.alpha_schedule().alphas(n).tolist() == \
             ref.alpha_schedule().alphas(n).tolist()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("make", ["get_config", "reduced_config"])
+def test_param_counts_equal(make, arch):
+    """``d_expert``, ``param_count`` and ``active_param_count`` (the moe
+    branches count the expert stacks, the router and the shared experts;
+    the active count only the routed top-k and the shared)."""
+    ref = getattr(jreg, make)(arch)
+    port = getattr(treg, make)(arch)
+    assert port.d_expert == ref.d_expert
+    assert port.param_count() == ref.param_count()
+    assert port.active_param_count() == ref.active_param_count()
+    if port.family == "moe":
+        assert port.active_param_count() < port.param_count()
