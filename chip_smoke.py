@@ -227,7 +227,33 @@ Phases, in order; any failure exits non-zero:
              with 96-192-token prompts; launches exact from load (the
              load-time sign packs of every MLP, expert stack and shared
              expert); a profiled paged decode step each.
- 18. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 18. cross   the cross-attention families (seamless-m4t-medium: encdec,
+             LayerNorm, a non-causal encoder, an ungated ReLU FFN;
+             llama-3.2-vision-90b: vlm, a gated cross block every 5
+             layers): (a) the sparse MLP's kernels at seamless's decoder FFN
+             widths (ungated d=1024, k=4096, C=112 of 512 groups) and at the
+             vlm's (d=8192, k=28672, C=720 of 3584), bf16 x, against their
+             plain versions (``_mlp_kernel_times``): sign_pack of x and of
+             the gate weights at load, both predictors, both float32 MLPs,
+             both int8 MLPs (qg 128) and predict_counts, twice bitwise
+             where a kernel must be, each timed beside its bound, plain
+             version and library yardstick; (b) both at full width and
+             reduced depth (seamless: 2 encoder and 2 decoder layers; the
+             vlm: cross_every=2, one self and one gated cross block), the
+             gates, norms and biases drawn non-zero, float32 compute, card
+             against CPU through ``_hold``: ``encode`` first, then 8
+             teacher-forced decode steps (pallas, masked, gather; int8 MLP
+             weights) and a 160-token chunked sparse prefill (the frames
+             encoded once); launches exact; (c) seamless at full depth (12
+             + 12 layers, 2.46 GB float32) and the vlm at full width and 10
+             layers (38.4 GB; its 100 do not fit) through Server.serve with
+             their frames or images: the per-tier controller on pallas,
+             chunked sparse prefill in chunks of 64, batch 4, 8 requests of
+             mixed tiers with 96-192-token prompts, dense bf16 caches;
+             launches exact from load (every MLP's sign pack, the
+             encoder's too), one encode an admission, the peak memory and a
+             profiled decode step each.
+ 19. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -1765,17 +1791,20 @@ DEC_BATCH, DEC_PLEN, DEC_STEPS, DEC_MAX_LEN = 4, 16, 8, 32
 
 @contextlib.contextmanager
 def _mlp_tap(fn, name: str = "mlp_apply"):
-    """Inside the block every MLP call of ``models.lm`` (``name``
-    "moe_apply": every MoE layer's call) goes through ``fn(orig, params,
-    x, cfg, **kw)``."""
-    from repro_torch.models import lm
-    orig = getattr(lm, name)
-    setattr(lm, name, lambda params, x, cfg, **kw: fn(orig, params, x, cfg,
-                                                      **kw))
+    """Inside the block every MLP call of the model modules (``models.lm``,
+    ``models.encdec``, ``models.vision_lm``; ``name`` "moe_apply": every
+    MoE layer's call) goes through ``fn(orig, params, x, cfg, **kw)``."""
+    from repro_torch.models import encdec, lm, vision_lm
+    mods = [m for m in (lm, encdec, vision_lm) if hasattr(m, name)]
+    origs = [getattr(m, name) for m in mods]
+    for m, orig in zip(mods, origs):
+        setattr(m, name, lambda params, x, cfg, _orig=orig, **kw: fn(
+            _orig, params, x, cfg, **kw))
     try:
         yield
     finally:
-        setattr(lm, name, orig)
+        for m, orig in zip(mods, origs):
+            setattr(m, name, orig)
 
 
 def _kept(params, x, cfg):
@@ -1973,13 +2002,16 @@ def _want_launches(counts: dict, **n) -> dict:
     return {k: n.get(k, 0) for k in counts}
 
 
-def _teacher_forced(params, cfg, dev):
-    """Prefill a seeded batch of 4 prompts, then 8 teacher-forced decode
+def _teacher_forced(params, cfg, dev, extra=None):
+    """Prefill a seeded batch of 4 prompts (with ``extra``, the frames or
+    images of a cross-attention family), then 8 teacher-forced decode
     steps with per-slot alphas (the schedule plus SLA-like offsets) and
     the MLP stats on -> logits (steps, B, V) on the CPU."""
     import numpy as np
     import torch
-    from repro_torch.models import lm
+    from repro_torch.launch.specs import model_module
+    mod = model_module(cfg)
+    ex = () if extra is None else (extra.to(dev),)
     b, plen, steps = DEC_BATCH, DEC_PLEN, DEC_STEPS
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab, size=(b, plen))
@@ -1987,12 +2019,12 @@ def _teacher_forced(params, cfg, dev):
     alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
         np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
     with torch.inference_mode():
-        lg, caches = lm.prefill(params, cfg,
-                                torch.as_tensor(prompt, device=dev),
-                                DEC_MAX_LEN)
+        lg, caches = mod.prefill(params, cfg,
+                                 torch.as_tensor(prompt, device=dev), *ex,
+                                 DEC_MAX_LEN)
         out = []
         for t in range(steps):
-            lg, caches, _ = lm.decode_step(
+            lg, caches, _ = mod.decode_step(
                 params, cfg, torch.as_tensor(forced[t], device=dev), caches,
                 torch.full((b,), plen + t, device=dev), alphas=alphas,
                 collect_stats=True)
@@ -2034,15 +2066,17 @@ def phase_decode_strategies() -> None:
 
 
 def _prefill_chunks(label: str, params, cfg, plen: int, seed: int,
-                    max_len: int, kernels: tuple) -> None:
+                    max_len: int, kernels: tuple, extra=None) -> None:
     """A seeded ``plen``-token prompt through ``prefill_chunk`` in chunks
     of 64 (the last padded), with ``cfg``'s strategy and sparse prefill,
     card against CPU (``_hold``): the logits of the last chunk, which
     holds the last prompt token; one launch of each of ``kernels`` a layer
-    and chunk."""
+    and chunk.  ``extra``: a cross-attention family's frames or images
+    (batch 1); an encoder-decoder encodes them once for every chunk."""
     import numpy as np
     import torch
-    from repro_torch.models import lm
+    from repro_torch.launch.specs import model_module
+    mod = model_module(cfg)
 
     chunk, L = MAIN_CHUNK, _mlp_layers(cfg)
     n_chunks = -(-plen // chunk)
@@ -2052,13 +2086,17 @@ def _prefill_chunks(label: str, params, cfg, plen: int, seed: int,
     alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
 
     def run(dev):
-        caches = lm.init_caches(cfg, 1, max_len, dev)
+        caches = mod.init_caches(cfg, 1, max_len, dev)
         with torch.inference_mode():
+            ex = () if extra is None else (extra.to(dev),)
+            if ex and hasattr(mod, "encode"):
+                ex = (mod.encode(params[dev], cfg, ex[0]),)
             for off in range(0, n_chunks * chunk, chunk):
-                lg, caches, _ = lm.prefill_chunk(
+                lg, caches, _ = mod.prefill_chunk(
                     params[dev], cfg,
                     torch.as_tensor(tokens[:, off:off + chunk], device=dev),
-                    caches, off, plen, alphas=alphas, collect_stats=True)
+                    caches, off, plen, *ex, alphas=alphas,
+                    collect_stats=True)
         return lg.float().cpu()
     _hold(f"{label}, {plen} tokens in {n_chunks} chunks of {chunk}, "
           f"{cfg.kv_cache_dtype} KV cache", run, LOGIT_TOL[cfg.kv_cache_dtype],
@@ -2066,8 +2104,9 @@ def _prefill_chunks(label: str, params, cfg, plen: int, seed: int,
 
 
 def _mlp_layers(cfg) -> int:
-    """The layers that run the sparse MLP: every one of a dense config, a
-    moe config's dense first layers."""
+    """The layers that run the sparse MLP: every one of a dense or vlm
+    config, an encdec config's decoder layers, a moe config's dense first
+    layers."""
     return cfg.first_dense_layers if cfg.family == "moe" else cfg.n_layers
 
 
@@ -4527,25 +4566,17 @@ def phase_sharded(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-# ----------------------------------------------------------- phase 17: moe --
-
-MOE_ARCHS = ("deepseek-moe-16b", "olmoe-1b-7b")
-
-
-def _moe_kernel_cases(gen, flush) -> None:
-    """(a): the kernels at deepseek-moe-16b's first-layer widths (d=2048,
-    k=1408: 176 groups, capacity 48 of them), bf16 x, against their plain
-    versions: sign_pack (x, the gate weights, and one MoE layer's
-    expert-stack gate weights (64 x 1408 rows) at load), both predictors
-    and both float32 MLPs (``_served_mlp_checks``: bitwise, the MLPs
-    twice bitwise), the int8 MLPs (qg 128) at B=4 and S=64 twice bitwise,
-    predict_counts at B=4 twice bitwise; the paged attention and the
-    paired KV write at H=K=16, hd 128 into a bf16 pool.  Each timed at the
-    main path's shape beside its bound, plain version and library
-    yardstick."""
-    import numpy as np
+def _mlp_kernel_times(label: str, name: str, d: int, k: int, gated: bool,
+                      cap: int, gen, flush) -> None:
+    """A sparse MLP call's kernels at one arch's served widths (bf16 x,
+    float32 weights, G=8, the arch's capacity ``cap``) against their plain
+    versions: ``_served_mlp_checks`` (#9 on x and on the gate weights, #1,
+    #3, #2, #4), then #5 and #6 on the weights quantized (qg 128) and #10,
+    each twice bitwise; and each timed at the main path's shape beside its
+    bound, its plain version and a library yardstick where one PyTorch
+    call computes it: #9 on the gate weights at load and on x at B=4, #1,
+    #2 and #5 at B=4, #3, #4 and #6 at S=64, #10 at B=4."""
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.core import quantize as Q
     from repro_torch.core import selection as S
     from repro_torch.kernels import predict as KP
@@ -4554,32 +4585,23 @@ def _moe_kernel_cases(gen, flush) -> None:
     from repro_torch.kernels import sparse_mlp_fused as KF
 
     dev = torch.device("cuda")
-    cfg = get_config("deepseek-moe-16b")
-    d, k, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    cap = cfg.sparse.capacity(k)
-    tag0 = f"deepseek-moe-16b layer 0 d={d} k={k}"
-    # ---- #9 on an expert stack at load (the gate weights of 64 experts)
-    stack = torch.randn((e, k, d), generator=gen, device=dev) * d ** -0.5
-    packed = _same_twice(f"expert stack {e}x{k}x{d}",
-                         lambda: KS.sign_pack(stack.reshape(-1, d)),
-                         name="sign_pack")
-    if not torch.equal(packed, ref.sign_pack_ref(stack.reshape(-1, d))):
-        fail(f"sign_pack expert stack {e}x{k}x{d}: differs from its plain "
-             "version")
-    t_k = cuda_ms(lambda: KS.sign_pack(stack.reshape(-1, d)), flush=flush)
-    t_p = cuda_ms(lambda: ref.sign_pack_ref(stack.reshape(-1, d)), iters=5,
-                  flush=flush)
-    bound = bound_ms(stack.numel() * 4 + packed.numel() * 4, 0)
-    print(f"[moe-kernels] sign_pack expert stack ({e} x {k} rows, d={d}, "
-          f"float32, at load): bitwise, twice; kernel {t_k:.4f} ms plain "
-          f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
-          f"{bound[0] / t_k:.3f})", flush=True)
-    del stack, packed
-    # ---- #1-#4 and #9 (x, gate weights): bitwise / twice bitwise
-    checked = _served_mlp_checks("deepseek-moe-16b layer 0", d, k, True,
-                                 cap, gen)
+    tag0 = f"{name} d={d} k={k}"
+    checked = _served_mlp_checks(name, d, k, gated, cap, gen)
     wg, wu, wd, x, sel, _ = checked
-    sign_wg = KS.sign_pack(wg)
+    n_mats = 3 if gated else 2
+    # ---- #9: the gate weights at load and x at B=4
+    sign_wg = _same_twice(f"{tag0} gate weights", lambda: KS.sign_pack(wg),
+                          name="sign_pack")
+    for what, src in (("gate weights at load, float32", wg),
+                      (f"x B={MAIN_BATCH} bfloat16", x)):
+        t_k = cuda_ms(lambda: KS.sign_pack(src), flush=flush)
+        t_p = cuda_ms(lambda: ref.sign_pack_ref(src), iters=5, flush=flush)
+        bound = bound_ms(src.numel() * src.element_size()
+                         + src.shape[0] * -(-d // 32) * 4, 0)
+        print(f"[{label}] sign_pack {tag0} {what}: bitwise; kernel "
+              f"{t_k:.4f} ms plain {t_p:.4f} ms bound {bound[0]:.4f} ms "
+              f"({bound[1]}; share {bound[0] / t_k:.3f})", flush=True)
+    # ---- #1 at B=4
     alpha = torch.linspace(0.9, 1.1, MAIN_BATCH, device=dev)
     t_pred = cuda_ms(lambda: KP.predict_group_margins(
         sign_wg, x, alpha, d_valid=d, group_size=G), flush=flush)
@@ -4587,12 +4609,12 @@ def _moe_kernel_cases(gen, flush) -> None:
         sign_wg, x, d, alpha, G), iters=5, flush=flush)
     pw = predict_work(MAIN_BATCH, 2, d, k)
     pb = (max(pw[0], pw[1]), "bytes" if pw[0] >= pw[1] else "operations")
-    print(f"[moe-kernels] predict_group_margins {tag0} B={MAIN_BATCH} "
+    print(f"[{label}] predict_group_margins {tag0} B={MAIN_BATCH} "
           f"x=bfloat16: kernel {t_pred:.4f} ms plain {t_pred_p:.4f} ms bound "
           f"{pb[0]:.4f} ms ({pb[1]}; share {pb[0] / t_pred:.3f})",
           flush=True)
-    _served_mlp_time("moe-kernels", "deepseek-moe-16b layer 0", checked, k,
-                     cap, flush)
+    # ---- #2 at B=4
+    _served_mlp_time(label, name, checked, k, cap, flush)
     del checked
     # ---- the chunk kernels (#3, #4) timed at S=64
     xs = torch.randn((MAIN_CHUNK, d), generator=gen,
@@ -4620,27 +4642,30 @@ def _moe_kernel_cases(gen, flush) -> None:
         *cargs, group_size=G), iters=5, flush=flush)
     rows_s = sel_s.indices[:count_s].long()
     take_s = [m.reshape(k // G, G, d)[rows_s].reshape(-1, d).contiguous()
-              for m in (wg, wu, wd)]
+              for m in (wg, wu, wd) if m is not None]
     xsf = xs.float()
-    t_c_lib = cuda_ms(lambda: (torch.relu(xsf @ take_s[0].T)
-                               * (xsf @ take_s[1].T)) @ take_s[2],
-                      flush=flush)
-    c_bytes = (3 * count_s * G * d * 4 + MAIN_CHUNK * d * 2 + cap * 4 + 4
-               + MAIN_CHUNK * d * 4)
-    cb = tc_bound_ms(c_bytes, 2 * 6 * MAIN_CHUNK * count_s * G * d)
-    print(f"[moe-kernels] predict_chunk_group_margins {tag0} S={MAIN_CHUNK} "
+    if gated:
+        lib = lambda: (torch.relu(xsf @ take_s[0].T)  # noqa: E731
+                       * (xsf @ take_s[1].T)) @ take_s[2]
+    else:
+        lib = lambda: torch.relu(xsf @ take_s[0].T) @ take_s[1]  # noqa: E731
+    t_c_lib = cuda_ms(lib, flush=flush)
+    c_bytes = (n_mats * count_s * G * d * 4 + MAIN_CHUNK * d * 2 + cap * 4
+               + 4 + MAIN_CHUNK * d * 4)
+    cb = tc_bound_ms(c_bytes, 2 * 2 * n_mats * MAIN_CHUNK * count_s * G * d)
+    print(f"[{label}] predict_chunk_group_margins {tag0} S={MAIN_CHUNK} "
           f"x=bfloat16: kernel {t_cp:.4f} ms plain {t_cp_p:.4f} ms bound "
           f"{pbc[0]:.4f} ms ({pbc[1]}; share {pbc[0] / t_cp:.3f})",
           flush=True)
-    print(f"[moe-kernels] fused_sparse_mlp_chunk {tag0} S={MAIN_CHUNK} "
+    print(f"[{label}] fused_sparse_mlp_chunk {tag0} S={MAIN_CHUNK} "
           f"x=bfloat16 count={count_s}/{cap}: max_abs_err {err_c:.3e}; "
           f"kernel {t_c:.4f} ms plain {t_c_p:.4f} ms bound {cb[0]:.4f} ms "
           f"({cb[1]}, TF32 x2 passes; share {cb[0] / t_c:.3f}) "
-          f"gathered-rows-3-matmul {t_c_lib:.4f} ms", flush=True)
+          f"gathered-rows-{n_mats}-matmul {t_c_lib:.4f} ms", flush=True)
     del take_s
     # ---- #5, #6: int8 weights, qg 128, twice bitwise
     qn = Q.quantize_mlp_node({"wg_t": wg, "wu_t": wu, "wd_t": wd}, QG, G)
-    qargs = [qn[n] for n in QNAMES]
+    qargs = [qn.get(n) for n in QNAMES]
     for qname, xq, sq, plain_iters in (
             ("fused_sparse_mlp_q", x, sel, 20),
             ("fused_sparse_mlp_chunk_q", xs, sel_s, 5)):
@@ -4664,10 +4689,11 @@ def _moe_kernel_cases(gen, flush) -> None:
         rows_q = xq.shape[0]
         q_rows = int(torch.unique(sq.indices[:cnt_q].long()
                                   // (QG // G)).numel())
-        qb = bound_ms(3 * cnt_q * G * d + 2 * cnt_q * G * (d // QG) * 4
+        qb = bound_ms(n_mats * cnt_q * G * d
+                      + (n_mats - 1) * cnt_q * G * (d // QG) * 4
                       + q_rows * d * 4 + rows_q * d * 2 + cap * 4 + 4
-                      + rows_q * d * 4, 6 * rows_q * cnt_q * G * d)
-        print(f"[moe-kernels] {qname} {tag0} rows={rows_q} x=bfloat16 "
+                      + rows_q * d * 4, 2 * n_mats * rows_q * cnt_q * G * d)
+        print(f"[{label}] {qname} {tag0} rows={rows_q} x=bfloat16 "
               f"qg={QG} count={cnt_q}/{cap}: max_abs_err {err_q:.3e}, "
               f"bitwise twice; kernel {t_q:.4f} ms plain {t_qp:.4f} ms bound "
               f"{qb[0]:.4f} ms ({qb[1]}; share {qb[0] / t_q:.3f})",
@@ -4685,10 +4711,57 @@ def _moe_kernel_cases(gen, flush) -> None:
                    flush=flush)
     nw = predict_work(MAIN_BATCH, 2, d, k, counts=True)
     nb = (max(nw[0], nw[1]), "bytes" if nw[0] >= nw[1] else "operations")
-    print(f"[moe-kernels] predict_counts {tag0} B={MAIN_BATCH}: bitwise, "
+    print(f"[{label}] predict_counts {tag0} B={MAIN_BATCH}: bitwise, "
           f"twice; kernel {t_n:.4f} ms plain {t_np:.4f} ms bound "
           f"{nb[0]:.4f} ms ({nb[1]}; share {nb[0] / t_n:.3f})", flush=True)
     del wg, wu, wd, sign_wg
+
+
+# ----------------------------------------------------------- phase 17: moe --
+
+MOE_ARCHS = ("deepseek-moe-16b", "olmoe-1b-7b")
+
+
+def _moe_kernel_cases(gen, flush) -> None:
+    """(a): the kernels at deepseek-moe-16b's first-layer widths (d=2048,
+    k=1408: 176 groups, capacity 48 of them), bf16 x, against their plain
+    versions: sign_pack (x, the gate weights, and one MoE layer's
+    expert-stack gate weights (64 x 1408 rows) at load), both predictors
+    and both float32 MLPs (``_served_mlp_checks``: bitwise, the MLPs
+    twice bitwise), the int8 MLPs (qg 128) at B=4 and S=64 twice bitwise,
+    predict_counts at B=4 twice bitwise; the paged attention and the
+    paired KV write at H=K=16, hd 128 into a bf16 pool.  Each timed at the
+    main path's shape beside its bound, plain version and library
+    yardstick."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_pack as KS
+
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-moe-16b")
+    d, k, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    cap = cfg.sparse.capacity(k)
+    # ---- #9 on an expert stack at load (the gate weights of 64 experts)
+    stack = torch.randn((e, k, d), generator=gen, device=dev) * d ** -0.5
+    packed = _same_twice(f"expert stack {e}x{k}x{d}",
+                         lambda: KS.sign_pack(stack.reshape(-1, d)),
+                         name="sign_pack")
+    if not torch.equal(packed, ref.sign_pack_ref(stack.reshape(-1, d))):
+        fail(f"sign_pack expert stack {e}x{k}x{d}: differs from its plain "
+             "version")
+    t_k = cuda_ms(lambda: KS.sign_pack(stack.reshape(-1, d)), flush=flush)
+    t_p = cuda_ms(lambda: ref.sign_pack_ref(stack.reshape(-1, d)), iters=5,
+                  flush=flush)
+    bound = bound_ms(stack.numel() * 4 + packed.numel() * 4, 0)
+    print(f"[moe-kernels] sign_pack expert stack ({e} x {k} rows, d={d}, "
+          f"float32, at load): bitwise, twice; kernel {t_k:.4f} ms plain "
+          f"{t_p:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}; share "
+          f"{bound[0] / t_k:.3f})", flush=True)
+    del stack, packed
+    _mlp_kernel_times("moe-kernels", "deepseek-moe-16b layer 0", d, k, True,
+                      cap, gen, flush)
     # ---- #7, #8 at H=K=16, hd 128, bf16 pool; the write timed too
     kp, vp, table, lengths, kv_new = _served_attention(
         "moe-kernels", "deepseek-moe-16b", cfg, gen,
@@ -4908,6 +4981,299 @@ def phase_moe(results: dict) -> None:
         t = time.perf_counter()
         fn()
         print(f"[moe] ({step}) {time.perf_counter() - t:.1f} s", flush=True)
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------- phase 18: cross --
+
+# family -> (arch, the extra input's name, the config field of its length)
+CROSS_ARCHS = {"encdec": ("seamless-m4t-medium", "frames", "n_frames"),
+               "vlm": ("llama-3.2-vision-90b", "images", "n_image_tokens")}
+VLM_SERVE_LAYERS = 10     # two groups of cross_every=5: 38.4 GB of float32
+
+
+def _cross_extra(cfg, b: int, seed: int):
+    """Stub frames or images (b, T, d) float32 from a seeded generator, on
+    the CPU."""
+    import numpy as np
+    import torch
+    _, _, field = CROSS_ARCHS[cfg.family]
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, getattr(cfg, field), cfg.d_model), dtype=np.float32))
+
+
+def _perturb(params, cfg, gen) -> None:
+    """In place: every norm scale and bias, QKV bias and gate drawn from
+    ``gen`` (LayerNorm scales 1 + 0.3 N(0, 1), RMSNorm's 0.3 N(0, 1),
+    biases 0.3 N(0, 1), gates +-U(0.3, 0.9)).  The reference starts gates
+    at 0, where a cross block adds nothing, and LayerNorm at 1 and 0."""
+    import torch
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+            return
+        for name, v in node.items():
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif name in ("gate_attn", "gate_mlp"):
+                u = torch.rand(v.shape, generator=gen, device=v.device)
+                sign = torch.randint(0, 2, v.shape, generator=gen,
+                                     device=v.device) * 2 - 1
+                v.copy_((0.3 + 0.6 * u) * sign)
+            elif name in ("scale", "bias", "bq", "bk", "bv"):
+                z = torch.randn(v.shape, generator=gen, device=v.device)
+                layer = name == "scale" and cfg.norm == "layernorm"
+                v.copy_(z * 0.3 + float(layer))
+    walk(params)
+
+
+def _cross_kernel_cases(gen, flush) -> None:
+    """(a): the sparse MLP kernels at seamless-m4t-medium's decoder FFN
+    widths (ungated, d=1024, k=4096: 512 groups, capacity 112) and at
+    llama-3.2-vision-90b's (gated, d=8192, k=28672: 3584 groups, capacity
+    720; the widest d a kernel has met), bf16 x: ``_mlp_kernel_times``."""
+    from repro_torch.configs.registry import get_config
+    for arch, what in (("seamless-m4t-medium", "decoder FFN"),
+                       ("llama-3.2-vision-90b", "FFN")):
+        cfg = get_config(arch)
+        _mlp_kernel_times("cross-kernels", f"{arch} {what}", cfg.d_model,
+                          cfg.d_ff, cfg.gated_mlp,
+                          cfg.sparse.capacity(cfg.d_ff), gen, flush)
+
+
+def _cross_layers() -> None:
+    """(b): both archs at full width and reduced depth (seamless: 2
+    encoder and 2 decoder layers; the vlm: cross_every=2, one self and
+    one gated cross block), float32 compute and KV, the config's own
+    selection (capacity 20%: the clamp binds), weights from the module's
+    ``init_lm`` on the card with the gates, norms and biases drawn
+    non-zero (``_perturb``), copied to the CPU; card against CPU through
+    ``_hold``: ``encode`` first (the encoder's states, an input of every
+    cross attention, within 1e-4 of the CPU's), then 8 teacher-forced
+    decode steps with strategies pallas, masked and gather and with int8
+    MLP weights (qg 128, pallas), and a 160-token chunked sparse prefill.
+    Launches exact."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.specs import model_module
+
+    for i, fam in enumerate(CROSS_ARCHS):
+        t0 = time.perf_counter()
+        arch = CROSS_ARCHS[fam][0]
+        base = get_config(arch)
+        depth = (dict(n_layers=2, n_enc_layers=2) if fam == "encdec"
+                 else dict(n_layers=2, cross_every=2))
+        cfg = base.replace(dtype="float32", kv_cache_dtype="float32",
+                           sparse=dataclasses.replace(
+                               base.sparse, strategy="pallas", enabled=True),
+                           **depth)
+        mod = model_module(cfg)
+        L, steps = cfg.n_layers, DEC_STEPS
+        raw = mod.init_lm(cfg, 180 + i, "cuda")
+        _perturb(raw, cfg, torch.Generator(device="cuda").manual_seed(
+            181 + i))
+        extra = _cross_extra(cfg, DEC_BATCH, 182 + i)
+        print(f"[cross] {arch}: d={cfg.d_model} H={cfg.n_heads} "
+              f"K={cfg.n_kv_heads} hd={cfg.resolved_head_dim} k={cfg.d_ff} "
+              f"{'gated' if cfg.gated_mlp else 'ungated'} {cfg.activation} "
+              f"{cfg.norm}, vocab {cfg.vocab}, {CROSS_ARCHS[fam][1]} "
+              f"{tuple(extra.shape)}, layers {depth}, capacity "
+              f"{cfg.sparse.capacity(cfg.d_ff)} of {cfg.d_ff // G} groups",
+              flush=True)
+        if fam == "encdec":
+            params = {"cuda": raw, "cpu": _to(raw, "cpu")}
+            _hold(f"[cross] {arch} encode, {extra.shape[1]} frames",
+                  lambda dev: mod.encode(params[dev], cfg,
+                                         extra.to(dev)).float().cpu(),
+                  1e-4, {})
+            del params
+        for weights in ("", "int8"):
+            wcfg = cfg.replace(sparse=dataclasses.replace(
+                cfg.sparse, weight_dtype=weights, quant_group_size=QG))
+            params = {"cuda": mod.prepare_sparse(raw, wcfg.sparse)}
+            params["cpu"] = _to(params["cuda"], "cpu")
+            for strategy in ("pallas", "masked", "gather") if not weights \
+                    else ("pallas",):
+                run_cfg = wcfg.replace(sparse=dataclasses.replace(
+                    wcfg.sparse, strategy=strategy))
+                if strategy == "pallas":
+                    fused = "fused_sparse_mlp_q" if weights \
+                        else "fused_sparse_mlp"
+                    want = {"predict_group_margins": L * steps,
+                            fused: L * steps}
+                else:
+                    want = dict(sign_pack=L * steps,
+                                predict_counts=L * steps)
+                _hold(f"[cross] {arch} decode, {strategy}, "
+                      f"{weights or 'float32'} MLP weights",
+                      lambda dev, c=run_cfg: _teacher_forced(
+                          params[dev], c, dev, extra),
+                      LOGIT_TOL["float32"], want)
+            if not weights:
+                _prefill_chunks(
+                    f"[cross] {arch} chunked sparse prefill", params,
+                    wcfg.replace(sparse=dataclasses.replace(
+                        wcfg.sparse, sparse_prefill=True,
+                        prefill_max_tokens=max(
+                            wcfg.sparse.prefill_max_tokens, MAIN_CHUNK))),
+                    160, 5, 256, ("predict_chunk_group_margins",
+                                  "fused_sparse_mlp_chunk"), extra[:1])
+            del params
+        del raw
+        torch.cuda.empty_cache()
+        print(f"[cross] {arch} layers: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def _cross_serve(fam: str) -> None:
+    """(c): seamless-m4t-medium at full depth (12 + 12 layers) and
+    llama-3.2-vision-90b at full width and ``VLM_SERVE_LAYERS`` layers (its
+    100 do not fit: 346 GB of float32) through Server.serve: random float32
+    weights from a seed with the gates, norms and biases drawn non-zero,
+    bf16 compute, a dense bf16 KV cache, frames or images drawn as the
+    serve CLI draws them, the per-tier controller on strategy pallas,
+    chunked sparse prefill in chunks of 64, batch 4, 8 requests of mixed
+    tiers with 96-192-token prompts and 16 new tokens each.  Launch
+    counters reset before the server is built, so the load-time sign packs
+    (every MLP: the encoder's too) count; launches exact; the encoder run
+    once an admission; the peak memory; a profiled decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ControllerConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import model_module
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    arch, name, _ = CROSS_ARCHS[fam]
+    base = get_config(arch)
+    depth = {} if fam == "encdec" else dict(n_layers=VLM_SERVE_LAYERS)
+    cfg = base.replace(kv_cache_dtype="bfloat16", sparse=dataclasses.replace(
+        base.sparse, strategy="pallas", enabled=True, sparse_prefill=True,
+        prefill_max_tokens=max(base.sparse.prefill_max_tokens, MAIN_CHUNK)),
+        **depth)
+    mod = model_module(cfg)
+    scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                       prefill_chunk=MAIN_CHUNK,
+                       controller=ControllerConfig(enabled=True,
+                                                   per_tier=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mod.init_lm(cfg, 0, "cuda")
+    _perturb(params, cfg, torch.Generator(device="cuda").manual_seed(1))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    extra = {name: np.random.default_rng(0).standard_normal(
+        (MAIN_BATCH, getattr(cfg, CROSS_ARCHS[fam][2]), cfg.d_model),
+        dtype=np.float32)}
+    ops.reset_launch_counts()
+    srv = Server(mod, cfg, scfg, params, extra_inputs=extra, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    load = ops.launch_counts()
+    L = cfg.n_layers
+    packs = L + cfg.n_enc_layers
+    if load != _want_launches(load, sign_pack=packs):
+        fail(f"serve-{arch}: load launches {load}, want {packs} sign packs")
+    layers = (f"{cfg.n_enc_layers} encoder + {L} decoder layers"
+              if fam == "encdec" else
+              f"{L} layers ({L // cfg.cross_every} gated cross blocks)")
+    print(f"[cross-serve] {arch}: {layers}, weights {n_bytes / 1e9:.2f} GB "
+          f"{cfg.param_dtype}, compute {cfg.dtype}, {cfg.kv_cache_dtype} "
+          f"caches, {name} {extra[name].shape}; {packs} sign packs at load; "
+          f"memory after load {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"of {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f};"
+          f" init {time.perf_counter() - t0:.1f} s", flush=True)
+    encodes = [0]
+    if hasattr(mod, "encode"):
+        encode = mod.encode
+
+        def counting(*args, **kw):
+            encodes[0] += 1
+            return encode(*args, **kw)
+        mod.encode = counting
+    rng = np.random.default_rng(38)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab, size=int(rng.integers(96, 193))),
+                max_new=16, sla=tiers[i % 3]) for i in range(8)]
+    steps0, run0 = srv.decode_steps, srv.prefill_chunks_run
+    t1 = time.perf_counter()
+    try:
+        done = srv.serve(reqs)
+        torch.cuda.synchronize()
+    finally:
+        if hasattr(mod, "encode"):
+            mod.encode = encode
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    steps = srv.decode_steps - steps0
+    chunks = srv.prefill_chunks_run - run0
+    if len(done) != len(reqs) or any(
+            r.outcome != "completed" or len(r.out) != 16
+            or not ((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done):
+        fail(f"serve-{arch}: not every request completed with 16 valid "
+             "tokens")
+    if hasattr(mod, "encode") and encodes[0] != len(reqs):
+        fail(f"serve-{arch}: {encodes[0]} encodes for {len(reqs)} "
+             "admissions")
+    n_chunks = sum(-(-len(r.prompt) // MAIN_CHUNK) for r in reqs)
+    want = _want_launches(counts, sign_pack=packs,
+                          predict_group_margins=L * steps,
+                          fused_sparse_mlp=L * steps,
+                          predict_chunk_group_margins=L * chunks,
+                          fused_sparse_mlp_chunk=L * chunks)
+    if steps == 0 or counts != want or chunks != n_chunks:
+        fail(f"serve-{arch}: launches {counts}, want {want} ({steps} decode "
+             f"steps, {chunks} of {n_chunks} chunks)")
+    rep = throughput_report(done)
+    print(f"[cross-serve] {arch} throughput_report {json.dumps(rep)}",
+          flush=True)
+    ctl = srv.controller.report()
+    print(f"[cross-serve] {arch} controller: steps {ctl['steps']}, prefill "
+          f"chunks {ctl['prefill_chunks']}, audits {ctl['audits']}",
+          flush=True)
+    print(f"[cross-serve] {arch}: {wall:.1f} s; decode steps {steps}; "
+          f"prefill chunks {chunks}; encodes {encodes[0]}; launches from "
+          f"load {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    b = MAIN_BATCH
+    caches = mod.init_caches(cfg, b, scfg.max_len, "cuda")
+    for part in caches["cross"]:
+        for buf in part.values():
+            buf.normal_()
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, 1)),
+                          device="cuda")
+    lengths = torch.full((b,), 64, device="cuda")
+    profile_step(f"decode step {arch} (B={b}, {layers}, bf16 caches)",
+                 lambda: mod.decode_step(srv.params, cfg, tok, caches,
+                                         lengths))
+    del srv, caches
+    torch.cuda.empty_cache()
+
+
+def phase_cross(results: dict) -> None:
+    """The cross-attention families on the card: (a) the kernels at
+    seamless-m4t-medium's and llama-3.2-vision-90b's FFN widths, (b) two
+    full-width layers of each (a decoder layer and a gated cross block
+    among them) card against CPU, (c) seamless served at full depth and
+    the vlm at full width and 10 layers."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for step, fn in (("a", lambda: _cross_kernel_cases(gen,
+                                                       flush_buf.zero_)),
+                     ("b", _cross_layers),
+                     ("c seamless-m4t-medium", lambda: _cross_serve("encdec")),
+                     ("c llama-3.2-vision-90b", lambda: _cross_serve("vlm"))):
+        t = time.perf_counter()
+        fn()
+        print(f"[cross] ({step}) {time.perf_counter() - t:.1f} s", flush=True)
     del flush_buf
     torch.cuda.empty_cache()
 
@@ -5239,7 +5605,8 @@ def main() -> None:
                         (phase_archs, ()), (phase_arch_kernel_times, ()),
                         (phase_serve_gemma2, ()),
                         (phase_sharded, (results,)),
-                        (phase_moe, (results,))):
+                        (phase_moe, (results,)),
+                        (phase_cross, (results,))):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

@@ -2,8 +2,11 @@
 
 The JAX package's ``init_lm`` stacks every layer's leaves along a leading
 (L, ...) axis under ``params["blocks"]`` (a moe config's dense first layers
-apart, under ``params["first_blocks"]``); the port keeps one dict per
-layer, in layer order.
+apart, under ``params["first_blocks"]``; an encoder-decoder's under
+``enc_blocks`` and ``dec_blocks``; a vlm's under ``self_blocks`` and
+``cross_blocks``, the cross blocks' gates as (n_groups,) leaves); the
+port keeps one dict per layer, in layer order, in a list of the same
+name.
 ``params_from_numpy`` takes that tree with numpy leaves (a caller converts
 with ``jax.tree.map(np.asarray, params)``) and returns the port's params.
 It imports nothing of JAX: a bfloat16 leaf arrives as an ``ml_dtypes``
@@ -46,6 +49,28 @@ def _n_stacked(node) -> int:
     return np.asarray(node).shape[0]
 
 
+def _block_lists(cfg: ModelConfig) -> dict:
+    """A cross-attention family's block lists and their lengths."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+    p = cfg.cross_every
+    return {"self_blocks": cfg.n_layers // p * (p - 1),
+            "cross_blocks": cfg.n_layers // p}
+
+
+def _lists(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The stacked block lists of an encdec or vlm tree -> one converted
+    dict a layer under each list's name."""
+    out = {}
+    for name, n in _block_lists(cfg).items():
+        got = _n_stacked(tree[name]) if name in tree else 0
+        if got != n:
+            raise ValueError(f"{name} hold {got} layers, config "
+                             f"{cfg.name} has {n}")
+        out[name] = [_convert(tree[name], device, i) for i in range(n)]
+    return out
+
+
 def _per_layer(tree: dict, cfg: ModelConfig, stacks: tuple, device,
                what: str) -> list:
     """The stacked subtrees ``stacks`` (first layers, then the rest) ->
@@ -53,7 +78,9 @@ def _per_layer(tree: dict, cfg: ModelConfig, stacks: tuple, device,
     fam = ("dense", "moe")
     if cfg.family not in fam:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only {fam} are ported")
+            f"family {cfg.family!r}: a per-layer {what!r} list is "
+            f"{fam}'s (encdec and vlm keep their own block lists, and "
+            "have no paged pool)")
     first = stacks[0]
     if (first in tree) != bool(cfg.first_dense_layers):
         raise ValueError(f"{what}: {first!r} present must match "
@@ -72,9 +99,16 @@ def _per_layer(tree: dict, cfg: ModelConfig, stacks: tuple, device,
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference params (numpy leaves, layer-stacked ``blocks`` and, for a
     moe config's dense first layers, ``first_blocks``) -> the port's
-    params on ``device`` with a per-layer ``blocks`` list.  Raises without
-    a GPU unless ``device`` is ``"cpu"``."""
+    params on ``device`` with a per-layer ``blocks`` list (encdec and vlm:
+    per-layer lists under their stacks' names).  Raises without a GPU
+    unless ``device`` is ``"cpu"``."""
     device = resolve_device(device)
+    if cfg.family in ("encdec", "vlm"):
+        names = _block_lists(cfg)
+        out = {k: _convert(v, device) for k, v in tree.items()
+               if k not in names}
+        out.update(_lists(tree, cfg, device))
+        return out
     out = {k: _convert(v, device) for k, v in tree.items()
            if k not in ("first_blocks", "blocks")}
     out["blocks"] = _per_layer(tree, cfg, ("first_blocks", "blocks"),

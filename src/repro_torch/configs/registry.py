@@ -2,8 +2,10 @@
 (CPU smoke) variant — the counterpart of ``repro/configs/registry.py``.
 
 Registered: the dense family (prosparse-llama2-7b and -13b, qwen3-8b,
-qwen1.5-32b, granite-34b, gemma2-2b) and the moe family (deepseek-moe-16b,
-olmoe-1b-7b).  The other families come with their slices of the port."""
+qwen1.5-32b, granite-34b, gemma2-2b), the moe family (deepseek-moe-16b,
+olmoe-1b-7b), encdec (seamless-m4t-medium) and vlm
+(llama-3.2-vision-90b).  The hybrid and xlstm families come with their
+slices of the port."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,7 +47,9 @@ def get_config(name: str) -> ModelConfig:
 def reduced_config(name: str) -> ModelConfig:
     """Tiny same-family config for CPU smoke tests: the reference's cut for
     each ported family (dense: two of its layer pattern; moe: the dense
-    first layers plus 3 MoE layers of 8 experts, top-k at most 2)."""
+    first layers plus 3 MoE layers of 8 experts, top-k at most 2; vlm: two
+    groups of a self and a cross layer, 8 image tokens; encdec: 2 encoder
+    and 2 decoder layers, 16 frames)."""
     cfg = get_config(name)
     kw: dict = dict(
         d_model=64, d_ff=0 if cfg.d_ff == 0 else 128, vocab=512,
@@ -65,6 +69,14 @@ def reduced_config(name: str) -> ModelConfig:
         kw["top_k"] = min(cfg.top_k, 2)
         kw["d_ff"] = 32
         kw["capacity_factor"] = 4.0
+    elif cfg.family == "vlm":
+        kw["cross_every"] = 2
+        kw["n_layers"] = 4
+        kw["n_image_tokens"] = 8
+    elif cfg.family == "encdec":
+        kw["n_layers"] = 2
+        kw["n_enc_layers"] = 2
+        kw["n_frames"] = 16
     else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue A)")
@@ -76,5 +88,6 @@ def reduced_config(name: str) -> ModelConfig:
 # arch modules register themselves on import (bottom: decorator exists)
 from repro_torch.configs import (  # noqa: E402,F401
     gemma2_2b, granite_34b, qwen3_8b, qwen1_5_32b, deepseek_moe_16b,
-    olmoe_1b_7b, prosparse_llama2_7b, prosparse_llama2_13b,
+    olmoe_1b_7b, llama32_vision_90b, prosparse_llama2_7b,
+    prosparse_llama2_13b, seamless_m4t_medium,
 )

@@ -29,6 +29,13 @@ sinks (on the CPU: --reduced --device cpu --max-len 64 --paged-kv 8):
         --default-deadline 30 --max-queue-depth 12 --requests 16 \
         --metrics-jsonl build/m.jsonl --metrics-trace build/t.json \
         --metrics-snapshot build/s.prom
+The cross-attention families take stub frame or image embeddings (drawn
+from ``np.random.default_rng(0)``, (batch, n_frames | n_image_tokens,
+d_model) float32, as the reference's CLI draws them), on the CPU:
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --reduced --device cpu --requests 2
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-90b --reduced --device cpu --requests 2
 
 Prints the reference's JSON throughput report (with ``paged``: the pool's
 counters, under --paged-kv; with ``controller``: its report, under
@@ -49,7 +56,7 @@ from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
 from repro_torch.configs.registry import arch_names, get_config, \
     reduced_config
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.launch.specs import model_module
 from repro_torch.runtime.server import Request, Server, ServeConfig, \
     throughput_report
 
@@ -201,7 +208,16 @@ def main(argv=None) -> dict:
             cfg.sparse, sparse_prefill=True,
             prefill_max_tokens=max(cfg.sparse.prefill_max_tokens,
                                    args.prefill_chunk)))
-    params = lm.init_lm(cfg, args.seed, device)
+    mod = model_module(cfg)
+    params = mod.init_lm(cfg, args.seed, device)
+    # the cross-attention families' stub frames or images
+    extra = {}
+    if cfg.family in ("vlm", "encdec"):
+        name, n = (("images", cfg.n_image_tokens) if cfg.family == "vlm"
+                   else ("frames", cfg.n_frames))
+        extra["extra_inputs"] = {name: np.random.default_rng(0)
+                                 .standard_normal((args.batch, n, cfg.d_model),
+                                                  dtype=np.float32)}
     ccfg = ControllerConfig(enabled=args.controller,
                             target_density=args.target_density,
                             gain=args.ctrl_gain,
@@ -213,7 +229,7 @@ def main(argv=None) -> dict:
                      or args.metrics_snapshot),
         jsonl_path=args.metrics_jsonl, trace=bool(args.metrics_trace),
         trace_path=args.metrics_trace, snapshot_path=args.metrics_snapshot)
-    srv = Server(lm, cfg, ServeConfig(
+    srv = Server(mod, cfg, ServeConfig(
         batch=args.batch, max_len=args.max_len, max_new_tokens=args.max_new,
         controller=ccfg, warm_buckets=args.warm_buckets,
         prefill_chunk=args.prefill_chunk,
@@ -224,7 +240,7 @@ def main(argv=None) -> dict:
         max_queue_depth=args.max_queue_depth,
         default_deadline_s=args.default_deadline, preempt=args.preempt,
         pressure_gate=args.pressure_gate, metrics=mcfg), params,
-        device=device)
+        device=device, **extra)
     rng = np.random.default_rng(args.seed)
     slas = parse_sla_mix(args.sla_mix, args.requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab,

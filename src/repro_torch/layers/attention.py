@@ -1,9 +1,11 @@
-"""Attention for the dense family: counterpart of
-``repro/layers/attention.py``: causal self-attention with GQA/MQA, QKV
-bias, per-head qk RMSNorm, a logit softcap and a sliding window; prefill
-and chunked-prefill attention; KV-cache decode, int8 KV included; decode
-against the paged KV pool.  The reference's cross attention (the vlm and
-encdec families) is not ported.
+"""Attention: counterpart of ``repro/layers/attention.py``: causal
+self-attention with GQA/MQA, QKV bias, per-head qk RMSNorm, a logit
+softcap and a sliding window; an encoder's non-causal self-attention;
+cross attention against encoder states or image embeddings (no RoPE, no
+mask, no window), at prefill and at decode against K/V computed once per
+request (``cross_decode_attend``, ``precompute_cross_kv``); prefill and
+chunked-prefill attention; KV-cache decode, int8 KV included; decode
+against the paged KV pool.
 
 Layouts are the reference's: q (B, S, H, hd), caches (B, S, K, hd).  Unlike
 the functional reference, the KV cache is updated in place (no copy of the
@@ -35,6 +37,9 @@ class AttentionConfig:
     softcap: float = 0.0            # gemma2 attention logit softcap
     rope_theta: float = 10000.0
     window: int = 0                 # sliding window; 0 = full attention
+    causal: bool = True
+    cross: bool = False             # K/V from encoder states or images
+    d_kv_input: int = 0             # width of those states (0: d_model)
     # paged decode through the paged-attention kernels (float pools only)
     paged_kernel: bool = False
 
@@ -42,14 +47,15 @@ class AttentionConfig:
 def init_attention(generator: torch.Generator, cfg: AttentionConfig,
                    dtype=torch.float32, device="cpu") -> dict:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d_kv = cfg.d_kv_input or d
 
     def draw(shape, scale):
         return (torch.randn(shape, generator=generator, device=device)
                 * scale).to(dtype)
     params = {
         "wq": draw((d, h * hd), d ** -0.5),
-        "wk": draw((d, kvh * hd), d ** -0.5),
-        "wv": draw((d, kvh * hd), d ** -0.5),
+        "wk": draw((d_kv, kvh * hd), d_kv ** -0.5),
+        "wv": draw((d_kv, kvh * hd), d_kv ** -0.5),
         "wo": draw((h * hd, d), (h * hd) ** -0.5),
     }
     if cfg.qkv_bias:
@@ -62,15 +68,26 @@ def init_attention(generator: torch.Generator, cfg: AttentionConfig,
     return params
 
 
-def _project_qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig):
+def _promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted dtype of the two, as jnp's matmul takes
+    mixed operands (float32 image embeddings against bfloat16 weights)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def _project_qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+                 kv_x: Optional[torch.Tensor] = None):
     """Q, K and V in the reference's order: projection, bias, heads, then
     the per-head RMSNorm (RoPE follows at the caller).  The attention width
-    ``n_heads * head_dim`` need not be ``d_model`` (gemma2: 2048 vs 2304)."""
+    ``n_heads * head_dim`` need not be ``d_model`` (gemma2: 2048 vs 2304).
+    ``kv_x``: K and V project these states instead of ``x`` (cross
+    attention), with the weights in ``x``'s dtype."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    k = _promoted_matmul(src, params["wk"].to(x.dtype))
+    v = _promoted_matmul(src, params["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -94,10 +111,11 @@ def _softcap(s: torch.Tensor, cfg: AttentionConfig) -> torch.Tensor:
 
 def flash_attention(q, k, v, cfg: AttentionConfig, q_positions: torch.Tensor,
                     k_positions: torch.Tensor) -> torch.Tensor:
-    """Causal softmax attention in float32 over the whole sequence (the
+    """Softmax attention in float32 over the whole sequence (the
     reference chunks it with a running max/sum; the result is the same up
     to float rounding), with the softcap and the sliding window: a key is
-    live when ``k_pos <= q_pos`` and ``q_pos - k_pos < window``.
+    live when ``k_pos <= q_pos`` (causal self-attention) and ``q_pos -
+    k_pos < window``; cross attention masks nothing.
     q: (B, Sq, H, hd); k, v: (B, Sk, K, hd)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
@@ -105,8 +123,10 @@ def flash_attention(q, k, v, cfg: AttentionConfig, q_positions: torch.Tensor,
     qg = q.reshape(b, sq, kvh, rep, hd).float()
     s = torch.einsum("bqkrh,btkh->bkrqt", qg, k.float()) * (hd ** -0.5)
     s = _softcap(s, cfg)
-    mask = q_positions[:, None] >= k_positions[None, :]
-    if cfg.window > 0:
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if cfg.causal and not cfg.cross:
+        mask = q_positions[:, None] >= k_positions[None, :]
+    if cfg.window > 0 and not cfg.cross:
         mask = mask & ((q_positions[:, None] - k_positions[None, :])
                        < cfg.window)
     s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
@@ -116,13 +136,20 @@ def flash_attention(q, k, v, cfg: AttentionConfig, q_positions: torch.Tensor,
 
 
 def attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
-           positions: torch.Tensor, return_kv: bool = False):
-    """Prefill self-attention.  x: (B, S, d).  ``return_kv`` also returns
-    the roped K/V for seeding the decode cache."""
-    q, k, v = _project_qkv(params, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, cfg, positions, positions)
+           positions: torch.Tensor, return_kv: bool = False,
+           kv_x: Optional[torch.Tensor] = None,
+           kv_positions: Optional[torch.Tensor] = None):
+    """Prefill attention, self or (``cfg.cross``, K/V from ``kv_x`` (B, T,
+    d_kv) at ``kv_positions``) cross.  x: (B, S, d).  ``return_kv`` also
+    returns the K/V (roped for self-attention) for seeding the decode
+    cache."""
+    q, k, v = _project_qkv(params, x, cfg, kv_x)
+    if kv_positions is None:
+        kv_positions = positions
+    if not cfg.cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, cfg, positions, kv_positions)
     b, s = x.shape[0], x.shape[1]
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ \
         params["wo"].to(x.dtype)
@@ -279,6 +306,43 @@ def finalize_decode(o, l, params: dict, x_dtype, cfg: AttentionConfig):
     b = out.shape[0]
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_dtype)
     return out @ params["wo"].to(x_dtype)
+
+
+def cross_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+                        enc_k: torch.Tensor, enc_v: torch.Tensor
+                        ) -> torch.Tensor:
+    """Single-token cross attention against precomputed K/V (B, T, K, hd):
+    every position live (all at 0, the query at 0), no window.  x:
+    (B, 1, d) -> (B, 1, d)."""
+    b = x.shape[0]
+    q = x @ params["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    q = q.reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+    t = enc_k.shape[1]
+    o, l, _ = decode_attend_partial(
+        q, enc_k, enc_v, dataclasses.replace(cfg, window=0),
+        torch.zeros((t,), dtype=torch.long, device=x.device), 0)
+    return finalize_decode(o, l, params, x.dtype, cfg)
+
+
+def precompute_cross_kv(params: dict, enc_out: torch.Tensor,
+                        cfg: AttentionConfig) -> tuple:
+    """Cross-attention K/V (B, T, K, hd) of encoder states (B, T, d_kv),
+    computed once a request, in ``enc_out``'s dtype."""
+    b, t = enc_out.shape[0], enc_out.shape[1]
+    k = enc_out @ params["wk"].to(enc_out.dtype)
+    v = enc_out @ params["wv"].to(enc_out.dtype)
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(enc_out.dtype)
+        v = v + params["bv"].to(enc_out.dtype)
+    k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k)
+    return k, v
 
 
 def q_pos_sentinel(s_max: int, cache_len: torch.Tensor) -> torch.Tensor:

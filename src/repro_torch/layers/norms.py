@@ -1,4 +1,4 @@
-"""RMSNorm (functional, dict params): counterpart of
+"""RMSNorm and LayerNorm (functional, dict params): counterpart of
 ``repro/layers/norms.py``."""
 from __future__ import annotations
 
@@ -19,3 +19,21 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
     x = x * torch.rsqrt(var + eps)
     w = params["scale"].float() + 1.0
     return (x * w).to(dtype)
+
+
+def init_layernorm(d: int, dtype=torch.float32, device="cpu") -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm (mean and variance over the last axis, then scale and
+    bias), computed in float32 and cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    out = x * params["scale"].float() + params["bias"].float()
+    return out.to(dtype)

@@ -5,26 +5,33 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import AttentionConfig
-from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.layers.norms import (init_layernorm, init_rmsnorm,
+                                      layernorm, rmsnorm)
 
 
 def norm_init(cfg: ModelConfig, device="cpu") -> dict:
+    if cfg.norm == "layernorm":
+        return init_layernorm(cfg.d_model, device=device)
     return init_rmsnorm(cfg.d_model, device=device)
 
 
 def norm_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
+    if cfg.norm == "layernorm":
+        return layernorm(params, x)
     return rmsnorm(params, x)
 
 
-def attn_cfg(cfg: ModelConfig, window: int = 0) -> AttentionConfig:
+def attn_cfg(cfg: ModelConfig, window: int = 0, cross: bool = False,
+             d_kv_input: int = 0) -> AttentionConfig:
     """The attention of a block; ``window`` is the layer's own (gemma2's
-    local layers), not ``cfg.window``."""
+    local layers), not ``cfg.window``; ``cross`` takes K/V from encoder
+    states or image embeddings of width ``d_kv_input`` (0: d_model)."""
     return AttentionConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
         qk_norm=cfg.qk_norm, softcap=cfg.attn_softcap,
-        rope_theta=cfg.rope_theta, window=window,
-        paged_kernel=cfg.paged_attn_kernel)
+        rope_theta=cfg.rope_theta, window=window, cross=cross,
+        d_kv_input=d_kv_input, paged_kernel=cfg.paged_attn_kernel)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,5 +1,8 @@
 """Decoder-only LM, dense and moe families: counterpart of
-``repro/models/lm.py``.
+``repro/models/lm.py``.  The cross-attention families run through
+``models/encdec.py`` and ``models/vision_lm.py``, which reuse the block
+helpers here as the reference's modules reuse ``LM.*``
+(``launch/specs.py:model_module`` picks the module of a config).
 
 Every dense arch of the reference runs: GQA/MQA, QKV bias, qk-norm,
 gemma2's alternating local (sliding-window) and global layers, attention
@@ -53,8 +56,9 @@ PAGED_KV_FAMILIES = ("dense", "moe")
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families are ported "
-            f"(ROADMAP Queue A, other model families); got "
+            f"{cfg.name}: models.lm runs the dense and moe families with "
+            f"RMSNorm (vlm and encdec: models.vision_lm and models.encdec; "
+            f"hybrid and xlstm are not ported, ROADMAP Queue A); got "
             f"{[cfg.family, cfg.norm]}")
 
 
@@ -349,18 +353,28 @@ def _block_chunk_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     if "moe" in blk:         # each sequence's chunk a group, pad rows too
         out, stats = _moe_block(blk, h, cfg, collect_stats)
         return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
-    al = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    out, stats = _chunk_mlp(blk["mlp"], h, cfg, alpha, tok_mask,
+                            collect_stats)
+    return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
+
+
+def _chunk_mlp(mlp: dict, h: torch.Tensor, cfg: ModelConfig, alpha,
+               tok_mask, collect_stats: bool):
+    """The MLP over a prefill chunk's (B, S, d) ``h``: real rows at the
+    layer's ``alpha`` (scalar or per slot (B,)), pad rows at
+    ``DEAD_SLOT_ALPHA``.  Returns (out, stats averaged over the real rows,
+    or None)."""
+    al = torch.as_tensor(alpha, dtype=torch.float32, device=h.device)
     if al.ndim == 1:                                       # per slot (B,)
         al = al[:, None]
     a_tok = torch.where(tok_mask, al, torch.tensor(
-        SM.DEAD_SLOT_ALPHA, device=x.device)).reshape(-1)
-    out = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg), prefill=True,
+        SM.DEAD_SLOT_ALPHA, device=h.device)).reshape(-1)
+    out = mlp_apply(mlp, h, _mlp_sparse_cfg(cfg), prefill=True,
                     alpha=a_tok, return_stats=collect_stats)
-    stats = None
-    if collect_stats:
-        out, st = out
-        stats = {k: _chunk_stat_mean(v, tok_mask) for k, v in st.items()}
-    return x + _post_norm(cfg, blk, "ln2_post", out), cache, stats
+    if not collect_stats:
+        return out, None
+    out, st = out
+    return out, {k: _chunk_stat_mean(v, tok_mask) for k, v in st.items()}
 
 
 def _dense_stack_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -444,9 +458,15 @@ def prepare_sparse(params: dict, sparse: Optional[SM.SparseInferConfig] = None
     gated node (each MLP, each MoE layer's expert stacks and its shared
     expert); with ``sparse.weight_dtype == "int8"`` also quantize every
     MLP node, the shared experts included, while the expert stacks stay
-    float."""
-    out = dict(params)
-    out["blocks"] = [{k: _prepare_node(v, sparse) if k in ("mlp", "moe")
-                      else v for k, v in blk.items()}
-                     for blk in params["blocks"]]
-    return out
+    float.  Like the reference's walk it reaches every block list of the
+    tree (``blocks``; an encoder-decoder's ``enc_blocks`` and
+    ``dec_blocks``; a vlm's ``self_blocks`` and ``cross_blocks``)."""
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if "wg_t" in node or "wg_q" in node:      # an MLP or an MoE node
+            return _prepare_node(node, sparse)
+        return {k: walk(v) for k, v in node.items()}
+    return walk(params)

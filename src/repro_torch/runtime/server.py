@@ -74,8 +74,11 @@ tuples, the full ``len(ladder) ** tp_shards`` product when that is at most
 Every tuple's local shapes are checked against the kernels' plans at
 construction and as it activates.
 
-Not ported yet: controller checkpoints, and placing a shard grid on
-several devices (the reference's ``mesh``).
+Every model module of the port serves: ``models.lm`` (dense, moe),
+``models.encdec`` and ``models.vision_lm`` (with ``extra_inputs``; no
+paged pool, as in the reference).  Not ported yet: controller
+checkpoints, and placing a shard grid on several devices (the
+reference's ``mesh``).
 """
 from __future__ import annotations
 
@@ -188,15 +191,19 @@ class Request:
 
 def _splice_slot(full: dict, one: dict, slot: int) -> None:
     """Copy a batch-1 cache tree into batch slot ``slot`` of a full-batch
-    cache tree, in place (the reference returns an updated copy)."""
-    for f, o in zip(full["blocks"], one["blocks"]):
-        for name, buf in f.items():
-            buf[slot:slot + 1].copy_(o[name])
+    cache tree, in place, cast to the full tree's dtypes (the reference
+    returns an updated copy): every layer of every list in the tree, the
+    self caches and an encoder-decoder's or a vlm's cross K/V alike."""
+    for part, layers in full.items():
+        for f, o in zip(layers, one[part]):
+            for name, buf in f.items():
+                buf[slot:slot + 1].copy_(o[name])
 
 
 def _clone_caches(caches: dict) -> dict:
-    return {"blocks": [{name: buf.clone() for name, buf in layer.items()}
-                       for layer in caches["blocks"]]}
+    return {part: [{name: buf.clone() for name, buf in layer.items()}
+                   for layer in layers]
+            for part, layers in caches.items()}
 
 
 def _seed_scratch(pool: dict, seed: torch.Tensor) -> dict:
@@ -222,13 +229,21 @@ def _commit_owned(pool: dict, one: dict, owned: torch.Tensor,
 
 
 class Server:
-    """Slot-refill continuous batching over a model module (``models.lm``).
+    """Slot-refill continuous batching over a model module (``models.lm``,
+    ``models.encdec`` or ``models.vision_lm``: ``launch.specs.
+    model_module``).
 
-    ``device`` defaults to ``cuda`` and raises without a GPU; pass
+    ``extra_inputs``: the model's inputs beside the tokens, by name in the
+    order its ``prefill`` takes them (an encoder-decoder's ``frames``, a
+    vlm's ``images``), each (batch, ...): slot ``i``'s requests take row
+    ``i``, ``generate()`` the whole batch.  A chunked admission of an
+    encoder-decoder encodes its row once and passes the states to every
+    chunk.  ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` to serve on the CPU with the plain kernel versions."""
 
     def __init__(self, model_mod, cfg: ModelConfig, scfg: ServeConfig,
-                 params: dict, device="cuda"):
+                 params: dict, extra_inputs: Optional[dict] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self._grids_checked: set = set()   # (bucket, shard) plans asked
         if scfg.prefill_chunk:
@@ -293,6 +308,8 @@ class Server:
         self.scfg = scfg
         self.params = (model_mod.prepare_sparse(params, cfg.sparse)
                        if cfg.sparse.enabled else params)
+        self.extra = {k: torch.as_tensor(v, device=self.device)
+                      for k, v in (extra_inputs or {}).items()}
         self._tier_index = {t.name: i for i, t in enumerate(scfg.sla_tiers)}
         self._tier_offsets = np.asarray(
             [t.alpha_offset for t in scfg.sla_tiers], np.float32)
@@ -833,6 +850,15 @@ class Server:
             pool.stats["reused_tokens"] += nb_re * bs
         return meta
 
+    def _slot_extra(self, i: int) -> tuple:
+        """Slot ``i``'s extra inputs for a chunked admission: batch-1 rows
+        of ``extra_inputs``, an encoder-decoder's frames encoded here,
+        once, so every chunk reuses the states."""
+        ex = tuple(e[i:i + 1] for e in self.extra.values())
+        if ex and hasattr(self.mod, "encode"):
+            return (self.mod.encode(self.params, self.cfg, ex[0]),) + ex[1:]
+        return ex
+
     def paged_stats(self) -> dict:
         """Pool occupancy and reuse counters plus admission chunk and
         overload counts (empty without ``ServeConfig.paged_kv``); the
@@ -866,7 +892,8 @@ class Server:
             logits, caches = self.mod.prefill(
                 self.params, self.cfg,
                 torch.as_tensor(np.asarray(prompts, np.int32),
-                                device=self.device), self.scfg.max_len)
+                                device=self.device),
+                *self.extra.values(), max_len=self.scfg.max_len)
             tok = greedy_sample(logits)[:, None]
             out = [tok]
             lengths = np.full(b, plen, np.int32)
@@ -1252,6 +1279,7 @@ class Server:
                     else:
                         st["caches"] = self.mod.init_caches(
                             self.cfg, 1, scfg.max_len, self.device)
+                    st["extra"] = self._slot_extra(i)
                     pending[i] = st
                     return
                 try:
@@ -1264,7 +1292,9 @@ class Server:
                     logits, one = self.mod.prefill(
                         self.params, self.cfg, torch.as_tensor(
                             np.asarray(r.prompt, np.int32)[None, :],
-                            device=self.device), scfg.max_len)
+                            device=self.device),
+                        *(e[i:i + 1] for e in self.extra.values()),
+                        max_len=scfg.max_len)
                     first = int(greedy_sample(logits)[0])
                 if not place(i, r, first, t, one):
                     if pool_wait[0]:
@@ -1298,7 +1328,7 @@ class Server:
                                   slot=i, uid=r.uid):
                         out = self.mod.prefill_chunk(
                             self.params, self.cfg, chunk, st["caches"],
-                            st["off"], len(r.prompt),
+                            st["off"], len(r.prompt), *st["extra"],
                             alphas=self._prefill_alphas(st["tier"]),
                             collect_stats=prefill_stats)
                     if prefill_stats:
