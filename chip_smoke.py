@@ -253,7 +253,36 @@ Phases, in order; any failure exits non-zero:
              launches exact from load (every MLP's sign pack, the
              encoder's too), one encode an admission, the peak memory and a
              profiled decode step each.
- 19. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 19. recurrent  the hybrid family (zamba2-1.2b: 38 Mamba2 layers and a
+             shared attention block every 6, each of its 6 invocations with
+             its own LoRA on the query weights, the sparse MLP in the shared
+             block) and the xlstm family (xlstm-125m: mLSTM and sLSTM blocks,
+             no MLP, sparsity off): (a) the sparse MLP's kernels at the
+             shared block's widths (d=2048, k=8192, C=208 of 1024 groups,
+             bf16 x, ``_mlp_kernel_times``): sign_pack of x and of the gate
+             weights at load, both predictors, both float32 MLPs, both int8
+             MLPs (qg 128) and predict_counts against their plain versions,
+             twice bitwise where a kernel must be, each timed beside its
+             bound, plain version and library yardstick; (b) zamba2 at full
+             width and 13 layers (two invocations, two LoRAs, one tail
+             layer) and xlstm-125m at full width and depth, float32, every
+             norm scale, LoRA up-projection, conv bias, D and dt bias (and
+             xlstm's gate biases) drawn non-zero, card against CPU through
+             ``_hold``: a 100-token prefill (two Mamba2 chunks of 50) and 8
+             teacher-forced decode steps with per-slot alphas whose rows
+             differ (zamba2: pallas, masked, gather, int8 MLP weights;
+             xlstm: once, launching no kernel); the logits within 1e-3 and
+             every recurrent state and KV cache within 1e-3 x its largest
+             magnitude; launches exact; (c) both at full depth through
+             Server.serve: zamba2-1.2b (4.43 GB float32) with the per-tier
+             controller on pallas, bf16 compute and caches, and
+             ``prefill_chunk=64``, which the family serves with the
+             monolithic prefill and a warning; xlstm-125m with the plain
+             serve; batch 4, 8 requests of mixed tiers with 96-192-token
+             prompts; launches exact from load (zamba2: one sign pack, then
+             two kernels an invocation a decode step; xlstm: none), the
+             peak memory and a profiled decode step each.
+ 20. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -5278,6 +5307,325 @@ def phase_cross(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------- phase 19: recurrent --
+
+REC_ARCHS = ("zamba2-1.2b", "xlstm-125m")
+REC_LAYERS = 13           # zamba2 in (b): two invocations and a tail layer
+REC_PLEN, REC_MAX_LEN = 100, 128   # 100 tokens: two Mamba2 chunks of 50
+STATE_TOL = 1e-3          # a recurrent state's card-CPU gap, x max |state|
+
+
+def _perturb_recurrent(params, gen) -> None:
+    """In place: the leaves the reference starts at a value that would
+    hide a fault, drawn from ``gen``: RMSNorm scales, LoRA up-projections
+    (0 at init: no delta) and conv biases 0.3 N(0, 1); Mamba2's D
+    U(0.5, 1.5); dt biases and xlstm's gate biases shifted by 0.3 N(0, 1)."""
+    import torch
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+            return
+        for name, v in node.items():
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif name in ("scale", "lora_b_q", "conv_b"):
+                v.copy_(torch.randn(v.shape, generator=gen,
+                                    device=v.device) * 0.3)
+            elif name == "D":
+                v.copy_(torch.rand(v.shape, generator=gen,
+                                   device=v.device) + 0.5)
+            elif name in ("dt_bias", "b_if", "b"):
+                v.add_(torch.randn(v.shape, generator=gen,
+                                   device=v.device) * 0.3)
+    walk(params)
+
+
+def _recurrent_forced(params, cfg, dev, keep: dict):
+    """Prefill a seeded batch of 4 prompts of ``REC_PLEN`` tokens, then 8
+    teacher-forced decode steps with the MLP stats on and per-slot alphas
+    whose rows all differ (the schedule, a ramp over the rows, SLA-like
+    offsets), so an invocation reading another row would move its
+    selection -> logits (1 + steps, B, V) on the CPU; the caches after
+    the last step go to ``keep[dev]``, on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+
+    b, steps = DEC_BATCH, DEC_STEPS
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, size=(b, REC_PLEN))
+    forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
+    ramp = np.linspace(-0.02, 0.02, cfg.n_layers, dtype=np.float32)
+    alphas = (cfg.sparse.alpha_schedule().alphas(cfg.n_layers)
+              + ramp)[:, None] + np.asarray([0.0, -0.02, 0.02, 0.0],
+                                            np.float32)[None, :]
+    with torch.inference_mode():
+        lg, caches = lm.prefill(params, cfg,
+                                torch.as_tensor(prompt, device=dev),
+                                REC_MAX_LEN)
+        out = [lg.float().cpu()]
+        for t in range(steps):
+            lg, caches, _ = lm.decode_step(
+                params, cfg, torch.as_tensor(forced[t], device=dev), caches,
+                torch.full((b,), REC_PLEN + t, device=dev), alphas=alphas,
+                collect_stats=True)
+            out.append(lg.float().cpu())
+    keep[dev] = _to(caches, "cpu")
+    return torch.stack(out)
+
+
+def _hold_states(label: str, keep: dict) -> None:
+    """Every leaf of the card's caches (the recurrent states and the KV
+    caches) within ``STATE_TOL`` x its largest magnitude of the CPU's."""
+    worst, where = 0.0, ""
+    for part, layers in keep["cpu"].items():
+        for i, (cpu, card) in enumerate(zip(layers, keep["cuda"][part])):
+            for name, want in cpu.items():
+                got, want = card[name].float(), want.float()
+                rel = float((got - want).abs().max()) / (
+                    float(want.abs().max()) or 1.0)
+                if rel > worst:
+                    worst, where = rel, f"{part}[{i}] {name}"
+                if rel > STATE_TOL:
+                    fail(f"{label}: {part}[{i}] {name} {rel:.3e} x max|state|"
+                         f" from the CPU's (tolerance {STATE_TOL})")
+    print(f"{label}: states and caches within {worst:.3e} x max|state| of "
+          f"the CPU's (largest at {where})", flush=True)
+
+
+def _recurrent_kernel_cases(gen, flush) -> None:
+    """(a): the sparse MLP's kernels at zamba2-1.2b's shared block widths
+    (d=2048, k=8192: 1024 groups, capacity 208), bf16 x:
+    ``_mlp_kernel_times``."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("zamba2-1.2b")
+    _mlp_kernel_times("recurrent-kernels", "zamba2-1.2b shared MLP",
+                      cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                      cfg.sparse.capacity(cfg.d_ff), gen, flush)
+
+
+def _recurrent_layers() -> None:
+    """(b): zamba2 at full width and ``REC_LAYERS`` layers, xlstm-125m at
+    full width and depth, float32 compute and KV, the config's own
+    selection (capacity 20%: the clamp binds), weights from ``init_lm`` on
+    the card with the leaves that would hide a fault drawn non-zero
+    (``_perturb_recurrent``), copied to the CPU; card against CPU through
+    ``_hold`` and ``_hold_states``.  Launches exact: two kernels an
+    invocation of the shared block a step (pallas: the predictor and the
+    MLP; masked and gather: x's sign pack and the counts), none for
+    xlstm."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    for i, arch in enumerate(REC_ARCHS):
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        depth = dict(n_layers=REC_LAYERS) if base.family == "hybrid" else {}
+        cfg = base.replace(dtype="float32", kv_cache_dtype="float32",
+                           **depth)
+        if base.family == "hybrid":
+            cfg = cfg.replace(sparse=dataclasses.replace(
+                cfg.sparse, strategy="pallas", enabled=True))
+            n_inv, n_main, n_tail = lm._hybrid_layout(cfg)
+            mc = lm.mamba_cfg(cfg)
+            shape = (f"{n_inv} invocations of the shared block (H={cfg.n_heads}"
+                     f" hd={cfg.resolved_head_dim}, LoRA rank "
+                     f"{cfg.shared_lora_rank}, k={cfg.d_ff}, capacity "
+                     f"{cfg.sparse.capacity(cfg.d_ff)} of {cfg.d_ff // G} "
+                     f"groups), {n_main} + {n_tail} Mamba2 layers (d_inner "
+                     f"{mc.d_inner}, {mc.n_heads} heads of {mc.head_dim}, "
+                     f"state {mc.d_state}, chunk {mc.chunk})")
+        else:
+            xc = lm.xlstm_cfg(cfg)
+            p, n_groups = lm._xlstm_layout(cfg)
+            shape = (f"{n_groups} groups of {p} blocks (mLSTM d_inner "
+                     f"{xc.d_inner}, {xc.n_heads} heads of {xc.head_dim}; "
+                     f"sLSTM heads of {xc.s_head_dim}), no MLP")
+        print(f"[recurrent] {arch}: d={cfg.d_model}, vocab {cfg.vocab}, "
+              f"{cfg.n_layers} layers: {shape}", flush=True)
+        raw = lm.init_lm(cfg, 190 + i, "cuda")
+        _perturb_recurrent(raw, torch.Generator(device="cuda").manual_seed(
+            191 + i))
+        if base.family != "hybrid":
+            params = {"cuda": raw, "cpu": _to(raw, "cpu")}
+            keep: dict = {}
+            label = (f"[recurrent] {arch} prefill {REC_PLEN} + decode "
+                     f"{DEC_STEPS}")
+            _hold(label, lambda dev: _recurrent_forced(params[dev], cfg, dev,
+                                                       keep),
+                  LOGIT_TOL["float32"], {})
+            _hold_states(label, keep)
+        else:
+            n_inv = lm._hybrid_layout(cfg)[0]
+            for weights in ("", "int8"):
+                wcfg = cfg.replace(sparse=dataclasses.replace(
+                    cfg.sparse, weight_dtype=weights, quant_group_size=QG))
+                params = {"cuda": lm.prepare_sparse(raw, wcfg.sparse)}
+                params["cpu"] = _to(params["cuda"], "cpu")
+                for strategy in ("pallas", "masked", "gather") \
+                        if not weights else ("pallas",):
+                    run_cfg = wcfg.replace(sparse=dataclasses.replace(
+                        wcfg.sparse, strategy=strategy))
+                    n = n_inv * DEC_STEPS
+                    if strategy == "pallas":
+                        want = {"predict_group_margins": n,
+                                ("fused_sparse_mlp_q" if weights
+                                 else "fused_sparse_mlp"): n}
+                    else:
+                        want = dict(sign_pack=n, predict_counts=n)
+                    keep = {}
+                    label = (f"[recurrent] {arch} prefill {REC_PLEN} + "
+                             f"decode {DEC_STEPS}, {strategy}, "
+                             f"{weights or 'float32'} MLP weights")
+                    _hold(label, lambda dev, c=run_cfg: _recurrent_forced(
+                        params[dev], c, dev, keep), LOGIT_TOL["float32"],
+                        want)
+                    _hold_states(label, keep)
+                del params
+        del raw
+        torch.cuda.empty_cache()
+        print(f"[recurrent] {arch} layers: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def _recurrent_serve(arch: str) -> None:
+    """(c): ``arch`` at full depth through Server.serve: random float32
+    weights from a seed, perturbed (``_perturb_recurrent``), bf16 compute
+    and caches, batch 4, 8 requests of mixed tiers with 96-192-token
+    prompts and 16 new tokens each.  zamba2-1.2b: the per-tier controller
+    on pallas and ``prefill_chunk=64``, which must warn and admit through
+    the monolithic prefill; xlstm-125m: the plain serve.  Launch counters
+    reset before the server is built, so the load-time sign pack counts;
+    launches exact; the peak memory; a profiled decode step."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ControllerConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        cfg = cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, strategy="pallas", enabled=True))
+        scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16,
+                           prefill_chunk=MAIN_CHUNK,
+                           controller=ControllerConfig(enabled=True,
+                                                       per_tier=True))
+        n_inv = lm._hybrid_layout(cfg)[0]
+    else:
+        scfg = ServeConfig(batch=MAIN_BATCH, max_len=256, max_new_tokens=16)
+        n_inv = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, "cuda")
+    _perturb_recurrent(params, torch.Generator(device="cuda").manual_seed(1))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        srv = Server(lm, cfg, scfg, params, device="cuda")
+    warned = [str(w.message) for w in rec
+              if "has no chunked prefill" in str(w.message)]
+    if hybrid and len(warned) != 1:
+        fail(f"serve-{arch}: prefill_chunk={MAIN_CHUNK} gave {len(warned)} "
+             "monolithic-prefill warnings, want 1")
+    del params
+    torch.cuda.synchronize()
+    load = ops.launch_counts()
+    packs = 1 if hybrid else 0
+    if load != _want_launches(load, sign_pack=packs):
+        fail(f"serve-{arch}: load launches {load}, want {packs} sign packs")
+    print(f"[recurrent-serve] {arch}: {cfg.n_layers} layers, weights "
+          f"{n_bytes / 1e9:.2f} GB {cfg.param_dtype}, compute {cfg.dtype}, "
+          f"{cfg.kv_cache_dtype} caches; {packs} sign packs at load"
+          + (f"; warned: {warned[0]!r}" if warned else "")
+          + f"; memory after load {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB; init {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(39)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab, size=int(rng.integers(96, 193))),
+                max_new=16, sla=tiers[i % 3]) for i in range(8)]
+    steps0 = srv.decode_steps
+    t1 = time.perf_counter()
+    done = srv.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    steps = srv.decode_steps - steps0
+    # the head covers the padded vocabulary (xlstm-125m: 50304 -> 50432),
+    # whose extra rows random weights can win
+    if len(done) != len(reqs) or any(
+            r.outcome != "completed" or len(r.out) != 16
+            or not ((r.out >= 0) & (r.out < cfg.vocab_padded)).all()
+            for r in done):
+        fail(f"serve-{arch}: not every request completed with 16 tokens in "
+             f"[0, {cfg.vocab_padded}): "
+             f"{[(r.outcome, len(r.out), int(r.out.max())) for r in done]}")
+    want = _want_launches(counts, sign_pack=packs,
+                          predict_group_margins=n_inv * steps,
+                          fused_sparse_mlp=n_inv * steps)
+    if steps == 0 or counts != want or srv.prefill_chunks_run:
+        fail(f"serve-{arch}: launches {counts}, want {want} ({steps} decode "
+             f"steps, {srv.prefill_chunks_run} prefill chunks)")
+    rep = throughput_report(done)
+    print(f"[recurrent-serve] {arch} throughput_report {json.dumps(rep)}",
+          flush=True)
+    if hybrid:
+        ctl = srv.controller.report()
+        print(f"[recurrent-serve] {arch} controller: {ctl['steps']} steps, "
+              f"{len(ctl['tiers']['balanced']['alpha_per_layer'])} alpha "
+              f"rows, audits {ctl['audits']}", flush=True)
+    print(f"[recurrent-serve] {arch}: {wall:.1f} s; decode steps {steps}; "
+          f"launches from load {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    b = MAIN_BATCH
+    caches = lm.init_caches(cfg, b, scfg.max_len, "cuda")
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, 1)),
+                          device="cuda")
+    lengths = torch.full((b,), 64, device="cuda")
+    profile_step(f"decode step {arch} (B={b}, {cfg.n_layers} layers, bf16 "
+                 "compute and caches)",
+                 lambda: lm.decode_step(srv.params, cfg, tok, caches,
+                                        lengths))
+    del srv, caches
+    torch.cuda.empty_cache()
+
+
+def phase_recurrent(results: dict) -> None:
+    """The recurrent families on the card: (a) the sparse MLP's kernels at
+    zamba2-1.2b's shared block widths, (b) zamba2 at 13 full-width layers
+    and xlstm-125m whole, card against CPU, (c) both served at full
+    depth."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for step, fn in (("a", lambda: _recurrent_kernel_cases(
+                          gen, flush_buf.zero_)),
+                     ("b", _recurrent_layers),
+                     ("c zamba2-1.2b", lambda: _recurrent_serve(
+                         "zamba2-1.2b")),
+                     ("c xlstm-125m", lambda: _recurrent_serve(
+                         "xlstm-125m"))):
+        t = time.perf_counter()
+        fn()
+        print(f"[recurrent] ({step}) {time.perf_counter() - t:.1f} s",
+              flush=True)
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5606,7 +5954,8 @@ def main() -> None:
                         (phase_serve_gemma2, ()),
                         (phase_sharded, (results,)),
                         (phase_moe, (results,)),
-                        (phase_cross, (results,))):
+                        (phase_cross, (results,)),
+                        (phase_recurrent, (results,))):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

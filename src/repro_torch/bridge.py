@@ -4,9 +4,12 @@ The JAX package's ``init_lm`` stacks every layer's leaves along a leading
 (L, ...) axis under ``params["blocks"]`` (a moe config's dense first layers
 apart, under ``params["first_blocks"]``; an encoder-decoder's under
 ``enc_blocks`` and ``dec_blocks``; a vlm's under ``self_blocks`` and
-``cross_blocks``, the cross blocks' gates as (n_groups,) leaves); the
-port keeps one dict per layer, in layer order, in a list of the same
-name.
+``cross_blocks``, the cross blocks' gates as (n_groups,) leaves; a
+hybrid config's Mamba2 layers under ``mamba`` and ``mamba_tail`` and its
+LoRAs under ``lora``, one a shared-block invocation, beside the one
+unstacked ``shared`` block; an xlstm config's under ``mlstm`` and
+``slstm``); the port keeps one dict per layer, in layer order, in a list
+of the same name.
 ``params_from_numpy`` takes that tree with numpy leaves (a caller converts
 with ``jax.tree.map(np.asarray, params)``) and returns the port's params.
 It imports nothing of JAX: a bfloat16 leaf arrives as an ``ml_dtypes``
@@ -50,24 +53,35 @@ def _n_stacked(node) -> int:
 
 
 def _block_lists(cfg: ModelConfig) -> dict:
-    """A cross-attention family's block lists and their lengths."""
+    """The stacked lists of an encdec, vlm, hybrid or xlstm tree and their
+    lengths (0: the tree has no such list)."""
     if cfg.family == "encdec":
         return {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+    if cfg.family == "hybrid":
+        ae = cfg.attn_every
+        n_main = cfg.n_layers // ae * ae
+        return {"mamba": n_main, "mamba_tail": cfg.n_layers - n_main,
+                "lora": n_main // ae if cfg.shared_lora_rank else 0}
+    if cfg.family == "xlstm":
+        p = cfg.slstm_every or 4
+        return {"mlstm": cfg.n_layers // p * (p - 1),
+                "slstm": cfg.n_layers // p}
     p = cfg.cross_every
     return {"self_blocks": cfg.n_layers // p * (p - 1),
             "cross_blocks": cfg.n_layers // p}
 
 
 def _lists(tree: dict, cfg: ModelConfig, device) -> dict:
-    """The stacked block lists of an encdec or vlm tree -> one converted
-    dict a layer under each list's name."""
+    """The stacked lists of an encdec, vlm, hybrid or xlstm tree -> one
+    converted dict a layer under each list's name."""
     out = {}
     for name, n in _block_lists(cfg).items():
         got = _n_stacked(tree[name]) if name in tree else 0
         if got != n:
             raise ValueError(f"{name} hold {got} layers, config "
                              f"{cfg.name} has {n}")
-        out[name] = [_convert(tree[name], device, i) for i in range(n)]
+        if n:
+            out[name] = [_convert(tree[name], device, i) for i in range(n)]
     return out
 
 
@@ -79,8 +93,8 @@ def _per_layer(tree: dict, cfg: ModelConfig, stacks: tuple, device,
     if cfg.family not in fam:
         raise NotImplementedError(
             f"family {cfg.family!r}: a per-layer {what!r} list is "
-            f"{fam}'s (encdec and vlm keep their own block lists, and "
-            "have no paged pool)")
+            f"{fam}'s (the other families keep their own lists, and have "
+            "no paged pool)")
     first = stacks[0]
     if (first in tree) != bool(cfg.first_dense_layers):
         raise ValueError(f"{what}: {first!r} present must match "
@@ -99,11 +113,11 @@ def _per_layer(tree: dict, cfg: ModelConfig, stacks: tuple, device,
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference params (numpy leaves, layer-stacked ``blocks`` and, for a
     moe config's dense first layers, ``first_blocks``) -> the port's
-    params on ``device`` with a per-layer ``blocks`` list (encdec and vlm:
-    per-layer lists under their stacks' names).  Raises without a GPU
-    unless ``device`` is ``"cpu"``."""
+    params on ``device`` with a per-layer ``blocks`` list (encdec, vlm,
+    hybrid and xlstm: per-layer lists under their stacks' names).  Raises
+    without a GPU unless ``device`` is ``"cpu"``."""
     device = resolve_device(device)
-    if cfg.family in ("encdec", "vlm"):
+    if cfg.family in ("encdec", "vlm", "hybrid", "xlstm"):
         names = _block_lists(cfg)
         out = {k: _convert(v, device) for k, v in tree.items()
                if k not in names}

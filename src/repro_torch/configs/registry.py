@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus the reduced
 (CPU smoke) variant — the counterpart of ``repro/configs/registry.py``.
 
-Registered: the dense family (prosparse-llama2-7b and -13b, qwen3-8b,
-qwen1.5-32b, granite-34b, gemma2-2b), the moe family (deepseek-moe-16b,
-olmoe-1b-7b), encdec (seamless-m4t-medium) and vlm
-(llama-3.2-vision-90b).  The hybrid and xlstm families come with their
-slices of the port."""
+Registered: every arch of the reference: the dense family
+(prosparse-llama2-7b and -13b, qwen3-8b, qwen1.5-32b, granite-34b,
+gemma2-2b), the moe family (deepseek-moe-16b, olmoe-1b-7b), encdec
+(seamless-m4t-medium), vlm (llama-3.2-vision-90b), hybrid (zamba2-1.2b)
+and xlstm (xlstm-125m)."""
 from __future__ import annotations
 
 import dataclasses
@@ -46,10 +46,12 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced_config(name: str) -> ModelConfig:
     """Tiny same-family config for CPU smoke tests: the reference's cut for
-    each ported family (dense: two of its layer pattern; moe: the dense
-    first layers plus 3 MoE layers of 8 experts, top-k at most 2; vlm: two
-    groups of a self and a cross layer, 8 image tokens; encdec: 2 encoder
-    and 2 decoder layers, 16 frames)."""
+    each family (dense: two of its layer pattern; moe: the dense first
+    layers plus 3 MoE layers of 8 experts, top-k at most 2; hybrid: two
+    groups of the shared block and 2 Mamba2 layers plus a tail layer, SSM
+    state and head 16, d_ff 128, LoRA rank 8; xlstm: one group of 4 blocks;
+    vlm: two groups of a self and a cross layer, 8 image tokens; encdec: 2
+    encoder and 2 decoder layers, 16 frames)."""
     cfg = get_config(name)
     kw: dict = dict(
         d_model=64, d_ff=0 if cfg.d_ff == 0 else 128, vocab=512,
@@ -69,6 +71,16 @@ def reduced_config(name: str) -> ModelConfig:
         kw["top_k"] = min(cfg.top_k, 2)
         kw["d_ff"] = 32
         kw["capacity_factor"] = 4.0
+    elif cfg.family == "hybrid":
+        kw["attn_every"] = 2
+        kw["n_layers"] = 5            # 2 groups + 1 tail layer
+        kw["ssm_state"] = 16
+        kw["ssm_head_dim"] = 16
+        kw["d_ff"] = 128
+        if cfg.shared_lora_rank:
+            kw["shared_lora_rank"] = 8
+    elif cfg.family == "xlstm":
+        kw["n_layers"] = 4
     elif cfg.family == "vlm":
         kw["cross_every"] = 2
         kw["n_layers"] = 4
@@ -78,8 +90,7 @@ def reduced_config(name: str) -> ModelConfig:
         kw["n_enc_layers"] = 2
         kw["n_frames"] = 16
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue A)")
+        raise ValueError(f"no reduced config for family {cfg.family!r}")
     if cfg.sparse.enabled:
         kw["sparse"] = dataclasses.replace(cfg.sparse, capacity_frac=0.5)
     return cfg.replace(name=cfg.name + "-reduced", **kw)
@@ -89,5 +100,5 @@ def reduced_config(name: str) -> ModelConfig:
 from repro_torch.configs import (  # noqa: E402,F401
     gemma2_2b, granite_34b, qwen3_8b, qwen1_5_32b, deepseek_moe_16b,
     olmoe_1b_7b, llama32_vision_90b, prosparse_llama2_7b,
-    prosparse_llama2_13b, seamless_m4t_medium,
+    prosparse_llama2_13b, seamless_m4t_medium, xlstm_125m, zamba2_1p2b,
 )

@@ -1,7 +1,7 @@
-"""Decoder-only LM, dense and moe families: counterpart of
-``repro/models/lm.py``.  The cross-attention families run through
-``models/encdec.py`` and ``models/vision_lm.py``, which reuse the block
-helpers here as the reference's modules reuse ``LM.*``
+"""Decoder-only LM, the dense, moe, hybrid and xlstm families:
+counterpart of ``repro/models/lm.py``.  The cross-attention families run
+through ``models/encdec.py`` and ``models/vision_lm.py``, which reuse the
+block helpers here as the reference's modules reuse ``LM.*``
 (``launch/specs.py:model_module`` picks the module of a config).
 
 Every dense arch of the reference runs: GQA/MQA, QKV bias, qk-norm,
@@ -12,12 +12,33 @@ by a routed MoE layer (``layers/moe.py``) after its ``first_dense_layers``
 dense layers, which run the sparse MLP; an MoE layer reports zero MLP
 stats, so the per-layer stats and alphas keep one row a layer.
 
-Params are dicts of tensors; the layer stack is a list of per-layer block
-dicts, in layer order, each with an ``"mlp"`` or a ``"moe"`` node (the
-reference stacks them along a leading axis for ``lax.scan``, the dense
-first layers apart under ``first_blocks``; a Python loop over layers takes
-the scan's place).  Caches are ``{"blocks": [per-layer {"k", "v"[,
-"k_scale", "v_scale"]}]}``, one entry a layer.
+The hybrid family (zamba2) runs ``n_layers // attn_every`` groups of one
+shared transformer block (one set of weights, the sparse MLP included)
+and ``attn_every`` Mamba2 layers (``layers/mamba2.py``), then the
+remaining ``n_layers % attn_every`` Mamba2 layers as a tail.  Invocation
+g of the shared block adds its own LoRA delta ``lora_a @ lora_b_q`` to
+the query weights and takes alpha row g of the (n_layers,) or
+(n_layers, B) alphas; its stats have one row an invocation, (n_inv, B).
+The xlstm family runs ``n_layers // slstm_every`` groups of blocks in the
+order mLSTM, sLSTM, mLSTM, ... (``layers/xlstm.py``); it has no MLP, so
+it reads no alphas and its decode returns no stats.  Neither family has
+chunked prefill or a paged KV pool, as in the reference: its recurrent
+state has no offset splice and no block layout.
+
+Params are dicts of tensors; each layer stack is a list of per-layer
+dicts, in layer order (the reference stacks them along a leading axis for
+``lax.scan``; a Python loop over layers takes the scan's place): dense
+and moe ``blocks`` (each with an ``"mlp"`` or a ``"moe"`` node); hybrid
+``mamba`` (the grouped layers, group g's at ``g * attn_every + j``),
+``mamba_tail``, one ``shared`` block dict and ``lora`` (one dict an
+invocation, with ``shared_lora_rank``); xlstm ``mlstm`` (group g's at
+``g * (slstm_every - 1) + j``) and ``slstm`` (one a group).  Caches:
+dense and moe ``{"blocks": [per-layer {"k", "v"[, "k_scale",
+"v_scale"]}]}``; hybrid ``{"mamba": [per layer {"ssm", "conv"}], "attn":
+[per invocation {"k", "v"[, scales]}], "tail": [...]}``; xlstm
+``{"mlstm": [{"c", "n", "m", "conv"}], "slstm": [{"c", "n", "m",
+"h"}]}``.  The KV caches are updated in place; a recurrent state is
+replaced by a new dict each step.
 
 Public API: init_lm, init_caches, init_kv_pool, prefill, prefill_chunk,
 decode_step, prepare_sparse.  ``init_lm``, ``init_caches`` and
@@ -40,6 +61,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as A
 from repro_torch.layers import embeddings as E
+from repro_torch.layers import mamba2 as M2
+from repro_torch.layers import xlstm as XL
 from repro_torch.layers.mlp import init_mlp, mlp_apply
 from repro_torch.layers.moe import MoEConfig, init_moe, moe_apply
 from repro_torch.models import common as C
@@ -53,13 +76,16 @@ CHUNK_PREFILL_FAMILIES = ("dense", "moe")
 PAGED_KV_FAMILIES = ("dense", "moe")
 
 
+FAMILIES = ("dense", "moe", "hybrid", "xlstm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm":
+    if cfg.family not in FAMILIES or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: models.lm runs the dense and moe families with "
+            f"{cfg.name}: models.lm runs the {FAMILIES} families with "
             f"RMSNorm (vlm and encdec: models.vision_lm and models.encdec; "
-            f"hybrid and xlstm are not ported, ROADMAP Queue A); got "
-            f"{[cfg.family, cfg.norm]}")
+            f"no arch of the reference runs models.lm with LayerNorm, "
+            f"ROADMAP item 17); got {[cfg.family, cfg.norm]}")
 
 
 def moe_cfg(cfg: ModelConfig) -> MoEConfig:
@@ -73,13 +99,45 @@ def moe_cfg(cfg: ModelConfig) -> MoEConfig:
                     else cfg.activation))
 
 
+def mamba_cfg(cfg: ModelConfig) -> M2.Mamba2Config:
+    return M2.Mamba2Config(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                           head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+
+
+def xlstm_cfg(cfg: ModelConfig) -> XL.XLSTMConfig:
+    return XL.XLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                          slstm_every=cfg.slstm_every or 4)
+
+
+def _hybrid_layout(cfg: ModelConfig) -> tuple:
+    """zamba2: (n_inv, n_main, n_tail): n_inv groups of the shared block
+    and ``attn_every`` Mamba2 layers (n_main in all), then n_tail."""
+    ae = cfg.attn_every
+    if ae < 1:
+        raise ValueError(f"{cfg.name}: attn_every={ae} must be >= 1")
+    n_main = cfg.n_layers // ae * ae
+    return n_main // ae, n_main, cfg.n_layers - n_main
+
+
+def _xlstm_layout(cfg: ModelConfig) -> tuple:
+    """(p, n_groups): blocks a group (one of them sLSTM), groups."""
+    p = xlstm_cfg(cfg).slstm_every
+    if p < 2 or cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
+                         f"multiple of slstm_every={p} (>= 2)")
+    return p, cfg.n_layers // p
+
+
 def _is_moe_layer(cfg: ModelConfig, i: int) -> bool:
     return cfg.family == "moe" and i >= cfg.first_dense_layers
 
 
 def has_sparse_mlp(cfg: ModelConfig) -> bool:
     """Whether any layer runs the (sparse) MLP: every dense layer does, a
-    moe config only in its ``first_dense_layers``."""
+    moe config only in its ``first_dense_layers``, a hybrid config in its
+    shared block, an xlstm config never."""
+    if cfg.family == "xlstm":
+        return False
     return cfg.family != "moe" or cfg.first_dense_layers > 0
 
 
@@ -137,6 +195,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
                          f"multiple of local_global_period="
                          f"{cfg.local_global_period}")
+    if cfg.family == "hybrid":
+        n_inv, n_main, n_tail = _hybrid_layout(cfg)
+    elif cfg.family == "xlstm":
+        p, n_groups = _xlstm_layout(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     pd = C.param_dtype(cfg)
@@ -148,6 +210,37 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = E.init_unembed(gen, cfg.vocab_padded,
                                            cfg.d_model, pd, device)
+    if cfg.family == "hybrid":
+        mc = mamba_cfg(cfg)
+
+        def mamba():
+            return {"ln": C.norm_init(cfg, device),
+                    "mixer": M2.init_mamba2(gen, mc, pd, device)}
+        params["mamba"] = [mamba() for _ in range(n_main)]
+        if n_tail:
+            params["mamba_tail"] = [mamba() for _ in range(n_tail)]
+        params["shared"] = _init_block(gen, cfg, device, False)
+        r = cfg.shared_lora_rank
+        if r:
+            hq = cfg.n_heads * cfg.resolved_head_dim
+            # lora_b_q starts at 0: a fresh LoRA adds nothing
+            params["lora"] = [
+                {"lora_a": (torch.randn((cfg.d_model, r), generator=gen,
+                                        device=device)
+                            * cfg.d_model ** -0.5).to(pd),
+                 "lora_b_q": torch.zeros((r, hq), dtype=pd, device=device)}
+                for _ in range(n_inv)]
+        return params
+    if cfg.family == "xlstm":
+        xc = xlstm_cfg(cfg)
+
+        def block(init):
+            return {"ln": C.norm_init(cfg, device),
+                    "cell": init(gen, xc, pd, device)}
+        params["mlstm"] = [block(XL.init_mlstm)
+                           for _ in range(n_groups * (p - 1))]
+        params["slstm"] = [block(XL.init_slstm) for _ in range(n_groups)]
+        return params
     params["blocks"] = [_init_block(gen, cfg, device, _is_moe_layer(cfg, i))
                         for i in range(cfg.n_layers)]
     return params
@@ -164,14 +257,40 @@ def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> dict:
-    """Zero decode caches, one KV dict per layer, on ``device`` (raises
-    without a GPU unless it is ``"cpu"``)."""
+    """Zero decode caches on ``device`` (raises without a GPU unless it is
+    ``"cpu"``): one KV dict a layer; hybrid: a Mamba2 state a layer (conv
+    tail in ``cfg.dtype``) and a KV dict an invocation of the shared
+    block; xlstm: every leaf zero, the stabilizers ``m`` too, as the
+    reference's (a prefill starts them at -1e30)."""
     _check_family(cfg)
     device = resolve_device(device)
     kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
-    return {"blocks": [A.init_kv_cache(batch, max_len, C.attn_cfg(cfg),
-                                       kv_dt, device)
-                       for _ in range(cfg.n_layers)]}
+    dt = C.compute_dtype(cfg)
+
+    def kv(n):
+        return [A.init_kv_cache(batch, max_len, C.attn_cfg(cfg), kv_dt,
+                                device) for _ in range(n)]
+    if cfg.family == "hybrid":
+        n_inv, n_main, n_tail = _hybrid_layout(cfg)
+        mc = mamba_cfg(cfg)
+        caches = {"mamba": [M2.init_mamba2_state(batch, mc, dt, device)
+                            for _ in range(n_main)],
+                  "attn": kv(n_inv)}
+        if n_tail:
+            caches["tail"] = [M2.init_mamba2_state(batch, mc, dt, device)
+                              for _ in range(n_tail)]
+        return caches
+    if cfg.family == "xlstm":
+        p, n_groups = _xlstm_layout(cfg)
+        xc = xlstm_cfg(cfg)
+
+        def zeroed(state):
+            return {k: torch.zeros_like(v) for k, v in state.items()}
+        return {"mlstm": [zeroed(XL.init_mlstm_state(batch, xc, dt, device))
+                          for _ in range(n_groups * (p - 1))],
+                "slstm": [zeroed(XL.init_slstm_state(batch, xc, device))
+                          for _ in range(n_groups)]}
+    return {"blocks": kv(cfg.n_layers)}
 
 
 def init_kv_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
@@ -194,13 +313,28 @@ def _post_norm(cfg: ModelConfig, blk: dict, name: str, h: torch.Tensor):
     return h
 
 
+def _lora_attn(attn: dict, lora: Optional[dict]) -> dict:
+    """The attention weights of one invocation of hybrid's shared block:
+    ``wq`` plus the invocation's LoRA delta ``lora_a @ lora_b_q``, computed
+    and added in the weights' dtype before any cast to the compute dtype,
+    as the reference adds it."""
+    if lora is None:
+        return attn
+    out = dict(attn)
+    out["wq"] = attn["wq"] + (lora["lora_a"] @ lora["lora_b_q"]).to(
+        attn["wq"].dtype)
+    return out
+
+
 def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, window: int):
+               positions: torch.Tensor, window: int,
+               lora: Optional[dict] = None):
     """One transformer block over a prompt (dense MLP, or the MoE layer
-    routing each sequence as a group).  Returns (x, kv)."""
+    routing each sequence as a group); ``lora``: hybrid's per-invocation
+    query delta.  Returns (x, kv)."""
     h = C.norm_apply(cfg, blk["ln1"], x)
-    h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg, window), positions,
-                     return_kv=True)
+    h, kv = A.attend(_lora_attn(blk["attn"], lora), h,
+                     C.attn_cfg(cfg, window), positions, return_kv=True)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     if "moe" in blk:
@@ -218,16 +352,140 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     dev = tokens.device
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=dev)
-    kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
-    caches = []
-    for blk, window in zip(params["blocks"], _layer_windows(cfg)):
-        x, (k, v) = _block_fwd(blk, x, cfg, positions, window)
-        cache = A.init_kv_cache(tokens.shape[0], max_len, C.attn_cfg(cfg),
-                                kv_dt, dev)
-        caches.append(A.update_kv_cache(cache, k, v, 0))
+    if cfg.family == "hybrid":
+        x, caches = _hybrid_fwd(params, x, cfg, positions, max_len)
+    elif cfg.family == "xlstm":
+        x, caches = _xlstm_fwd(params, x, cfg)
+    else:
+        blocks = []
+        for blk, window in zip(params["blocks"], _layer_windows(cfg)):
+            x, kv = _block_fwd(blk, x, cfg, positions, window)
+            blocks.append(_seed_cache(kv, max_len, cfg))
+        caches = {"blocks": blocks}
     x = C.norm_apply(cfg, params["final_norm"], x)
     logits = C.head_logits(x[:, -1], _head_table(params), cfg.final_softcap)
-    return logits, {"blocks": caches}
+    return logits, caches
+
+
+def _seed_cache(kv: tuple, max_len: int, cfg: ModelConfig) -> dict:
+    """A decode cache of ``max_len`` holding a prompt's (k, v)."""
+    k, v = kv
+    cache = A.init_kv_cache(k.shape[0], max_len, C.attn_cfg(cfg),
+                            C.torch_dtype(cfg.kv_cache_dtype), k.device)
+    return A.update_kv_cache(cache, k, v, 0)
+
+
+def _mamba_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig):
+    """One Mamba2 layer (pre-norm, residual) over a prompt -> (x, its
+    state after the prompt)."""
+    h, st = M2.mamba2_forward(blk["mixer"], C.norm_apply(cfg, blk["ln"], x),
+                              mamba_cfg(cfg), return_state=True)
+    return x + h, st
+
+
+def _mamba_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig,
+                  state: dict):
+    h, st = M2.mamba2_decode(blk["mixer"], C.norm_apply(cfg, blk["ln"], x),
+                             state, mamba_cfg(cfg))
+    return x + h, st
+
+
+def _loras(params: dict, n_inv: int) -> list:
+    return params.get("lora") or [None] * n_inv
+
+
+def _hybrid_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, max_len: int):
+    """zamba2 over a prompt: each group's shared-block invocation (its KV
+    seeding a decode cache; the softmax over the prompt alone, as the
+    reference's hybrid prefill has no ``kv_pad_to``), then the group's
+    Mamba2 layers; then the tail.  Returns (x, caches)."""
+    n_inv, _, _ = _hybrid_layout(cfg)
+    ae = cfg.attn_every
+    caches: dict = {"mamba": [], "attn": []}
+    for g, lora in enumerate(_loras(params, n_inv)):
+        x, kv = _block_fwd(params["shared"], x, cfg, positions, 0, lora)
+        caches["attn"].append(_seed_cache(kv, max_len, cfg))
+        for blk in params["mamba"][g * ae:(g + 1) * ae]:
+            x, st = _mamba_fwd(blk, x, cfg)
+            caches["mamba"].append(st)
+    if params.get("mamba_tail"):
+        caches["tail"] = []
+        for blk in params["mamba_tail"]:
+            x, st = _mamba_fwd(blk, x, cfg)
+            caches["tail"].append(st)
+    return x, caches
+
+
+def _hybrid_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                   caches: dict, cache_len, alphas=None,
+                   collect_stats: bool = False):
+    """One zamba2 decode step.  Invocation g of the shared block takes row
+    g of the n_layers-long ``alphas`` ((n_layers,) or (n_layers, B)), as
+    the reference slices ``alphas[:n_inv]``; stats (n_inv, B)."""
+    n_inv, _, _ = _hybrid_layout(cfg)
+    ae = cfg.attn_every
+    alphas = _layer_alphas(cfg, alphas, x.device)
+    new: dict = {"mamba": [], "attn": []}
+    stats = []
+    for g, lora in enumerate(_loras(params, n_inv)):
+        x, cache, st = _block_decode(params["shared"], x, cfg,
+                                     caches["attn"][g], cache_len, 0,
+                                     alphas[g], collect_stats=collect_stats,
+                                     lora=lora)
+        new["attn"].append(cache)
+        stats.append(st)
+        for i in range(g * ae, (g + 1) * ae):
+            x, state = _mamba_decode(params["mamba"][i], x, cfg,
+                                     caches["mamba"][i])
+            new["mamba"].append(state)
+    if params.get("mamba_tail"):
+        new["tail"] = []
+        for blk, state in zip(params["mamba_tail"], caches["tail"]):
+            x, state = _mamba_decode(blk, x, cfg, state)
+            new["tail"].append(state)
+    return x, new, _stack_stats(stats) if collect_stats else None
+
+
+def _xlstm_blocks(cfg: ModelConfig):
+    """The blocks in layer order, the reference's per group: (kind, index
+    in its list), kind "m" or "s": m0, s, m1, ..., m(p-2)."""
+    p, n_groups = _xlstm_layout(cfg)
+    for g in range(n_groups):
+        yield "m", g * (p - 1)
+        yield "s", g
+        for j in range(1, p - 1):
+            yield "m", g * (p - 1) + j
+
+
+def _xlstm_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """xlstm over a prompt, each cell from a fresh state.  Returns (x,
+    caches)."""
+    xc = xlstm_cfg(cfg)
+    caches: dict = {"mlstm": [], "slstm": []}
+    for kind, i in _xlstm_blocks(cfg):
+        blk = params["mlstm" if kind == "m" else "slstm"][i]
+        fwd = XL.mlstm_forward if kind == "m" else XL.slstm_forward
+        h, st = fwd(blk["cell"], C.norm_apply(cfg, blk["ln"], x), xc,
+                    return_state=True)
+        x = x + h
+        caches["mlstm" if kind == "m" else "slstm"].append(st)
+    return x, caches
+
+
+def _xlstm_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  caches: dict):
+    xc = xlstm_cfg(cfg)
+    new: dict = {"mlstm": [None] * len(caches["mlstm"]),
+                 "slstm": [None] * len(caches["slstm"])}
+    for kind, i in _xlstm_blocks(cfg):
+        part = "mlstm" if kind == "m" else "slstm"
+        blk = params[part][i]
+        dec = XL.mlstm_decode if kind == "m" else XL.slstm_decode
+        h, new[part][i] = dec(blk["cell"], C.norm_apply(cfg, blk["ln"], x),
+                              caches[part][i], xc)
+        x = x + h
+    return x, new
 
 
 def _moe_block(blk: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -244,17 +502,19 @@ def _moe_block(blk: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def _block_decode(blk: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                   cache_len, window: int, alpha, collect_stats: bool = False,
-                  block_table=None):
+                  block_table=None, lora: Optional[dict] = None):
     """One block, single-token decode.  Returns (x, cache, stats or None).
     ``block_table`` switches the attention onto the paged KV pool
-    (``cache`` is then this layer's pool leaves)."""
+    (``cache`` is then this layer's pool leaves); ``lora``: hybrid's
+    per-invocation query delta."""
     h = C.norm_apply(cfg, blk["ln1"], x)
     acfg = C.attn_cfg(cfg, window)
+    attn = _lora_attn(blk["attn"], lora)
     if block_table is not None:
-        h, cache = A.paged_decode_attend(blk["attn"], h, acfg, cache,
-                                         cache_len, block_table)
+        h, cache = A.paged_decode_attend(attn, h, acfg, cache, cache_len,
+                                         block_table)
     else:
-        h, cache = A.decode_attend(blk["attn"], h, acfg, cache, cache_len)
+        h, cache = A.decode_attend(attn, h, acfg, cache, cache_len)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     if "moe" in blk:                      # each slot a group of one token
@@ -275,11 +535,7 @@ def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     schedule: (n_layers,) per layer or (n_layers, B) per layer and slot.
     ``block_table`` (B, nbps): paged-KV mode, ``caches`` is then the block
     pool (``init_kv_pool``), its table shared by every layer."""
-    alphas = torch.as_tensor(_alphas(cfg) if alphas is None else alphas,
-                             dtype=torch.float32, device=x.device)
-    if alphas.shape[0] != cfg.n_layers:
-        raise ValueError(f"alphas {tuple(alphas.shape)}: need n_layers="
-                         f"{cfg.n_layers} rows")
+    alphas = _layer_alphas(cfg, alphas, x.device)
     new, stats = [], []
     for i, (blk, cache, window) in enumerate(zip(
             params["blocks"], caches["blocks"], _layer_windows(cfg))):
@@ -291,6 +547,17 @@ def _dense_stack_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if collect_stats:
         return x, {"blocks": new}, _stack_stats(stats)
     return x, {"blocks": new}, None
+
+
+def _layer_alphas(cfg: ModelConfig, alphas, device) -> torch.Tensor:
+    """The decode step's alphas as a float32 tensor: the static schedule,
+    or the caller's (n_layers,) or (n_layers, B)."""
+    alphas = torch.as_tensor(_alphas(cfg) if alphas is None else alphas,
+                             dtype=torch.float32, device=device)
+    if alphas.shape[0] != cfg.n_layers:
+        raise ValueError(f"alphas {tuple(alphas.shape)}: need n_layers="
+                         f"{cfg.n_layers} rows")
+    return alphas
 
 
 def _stack_stats(stats: list) -> dict:
@@ -306,19 +573,27 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     """One decode step.  token (B, 1) -> (logits (B, V) float32, caches
     [, stats]).  ``cache_len``: scalar shared length or (B,) per-slot
     lengths.  With ``collect_stats`` the stats are a dict over
-    ``MLP_STAT_KEYS`` of (L, B) float32 tensors, and with ``tp_shards``
-    also the per-shard riders (L, B, tp_shards).  ``block_table``
-    (B, nbps) int32: ``caches`` is a paged KV pool (``init_kv_pool``) and
-    ``cache_len`` must be per slot."""
+    ``MLP_STAT_KEYS`` of (L, B) float32 tensors (hybrid: L = n_inv, the
+    shared block's invocations; xlstm: no stats, None), and with
+    ``tp_shards`` also the per-shard riders (L, B, tp_shards).
+    ``block_table`` (B, nbps) int32: ``caches`` is a paged KV pool
+    (``init_kv_pool``) and ``cache_len`` must be per slot."""
     _check_family(cfg)
     if block_table is not None and cfg.family not in PAGED_KV_FAMILIES:
         raise NotImplementedError(
             f"paged KV decode supports {PAGED_KV_FAMILIES}, not "
             f"{cfg.family!r}")
     x = _embed_in(params, cfg, token)
-    x, caches, stats = _dense_stack_decode(params, x, cfg, caches, cache_len,
-                                           alphas, collect_stats,
-                                           block_table)
+    if cfg.family == "hybrid":
+        x, caches, stats = _hybrid_decode(params, x, cfg, caches, cache_len,
+                                          alphas, collect_stats)
+    elif cfg.family == "xlstm":
+        x, caches = _xlstm_decode(params, x, cfg, caches)
+        stats = None
+    else:
+        x, caches, stats = _dense_stack_decode(
+            params, x, cfg, caches, cache_len, alphas, collect_stats,
+            block_table)
     x = C.norm_apply(cfg, params["final_norm"], x)
     logits = C.head_logits(x[:, 0], _head_table(params), cfg.final_softcap)
     if collect_stats:
@@ -459,8 +734,9 @@ def prepare_sparse(params: dict, sparse: Optional[SM.SparseInferConfig] = None
     expert); with ``sparse.weight_dtype == "int8"`` also quantize every
     MLP node, the shared experts included, while the expert stacks stay
     float.  Like the reference's walk it reaches every block list of the
-    tree (``blocks``; an encoder-decoder's ``enc_blocks`` and
-    ``dec_blocks``; a vlm's ``self_blocks`` and ``cross_blocks``)."""
+    tree (``blocks``; hybrid's one ``shared`` block, packed once; an
+    encoder-decoder's ``enc_blocks`` and ``dec_blocks``; a vlm's
+    ``self_blocks`` and ``cross_blocks``).  xlstm has no gated node."""
     def walk(node):
         if isinstance(node, list):
             return [walk(v) for v in node]

@@ -74,9 +74,13 @@ tuples, the full ``len(ladder) ** tp_shards`` product when that is at most
 Every tuple's local shapes are checked against the kernels' plans at
 construction and as it activates.
 
-Every model module of the port serves: ``models.lm`` (dense, moe),
-``models.encdec`` and ``models.vision_lm`` (with ``extra_inputs``; no
-paged pool, as in the reference).  Not ported yet: controller
+Every model module of the port serves: ``models.lm`` (dense, moe, hybrid,
+xlstm), ``models.encdec`` and ``models.vision_lm`` (with ``extra_inputs``).
+As in the reference, only dense and moe have a paged pool, and hybrid and
+xlstm no chunked prefill: ``prefill_chunk`` set for them warns and admits
+through the monolithic prefill.  hybrid's controller is as wide as its
+shared block's invocations, its alphas padded to n_layers rows for the
+decode step; xlstm has no MLP and refuses the controller.  Not ported yet: controller
 checkpoints, and placing a shard grid on several devices (the
 reference's ``mesh``).
 """
@@ -256,9 +260,16 @@ class Server:
                 raise ValueError(
                     f"prefill_interleave={scfg.prefill_interleave} must be "
                     ">= 1 (chunks per decode-loop iteration)")
-            if cfg.family not in model_mod.CHUNK_PREFILL_FAMILIES:
-                raise NotImplementedError(
-                    f"family {cfg.family!r} has no chunked prefill")
+        fams = getattr(model_mod, "CHUNK_PREFILL_FAMILIES", ())
+        self._chunk_prefill = bool(scfg.prefill_chunk) and cfg.family in fams
+        if scfg.prefill_chunk and not self._chunk_prefill:
+            # the reference's scheduling rule: recurrent state has no
+            # offset splice, so admissions prefill a prompt whole
+            warnings.warn(
+                f"prefill_chunk={scfg.prefill_chunk} set but family "
+                f"{cfg.family!r} has no chunked prefill (supported: "
+                f"{fams}); admissions run the monolithic batch-1 prefill",
+                stacklevel=2)
         if scfg.preempt and scfg.paged_kv is None:
             raise ValueError(
                 "ServeConfig.preempt needs the paged KV pool (paged_kv): "
@@ -344,6 +355,9 @@ class Server:
                 "buckets; decoding uses the static capacity_frac",
                 stacklevel=2)
         if scfg.controller.enabled and cfg.sparse.enabled:
+            if cfg.family == "xlstm":
+                raise ValueError("xlstm has no SparseInfer MLP decode path; "
+                                 "controller unsupported")
             self._build_controller_fns()
         if cfg.sparse.enabled and cfg.sparse.tp_shards \
                 and cfg.sparse.strategy == "pallas":
@@ -549,10 +563,12 @@ class Server:
             return
         tiers = scfg.sla_tiers if scfg.controller.per_tier else None
         # one alpha per layer, as the reference counts them for dense and
-        # moe: an MoE layer's row sees its zero stats
+        # moe (an MoE layer's row sees its zero stats); hybrid: one an
+        # invocation of the shared block
         ctl = AlphaController(
-            scfg.controller, cfg.sparse.alpha_schedule(), cfg.n_layers,
-            tiers=tiers, native_fn=cfg.sparse.strategy == "pallas")
+            scfg.controller, cfg.sparse.alpha_schedule(),
+            self._n_controlled_layers(), tiers=tiers,
+            native_fn=cfg.sparse.strategy == "pallas")
         if cfg.sparse.tp_shards:
             # the sharded strategies' per-shard riders: skew, per-shard
             # bucket hints, and stripped before the aggregation
@@ -727,6 +743,24 @@ class Server:
                 f"request {req.uid}: unknown SLA tier {req.sla!r} "
                 f"(configured: {sorted(self._tier_index)})") from None
 
+    def _n_controlled_layers(self) -> int:
+        """The rows of the controller's alphas and of the decode step's
+        stats: hybrid's invocations of the shared block, else n_layers."""
+        if self.cfg.family == "hybrid":
+            return self.cfg.n_layers // self.cfg.attn_every
+        return self.cfg.n_layers
+
+    def _pad_layers(self, a: np.ndarray) -> np.ndarray:
+        """A controller's alphas (rows: ``_n_controlled_layers``) padded
+        with ones to n_layers rows, the decode step's alpha shape (hybrid
+        reads its first n_inv rows; the padding is never read)."""
+        n = self.cfg.n_layers
+        if a.shape[0] == n:
+            return np.asarray(a, np.float32)
+        out = np.ones((n,) + a.shape[1:], np.float32)
+        out[:a.shape[0]] = a
+        return out
+
     def _slot_alpha_matrix(self, tier_idx: np.ndarray,
                            active: Optional[np.ndarray] = None
                            ) -> np.ndarray:
@@ -736,10 +770,10 @@ class Server:
         ``DEAD_SLOT_ALPHA``."""
         ctl = self.controller
         if ctl is not None and ctl.tiers:
-            mat = ctl.slot_alphas(tier_idx)
+            mat = self._pad_layers(ctl.slot_alphas(tier_idx))
         else:
             base = (self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
-                    if ctl is None else ctl.alphas())
+                    if ctl is None else self._pad_layers(ctl.alphas()))
             mat = (base[:, None]
                    + self._tier_offsets[tier_idx][None, :]).astype(np.float32)
         if active is not None and not active.all():
@@ -786,9 +820,9 @@ class Server:
         alpha in the model)."""
         ctl = self.controller
         if ctl is not None and ctl.tiers:
-            return ctl.slot_alphas(np.asarray([t]))[:, 0]
+            return self._pad_layers(ctl.slot_alphas(np.asarray([t])))[:, 0]
         base = (self.cfg.sparse.alpha_schedule().alphas(self.cfg.n_layers)
-                if ctl is None else ctl.alphas())
+                if ctl is None else self._pad_layers(ctl.alphas()))
         return (base + self._tier_offsets[t]).astype(np.float32)
 
     # ------------------------------------------------------- paged KV ----
@@ -905,7 +939,7 @@ class Server:
                     audit = ctl.is_audit_step()
                     self._select_bucket()
                     alphas = (self._slot_alpha_matrix(tiers) if ctl.tiers
-                              else ctl.alphas())
+                              else self._pad_layers(ctl.alphas()))
                     if self.scfg.warm_buckets and not self._warmed_buckets:
                         self._warm_bucket_ladder(tok, caches, lengths,
                                                  alphas)
@@ -965,7 +999,7 @@ class Server:
 
     def _serve_slot_refill(self, requests: list[Request]) -> list[Request]:
         scfg, B = self.scfg, self.scfg.batch
-        pc = scfg.prefill_chunk
+        pc = scfg.prefill_chunk if self._chunk_prefill else 0
         hub = self.metrics            # every method a no-op when disabled
         queue = collections.deque(requests)
         done: list[Request] = []
@@ -1437,7 +1471,9 @@ class Server:
                               hist="controller_update_s"):
                     self._observe_step(stats, tier_idx, active, audit)
             else:
-                if alpha_mat is None:
+                # xlstm reads no alphas: it decodes on the plain step, as
+                # the reference's uniform-alpha serve does
+                if alpha_mat is None and self.cfg.family != "xlstm":
                     alpha_mat = self._slot_alpha_matrix(tier_idx, active)
                 ntok, caches = self._decode(tok, caches, lengths, alpha_mat,
                                             table)

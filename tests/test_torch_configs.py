@@ -9,10 +9,12 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
 
 ARCH = "prosparse-llama2-7b"
-# the dense, moe, encdec and vlm families: every arch the port registers
+# the dense, moe, encdec, vlm, hybrid and xlstm families: every arch the
+# port registers, which is every arch of the reference
 ARCHS = ("prosparse-llama2-7b", "prosparse-llama2-13b", "qwen3-8b",
          "qwen1.5-32b", "granite-34b", "gemma2-2b", "deepseek-moe-16b",
-         "olmoe-1b-7b", "seamless-m4t-medium", "llama-3.2-vision-90b")
+         "olmoe-1b-7b", "seamless-m4t-medium", "llama-3.2-vision-90b",
+         "zamba2-1.2b", "xlstm-125m")
 CROSS_ARCHS = ("seamless-m4t-medium", "llama-3.2-vision-90b")
 
 
@@ -28,7 +30,7 @@ def test_model_config_fields_equal(make, arch):
 
 def test_registry_and_sla_tiers():
     assert treg.arch_names() == sorted(ARCHS)
-    assert set(treg.arch_names()) <= set(jreg.arch_names())
+    assert treg.arch_names() == jreg.arch_names()
     assert [dataclasses.asdict(t) for t in tbase.DEFAULT_SLA_TIERS] == \
         [dataclasses.asdict(t) for t in jbase.DEFAULT_SLA_TIERS]
     with pytest.raises(KeyError):
