@@ -282,7 +282,32 @@ Phases, in order; any failure exits non-zero:
              prompts; launches exact from load (zamba2: one sign pack, then
              two kernels an invocation a decode step; xlstm: none), the
              peak memory and a profiled decode step each.
- 20. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 20. train   the training path (``lm_loss``, its backward, AdamW,
+             ``runtime/trainer.py``), which launches none of the ten serving
+             kernels (training takes the dense MLP, as the reference's):
+             (a) prosparse-llama2-7b at full width and 2 layers, float32
+             params and compute, one synthetic batch (B=1, S=64): the loss,
+             every gradient leaf and one AdamW update on the card against
+             the CPU on the same weights (loss within 1e-4 relative, each
+             gradient leaf within 1e-3 x its largest magnitude, params
+             within 2 lr + 1e-6), then the same step with the config's bf16
+             compute (loss within 2e-2 relative, the gaps printed); (b) the
+             same model at full width and 4 of its 32 layers with the
+             config's dtypes and remat: 12 Trainer steps at global batch 4,
+             S=1024 (median step time, tokens/s, peak memory, a profiled
+             step, the model FLOPs' share of the bf16 dense peak), then 4
+             steps twice from one seed under deterministic algorithms,
+             their losses equal bit for bit; (c) xlstm-125m whole (B=4,
+             S=64) crashed at step 5 with async checkpoints every 3 steps,
+             resumed by a new Trainer from step 3, steps 4-6 bit for bit an
+             uninterrupted run's (deterministic algorithms on), the
+             checkpoint's bytes and write time; (d) zamba2-1.2b,
+             seamless-m4t-medium and gemma2-2b whole, olmoe-1b-7b at 2 of
+             16 layers and deepseek-moe-16b with its dense first layer and
+             one MoE layer: 3 steps each at B=2, S=256, loss and grad norm
+             finite, the peak memory.  No serving kernel launches in the
+             phase.
+ 21. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -337,6 +362,11 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# cuBLAS reads this when it creates its handle, before any CUDA call: the
+# training phase's bitwise checks run under deterministic algorithms,
+# which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
 # outside the tensor cores (where most kernels' arithmetic runs) and the
@@ -2261,16 +2291,18 @@ def profile_prefill_chunk(srv, cfg, kind: str) -> None:
                                           pc, alphas=alphas))
 
 
-def profile_step(label: str, fn, steps: int = 3) -> None:
+def profile_step(label: str, fn, steps: int = 3, grad: bool = False
+                 ) -> None:
     """Host wall time of ``fn`` against device busy time (torch.profiler),
     and the largest kernels by name.  The profiler's count of the port's
     kernels is held against the launch counters: a run in which it missed
-    launches reports no device busy time."""
+    launches reports no device busy time.  ``grad``: ``fn`` needs autograd
+    (a training step); else it runs under inference mode."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
 
-    with torch.inference_mode():
+    with (torch.enable_grad() if grad else torch.inference_mode()):
         fn()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -5626,6 +5658,350 @@ def phase_recurrent(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+TRAIN_DEVICE = "cuda"     # the card (a rehearsal on the CPU sets "cpu")
+TRAIN_ARCH = "prosparse-llama2-7b"
+TRAIN_LAYERS = 4          # (b): a cut of depth only, every width published
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 12
+# (c): xlstm-125m's time loops are launch-bound (~15 ms a time step and
+# block for a training step's forward, recomputes and backward), so the
+# crash-and-resume runs 64 time steps
+RESUME_SEQ = 64
+# (d): every other family the card holds whole or at a depth cut, 3 steps
+TRAIN_FAMILIES = (("zamba2-1.2b", {}), ("seamless-m4t-medium", {}),
+                  ("gemma2-2b", {}), ("olmoe-1b-7b", {"n_layers": 2}),
+                  ("deepseek-moe-16b", {"n_layers": 2}))
+
+
+def _train_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr_peak=3e-4, lr_min=3e-5, warmup_steps=1,
+                       decay_steps=100)
+
+
+def _train_cpu_vs_card() -> None:
+    """(a): one loss, backward and AdamW update of prosparse-llama2-7b at
+    full width and 2 layers, on the card and on the CPU from the same
+    weights and batch: float32, then the config's bf16 compute."""
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_update, cosine_lr, init_adamw
+    from repro_torch.tree import flatten, path_str, unflatten
+
+    base = get_config(TRAIN_ARCH).replace(n_layers=2)
+    tree = _numpy_tree(base, 60)
+    batch = SyntheticSource(DataConfig(vocab=base.vocab, seq_len=64,
+                                       global_batch=1)).batch_at(0)
+    opt = _train_opt()
+    lr1 = float(cosine_lr(opt, 1))
+    for dtype, loss_tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        cfg = base.replace(dtype=dtype, param_dtype="float32")
+        out = [None, None]
+        for i, dev in enumerate((TRAIN_DEVICE, "cpu")):
+            params = bridge.params_from_numpy(tree, cfg, device=dev)
+            leaves = [p.requires_grad_(True) for _, p in flatten(params)]
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            signs = []
+
+            def tap(orig, p, x, c, **kw):
+                # the ReLU gate's pre-activation signs, as the MLP forms them
+                with torch.no_grad():
+                    signs.append((x @ p["wg_t"].to(x.dtype).T > 0).reshape(
+                        -1, p["wg_t"].shape[0]).cpu())
+                return orig(p, x, c, **kw)
+            with _mlp_tap(tap):
+                loss, _ = lm.lm_loss(params, cfg, b)
+                grads = torch.autograd.grad(loss, leaves)
+            params, _, met = adamw_update(opt, params, unflatten(
+                params, grads), init_adamw(params))
+            names = [path_str(path) for path, _ in flatten(params)]
+            out[i] = (float(loss.detach()), [g.cpu() for g in grads],
+                        [p.detach().cpu() for _, p in flatten(params)],
+                        float(met["grad_norm"]), signs[:cfg.n_layers])
+            del params, leaves, grads, loss
+            torch.cuda.empty_cache()
+        (l_c, g_c, p_c, n_c, s_c), (l_h, g_h, p_h, n_h, s_h) = out
+        rel = abs(l_c - l_h) / abs(l_h)
+        # a gate pre-activation within rounding of 0 can take the ReLU's
+        # other side on the other device: that neuron's row of the gate
+        # gradient then gains or loses the token's whole term.  Those rows
+        # are counted and left out of the gate leaves' check
+        flipped = [(a != b).any(0) for a, b in zip(s_c, s_h)]
+        gaps = []
+        for a, b, n in zip(g_c, g_h, names):
+            parts = n.split("/")
+            if parts[-1] == "wg_t" and parts[0] == "blocks":
+                keep = ~flipped[int(parts[1])]
+                a, b = a[keep], b[keep]
+            gaps.append((float((a - b).abs().max() / b.abs().max()
+                               .clamp_min(1e-30)), n, float(b.abs().max())))
+        gaps.sort(reverse=True)
+        g_rel = gaps[0][0]
+        p_gap = max(float((a - b).abs().max()) for a, b in zip(p_c, p_h))
+        beyond = sum(int(((a - b).abs() > 1e-6).sum())
+                     for a, b in zip(p_c, p_h))
+        total = sum(a.numel() for a in p_c)
+        print(f"[train] (a) {dtype} compute: loss card {l_c:.6f} cpu "
+              f"{l_h:.6f} (rel gap {rel:.2e}), grad norm {n_c:.5f} / "
+              f"{n_h:.5f}, worst gradient leaf gap {g_rel:.2e} x its max, "
+              f"params after one AdamW step: max gap {p_gap:.2e} (bound "
+              f"{2 * lr1 + 1e-6:.2e}), {beyond} of {total} beyond 1e-6",
+              flush=True)
+        print(f"[train] (a) gate rows with a pre-activation on the other "
+              f"side of 0 (left out of wg_t's check): "
+              f"{[int(f.sum()) for f in flipped]} of {s_h[0].shape[1]} a "
+              "layer; largest gradient gaps (x the leaf's max; its max): "
+              + ", ".join(f"{n} {g:.2e} ({m:.2e})" for g, n, m in gaps[:6]),
+              flush=True)
+        if not rel <= loss_tol:
+            fail(f"train (a) {dtype}: loss gap {rel:.2e} > {loss_tol}")
+        if dtype == "float32":
+            if not g_rel <= 1e-3:
+                fail(f"train (a): a gradient leaf is {g_rel:.2e} x its "
+                     "largest magnitude off the CPU's")
+            # a flipped sign is a rounding tie, so only a few rows may flip
+            most = max(int(f.sum()) for f in flipped)
+            if not most <= 1e-3 * s_h[0].shape[1]:
+                fail(f"train (a): {most} gate rows of {s_h[0].shape[1]} "
+                     "flipped the ReLU's side in one layer (> 0.1%)")
+            if not p_gap <= 2 * lr1 + 1e-6:
+                fail(f"train (a): params {p_gap:.2e} apart after one step")
+            # the 2 lr bound holds any sign-like step: the count beyond
+            # 1e-6 is what separates a few ties from wrong gradients
+            if not beyond <= 1e-2 * total:
+                fail(f"train (a): {beyond} of {total} params beyond 1e-6 "
+                     "after one step (> 1%)")
+        del out
+    del tree
+
+
+def _train_trainer(cfg, batch: int, seq: int, ckpt_dir: str, seed: int = 0,
+                   **tkw):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.specs import model_module
+    from repro_torch.launch.train import extra_batch_fn
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    tkw.setdefault("ckpt_every", 10 ** 9)
+    t = Trainer(model_module(cfg), cfg, TrainerConfig(ckpt_dir=ckpt_dir,
+                                                      **tkw),
+                _train_opt(), DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                         global_batch=batch),
+                device=TRAIN_DEVICE,
+                extra_batch=extra_batch_fn(cfg, batch, TRAIN_DEVICE))
+    t.init_state(seed)
+    return t
+
+
+def _check_finite(label: str, hist: list) -> None:
+    import math
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train {label}: step {h['step']} loss {h['loss']} grad "
+                 f"norm {h['grad_norm']}")
+
+
+def _n_params(tree) -> int:
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def _step_flops(cfg, params, tokens: int, b: int, s: int) -> tuple:
+    """(model FLOPs of a training step, recompute FLOPs): 6 N tokens over
+    the weights that multiply (every block and the output table; the
+    embedding is a lookup) plus attention's QK^T and PV over the full S x
+    S scores the port computes, times 3 for forward and backward; the
+    recompute of ``remat`` is one more forward of the blocks."""
+    blocks = _n_params(params["blocks"])
+    head = params.get("unembed", params["embed"])["table"].numel()
+    hd = cfg.resolved_head_dim
+    attn_fwd = cfg.n_layers * 4 * b * s * s * cfg.n_heads * hd
+    model = 6 * (blocks + head) * tokens + 3 * attn_fwd
+    recompute = (2 * blocks * tokens + attn_fwd) if cfg.remat else 0
+    return model, recompute
+
+
+def _train_full_width(tmp: str) -> None:
+    """(b): prosparse-llama2-7b at full width and 4 layers through the
+    Trainer, then the deterministic double run."""
+    import statistics
+
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS, remat=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = _train_trainer(cfg, TRAIN_BATCH, TRAIN_SEQ, tmp)
+    n = _n_params(t.params)
+    hist = t.run(steps=TRAIN_STEPS)
+    _check_finite("(b)", hist)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(h["time_s"] for h in hist) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model, recompute = _step_flops(cfg, t.params, tokens, TRAIN_BATCH,
+                                   TRAIN_SEQ)
+    share = model / (ms / 1e3) / BF16_OPS_PER_S
+    print(f"[train] (b) {TRAIN_ARCH} at full width, {TRAIN_LAYERS} layers "
+          f"({n / 1e9:.3f} G params, float32 params, bf16 compute, remat), "
+          f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          f"{[round(h['loss'], 4) for h in hist]}, median step "
+          f"{ms:.1f} ms (steps {[round(h['time_s'] * 1e3, 1) for h in hist]}"
+          f"), {tokens / ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB",
+          flush=True)
+    print(f"[train] (b) model FLOPs a step {model / 1e12:.2f} T (6 N tokens "
+          f"+ attention) and {recompute / 1e12:.2f} T recomputed; model "
+          f"FLOPs / step time = {model / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{share:.3f} of the H100's bf16 dense peak (989 TFLOP/s), "
+          f"{(model + recompute) / (ms / 1e3) / BF16_OPS_PER_S:.3f} with "
+          "the recompute", flush=True)
+    # profile_step sets the launch counts to zero: read (b)'s so far first
+    _no_serving_launches("(b) Trainer steps")
+    profile_step(f"train step ({TRAIN_ARCH}, {TRAIN_LAYERS} layers, "
+                 f"B={TRAIN_BATCH}, S={TRAIN_SEQ})",
+                 lambda: t.run(steps=1), steps=1, grad=True)
+    del t
+    torch.cuda.empty_cache()
+    losses = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            t = _train_trainer(cfg, TRAIN_BATCH, TRAIN_SEQ, tmp, seed=5)
+            losses.append([h["loss"] for h in t.run(steps=4)])
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[train] (b) deterministic algorithms, 4 steps twice from seed 5:"
+          f" {losses[0]} / {losses[1]}", flush=True)
+    if losses[0] != losses[1]:
+        fail("train (b): two deterministic runs from one seed differ")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _train_resume(tmp: str) -> None:
+    """(c): xlstm-125m crashed at step 5 and resumed from step 3's async
+    checkpoint, bitwise an uninterrupted run, deterministic algorithms
+    on."""
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("xlstm-125m")
+    ck = os.path.join(tmp, "xlstm")
+    torch.use_deterministic_algorithms(True)
+    try:
+        t1 = _train_trainer(cfg, 4, RESUME_SEQ, ck, ckpt_every=3,
+                            async_ckpt=True)
+        try:
+            t1.run(steps=10, fail_at=5)
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            fail("train (c): the injected failure did not fire")
+        steps_1 = [round(h["time_s"] * 1e3, 1) for h in t1.history]
+        del t1
+        torch.cuda.empty_cache()
+        t2 = _train_trainer(cfg, 4, RESUME_SEQ, ck, ckpt_every=3,
+                            async_ckpt=True)
+        if not t2.maybe_resume() or t2.global_step != 3:
+            fail(f"train (c): resumed at {t2.global_step}, not step 3")
+        resumed = {h["step"]: h["loss"] for h in t2.run(steps=3)}
+        nbytes = _dir_bytes(os.path.join(ck, "step_00000003"))
+        t0 = time.perf_counter()
+        t2.save(blocking=True)
+        write_s = time.perf_counter() - t0
+        del t2
+        torch.cuda.empty_cache()
+        t3 = _train_trainer(cfg, 4, RESUME_SEQ,
+                            os.path.join(tmp, "xlstm_ref"))
+        ref = {h["step"]: h["loss"] for h in t3.run(steps=6)}
+        del t3
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got, want = [resumed[s] for s in (4, 5, 6)], [ref[s] for s in (4, 5, 6)]
+    print(f"[train] (c) xlstm-125m B=4 S={RESUME_SEQ}: crashed at step 5 "
+          f"(step ms {steps_1}), resumed at 3: steps 4-6 {got} / "
+          f"uninterrupted {want}; a checkpoint "
+          f"(params, mu, nu) {nbytes / 1e9:.3f} GB, a blocking save "
+          f"{write_s:.2f} s", flush=True)
+    if got != want:
+        fail("train (c): the resumed steps differ from the uninterrupted run")
+
+
+def _train_families(tmp: str) -> None:
+    """(d): 3 steps of every other family the card holds."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    for arch, cut in TRAIN_FAMILIES:
+        cfg = get_config(arch).replace(**cut)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 1e9
+        t = _train_trainer(cfg, 2, 256, os.path.join(tmp, arch))
+        n = _n_params(t.params)
+        hist = t.run(steps=3)
+        _check_finite(f"(d) {arch}", hist)
+        print(f"[train] (d) {arch} ({cfg.n_layers} layers, {n / 1e9:.3f} G "
+              f"params) B=2 S=256: losses "
+              f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+              f"{[round(h['grad_norm'], 3) for h in hist]}, median step "
+              f"{statistics.median(h['time_s'] for h in hist) * 1e3:.1f} ms, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+              f" ({before:.2f} GB held before the trainer)", flush=True)
+        del t
+    torch.cuda.empty_cache()
+
+
+def phase_train(results: dict) -> None:
+    """The training path on the card: (a) card against CPU, (b) full-width
+    training and its deterministic double run, (c) crash and resume, (d)
+    every other family.  No serving kernel launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import ops
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for step, fn in (("a", _train_cpu_vs_card),
+                         ("b", lambda: _train_full_width(tmp)),
+                         ("c", lambda: _train_resume(tmp)),
+                         ("d", lambda: _train_families(tmp))):
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            fn()
+            print(f"[train] ({step}) {time.perf_counter() - t:.1f} s",
+                  flush=True)
+            _no_serving_launches(f"({step})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[train] no serving kernel launched in any sub-phase", flush=True)
+    torch.cuda.empty_cache()
+
+
+def _no_serving_launches(label: str) -> None:
+    """Fails if a serving kernel launched since the counts were last set
+    to zero: training takes the dense MLP, as the reference does."""
+    from repro_torch.kernels import ops
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        fail(f"train {label}: serving kernels launched in training: "
+             f"{launched}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5955,7 +6331,8 @@ def main() -> None:
                         (phase_sharded, (results,)),
                         (phase_moe, (results,)),
                         (phase_cross, (results,)),
-                        (phase_recurrent, (results,))):
+                        (phase_recurrent, (results,)),
+                        (phase_train, (results,))):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

@@ -21,6 +21,10 @@ for leaf, in its own dtypes; an MoE node (router, expert stacks
 ``pool_from_numpy`` does the same for a paged KV pool (the reference's
 ``init_kv_pool`` tree: leaves (L, N, block, ...) under ``blocks``, and
 under ``first`` for a moe config's first layers).
+``params_to_numpy`` is the inverse of ``params_from_numpy``: the port's
+tree (params, gradients, AdamW moments) back to the reference's stacked
+layout with numpy leaves, for every block list above; bfloat16 leaves
+come back as float32 (exactly), since numpy has no bfloat16 of its own.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.tree import FAMILY_LISTS, LAYER_LISTS
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -53,27 +58,31 @@ def _n_stacked(node) -> int:
 
 
 def _block_lists(cfg: ModelConfig) -> dict:
-    """The stacked lists of an encdec, vlm, hybrid or xlstm tree and their
-    lengths (0: the tree has no such list)."""
+    """The port's per-layer lists of ``cfg``'s family (``FAMILY_LISTS``)
+    and their lengths (0: the tree has no such list).  A dense or moe
+    ``blocks`` holds every layer, a moe config's dense first ones too."""
     if cfg.family == "encdec":
-        return {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
-    if cfg.family == "hybrid":
+        n = (cfg.n_enc_layers, cfg.n_layers)
+    elif cfg.family == "hybrid":
         ae = cfg.attn_every
         n_main = cfg.n_layers // ae * ae
-        return {"mamba": n_main, "mamba_tail": cfg.n_layers - n_main,
-                "lora": n_main // ae if cfg.shared_lora_rank else 0}
-    if cfg.family == "xlstm":
+        n = (n_main, cfg.n_layers - n_main,
+             n_main // ae if cfg.shared_lora_rank else 0)
+    elif cfg.family == "xlstm":
         p = cfg.slstm_every or 4
-        return {"mlstm": cfg.n_layers // p * (p - 1),
-                "slstm": cfg.n_layers // p}
-    p = cfg.cross_every
-    return {"self_blocks": cfg.n_layers // p * (p - 1),
-            "cross_blocks": cfg.n_layers // p}
+        n = (cfg.n_layers // p * (p - 1), cfg.n_layers // p)
+    elif cfg.family == "vlm":
+        p = cfg.cross_every
+        n = (cfg.n_layers // p * (p - 1), cfg.n_layers // p)
+    else:
+        n = (cfg.n_layers,)
+    return dict(zip(FAMILY_LISTS[cfg.family], n, strict=True))
 
 
 def _lists(tree: dict, cfg: ModelConfig, device) -> dict:
     """The stacked lists of an encdec, vlm, hybrid or xlstm tree -> one
-    converted dict a layer under each list's name."""
+    converted dict a layer under each list's name (dense and moe:
+    ``_per_layer``)."""
     out = {}
     for name, n in _block_lists(cfg).items():
         got = _n_stacked(tree[name]) if name in tree else 0
@@ -117,16 +126,13 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     hybrid and xlstm: per-layer lists under their stacks' names).  Raises
     without a GPU unless ``device`` is ``"cpu"``."""
     device = resolve_device(device)
-    if cfg.family in ("encdec", "vlm", "hybrid", "xlstm"):
-        names = _block_lists(cfg)
-        out = {k: _convert(v, device) for k, v in tree.items()
-               if k not in names}
-        out.update(_lists(tree, cfg, device))
-        return out
     out = {k: _convert(v, device) for k, v in tree.items()
-           if k not in ("first_blocks", "blocks")}
-    out["blocks"] = _per_layer(tree, cfg, ("first_blocks", "blocks"),
-                               device, "blocks")
+           if k not in LAYER_LISTS}
+    if "blocks" in _block_lists(cfg):
+        out["blocks"] = _per_layer(tree, cfg, ("first_blocks", "blocks"),
+                                   device, "blocks")
+    else:
+        out.update(_lists(tree, cfg, device))
     return out
 
 
@@ -141,3 +147,39 @@ def pool_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
                          "and, with first_dense_layers, 'first'")
     return {"blocks": _per_layer(tree, cfg, ("first", "blocks"), device,
                                  "pool")}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _stack_layers(layers: list) -> dict:
+    """Per-layer dicts (same keys) -> one dict of (L, ...) numpy leaves."""
+    if isinstance(layers[0], dict):
+        return {k: _stack_layers([d[k] for d in layers]) for k in layers[0]}
+    return np.stack([_numpy(t) for t in layers])
+
+
+def _to_numpy(node):
+    if isinstance(node, dict):
+        return {k: _to_numpy(v) for k, v in node.items()}
+    return _numpy(node)
+
+
+def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The port's tree -> the reference's layout with numpy leaves: each
+    per-layer list stacked along a leading axis under its name (a moe
+    config's dense first layers split off under ``first_blocks``)."""
+    names = [n for n, k in _block_lists(cfg).items() if k]
+    out = {k: _to_numpy(v) for k, v in params.items() if k not in names}
+    for name in names:
+        layers = params[name]
+        if name == "blocks" and cfg.first_dense_layers:
+            nf = cfg.first_dense_layers
+            out["first_blocks"] = _stack_layers(layers[:nf])
+            layers = layers[nf:]
+        out[name] = _stack_layers(layers)
+    return out

@@ -179,6 +179,11 @@ def main(argv=None) -> dict:
                     help="write a Prometheus-style text exposition of every "
                          "instrument at each drain")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--controller-ckpt", default="", metavar="DIR",
+                    help="directory for controller checkpoints: the server "
+                         "restores the latest at startup (alpha and EMA "
+                         "state survive restarts) and writes one after the "
+                         "serve")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -239,7 +244,8 @@ def main(argv=None) -> dict:
                   if args.paged_kv else None),
         max_queue_depth=args.max_queue_depth,
         default_deadline_s=args.default_deadline, preempt=args.preempt,
-        pressure_gate=args.pressure_gate, metrics=mcfg), params,
+        pressure_gate=args.pressure_gate, metrics=mcfg,
+        controller_ckpt=args.controller_ckpt), params,
         device=device, **extra)
     rng = np.random.default_rng(args.seed)
     slas = parse_sla_mix(args.sla_mix, args.requests)

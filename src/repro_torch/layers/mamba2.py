@@ -5,11 +5,11 @@ over a prompt, and the O(1)-state single-token decode.  A prompt of L
 tokens runs in chunks of the largest divisor of L not above
 ``Mamba2Config.chunk`` (a prime L runs L chunks of 1), each chunk's
 segment sums taken as differences of one cumulative sum, as the
-reference takes them; a Python loop over the chunks carries the float32
-SSM state where the reference's ``lax.scan`` does.  Its sqrt-BPTT
-checkpointing (``repro/layers/scan_utils.py``) is a memory device for the
-backward pass and changes no forward value, so inference has no
-counterpart of it.
+reference takes them; a loop over the chunks carries the float32 SSM
+state where the reference's ``lax.scan`` does, through
+``layers/scan_utils.checkpointed_scan`` as the reference's: in training
+only the states at sqrt-spaced chunk boundaries are kept for the backward
+pass, and with autograd off it is the plain loop.
 
 A state is a dict ``{"ssm": (B, H, P, N) float32, "conv": (B, d_conv - 1,
 conv_dim)}``: the conv tail holds the last ``d_conv - 1`` inputs of the
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.layers.scan_utils import checkpointed_scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,16 +140,15 @@ def mamba2_forward(params: dict, x: torch.Tensor, cfg: Mamba2Config,
     bs = bs.reshape(b, l, g, n)
     cs = cs.reshape(b, l, g, n)
 
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, l, k):
-        xc = xs[:, c0:c0 + k].float()                        # (B, K, H, P)
-        bc = bs[:, c0:c0 + k].float().repeat_interleave(rep, 2)  # (B,K,H,N)
-        cc = cs[:, c0:c0 + k].float().repeat_interleave(rep, 2)
-        dac = da[:, c0:c0 + k].transpose(1, 2)               # (B, H, K)
+    def chunk_step(state, inp):
+        xc, bc, cc, dac, dtc = inp          # one chunk's K steps, batch-major
+        xc = xc.float()                                      # (B, K, H, P)
+        bc = bc.float().repeat_interleave(rep, 2)            # (B, K, H, N)
+        cc = cc.float().repeat_interleave(rep, 2)
+        dac = dac.transpose(1, 2)                            # (B, H, K)
         a_cum = torch.cumsum(dac, -1)
         lmat = torch.exp(_segsum(dac))                       # (B, H, K, K)
-        xdt = xc * dt[:, c0:c0 + k, :, None]
+        xdt = xc * dtc[..., None]
         scores = torch.einsum("bihn,bjhn->bhij", cc, bc) * lmat
         y_diag = torch.einsum("bhij,bjhp->bihp", scores, xdt)
         decay = torch.exp(a_cum[..., -1:] - a_cum)           # (B, H, K)
@@ -157,8 +157,16 @@ def mamba2_forward(params: dict, x: torch.Tensor, cfg: Mamba2Config,
         y_off = torch.einsum("bkhn,bhpn->bkhp", cc, state) \
             * torch.exp(a_cum).transpose(1, 2)[..., None]
         state = state * torch.exp(a_cum[..., -1])[..., None, None] + contrib
-        ys.append((y_diag + y_off).to(x.dtype))
-    y = torch.cat(ys, 1) + xs * params["D"][None, None, :, None]
+        return state, (y_diag + y_off).to(x.dtype)
+
+    def chunks(a):                  # (B, L, ...) -> (L / K, B, K, ...)
+        return a.reshape((b, l // k, k) + a.shape[2:]).transpose(0, 1)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    # sqrt-BPTT over the chunks in training, the plain loop otherwise
+    state, ys = checkpointed_scan(chunk_step, state, (
+        chunks(xs), chunks(bs), chunks(cs), chunks(da), chunks(dt)))
+    y = ys.transpose(0, 1).reshape(b, l, h, p) \
+        + xs * params["D"][None, None, :, None]
     y = y.reshape(b, l, cfg.d_inner).to(x.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z))
     out = y @ params["out_proj"].to(x.dtype)

@@ -2,13 +2,16 @@
 recurrent): counterpart of ``repro/layers/xlstm.py`` (Beck et al. 2024,
 stabilized exponential gating).
 
-Both cells step through time in a Python loop carrying their state, where
-the reference runs ``lax.scan`` (its sqrt-BPTT checkpointing changes no
-forward value).  The products that do not depend on the recurrence (the
-projections, the conv, the gates' input terms) run once over the whole
-sequence.  States are dicts: mLSTM ``{"c": (B, H, dk, dv), "n": (B, H,
-dk), "m": (B, H), "conv": (B, d_conv - 1, d_inner)}`` and sLSTM ``{"c",
-"n", "m", "h"}``, each (B, d); every leaf but the conv tail is float32.
+Both cells step through time in a loop carrying their state, where the
+reference runs ``lax.scan``, through ``layers/scan_utils.
+checkpointed_scan`` as the reference's: in training only the states at
+sqrt-spaced time steps are kept for the backward pass, and with autograd
+off it is the plain loop.  The products that do not depend on the
+recurrence (the projections, the conv, the gates' input terms) run once
+over the whole sequence.  States are dicts: mLSTM ``{"c": (B, H, dk,
+dv), "n": (B, H, dk), "m": (B, H), "conv": (B, d_conv - 1, d_inner)}``
+and sLSTM ``{"c", "n", "m", "h"}``, each (B, d); every leaf but the conv
+tail is float32.
 ``init_mlstm_state`` and ``init_slstm_state`` start the stabilizer ``m`` at
 -1e30, as a prefill does; ``models.lm.init_caches`` starts it at 0, as the
 reference's does.  The recurrences are plain PyTorch ops: in the
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.layers.scan_utils import checkpointed_scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,14 +128,13 @@ def mlstm_forward(params: dict, x: torch.Tensor, cfg: XLSTMConfig,
         state = init_mlstm_state(b, cfg, x.dtype, x.device)
     q, k, v, log_i, log_f, z, conv_tail = _mlstm_qkvg(params, x, cfg,
                                                       state["conv"])
-    q, k, vf = q.float(), k.float(), v.float()
-    carry = (state["c"], state["n"], state["m"])
-    hs = []
-    for t in range(l):
-        carry, h_t = _mlstm_cell_step(carry, q[:, t], k[:, t], vf[:, t],
-                                      log_i[:, t], log_f[:, t])
-        hs.append(h_t.to(v.dtype))
-    hs = torch.stack(hs, 1).reshape(b, l, cfg.d_inner).to(x.dtype)
+    def step(carry, inp):
+        carry, h_t = _mlstm_cell_step(carry, *inp)
+        return carry, h_t.to(v.dtype)
+    seq = tuple(a.float().transpose(0, 1) for a in (q, k, v, log_i, log_f))
+    carry, hs = checkpointed_scan(step, (state["c"], state["n"],
+                                         state["m"]), seq)
+    hs = hs.transpose(0, 1).reshape(b, l, cfg.d_inner).to(x.dtype)
     out = rmsnorm(params["norm"], hs) * F.silu(z)
     out = out @ params["down"].to(x.dtype)
     if return_state:
@@ -207,11 +210,12 @@ def slstm_forward(params: dict, x: torch.Tensor, cfg: XLSTMConfig,
     if state is None:
         state = init_slstm_state(b, cfg, x.device)
     xw = x @ params["w"].to(x.dtype)
-    hs = []
-    for t in range(l):
-        state = _slstm_step(params, cfg, state, xw[:, t])
-        hs.append(state["h"])
-    hs = torch.stack(hs, 1).to(x.dtype)
+
+    def step(st, xw_t):
+        st = _slstm_step(params, cfg, st, xw_t)
+        return st, st["h"]
+    state, hs = checkpointed_scan(step, state, xw.transpose(0, 1))
+    hs = hs.transpose(0, 1).to(x.dtype)
     out = rmsnorm(params["norm"], hs) @ params["out"].to(x.dtype)
     if return_state:
         return out, state

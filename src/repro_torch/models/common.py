@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import AttentionConfig
@@ -75,6 +76,48 @@ def head_logits(hidden: torch.Tensor, table: torch.Tensor,
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def chunked_xent(hidden: torch.Tensor, labels: torch.Tensor,
+                 table: torch.Tensor, softcap: float = 0.0,
+                 chunk: int = 2048) -> torch.Tensor:
+    """Mean token cross-entropy without the whole (B, S, vocab) logits.
+
+    hidden (B, S, d); labels (B, S) integer, -100 (any negative) ignored;
+    table (V, d).  The sequence axis is cut in chunks of the largest
+    divisor of S not above ``chunk``; each chunk's logits are float32,
+    with the softcap; the loss is the sum over valid labels divided by
+    ``max(count, 1)``."""
+    b, s, _ = hidden.shape
+    chunk = max(1, min(chunk, s))
+    while s % chunk:
+        chunk -= 1
+    tab = table.float()
+    losses, counts = [], []
+    for c0 in range(0, s, chunk):
+        logits = torch.einsum("bcd,vd->bcv",
+                              hidden[:, c0:c0 + chunk].float(), tab)
+        if softcap > 0.0:
+            logits = torch.tanh(logits / softcap) * softcap
+        yb = labels[:, c0:c0 + chunk].long()
+        lse = torch.logsumexp(logits, dim=-1)                    # (B, c)
+        picked = torch.gather(logits, -1,
+                              torch.clamp(yb, min=0)[..., None])[..., 0]
+        valid = yb >= 0
+        losses.append(torch.where(valid, lse - picked, 0.0).sum())
+        counts.append(valid.sum())
+    return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                   min=1)
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass (its activations not
+    kept) when ``cfg.remat`` and autograd is recording: the reference's
+    ``jax.checkpoint`` around a block.  The forward values are the plain
+    call's."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,9 @@ layer {"k", "v"[, "k_scale", "v_scale"]}], "cross": [per decoder layer
 are updated in place.  There is no paged decode for this family, as in the
 reference.
 
-Public API: init_lm, encode, prefill, prefill_chunk, init_caches,
-decode_step, prepare_sparse.  ``init_lm`` and ``init_caches`` put their
-tensors on the card unless the caller asks for ``device="cpu"``.
+Public API: init_lm, encode, forward, lm_loss, prefill, prefill_chunk,
+init_caches, decode_step, prepare_sparse.  ``init_lm`` and ``init_caches``
+put their tensors on the card unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -105,17 +105,24 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames (B, T, d) stub embeddings -> encoder states (B, T, d) in
-    ``cfg.dtype``: non-causal self-attention (RoPE on), dense FFNs."""
+    ``cfg.dtype``: non-causal self-attention (RoPE on), dense FFNs.  In
+    training each block is recomputed in the backward pass when
+    ``cfg.remat``."""
     _check_family(cfg)
     x = frames.to(C.compute_dtype(cfg))
     positions = torch.arange(frames.shape[1], device=frames.device)
     acfg = dataclasses.replace(C.attn_cfg(cfg), causal=False)
     for blk in params["enc_blocks"]:
-        h = C.norm_apply(cfg, blk["ln1"], x)
-        x = x + A.attend(blk["attn"], h, acfg, positions)
-        h = C.norm_apply(cfg, blk["ln2"], x)
-        x = x + mlp_apply(blk["mlp"], h, LM._mlp_sparse_cfg(cfg))
+        x = C.remat(cfg, _enc_block, blk, x, cfg, acfg, positions)
     return C.norm_apply(cfg, params["enc_norm"], x)
+
+
+def _enc_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, acfg,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = C.norm_apply(cfg, blk["ln1"], x)
+    x = x + A.attend(blk["attn"], h, acfg, positions)
+    h = C.norm_apply(cfg, blk["ln2"], x)
+    return x + mlp_apply(blk["mlp"], h, LM._mlp_sparse_cfg(cfg))
 
 
 def _cross_attend(blk: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -127,6 +134,46 @@ def _cross_attend(blk: dict, x: torch.Tensor, cfg: ModelConfig,
                     return_kv=True, kv_x=enc_out,
                     kv_positions=torch.arange(enc_out.shape[1],
                                               device=x.device))
+
+
+def _dec_block(blk: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, enc_out: torch.Tensor):
+    """One decoder block over a prompt: self attention, cross attention to
+    ``enc_out``, the FFN (dense).  Returns (x, its self K/V, its cross
+    K/V)."""
+    h = C.norm_apply(cfg, blk["ln1"], x)
+    h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg), positions,
+                     return_kv=True)
+    x = x + h
+    h, ckv = _cross_attend(blk, x, cfg, positions, enc_out)
+    x = x + h
+    h = C.norm_apply(cfg, blk["ln2"], x)
+    return x + mlp_apply(blk["mlp"], h, LM._mlp_sparse_cfg(cfg)), kv, ckv
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            frames: torch.Tensor):
+    """The training forward: encode ``frames`` (B, T, d), then the
+    decoder over tokens (B, S) -> (final hidden states (B, S, d), aux 0).
+    Each decoder block (self attention, cross attention, the dense FFN)
+    is recomputed in the backward pass when ``cfg.remat``."""
+    _check_family(cfg)
+    enc_out = encode(params, cfg, frames)
+    x = LM._embed_in(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for blk in params["dec_blocks"]:
+        x = C.remat(cfg, _dec_block, blk, x, cfg, positions, enc_out)[0]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return C.norm_apply(cfg, params["final_norm"], x), aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict):
+    """batch ``{"tokens", "labels", "frames"}`` -> (loss, ``{"xent",
+    "aux"}``), as ``models.lm.lm_loss``."""
+    hidden, aux = forward(params, cfg, batch["tokens"], batch["frames"])
+    xent = C.chunked_xent(hidden, batch["labels"], LM._head_table(params),
+                          cfg.final_softcap, cfg.loss_chunk)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -142,14 +189,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     kv_dt = C.torch_dtype(cfg.kv_cache_dtype)
     selfc, cross = [], []
     for blk in params["dec_blocks"]:
-        h = C.norm_apply(cfg, blk["ln1"], x)
-        h, (k, v) = A.attend(blk["attn"], h, C.attn_cfg(cfg), positions,
-                             return_kv=True)
-        x = x + h
-        h, (ck, cv) = _cross_attend(blk, x, cfg, positions, enc_out)
-        x = x + h
-        h = C.norm_apply(cfg, blk["ln2"], x)
-        x = x + mlp_apply(blk["mlp"], h, LM._mlp_sparse_cfg(cfg))
+        x, (k, v), (ck, cv) = _dec_block(blk, x, cfg, positions, enc_out)
         cache = A.init_kv_cache(tokens.shape[0], max_len, C.attn_cfg(cfg),
                                 kv_dt, dev)
         selfc.append(A.update_kv_cache(cache, k, v, 0))

@@ -40,12 +40,14 @@ dense and moe ``{"blocks": [per-layer {"k", "v"[, "k_scale",
 "h"}]}``.  The KV caches are updated in place; a recurrent state is
 replaced by a new dict each step.
 
-Public API: init_lm, init_caches, init_kv_pool, prefill, prefill_chunk,
-decode_step, prepare_sparse.  ``init_lm``, ``init_caches`` and
-``init_kv_pool`` put their tensors on the card unless the caller asks for
-``device="cpu"``.  A paged KV pool has the caches' layout with each leaf's
-(batch, max_len) dims replaced by (n_blocks, block_size); ``decode_step``
-takes it with ``block_table=``.
+Public API: init_lm, forward, lm_loss, init_caches, init_kv_pool, prefill,
+prefill_chunk, decode_step, prepare_sparse.  ``forward`` and ``lm_loss``
+are the training path: the MLPs run dense, as the reference's, and the
+MoE layers' load-balance loss is carried into the loss.  ``init_lm``,
+``init_caches`` and ``init_kv_pool`` put their tensors on the card unless
+the caller asks for ``device="cpu"``.  A paged KV pool has the caches'
+layout with each leaf's (batch, max_len) dims replaced by (n_blocks,
+block_size); ``decode_step`` takes it with ``block_table=``.
 """
 from __future__ import annotations
 
@@ -328,20 +330,67 @@ def _lora_attn(attn: dict, lora: Optional[dict]) -> dict:
 
 def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, window: int,
-               lora: Optional[dict] = None):
+               lora: Optional[dict] = None, aux=0.0):
     """One transformer block over a prompt (dense MLP, or the MoE layer
     routing each sequence as a group); ``lora``: hybrid's per-invocation
-    query delta.  Returns (x, kv)."""
+    query delta.  Returns (x, kv, aux plus the block's MoE load-balance
+    term), ``aux`` being the running sum that training carries."""
     h = C.norm_apply(cfg, blk["ln1"], x)
     h, kv = A.attend(_lora_attn(blk["attn"], lora), h,
                      C.attn_cfg(cfg, window), positions, return_kv=True)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     if "moe" in blk:
-        h, _ = moe_apply(blk["moe"], h, moe_cfg(cfg))
+        h, a = moe_apply(blk["moe"], h, moe_cfg(cfg))
+        aux = aux + a
     else:
         h = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg))
-    return x + _post_norm(cfg, blk, "ln2_post", h), kv
+    x = x + _post_norm(cfg, blk, "ln2_post", h)
+    return x, kv, aux
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None):
+    """The training forward: tokens (B, S) -> (final hidden states (B, S,
+    d) after the final norm, aux).  ``aux`` is the MoE layers' summed
+    load-balance loss (a float32 scalar; 0 without MoE layers).  Dense and
+    moe run every block, hybrid each group's shared-block invocation with
+    its LoRA and then its Mamba2 layers, then the tail (not recomputed, as
+    the reference's), xlstm its blocks in the group order; each block is
+    recomputed in the backward pass when ``cfg.remat``."""
+    _check_family(cfg)
+    dev = tokens.device
+    x = _embed_in(params, cfg, tokens)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if cfg.family == "hybrid":
+        n_inv, _, _ = _hybrid_layout(cfg)
+        ae = cfg.attn_every
+        for g, lora in enumerate(_loras(params, n_inv)):
+            x, _, aux = C.remat(cfg, _block_fwd, params["shared"], x, cfg,
+                                positions, 0, lora, aux)
+            for blk in params["mamba"][g * ae:(g + 1) * ae]:
+                x, _ = C.remat(cfg, _mamba_fwd, blk, x, cfg)
+        for blk in params.get("mamba_tail") or []:
+            x, _ = _mamba_fwd(blk, x, cfg)
+    elif cfg.family == "xlstm":
+        x, _ = _xlstm_fwd(params, x, cfg)
+    else:
+        for blk, window in zip(params["blocks"], _layer_windows(cfg)):
+            x, _, aux = C.remat(cfg, _block_fwd, blk, x, cfg, positions,
+                                window, None, aux)
+    return C.norm_apply(cfg, params["final_norm"], x), aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict):
+    """batch ``{"tokens", "labels"}`` (B, S) -> (loss, ``{"xent",
+    "aux"}``): the chunked cross-entropy (labels of -100 ignored) plus the
+    MoE load-balance loss."""
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    xent = C.chunked_xent(hidden, batch["labels"], _head_table(params),
+                          cfg.final_softcap, cfg.loss_chunk)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -359,7 +408,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         blocks = []
         for blk, window in zip(params["blocks"], _layer_windows(cfg)):
-            x, kv = _block_fwd(blk, x, cfg, positions, window)
+            x, kv, _ = _block_fwd(blk, x, cfg, positions, window)
             blocks.append(_seed_cache(kv, max_len, cfg))
         caches = {"blocks": blocks}
     x = C.norm_apply(cfg, params["final_norm"], x)
@@ -404,7 +453,7 @@ def _hybrid_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
     ae = cfg.attn_every
     caches: dict = {"mamba": [], "attn": []}
     for g, lora in enumerate(_loras(params, n_inv)):
-        x, kv = _block_fwd(params["shared"], x, cfg, positions, 0, lora)
+        x, kv, _ = _block_fwd(params["shared"], x, cfg, positions, 0, lora)
         caches["attn"].append(_seed_cache(kv, max_len, cfg))
         for blk in params["mamba"][g * ae:(g + 1) * ae]:
             x, st = _mamba_fwd(blk, x, cfg)
@@ -458,18 +507,22 @@ def _xlstm_blocks(cfg: ModelConfig):
             yield "m", g * (p - 1) + j
 
 
+def _xlstm_block(fwd, blk: dict, x: torch.Tensor, cfg: ModelConfig):
+    h, st = fwd(blk["cell"], C.norm_apply(cfg, blk["ln"], x),
+                xlstm_cfg(cfg), return_state=True)
+    return x + h, st
+
+
 def _xlstm_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """xlstm over a prompt, each cell from a fresh state.  Returns (x,
-    caches)."""
-    xc = xlstm_cfg(cfg)
+    """xlstm over a prompt, each cell from a fresh state (in training each
+    block recomputed in the backward pass when ``cfg.remat``).  Returns
+    (x, caches)."""
     caches: dict = {"mlstm": [], "slstm": []}
     for kind, i in _xlstm_blocks(cfg):
-        blk = params["mlstm" if kind == "m" else "slstm"][i]
+        part = "mlstm" if kind == "m" else "slstm"
         fwd = XL.mlstm_forward if kind == "m" else XL.slstm_forward
-        h, st = fwd(blk["cell"], C.norm_apply(cfg, blk["ln"], x), xc,
-                    return_state=True)
-        x = x + h
-        caches["mlstm" if kind == "m" else "slstm"].append(st)
+        x, st = C.remat(cfg, _xlstm_block, fwd, params[part][i], x, cfg)
+        caches[part].append(st)
     return x, caches
 
 

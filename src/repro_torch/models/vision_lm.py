@@ -19,9 +19,9 @@ cross block {"k", "v"}]}``; the cross K/V (B, n_image_tokens, K, hd) in
 ``cfg.dtype`` and updated in place like the self caches.  There is no
 paged decode for this family, as in the reference.
 
-Public API: init_lm, prefill, prefill_chunk, init_caches, decode_step,
-prepare_sparse.  ``init_lm`` and ``init_caches`` put their tensors on the
-card unless the caller asks for ``device="cpu"``.
+Public API: init_lm, forward, lm_loss, prefill, prefill_chunk,
+init_caches, decode_step, prepare_sparse.  ``init_lm`` and ``init_caches``
+put their tensors on the card unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -127,6 +127,43 @@ def _cross_attend(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + _gated(blk["gate_attn"], h), kv
 
 
+def _cross_block(blk: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, images: torch.Tensor):
+    """One gated cross block over a prompt: gated cross attention, then
+    the gated MLP (dense).  Returns (x, the cross K/V)."""
+    x, kv = _cross_attend(blk, x, cfg, positions, images)
+    h = C.norm_apply(cfg, blk["ln2"], x)
+    return x + _gated(blk["gate_mlp"], mlp_apply(
+        blk["mlp"], h, LM._mlp_sparse_cfg(cfg))), kv
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            images: torch.Tensor):
+    """The training forward: tokens (B, S) and images (B, T, d) -> (final
+    hidden states (B, S, d), aux 0), each block recomputed in the
+    backward pass when ``cfg.remat``."""
+    x = LM._embed_in(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for _, kind, i in _layers(cfg):
+        if kind == "self":
+            x, _, aux = C.remat(cfg, LM._block_fwd, params["self_blocks"][i],
+                                x, cfg, positions, cfg.window, None, aux)
+        else:
+            x, _ = C.remat(cfg, _cross_block, params["cross_blocks"][i], x,
+                           cfg, positions, images)
+    return C.norm_apply(cfg, params["final_norm"], x), aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict):
+    """batch ``{"tokens", "labels", "images"}`` -> (loss, ``{"xent",
+    "aux"}``), as ``models.lm.lm_loss``."""
+    hidden, aux = forward(params, cfg, batch["tokens"], batch["images"])
+    xent = C.chunked_xent(hidden, batch["labels"], LM._head_table(params),
+                          cfg.final_softcap, cfg.loss_chunk)
+    return xent + aux, {"xent": xent, "aux": aux}
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             images: torch.Tensor, max_len: int):
     """Prompt pass building the caches.  tokens (B, S), images (B, T, d)
@@ -139,17 +176,14 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     selfc, cross = [], []
     for _, kind, i in _layers(cfg):
         if kind == "self":
-            x, (k, v) = LM._block_fwd(params["self_blocks"][i], x, cfg,
-                                      positions, cfg.window)
+            x, (k, v), _ = LM._block_fwd(params["self_blocks"][i], x,
+                                         cfg, positions, cfg.window)
             cache = A.init_kv_cache(tokens.shape[0], max_len,
                                     C.attn_cfg(cfg), kv_dt, dev)
             selfc.append(A.update_kv_cache(cache, k, v, 0))
             continue
-        blk = params["cross_blocks"][i]
-        x, (ck, cv) = _cross_attend(blk, x, cfg, positions, images)
-        h = C.norm_apply(cfg, blk["ln2"], x)
-        x = x + _gated(blk["gate_mlp"],
-                       mlp_apply(blk["mlp"], h, LM._mlp_sparse_cfg(cfg)))
+        x, (ck, cv) = _cross_block(params["cross_blocks"][i], x, cfg,
+                                   positions, images)
         cross.append({"k": ck, "v": cv})
     x = C.norm_apply(cfg, params["final_norm"], x)
     logits = C.head_logits(x[:, -1], LM._head_table(params),

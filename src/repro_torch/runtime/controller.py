@@ -594,3 +594,28 @@ class DistributedController:
                 f"{(self.n_data_shards, self.n_shards)}", stacklevel=2)
             self.stats_regrids += 1
         self._shard_steps = int(meta.get("shard_steps", 0))
+
+
+def save_controller(ctl, manager, step: Optional[int] = None) -> int:
+    """Checkpoint a controller (plain or distributed) through a
+    ``checkpoint.manager.CheckpointManager`` (atomic rename, GC), at its
+    decode-step count unless ``step`` is given.  Returns the step."""
+    tree, meta = ctl.state_dict()
+    step = int(meta["steps"]) if step is None else int(step)
+    manager.save(step, tree, extra=meta, blocking=True)
+    return step
+
+
+def restore_controller(ctl, manager, step: Optional[int] = None) -> bool:
+    """Restore the latest (or the given) checkpoint into ``ctl``.  Returns
+    False when the directory holds none yet (a fresh start)."""
+    if step is None and manager.latest_step() is None:
+        return False
+    tree_like, _ = ctl.state_dict()
+    # a DistributedController restored on another model grid presents
+    # (L, ms_new) shard EMAs where the checkpoint holds (L, ms_old): they
+    # pass through at the saved shape and load_state_dict remaps them
+    # (it checks every other shape itself)
+    tree, meta = manager.restore(tree_like, step=step, strict_shapes=False)
+    ctl.load_state_dict(tree, meta)
+    return True

@@ -96,6 +96,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ControllerConfig,
                                       MetricsConfig, ModelConfig,
                                       PagedKVConfig)
@@ -109,7 +110,9 @@ from repro_torch.models.common import greedy_sample
 from repro_torch.runtime.controller import (TRAJECTORY_KEEP,
                                             AlphaController,
                                             DistributedController,
-                                            aggregate_tier_stats)
+                                            aggregate_tier_stats,
+                                            restore_controller,
+                                            save_controller)
 from repro_torch.runtime.faults import InjectedFault
 from repro_torch.runtime.kv_pool import KVPool, PoolExhausted
 from repro_torch.runtime.metrics import MetricsHub, note_first_use
@@ -165,6 +168,10 @@ class ServeConfig:
     # the metrics hub; disabled (the default) it is a no-op and the serve is
     # bitwise the metrics-free one
     metrics: MetricsConfig = dataclasses.field(default_factory=MetricsConfig)
+    # directory for the controller's checkpoints: the server restores the
+    # latest at construction (and reset) and writes one after each serve
+    # (``Server.save_controller``).  Empty = no persistence
+    controller_ckpt: str = ""
 
 
 @dataclasses.dataclass
@@ -365,6 +372,10 @@ class Server:
             # checked as they activate
             self._check_shard_grids(
                 (cfg.sparse.shard_capacity(cfg.d_ff),) * cfg.sparse.tp_shards)
+        self._ckpt_mgr: Optional[CheckpointManager] = None
+        if scfg.controller_ckpt and scfg.controller.enabled \
+                and cfg.sparse.enabled:
+            self._ckpt_mgr = CheckpointManager(scfg.controller_ckpt)
         self._init_controller_state()
         self._cfg0 = self.cfg          # reset() restores it
 
@@ -454,6 +465,13 @@ class Server:
             hub.set_gauge("capacity_bucket_groups", int(cap))
             hub.set_gauge("bucket_occupancy",
                           min(1.0, int(cap) * g / self.cfg.d_ff))
+
+    def save_controller(self, step: Optional[int] = None) -> Optional[int]:
+        """Checkpoint the controller's state (nothing without
+        ``ServeConfig.controller_ckpt``).  Returns the step written."""
+        if self._ckpt_mgr is None or self.controller is None:
+            return None
+        return save_controller(self.controller, self._ckpt_mgr, step)
 
     def _serve_epilogue(self) -> None:
         """After a drain: refresh the gauges, record the drain, arm the
@@ -580,6 +598,10 @@ class Server:
         # the active bucket of every controller decode step
         self.bucket_history: collections.deque = collections.deque(
             maxlen=TRAJECTORY_KEEP)
+        if self._ckpt_mgr is not None and restore_controller(
+                ctl, self._ckpt_mgr):
+            # the restored EMAs steer the bucket ladder from the first step
+            self._select_bucket()
 
     def _count_setup(self, key, loaded_before: int) -> None:
         new = key not in self._trace_counts
@@ -994,6 +1016,7 @@ class Server:
                 # updated: start the next serve from a fresh state
                 self.reset()
                 raise
+        self.save_controller()
         self._serve_epilogue()
         return done + overflow
 
