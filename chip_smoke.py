@@ -307,7 +307,32 @@ Phases, in order; any failure exits non-zero:
              one MoE layer: 3 steps each at B=2, S=256, loss and grad norm
              finite, the peak memory.  No serving kernel launches in the
              phase.
- 21. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
+ 21. shapes  the reference's shape matrix (``configs.base.SHAPES``) on one
+             card, prosparse-llama2-7b at full width unless stated, each
+             peak memory beside the dry run's bytes
+             (``launch/dryrun.py`` on meta): (a) one attention layer at
+             S=8192, blocked by ``attn_chunk`` against whole-sequence
+             softmax within 1e-3, and at S=32768 blocked only, with the
+             bytes it allocates; (b) prefill_32k: ``make_step_fn``'s
+             prefill step, 32 layers, B=1, S=32768, int8 KV, logits
+             finite, profiled; (c) decode_32k: one decode step at cache
+             length 32767 at the largest batch the dry run says fits
+             (launches exact), profiled; (d) long_500k: one decode step of
+             zamba2-1.2b and xlstm-125m whole at B=1, cache length 524287,
+             on seeded (zero) caches; (e) train_4k: one train step at 4
+             layers, B=1, S=4096, remat, profiled, no serving kernel; (f)
+             the legacy chunked scheduler (``slot_refill=False``) at 32
+             layers, pallas, batch 4, 8 requests of mixed tiers and
+             96-192 tokens, ``prefill_chunk=64``: launches exact from load
+             to drain, the tier warning once; then the serve CLI with
+             ``--no-slot-refill`` (its report's scheduler and
+             sla_applied); (g) 2 full-width float32 layers calibrated on
+             a 256-token prompt's gate activations, co-activation
+             permuted and re-prepared (a sign pack a layer): 8
+             teacher-forced steps with sparsity off within 1e-3 of the
+             unpermuted model, then with sparsity on card against CPU
+             (``_hold``), the group density before and after printed.
+ 22. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
 
@@ -2291,19 +2316,22 @@ def profile_prefill_chunk(srv, cfg, kind: str) -> None:
                                           pc, alphas=alphas))
 
 
-def profile_step(label: str, fn, steps: int = 3, grad: bool = False
-                 ) -> None:
+def profile_step(label: str, fn, steps: int = 3, grad: bool = False,
+                 warm: bool = True) -> None:
     """Host wall time of ``fn`` against device busy time (torch.profiler),
     and the largest kernels by name.  The profiler's count of the port's
     kernels is held against the launch counters: a run in which it missed
     launches reports no device busy time.  ``grad``: ``fn`` needs autograd
-    (a training step); else it runs under inference mode."""
+    (a training step); else it runs under inference mode.  ``warm``: one
+    run before the profiled ones (off for a step of many seconds that
+    builds nothing on its first run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
 
     with (torch.enable_grad() if grad else torch.inference_mode()):
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
@@ -6013,6 +6041,464 @@ def _leaves(tree):
         yield tree
 
 
+# ------------------------------------------------------ 21. the shape matrix
+SHAPES_DEVICE = "cuda"    # the card (a rehearsal on the CPU sets "cpu")
+SHAPE_ARCH = "prosparse-llama2-7b"
+ATTN_CHECK_S = 8192       # (a): chunked against whole-sequence attention
+ATTN_LONG_S = 32768       # (a): chunked only
+PERM_PROMPT = 256         # (g): calibration tokens
+
+
+def _gb(n: float) -> str:
+    return f"{n / 1e9:.2f} GB"
+
+
+def _dry(cfg, kind: str, batch: int, seq: int) -> int:
+    """The dry run's total bytes (params, caches, inputs, optimizer state
+    and the step's transient peak) of ``cfg`` at one shape, on meta."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    _, _, total = dryrun.measure(cfg, ShapeConfig(kind, seq, batch, kind))
+    return total
+
+
+def _peak_line(label: str, dry: int) -> float:
+    """Prints the card's peak allocation beside the dry run's bytes."""
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[shapes] {label}: peak memory {_gb(peak)}, dry run {_gb(dry)} "
+          f"(peak / dry {peak / dry:.3f})", flush=True)
+    return peak
+
+
+def _whole_attention(q, k, v, cfg, pos):
+    """Causal softmax attention over the whole sequence at once, float32:
+    the yardstick of (a)."""
+    import torch
+    from repro_torch.layers import attention as A
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, hd).float()
+    sc = torch.einsum("bqkrh,btkh->bkrqt", qg, k.float()) * hd ** -0.5
+    sc = torch.where(A._chunk_mask(cfg, pos, pos), sc,
+                     torch.tensor(A.NEG_INF, device=q.device))
+    p = torch.softmax(sc, -1)
+    return torch.einsum("bkrqt,btkh->bqkrh", p, v.float()).reshape(
+        b, s, h, hd).to(q.dtype)
+
+
+def _shape_attention(raw, cfg) -> None:
+    """(a) one full-width attention layer (layer 0's weights, bf16 x; q,
+    k and v in float32)."""
+    import torch
+    from repro_torch.layers import attention as A
+    from repro_torch.layers.rope import apply_rope
+    from repro_torch.models import common as C
+    acfg = C.attn_cfg(cfg)
+    attn = raw["blocks"][0]["attn"]
+    gen = torch.Generator(device=SHAPES_DEVICE).manual_seed(21)
+    for s in (ATTN_CHECK_S, ATTN_LONG_S):
+        x = torch.randn((1, s, cfg.d_model), generator=gen,
+                        device=SHAPES_DEVICE,
+                        dtype=torch.bfloat16)
+        pos = torch.arange(s, device=SHAPES_DEVICE)
+        with torch.inference_mode():
+            q, k, v = A._project_qkv(attn, x, acfg)
+            # float32 in and out: the output's bf16 rounding would hide
+            # the two orders of summation under one ulp (2^-8)
+            q = apply_rope(q, pos, acfg.rope_theta).float()
+            k = apply_rope(k, pos, acfg.rope_theta).float()
+            v = v.float()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = A.flash_attention(q, k, v, acfg, pos, pos, cfg.attn_chunk)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            extra = torch.cuda.max_memory_allocated() - base
+            if not bool(torch.isfinite(got).all()):
+                fail(f"shapes (a): non-finite attention at S={s}")
+            line = (f"[shapes] (a) attention, S={s}, H={acfg.n_heads}, "
+                    f"hd {acfg.head_dim}, kv_chunk {cfg.attn_chunk}: "
+                    f"{ms:.1f} ms, {_gb(extra)} beyond its inputs (one "
+                    f"block's float32 scores: "
+                    f"{_gb(4 * acfg.n_heads * s * cfg.attn_chunk)})")
+            if s == ATTN_CHECK_S:
+                want = _whole_attention(q, k, v, acfg, pos)
+                diff = float((got.float() - want.float()).abs().max())
+                line += f"; against whole-sequence max abs diff {diff:.3e}"
+                if diff > 1e-3:
+                    fail(f"shapes (a): chunked attention {diff:.3e} from "
+                         "whole-sequence (tolerance 1e-3)")
+                del want
+            print(line, flush=True)
+            del q, k, v, got, x
+        torch.cuda.empty_cache()
+
+
+def _shape_prefill(prepared, cfg) -> None:
+    """(b) prefill_32k: ``make_step_fn``'s prefill step, 32 layers, B=1,
+    S=32768, int8 KV; one run, under the profiler."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as S
+    shape = dataclasses.replace(SHAPES["prefill_32k"], global_batch=1)
+    step = S.make_step_fn(cfg, shape)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, shape.seq_len),
+                                     device=SHAPES_DEVICE, dtype=torch.int32)}
+    dry = _dry(cfg, "prefill", 1, shape.seq_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    ops.reset_launch_counts()
+    profile_step(f"prefill_32k ({cfg.name}, {cfg.n_layers} layers, B=1, "
+                 f"S={shape.seq_len}, KV {cfg.kv_cache_dtype})",
+                 lambda: out.update(r=step(prepared, batch)), steps=1,
+                 warm=False)
+    logits, caches = out.pop("r")
+    _peak_line("(b) prefill_32k", dry)
+    if tuple(logits.shape) != (1, cfg.vocab_padded) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"shapes (b): logits {tuple(logits.shape)} not finite")
+    k0 = caches["blocks"][0]["k"]
+    if str(k0.dtype) != f"torch.{cfg.kv_cache_dtype}" \
+            or k0.shape[1] != shape.seq_len:
+        fail(f"shapes (b): cache {k0.dtype} {tuple(k0.shape)}")
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"[shapes] (b) logits finite {tuple(logits.shape)}; the prefill's"
+          f" MLPs run dense (no sparse prefill): launches {launched}",
+          flush=True)
+    if launched:
+        fail(f"shapes (b): kernels launched in a dense prefill: {launched}")
+    del logits, caches, out
+    torch.cuda.empty_cache()
+
+
+def _max_batch(cfg, shape_name: str) -> int:
+    """The dry run's largest batch that fits one card at a shape."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    rec = dryrun.cell_record(cfg, SHAPES[shape_name])
+    print(f"[shapes] dry run: {cfg.name} {shape_name} at its batch "
+          f"{rec['global_batch']}: {_gb(rec['bytes']['total'])}, fits "
+          f"{rec['fits']}; the largest batch that fits {rec['max_batch']}",
+          flush=True)
+    return rec["max_batch"]
+
+
+def _shape_decode(prepared, cfg, label: str, shape_name: str, batch: int,
+                  want: dict) -> None:
+    """(c), (d): one decode step (``make_step_fn``'s serve step) at cache
+    length seq_len - 1 on seeded (zero) caches, launches exactly
+    ``want``."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as S
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+    dry = _dry(cfg, "decode", batch, shape.seq_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    caches = S.cache_structs(cfg, shape, SHAPES_DEVICE)
+    batch_in = S.input_specs(cfg, shape, SHAPES_DEVICE)
+    step = S.make_step_fn(cfg, shape)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = step(prepared, batch_in, caches)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    _peak_line(f"{label} {cfg.name} {shape_name} at B={batch}", dry)
+    print(f"[shapes] {label} first step {ms:.1f} ms (host wall), logits "
+          f"{tuple(logits.shape)}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"shapes {label}: non-finite logits")
+    if counts != _want_launches(counts, **want):
+        fail(f"shapes {label}: launches {counts}, want {want}")
+    profile_step(f"{shape_name} decode step ({cfg.name}, B={batch}, cache "
+                 f"{shape.seq_len})",
+                 lambda: step(prepared, batch_in, caches), steps=2)
+    del logits, caches, batch_in
+    torch.cuda.empty_cache()
+
+
+def _shape_train(cfg) -> None:
+    """(e) train_4k: ``make_step_fn``'s train step at 4 layers, B=1,
+    S=4096, remat; no serving kernel."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as S
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.tree import leaves
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=1)
+    dry = _dry(cfg, "train", 1, shape.seq_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(cfg, 0, SHAPES_DEVICE)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = init_adamw(params)
+    gen = torch.Generator(device=SHAPES_DEVICE).manual_seed(4)
+    batch = {k: torch.randint(0, cfg.vocab, (1, shape.seq_len),
+                              device=SHAPES_DEVICE,
+                              generator=gen, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = S.make_step_fn(cfg, shape)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _no_serving_launches("shapes (e)")
+    loss = float(m["loss"])
+    print(f"[shapes] (e) train_4k {cfg.name}, {cfg.n_layers} layers, B=1, "
+          f"S={shape.seq_len}, remat: loss {loss:.4f}, grad norm "
+          f"{float(m['grad_norm']):.4f}, first step {ms:.1f} ms",
+          flush=True)
+    _peak_line("(e) train_4k", dry)
+    if not math.isfinite(loss):
+        fail("shapes (e): non-finite loss")
+    profile_step(f"train_4k step ({cfg.name}, {cfg.n_layers} layers, B=1, "
+                 f"S={shape.seq_len})", lambda: step(params, opt, batch),
+                 steps=1, grad=True)
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def _shape_legacy(raw, cfg) -> None:
+    """(f) the legacy chunked scheduler at full width and depth, launches
+    exact from load to drain; then the serve CLI with --no-slot-refill."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import (Request, Server, ServeConfig,
+                                            throughput_report)
+    ops.reset_launch_counts()
+    srv = Server(lm, cfg, ServeConfig(batch=MAIN_BATCH, max_len=256,
+                                      max_new_tokens=16, slot_refill=False,
+                                      prefill_chunk=MAIN_CHUNK), raw,
+                 device=SHAPES_DEVICE)
+    rng = np.random.default_rng(6)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(96, 193))), max_new=16,
+        sla=tiers[i % 3]) for i in range(8)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        done = srv.serve(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    tier = [w for w in caught if "ignores per-request SLA tiers"
+            in str(w.message)]
+    steps = srv.decode_steps
+    rep = throughput_report(done)
+    print(f"[shapes] (f) legacy chunked scheduler, {cfg.n_layers} layers, "
+          f"batch {MAIN_BATCH}, prefill_chunk {MAIN_CHUNK}: "
+          f"throughput_report {json.dumps(rep)}; decode steps {steps}; "
+          f"tier warnings {len(tier)}; launches from load {counts}",
+          flush=True)
+    if len(tier) != 1:
+        fail(f"shapes (f): {len(tier)} tier warnings, want 1")
+    if steps != 2 * 15 or any(r.outcome != "completed" or len(r.out) != 16
+                              for r in done):
+        fail(f"shapes (f): {steps} decode steps (want 30), or a request "
+             "did not complete with 16 tokens")
+    want = dict(sign_pack=cfg.n_layers,
+                predict_group_margins=cfg.n_layers * steps,
+                fused_sparse_mlp=cfg.n_layers * steps)
+    if counts != _want_launches(counts, **want):
+        fail(f"shapes (f): launches {counts}, want {want}")
+    del srv, done
+    torch.cuda.empty_cache()
+
+
+def _shape_legacy_cli() -> None:
+    """(f) the serve CLI with --no-slot-refill at full width: its report
+    names the scheduler and says no SLA tier applied."""
+    import torch
+    from repro_torch.launch import serve as serve_cli
+    rep = serve_cli.main(["--arch", SHAPE_ARCH, "--strategy", "pallas",
+                    "--batch", str(MAIN_BATCH), "--requests", "8",
+                    "--prompt-len", "128", "--max-new", "16", "--max-len",
+                    "256", "--prefill-chunk", str(MAIN_CHUNK),
+                    "--no-slot-refill", "--device", SHAPES_DEVICE,
+                    "--sla-mix", "latency:1,balanced:1,quality:1"])
+    print(f"[shapes] (f) serve CLI --no-slot-refill: scheduler "
+          f"{rep['scheduler']!r}, sla_applied {rep['sla_applied']}, "
+          f"{rep['completed']} completed, {rep['tok_per_s']:.1f} tok/s",
+          flush=True)
+    if rep["scheduler"] != "chunked" or rep["sla_applied"] is not False \
+            or rep["completed"] != 8:
+        fail(f"shapes (f): the CLI's report {rep}")
+    torch.cuda.empty_cache()
+
+
+def _forced_logits(params, cfg, dev):
+    """Prefill a seeded 4 x 16 prompt, then 8 teacher-forced decode steps
+    -> logits (steps, B, V) on the CPU (no stats: sparsity may be off)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, size=(DEC_BATCH, DEC_PLEN))
+    forced = rng.integers(0, cfg.vocab, size=(DEC_STEPS, DEC_BATCH, 1))
+    with torch.inference_mode():
+        _, caches = lm.prefill(params, cfg, torch.as_tensor(prompt,
+                                                            device=dev),
+                               DEC_MAX_LEN)
+        out = []
+        for t in range(DEC_STEPS):
+            lg, caches = lm.decode_step(
+                params, cfg, torch.as_tensor(forced[t], device=dev), caches,
+                DEC_PLEN + t)
+            out.append(lg.float().cpu())
+    return torch.stack(out)
+
+
+def _shape_permutation() -> None:
+    """(g) co-activation permutation of 2 full-width float32 layers,
+    calibrated on a 256-token prompt's gate activations (> 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.selection import (apply_neuron_permutation,
+                                            coactivation_permutation)
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    base = get_config(SHAPE_ARCH)
+    cfg = base.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32",
+                       sparse=dataclasses.replace(base.sparse,
+                                                  strategy="pallas",
+                                                  enabled=True))
+    raw = lm.init_lm(cfg, 7, SHAPES_DEVICE)
+    xs = []
+
+    def record(mlp, params, x, c, **kw):
+        xs.append(x.reshape(-1, x.shape[-1]))
+        return mlp(params, x, c, **kw)
+    prompt = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, size=(1, PERM_PROMPT)), device=SHAPES_DEVICE)
+    with torch.inference_mode(), _mlp_tap(record):
+        lm.prefill(raw, cfg, prompt, PERM_PROMPT)
+    g = cfg.sparse.group_size
+    permuted = dict(raw, blocks=[dict(b) for b in raw["blocks"]])
+    for i, x in enumerate(xs):
+        mlp = raw["blocks"][i]["mlp"]
+        acts = (x.float() @ mlp["wg_t"].float().T > 0).cpu().numpy()
+        perm = coactivation_permutation(acts)
+        permuted["blocks"][i]["mlp"] = apply_neuron_permutation(mlp, perm)
+
+        def density(a):
+            return float(a.reshape(a.shape[0], -1, g).any(-1).mean())
+        print(f"[shapes] (g) layer {i}: row density {acts.mean():.4f}, "
+              f"group density (G={g}) {density(acts):.4f} before, "
+              f"{density(acts[:, perm]):.4f} after the permutation",
+              flush=True)
+    off = cfg.replace(sparse=dataclasses.replace(cfg.sparse, enabled=False))
+    diff = float((_forced_logits(permuted, off, SHAPES_DEVICE)
+                  - _forced_logits(raw, off, SHAPES_DEVICE)).abs().max())
+    print(f"[shapes] (g) sparsity off, 8 teacher-forced steps: permuted "
+          f"against unpermuted logits max abs diff {diff:.3e}", flush=True)
+    if diff > 1e-3:
+        fail(f"shapes (g): the permuted model's logits {diff:.3e} from the "
+             "unpermuted one's (tolerance 1e-3)")
+    ops.reset_launch_counts()
+    pp = {"cuda": lm.prepare_sparse(permuted)}
+    torch.cuda.synchronize()
+    packs = ops.launch_counts()["sign_pack"]
+    print(f"[shapes] (g) re-prepared: {packs} sign_pack launches at load",
+          flush=True)
+    if packs != cfg.n_layers:
+        fail(f"shapes (g): {packs} sign packs at load, want {cfg.n_layers}")
+    pp["cpu"] = _to(pp["cuda"], "cpu")
+    L = cfg.n_layers
+    _hold("[shapes] (g) permuted, sparsity on",
+          lambda dev: _teacher_forced(pp[dev], cfg, dev), LOGIT_TOL["float32"],
+          dict(predict_group_margins=L * DEC_STEPS,
+               fused_sparse_mlp=L * DEC_STEPS))
+    del raw, permuted, pp
+    torch.cuda.empty_cache()
+
+
+def phase_shapes() -> None:
+    """The reference's shape matrix on one card (module docstring, 21)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import HBM_PER_CARD
+    from repro_torch.models import lm
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[shapes] the card holds {_gb(total)}; the dry run's "
+          f"HBM_PER_CARD {_gb(HBM_PER_CARD)}", flush=True)
+    cfg = get_config(SHAPE_ARCH)
+    cfg = cfg.replace(sparse=dataclasses.replace(cfg.sparse,
+                                                 strategy="pallas",
+                                                 enabled=True))
+    t = time.perf_counter()
+    raw = lm.init_lm(cfg, 0, SHAPES_DEVICE)
+    print(f"[shapes] {cfg.name} at full width and depth, float32 weights: "
+          f"init {time.perf_counter() - t:.1f} s", flush=True)
+    for step, fn in (("a", lambda: _shape_attention(raw, cfg)),
+                     ("b", lambda: _shape_prefill(raw, cfg)),
+                     ("c", lambda: _shape_decode(
+                         lm.prepare_sparse(raw), cfg, "(c)", "decode_32k",
+                         _max_batch(cfg, "decode_32k"),
+                         dict(sign_pack=0,
+                              predict_group_margins=cfg.n_layers,
+                              fused_sparse_mlp=cfg.n_layers))),
+                     ("f", lambda: _shape_legacy(raw, cfg))):
+        t = time.perf_counter()
+        fn()
+        print(f"[shapes] ({step}) {time.perf_counter() - t:.1f} s",
+              flush=True)
+    del raw
+    torch.cuda.empty_cache()
+    for step, fn in (("f", _shape_legacy_cli),
+                     ("d", _shape_long),
+                     ("e", lambda: _shape_train(get_config(SHAPE_ARCH)
+                                                .replace(n_layers=4,
+                                                         remat=True))),
+                     ("g", _shape_permutation)):
+        t = time.perf_counter()
+        fn()
+        print(f"[shapes] ({step}) {time.perf_counter() - t:.1f} s",
+              flush=True)
+
+
+def _shape_long() -> None:
+    """(d) long_500k: one decode step of each long-context arch at full
+    depth, B=1, cache length 524287."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    for arch in ("zamba2-1.2b", "xlstm-125m"):
+        cfg = get_config(arch)
+        cfg = cfg.replace(sparse=dataclasses.replace(cfg.sparse,
+                                                     strategy="pallas"))
+        params = lm.init_lm(cfg, 0, SHAPES_DEVICE)
+        if cfg.sparse.enabled:
+            params = lm.prepare_sparse(params, cfg.sparse)
+        # zamba2: one sparse MLP an invocation of its shared block; xlstm
+        # has none
+        n = cfg.n_layers // cfg.attn_every if lm.has_sparse_mlp(cfg) \
+            and cfg.sparse.enabled else 0
+        _shape_decode(params, cfg, "(d)", "long_500k", 1,
+                      dict(predict_group_margins=n, fused_sparse_mlp=n))
+        del params
+        torch.cuda.empty_cache()
+
+
 def decode_q_ab(other_src: str, src: str) -> None:
     """The int8 decode MLP's scaling line and int8 decode step profile of
     ``other_src`` and ``src``, in the order other, this, this, other, each
@@ -6332,7 +6818,8 @@ def main() -> None:
                         (phase_moe, (results,)),
                         (phase_cross, (results,)),
                         (phase_recurrent, (results,)),
-                        (phase_train, (results,))):
+                        (phase_train, (results,)),
+                        (phase_shapes, ())):
         t = time.perf_counter()
         phase(*args)
         print(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s",

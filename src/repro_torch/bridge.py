@@ -18,6 +18,8 @@ A quantized MLP node (the reference's ``prepare_sparse`` with int8 weights:
 int8 leaves, float32 scales and the int32 ``sign_wg``) carries over leaf
 for leaf, in its own dtypes; an MoE node (router, expert stacks
 (E, f, d), their sign pack, the shared expert) carries over the same way.
+A LayerNorm's ``scale`` and ``bias`` leaves (any family, ``cfg.norm``)
+carry over like every other leaf.
 ``pool_from_numpy`` does the same for a paged KV pool (the reference's
 ``init_kv_pool`` tree: leaves (L, N, block, ...) under ``blocks``, and
 under ``first`` for a moe config's first layers).

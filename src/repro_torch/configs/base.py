@@ -2,8 +2,10 @@
 
 Field names, types and defaults are the reference's own, so a port config
 compares field for field with its JAX twin.  Ported: ``ModelConfig`` (with
-``d_expert``, ``param_count`` and ``active_param_count``), the
-SLA tiers, ``ControllerConfig``, ``PagedKVConfig`` and ``MetricsConfig``.
+``d_expert``, ``is_decoder_only``, ``supports_long_context``,
+``param_count`` and ``active_param_count``), the SLA tiers,
+``ControllerConfig``, ``PagedKVConfig``, ``MetricsConfig`` and the shape
+matrix (``ShapeConfig``, ``SHAPES``, ``shape_applicable``).
 """
 from __future__ import annotations
 
@@ -197,6 +199,15 @@ class ModelConfig:
         return -(-self.vocab // 256) * 256
 
     @property
+    def is_decoder_only(self) -> bool:
+        return self.family in ("dense", "moe", "hybrid", "xlstm")
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode (SSM/hybrid state): runs long_500k."""
+        return self.family in ("hybrid", "xlstm")
+
+    @property
     def d_expert(self) -> int:
         return self.d_ff  # for MoE configs d_ff is the per-expert width
 
@@ -239,3 +250,31 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the reference's shape matrix."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, with the reference's skip
+    reason if not."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention KV decode at 500k is quadratic-cost "
+                       "prefill / O(L) per-token reads; assignment restricts "
+                       "long_500k to SSM/hybrid archs")
+    return True, ""

@@ -1,9 +1,5 @@
 """SparseInfer core: training-free activation-sparsity prediction (the
-paper's primary contribution), the counterpart of ``repro/core``.
-
-The reference's ``coactivation_permutation`` and
-``apply_neuron_permutation`` (offline neuron reordering) are not ported
-yet: they come with ROADMAP Queue A item 17 (training and tooling)."""
+paper's primary contribution), the counterpart of ``repro/core``."""
 from repro_torch.core.predictor import (
     AlphaSchedule,
     margins,
@@ -22,8 +18,10 @@ from repro_torch.core.selection import (
     Selection,
     SelectionStats,
     actual_sparsity_mask,
+    apply_neuron_permutation,
     capacity_select,
     capacity_select_with_stats,
+    coactivation_permutation,
     expected_capacity,
     group_margins,
     mask_from_selection,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -132,3 +133,48 @@ def expected_capacity(k: int, sparsity: float, slack: float = 1.3,
     dense = max(1, int(round(k * (1.0 - sparsity) * slack)))
     cap = int(math.ceil(dense / multiple) * multiple)
     return min(cap, k)
+
+
+def coactivation_permutation(acts: np.ndarray) -> np.ndarray:
+    """Offline neuron permutation that clusters co-activated neurons, the
+    reference's numpy code (its output equal bit for bit).
+
+    acts: (n_samples, k) activation indicator (bool or {0, 1}) from
+    calibration.  Neurons are ordered by activation frequency, ties broken
+    by the leading principal direction of the co-activation pattern (8
+    power iterations from a fixed seed), so hot neurons share row groups
+    and cold groups can be skipped whole.  Returns perm (k,) int32:
+    ``new_row[i] = old_row[perm[i]]``."""
+    acts = np.asarray(acts, np.float32)
+    freq = acts.mean(axis=0)
+    centered = acts - acts.mean(axis=0, keepdims=True)
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal(acts.shape[0]).astype(np.float32)
+    for _ in range(8):
+        u = centered.T @ v                                    # (k,)
+        nrm = np.linalg.norm(u) + 1e-9
+        v = centered @ (u / nrm)
+        v /= np.linalg.norm(v) + 1e-9
+    proj = centered.T @ v
+    proj = proj / (np.abs(proj).max() + 1e-9)
+    key = freq + 1e-3 * proj
+    return np.argsort(-key).astype(np.int32)
+
+
+def apply_neuron_permutation(params: dict, perm) -> dict:
+    """Permute the hidden (k) axis of a neuron-major MLP node: rows of
+    ``wg_t``, ``wu_t`` and ``wd_t`` (k, d) by ``perm`` (``new_row[i] =
+    old_row[perm[i]]``); every other leaf is kept as it is.
+
+    Permute the raw float weights: the gate sign pack and the int8 copies
+    that ``prepare_sparse_params`` builds at load are derived from row
+    order and go stale, so a permuted node goes through
+    ``prepare_sparse_params`` (a model through ``prepare_sparse``)
+    again."""
+    out = dict(params)
+    for name in ("wg_t", "wu_t", "wd_t"):
+        if out.get(name) is not None:
+            w = out[name]
+            out[name] = w.index_select(0, torch.as_tensor(
+                np.asarray(perm), dtype=torch.long, device=w.device))
+    return out

@@ -5,14 +5,14 @@ Batch content is a pure function of (seed, step, host_id), drawn with
 numpy exactly as the reference draws it, so a restarted or straggling host
 regenerates the batch it owes for any step and the port trains on the
 reference's tokens bit for bit.  ``DataIterator`` hands each batch over as
-tensors on the trainer's device.  The reference's ``make_batch_specs``
-(shape specs for ahead-of-time lowering) belongs to its launch tools and
-has no counterpart here.
+tensors on the trainer's device.  ``make_batch_specs`` gives one host
+batch's shapes and dtypes as tensors on the ``meta`` device (the
+reference's ``ShapeDtypeStruct``s), for the dry run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -79,3 +79,16 @@ class DataIterator:
         return {k: torch.from_numpy(v).to(device=self.device,
                                           dtype=torch.int64)
                 for k, v in batch.items()}
+
+
+def make_batch_specs(cfg: DataConfig, extra: Optional[dict] = None,
+                     device="meta") -> dict:
+    """One host batch's stand-ins: int32 ``tokens`` and ``labels``
+    (global_batch / n_hosts, seq_len) on ``device`` (``meta``: shapes and
+    dtypes, no memory; elsewhere zeros), plus ``extra``'s entries."""
+    per_host = cfg.global_batch // cfg.n_hosts
+    specs = {k: torch.zeros((per_host, cfg.seq_len), dtype=torch.int32,
+                            device=device) for k in ("tokens", "labels")}
+    if extra:
+        specs.update(extra)
+    return specs

@@ -4,8 +4,9 @@ softcap and a sliding window; an encoder's non-causal self-attention;
 cross attention against encoder states or image embeddings (no RoPE, no
 mask, no window), at prefill and at decode against K/V computed once per
 request (``cross_decode_attend``, ``precompute_cross_kv``); prefill and
-chunked-prefill attention; KV-cache decode, int8 KV included; decode
-against the paged KV pool.
+chunked-prefill attention, blocked over K/V by ``attn_chunk`` with a
+running max and sum (``flash_attention``); KV-cache decode, int8 KV
+included; decode against the paged KV pool.
 
 Layouts are the reference's: q (B, S, H, hd), caches (B, S, K, hd).  Unlike
 the functional reference, the KV cache is updated in place (no copy of the
@@ -22,6 +23,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.layers.rope import apply_rope
+from repro_torch.layers.scan_utils import fori_loop
 
 NEG_INF = -1e30
 
@@ -109,47 +111,92 @@ def _softcap(s: torch.Tensor, cfg: AttentionConfig) -> torch.Tensor:
     return s
 
 
-def flash_attention(q, k, v, cfg: AttentionConfig, q_positions: torch.Tensor,
-                    k_positions: torch.Tensor) -> torch.Tensor:
-    """Softmax attention in float32 over the whole sequence (the
-    reference chunks it with a running max/sum; the result is the same up
-    to float rounding), with the softcap and the sliding window: a key is
-    live when ``k_pos <= q_pos`` (causal self-attention) and ``q_pos -
-    k_pos < window``; cross attention masks nothing.
-    q: (B, Sq, H, hd); k, v: (B, Sk, K, hd)."""
-    b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    rep = h // kvh
-    qg = q.reshape(b, sq, kvh, rep, hd).float()
-    s = torch.einsum("bqkrh,btkh->bkrqt", qg, k.float()) * (hd ** -0.5)
-    s = _softcap(s, cfg)
-    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+def _chunk_mask(cfg: AttentionConfig, q_pos: torch.Tensor,
+                k_pos: torch.Tensor) -> Optional[torch.Tensor]:
+    """(Sq, Ck) liveness of one K/V block, the reference's
+    ``_chunk_scores`` mask: a key is live when ``k_pos <= q_pos`` (causal
+    self-attention) and ``q_pos - k_pos < window``; cross attention masks
+    nothing (None)."""
+    mask = None
     if cfg.causal and not cfg.cross:
-        mask = q_positions[:, None] >= k_positions[None, :]
+        mask = q_pos[:, None] >= k_pos[None, :]
     if cfg.window > 0 and not cfg.cross:
-        mask = mask & ((q_positions[:, None] - k_positions[None, :])
-                       < cfg.window)
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkrqt,btkh->bqkrh", p, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+        near = (q_pos[:, None] - k_pos[None, :]) < cfg.window
+        mask = near if mask is None else mask & near
+    return mask
+
+
+def flash_attention(q, k, v, cfg: AttentionConfig, q_positions: torch.Tensor,
+                    k_positions: torch.Tensor,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """Softmax attention in float32 over K/V blocks of ``kv_chunk`` keys
+    with a running max ``m``, sum ``l`` and accumulator, in the reference's
+    order (``repro/layers/attention.py:flash_attention``), with its masks,
+    softcap and window (``_chunk_mask``).  q: (B, Sq, H, hd); k, v: (B, Sk,
+    K, hd) -> (B, Sq, H, hd) in q's dtype.
+
+    Two deliberate differences, neither of which changes the function: the
+    reference's query blocks are independent, so every query row runs in
+    one batch (no query chunk); and where ``kv_chunk`` does not divide Sk
+    the last block is shorter, where the reference shrinks the chunk to
+    the largest divisor of Sk (1 at a prime length).  No tensor allocated
+    here grows with Sq x Sk: the scores of one block are (B, H, Sq,
+    kv_chunk), one K/V block (B, kv_chunk, K, hd) and the output (B, Sq,
+    H, hd).  On ``meta`` (the dry run) one full block stands for all of
+    them (``scan_utils.fori_loop``)."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    step = max(1, min(kv_chunk, sk))
+    qg = q.reshape(b, sq, kvh, rep, hd).float()
+    neg = torch.tensor(NEG_INF, device=q.device)
+
+    def block(lo: int, width: int, carry):
+        m, l, acc = carry
+        s = torch.einsum("bqkrh,btkh->bkrqt", qg,
+                         k[:, lo:lo + width].float()) * (hd ** -0.5)
+        s = _softcap(s, cfg)
+        mask = _chunk_mask(cfg, q_positions, k_positions[lo:lo + width])
+        if mask is not None:
+            s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkrqt,btkh->bkrqh", p, v[:, lo:lo + width].float())
+        return m_new, l, acc
+
+    carry = (torch.full((b, kvh, rep, sq), NEG_INF, device=q.device),
+             torch.zeros((b, kvh, rep, sq), device=q.device),
+             torch.zeros((b, kvh, rep, sq, hd), device=q.device))
+    n_full = sk // step
+    carry = fori_loop(lambda j, c: block(j * step, step, c), n_full, carry)
+    if sk % step:
+        carry = block(n_full * step, sk % step, carry)
+    _, l, acc = carry
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
 def attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
            positions: torch.Tensor, return_kv: bool = False,
            kv_x: Optional[torch.Tensor] = None,
-           kv_positions: Optional[torch.Tensor] = None):
+           kv_positions: Optional[torch.Tensor] = None,
+           kv_chunk: int = 1024):
     """Prefill attention, self or (``cfg.cross``, K/V from ``kv_x`` (B, T,
     d_kv) at ``kv_positions``) cross.  x: (B, S, d).  ``return_kv`` also
     returns the K/V (roped for self-attention) for seeding the decode
-    cache."""
+    cache.  ``kv_chunk``: the K/V block of ``flash_attention`` (the
+    models pass ``cfg.attn_chunk``)."""
     q, k, v = _project_qkv(params, x, cfg, kv_x)
     if kv_positions is None:
         kv_positions = positions
     if not cfg.cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, cfg, positions, kv_positions)
+    out = flash_attention(q, k, v, cfg, positions, kv_positions,
+                          kv_chunk)
     b, s = x.shape[0], x.shape[1]
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ \
         params["wo"].to(x.dtype)
@@ -187,8 +234,10 @@ def _quantize_kv(x: torch.Tensor):
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                     index) -> dict:
     """Write (B, S_new, K, hd) at sequence offset ``index`` in place:
-    a scalar (one offset for every slot) or (B,) per-slot offsets."""
-    idx = torch.as_tensor(index, device=cache["k"].device).long()
+    a scalar (one offset for every slot; a Python int is used as it is,
+    so a ``meta`` cache needs no value read) or (B,) per-slot offsets."""
+    idx = (index if isinstance(index, int)
+           else torch.as_tensor(index, device=cache["k"].device).long())
     if cache["k"].dtype == torch.int8:
         (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
         upd = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -198,7 +247,7 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     for name, val in upd.items():
         buf = cache[name]
         val = val.to(buf.dtype)
-        if idx.ndim == 0:
+        if isinstance(idx, int) or idx.ndim == 0:
             i = int(idx)
             buf[:, i:i + s_new] = val
         else:
@@ -209,14 +258,17 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def chunk_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
-                 cache: dict, offset: int, valid=None):
+                 cache: dict, offset: int, valid=None,
+                 kv_chunk: int = 1024):
     """Chunked-prefill attention: an S-token chunk at sequence ``offset``
     attends the KV cache (every earlier chunk plus itself).  x: (B, S, d);
     ``valid`` (scalar or (B,)) is the prompt's real length: K/V of chunk rows
     at positions >= valid are zeroed before the cache write, so the cache
     holds what a monolithic prefill leaves there.  Chunks arrive in order
     from offset 0; the causal mask keeps positions past the chunk out.
-    Returns (out (B, S, d), cache updated in place)."""
+    The chunk attends the cache's whole width in K/V blocks of
+    ``kv_chunk`` (``flash_attention``).  Returns (out (B, S, d), cache
+    updated in place)."""
     b, s = x.shape[0], x.shape[1]
     q_pos = offset + torch.arange(s, device=x.device)              # (S,)
     q, k, v = _project_qkv(params, x, cfg)
@@ -236,7 +288,7 @@ def chunk_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     else:
         ck, cv = ck.to(x.dtype), cv.to(x.dtype)
     k_pos = torch.arange(ck.shape[1], device=x.device)
-    out = flash_attention(q, ck, cv, cfg, q_pos, k_pos)
+    out = flash_attention(q, ck, cv, cfg, q_pos, k_pos, kv_chunk)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), cache
 
@@ -360,7 +412,8 @@ def decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     q, k, v = _project_qkv(params, x, cfg)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    cache = update_kv_cache(cache, k, v, cl)
+    cache = update_kv_cache(cache, k, v,
+                            cache_len if isinstance(cache_len, int) else cl)
     s_max = cache["k"].shape[1]
     if kv_positions is None:
         kv_positions = torch.arange(s_max, device=x.device)

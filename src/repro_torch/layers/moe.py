@@ -69,8 +69,9 @@ def init_moe(generator: torch.Generator, cfg: MoEConfig,
 
 
 def router_probs(params: dict, x: torch.Tensor, cfg: MoEConfig):
-    """x: (..., d) -> (probs (..., E) float32, logits)."""
-    logits = x.float() @ params["router"]
+    """x: (..., d) -> (probs (..., E) float32, logits); the router
+    weights in float32 whatever their dtype, as jnp promotes them."""
+    logits = x.float() @ params["router"].float()
     return torch.softmax(logits, dim=-1), logits
 
 
@@ -88,7 +89,11 @@ def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
                           cfg: MoEConfig) -> torch.Tensor:
     """Switch-style load-balance auxiliary loss."""
     e = cfg.n_experts
-    hits = torch.bincount(idx.reshape(-1), minlength=e).float()
+    flat = idx.reshape(-1).long()
+    # the expert counts of bincount(minlength=e), with a shape that does
+    # not depend on the ids (the dry run's meta tensors have none)
+    hits = flat.new_zeros(e).scatter_add_(0, flat,
+                                          torch.ones_like(flat)).float()
     frac_tokens = hits / torch.clamp(hits.sum(), min=1.0)
     frac_probs = probs.mean(0)
     return cfg.aux_loss_coef * e * torch.sum(frac_tokens * frac_probs)
@@ -146,15 +151,24 @@ def _expert_ffn(params: dict, x: torch.Tensor, expert: torch.Tensor,
     """Row i of ``x`` (n, d) through expert ``expert[i]``'s gated FFN ->
     (n, d) in x's dtype.  Only the experts named run: their slots packed
     into an (n_occupied, C_max, d) buffer, their weight rows gathered
-    from the stacks and then cast."""
-    occ, inv, counts = torch.unique(expert, return_inverse=True,
-                                    return_counts=True)
+    from the stacks and then cast.  On ``meta`` (the dry run: shapes, no
+    values) the rows spread evenly over min(E, n) experts, the slots' own
+    work without padding."""
     n, d = x.shape
-    rank = torch.argsort(inv, stable=True)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.empty_like(inv)
-    pos[rank] = torch.arange(n, device=x.device) - starts[inv[rank]]
-    buf = x.new_zeros((occ.numel(), int(counts.max()), d))
+    if x.device.type == "meta":
+        n_occ = min(params["wg_t"].shape[0], n)
+        occ = torch.arange(n_occ, device=x.device)
+        inv = expert
+        pos = torch.arange(n, device=x.device) % -(-n // n_occ)
+        buf = x.new_zeros((n_occ, -(-n // n_occ), d))
+    else:
+        occ, inv, counts = torch.unique(expert, return_inverse=True,
+                                        return_counts=True)
+        rank = torch.argsort(inv, stable=True)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.empty_like(inv)
+        pos[rank] = torch.arange(n, device=x.device) - starts[inv[rank]]
+        buf = x.new_zeros((occ.numel(), int(counts.max()), d))
     buf[inv, pos] = x
 
     def take(name):
@@ -169,12 +183,15 @@ def _dispatch_compute(params: dict, x: torch.Tensor, cfg: MoEConfig,
                       w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (G, Tg, d), routing (G, Tg, K) -> (G, Tg, d): each kept slot's
     expert output times its weight (cast to x's dtype), summed per token
-    over its k slots."""
+    over its k slots.  On ``meta`` every slot counts as kept."""
     g, tg, d = x.shape
     k = cfg.top_k
     sl = dispatch_slots(w, idx, cfg)
     goff = torch.arange(g, device=x.device)[:, None] * (tg * k)
-    kept = sl.keep.reshape(-1).nonzero().squeeze(1)
+    if x.device.type == "meta":
+        kept = torch.arange(g * tg * k, device=x.device)
+    else:
+        kept = sl.keep.reshape(-1).nonzero().squeeze(1)
     slot = (sl.order + goff).reshape(-1)[kept]        # global slot id
     out = x.new_zeros((g * tg * k, d))
     if kept.numel():

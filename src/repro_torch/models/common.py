@@ -8,6 +8,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import AttentionConfig
 from repro_torch.layers.norms import (init_layernorm, init_rmsnorm,
                                       layernorm, rmsnorm)
+from repro_torch.layers.scan_utils import counted_as_forward
 
 
 def norm_init(cfg: ModelConfig, device="cpu") -> dict:
@@ -116,7 +117,8 @@ def remat(cfg: ModelConfig, fn, *args):
     ``jax.checkpoint`` around a block.  The forward values are the plain
     call's."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(counted_as_forward(fn), *args,
+                          use_reentrant=False)
     return fn(*args)
 
 

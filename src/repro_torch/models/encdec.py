@@ -31,7 +31,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.layers import attention as A
 from repro_torch.layers import embeddings as E
 from repro_torch.layers.mlp import init_mlp, mlp_apply
@@ -88,7 +88,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     ``device`` (raises without a GPU unless it is ``"cpu"``)."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     pd = C.param_dtype(cfg)
     params: dict[str, Any] = {
         "embed": E.init_embedding(gen, cfg.vocab_padded, cfg.d_model, pd,
@@ -120,7 +120,8 @@ def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor
 def _enc_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, acfg,
                positions: torch.Tensor) -> torch.Tensor:
     h = C.norm_apply(cfg, blk["ln1"], x)
-    x = x + A.attend(blk["attn"], h, acfg, positions)
+    x = x + A.attend(blk["attn"], h, acfg, positions,
+                     kv_chunk=cfg.attn_chunk)
     h = C.norm_apply(cfg, blk["ln2"], x)
     return x + mlp_apply(blk["mlp"], h, LM._mlp_sparse_cfg(cfg))
 
@@ -133,7 +134,8 @@ def _cross_attend(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     return A.attend(blk["cross"], h, C.attn_cfg(cfg, cross=True), q_pos,
                     return_kv=True, kv_x=enc_out,
                     kv_positions=torch.arange(enc_out.shape[1],
-                                              device=x.device))
+                                              device=x.device),
+                    kv_chunk=cfg.attn_chunk)
 
 
 def _dec_block(blk: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -143,7 +145,7 @@ def _dec_block(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     K/V)."""
     h = C.norm_apply(cfg, blk["ln1"], x)
     h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg), positions,
-                     return_kv=True)
+                     return_kv=True, kv_chunk=cfg.attn_chunk)
     x = x + h
     h, ckv = _cross_attend(blk, x, cfg, positions, enc_out)
     x = x + h
@@ -226,7 +228,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             params["dec_blocks"], caches["blocks"], caches["cross"])):
         h = C.norm_apply(cfg, blk["ln1"], x)
         h, _ = A.chunk_attend(blk["attn"], h, C.attn_cfg(cfg), cache,
-                              offset, vld)
+                              offset, vld, kv_chunk=cfg.attn_chunk)
         x = x + h
         h, (ck, cv) = _cross_attend(blk, x, cfg, pos, enc_out)
         x = x + h

@@ -4,7 +4,9 @@ through ``models/encdec.py`` and ``models/vision_lm.py``, which reuse the
 block helpers here as the reference's modules reuse ``LM.*``
 (``launch/specs.py:model_module`` picks the module of a config).
 
-Every dense arch of the reference runs: GQA/MQA, QKV bias, qk-norm,
+Every family runs with RMSNorm or LayerNorm (``cfg.norm``), as the
+reference's blocks pick it.  Every dense arch of the reference runs:
+GQA/MQA, QKV bias, qk-norm,
 gemma2's alternating local (sliding-window) and global layers, attention
 and final logit softcaps, post-block norms and the embedding scale; gated
 and ungated MLPs.  The moe family (deepseek-moe, olmoe) replaces the MLP
@@ -59,7 +61,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_mlp as SM
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as A
 from repro_torch.layers import embeddings as E
@@ -82,12 +84,11 @@ FAMILIES = ("dense", "moe", "hybrid", "xlstm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.norm != "rmsnorm":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: models.lm runs the {FAMILIES} families with "
-            f"RMSNorm (vlm and encdec: models.vision_lm and models.encdec; "
-            f"no arch of the reference runs models.lm with LayerNorm, "
-            f"ROADMAP item 17); got {[cfg.family, cfg.norm]}")
+            f"{cfg.name}: models.lm runs the {FAMILIES} families (vlm and "
+            f"encdec: models.vision_lm and models.encdec); got "
+            f"{cfg.family!r}")
 
 
 def moe_cfg(cfg: ModelConfig) -> MoEConfig:
@@ -202,7 +203,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     elif cfg.family == "xlstm":
         p, n_groups = _xlstm_layout(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     pd = C.param_dtype(cfg)
     params: dict[str, Any] = {
         "embed": E.init_embedding(gen, cfg.vocab_padded, cfg.d_model, pd,
@@ -337,7 +338,8 @@ def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     term), ``aux`` being the running sum that training carries."""
     h = C.norm_apply(cfg, blk["ln1"], x)
     h, kv = A.attend(_lora_attn(blk["attn"], lora), h,
-                     C.attn_cfg(cfg, window), positions, return_kv=True)
+                     C.attn_cfg(cfg, window), positions, return_kv=True,
+                     kv_chunk=cfg.attn_chunk)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     if "moe" in blk:
@@ -675,7 +677,7 @@ def _block_chunk_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     all-sparse and leave the chunk union) and stay out of the stats."""
     h = C.norm_apply(cfg, blk["ln1"], x)
     h, cache = A.chunk_attend(blk["attn"], h, C.attn_cfg(cfg, window), cache,
-                              offset, valid)
+                              offset, valid, kv_chunk=cfg.attn_chunk)
     x = x + _post_norm(cfg, blk, "ln1_post", h)
     h = C.norm_apply(cfg, blk["ln2"], x)
     if "moe" in blk:         # each sequence's chunk a group, pad rows too

@@ -30,7 +30,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.layers import attention as A
 from repro_torch.layers import embeddings as E
 from repro_torch.layers.mlp import init_mlp, mlp_apply
@@ -97,7 +97,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     start at 0, as the reference's: a fresh cross block adds nothing."""
     p, n_groups = _layout(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     pd = C.param_dtype(cfg)
     params: dict[str, Any] = {
         "embed": E.init_embedding(gen, cfg.vocab_padded, cfg.d_model, pd,
@@ -123,7 +123,8 @@ def _cross_attend(blk: dict, x: torch.Tensor, cfg: ModelConfig,
     h, kv = A.attend(blk["attn"], h, C.attn_cfg(cfg, cross=True), q_pos,
                      return_kv=True, kv_x=images,
                      kv_positions=torch.arange(images.shape[1],
-                                               device=x.device))
+                                               device=x.device),
+                     kv_chunk=cfg.attn_chunk)
     return x + _gated(blk["gate_attn"], h), kv
 
 

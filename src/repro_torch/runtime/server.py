@@ -80,9 +80,15 @@ As in the reference, only dense and moe have a paged pool, and hybrid and
 xlstm no chunked prefill: ``prefill_chunk`` set for them warns and admits
 through the monolithic prefill.  hybrid's controller is as wide as its
 shared block's invocations, its alphas padded to n_layers rows for the
-decode step; xlstm has no MLP and refuses the controller.  Not ported yet: controller
-checkpoints, and placing a shard grid on several devices (the
-reference's ``mesh``).
+decode step; xlstm has no MLP and refuses the controller.  Not ported
+yet: placing a shard grid on several devices (the reference's ``mesh``).
+
+``ServeConfig.slot_refill=False`` selects the reference's legacy chunked
+scheduler instead: fixed chunks of ``batch`` requests, each run to
+completion by ``generate`` on the uniform schedule (per-request SLA tiers
+warn and are ignored), prompts right-aligned to the chunk's longest and,
+with ``prefill_chunk``, padded up to its multiple; the paged pool refuses
+it, and chunked prefill runs only under slot refill.
 """
 from __future__ import annotations
 
@@ -129,8 +135,8 @@ class ServeConfig:
     max_len: int = 256
     max_new_tokens: int = 32
     greedy: bool = True
-    # slot-refill continuous batching; the reference's legacy chunked
-    # scheduler (False) is not ported
+    # slot-refill continuous batching; False: the legacy chunked scheduler
+    # (fixed chunks of ``batch`` run to completion on the uniform schedule)
     slot_refill: bool = True
     sla_tiers: tuple = DEFAULT_SLA_TIERS
     # the online adaptive-alpha controller; off, the static schedule (plus
@@ -269,7 +275,7 @@ class Server:
                     ">= 1 (chunks per decode-loop iteration)")
         fams = getattr(model_mod, "CHUNK_PREFILL_FAMILIES", ())
         self._chunk_prefill = bool(scfg.prefill_chunk) and cfg.family in fams
-        if scfg.prefill_chunk and not self._chunk_prefill:
+        if scfg.prefill_chunk and scfg.slot_refill and not self._chunk_prefill:
             # the reference's scheduling rule: recurrent state has no
             # offset splice, so admissions prefill a prompt whole
             warnings.warn(
@@ -293,6 +299,9 @@ class Server:
                 f"{scfg.default_deadline_s}/{scfg.max_preemptions}")
         pk = scfg.paged_kv
         if pk is not None:
+            if not scfg.slot_refill:
+                raise ValueError("paged_kv needs the slot-refill scheduler "
+                                 "(slot_refill=True)")
             pfams = getattr(model_mod, "PAGED_KV_FAMILIES", ())
             if cfg.family not in pfams:
                 raise ValueError(
@@ -307,10 +316,6 @@ class Server:
                     f"prefill_chunk={scfg.prefill_chunk} must be a multiple "
                     f"of paged_kv.block_size={pk.block_size} so trie-aligned "
                     "reuse lands on chunk boundaries")
-        if not scfg.slot_refill:
-            raise NotImplementedError(
-                "the legacy chunked scheduler is not ported; use "
-                "slot_refill=True")
         if not scfg.greedy:
             raise NotImplementedError("only greedy decoding is ported")
         if cfg.sparse.enabled and (cfg.sparse.tp_shards
@@ -976,9 +981,11 @@ class Server:
 
     # ------------------------------------------------------ batched queue --
     def serve(self, requests: list[Request]) -> list[Request]:
-        """Run a queue through the slot-refill scheduler.  Every request is
-        validated before any work starts; the excess over
-        ``max_queue_depth`` sheds at once ("queue_depth")."""
+        """Run a queue through the slot-refill scheduler, or with
+        ``slot_refill=False`` the legacy chunked one.  Every request is
+        validated before any work starts (for the chunked scheduler also
+        each chunk's padded prompt plus its largest ``max_new``); the
+        excess over ``max_queue_depth`` sheds at once ("queue_depth")."""
         t_adm = self._now()           # latency clocks start here
         for r in requests:
             self._tier_of(r)
@@ -1008,9 +1015,13 @@ class Server:
                 hub.inc("requests_shed", reason="queue_depth")
                 hub.event("shed", uid=r.uid, reason="queue_depth")
             self.shed_count += len(overflow)
+        run = self._serve_slot_refill
+        if not self.scfg.slot_refill:
+            self._check_chunks(requests)
+            run = self._serve_chunked
         with torch.inference_mode():
             try:
-                done = self._serve_slot_refill(requests)
+                done = run(requests)
             except Exception:
                 # the scheduler died with slots, pool and controller half
                 # updated: start the next serve from a fresh state
@@ -1019,6 +1030,62 @@ class Server:
         self.save_controller()
         self._serve_epilogue()
         return done + overflow
+
+    def _chunk_prompt_len(self, chunk: list[Request]) -> int:
+        """A legacy chunk's prompt width: its longest prompt, padded up to
+        a multiple of ``prefill_chunk`` when one is set (a bounded set of
+        prefill shapes)."""
+        plen = max(len(r.prompt) for r in chunk)
+        pc = self.scfg.prefill_chunk
+        return -(-plen // pc) * pc if pc else plen
+
+    def _check_chunks(self, requests: list[Request]) -> None:
+        """The chunks are fixed by the queue's order, so each one's padded
+        prompt plus its largest ``max_new`` is checked against ``max_len``
+        before any work starts."""
+        b = self.scfg.batch
+        for c0 in range(0, len(requests), b):
+            chunk = requests[c0:c0 + b]
+            need = self._chunk_prompt_len(chunk) + max(r.max_new
+                                                       for r in chunk)
+            if need > self.scfg.max_len:
+                raise ValueError(
+                    f"chunk {c0 // b}: padded prompt + chunk max_new = "
+                    f"{need} exceeds max_len {self.scfg.max_len}")
+
+    def _serve_chunked(self, requests: list[Request]) -> list[Request]:
+        """The legacy scheduler: fixed chunks of ``batch`` requests, each
+        run to completion by ``generate`` (every request of a chunk waits
+        for its slowest; the uniform schedule, no per-request SLA tiers),
+        prompts right-aligned to the chunk's prompt width with token 0 in
+        front.  A request's latency runs from admission to its chunk's
+        end; the capacity may adapt between chunks."""
+        if any(self._tier_offsets[self._tier_of(r)] != 0.0
+               for r in requests):
+            warnings.warn(
+                "chunked scheduler ignores per-request SLA tiers (the whole "
+                "chunk decodes on the uniform schedule); use slot_refill "
+                "for per-request alphas", stacklevel=2)
+        b = self.scfg.batch
+        done: list[Request] = []
+        for c0 in range(0, len(requests), b):
+            chunk = requests[c0:c0 + b]
+            t0 = self._now()
+            plen = self._chunk_prompt_len(chunk)
+            prompts = np.zeros((b, plen), np.int32)
+            for i, r in enumerate(chunk):
+                prompts[i, plen - len(r.prompt):] = r.prompt
+            gen = self.generate(prompts, max(r.max_new for r in chunk))
+            t1 = self._now()
+            for i, r in enumerate(chunk):
+                r.out = gen[i, :r.max_new]
+                r.outcome = "completed"
+                r.t_start, r.t_end = t0, t1
+                r.queue_wait_s = t0 - r.t_admit if r.t_admit else 0.0
+                r.latency_s = t1 - (r.t_admit if r.t_admit else t0)
+                done.append(r)
+            self.maybe_adapt_capacity()
+        return done
 
     def _serve_slot_refill(self, requests: list[Request]) -> list[Request]:
         scfg, B = self.scfg, self.scfg.batch

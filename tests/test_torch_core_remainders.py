@@ -141,13 +141,12 @@ def test_relufy_matches_reference(name):
 
 
 def test_core_exports_are_the_references():
-    """``repro_torch.core`` exports the reference's names, less the two
-    offline permutation helpers (ROADMAP Queue A item 17)."""
+    """``repro_torch.core`` exports the reference's public names, the two
+    offline permutation helpers included."""
     pub = lambda m: {n for n in dir(m) if not n.startswith("_")}  # noqa
-    left = {"coactivation_permutation", "apply_neuron_permutation"}
     modules = {"predictor", "relufication", "selection", "sparse_mlp",
                "quantize"}
-    assert pub(tcore) - modules == pub(jcore) - modules - left
+    assert pub(tcore) - modules == pub(jcore) - modules
     assert tcore.MLP_STAT_KEYS == jcore.MLP_STAT_KEYS
     assert tcore.SHARD_RIDER_KEYS == jcore.SHARD_RIDER_KEYS
 

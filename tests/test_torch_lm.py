@@ -104,9 +104,35 @@ def test_static_schedule_and_scalar_cache_len():
 @pytest.mark.parametrize("flavour", [
     pytest.param({"norm": "layernorm"}, id="flavour1")])
 def test_unported_model_flavours_raise(flavour):
-    _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_lm(tcfg.replace(**flavour), device="cpu")
+    """Once refused, now ported: the flavour (LayerNorm in ``models.lm``)
+    runs, and its prefill and teacher-forced decode match the reference's
+    on the reference's weights, LayerNorm scales and biases drawn
+    non-zero (tests/test_torch_layernorm.py holds every family)."""
+    jcfg, tcfg = (c.replace(**flavour) for c in _cfgs("float32"))
+    tree = jax.tree.map(np.asarray, jlm.init_lm(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(5)
+    for blk in (tree["blocks"]["ln1"], tree["blocks"]["ln2"],
+                tree["final_norm"]):
+        blk["scale"] = (1 + 0.3 * rng.standard_normal(
+            blk["scale"].shape)).astype(np.float32)
+        blk["bias"] = (0.3 * rng.standard_normal(
+            blk["bias"].shape)).astype(np.float32)
+    tparams = tlm.prepare_sparse(bridge.params_from_numpy(tree, tcfg,
+                                                          device="cpu"))
+    jparams = jlm.prepare_sparse(jax.tree.map(jnp.asarray, tree))
+    prompt = rng.integers(0, jcfg.vocab, size=(B, PLEN))
+    tok = rng.integers(0, jcfg.vocab, size=(B, 1))
+    jl, jc = jlm.prefill(jparams, jcfg, jnp.asarray(prompt), MAX_LEN)
+    with torch.inference_mode():
+        tl, tc = tlm.prefill(tparams, tcfg, torch.from_numpy(prompt),
+                             MAX_LEN)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+    jl, _ = jlm.decode_step(jparams, jcfg, jnp.asarray(tok), jc,
+                            jnp.int32(PLEN))
+    with torch.inference_mode():
+        tl, _ = tlm.decode_step(tparams, tcfg, torch.from_numpy(tok), tc,
+                                PLEN)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
 
 
 def test_bridge_unstacks_layers_and_rejects_depth_mismatch():

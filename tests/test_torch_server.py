@@ -126,5 +126,17 @@ def test_serve_validates_queue_and_config():
             sharded.sparse, dp_shards=3))
         with pytest.raises(ValueError, match="dp_shards"):
             Server(lm, sharded, ServeConfig(), params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Server(lm, cfg, ServeConfig(slot_refill=False), params, device="cpu")
+    # the legacy chunked scheduler is ported (tests/test_torch_legacy_
+    # scheduler.py holds it to the reference): it serves, and its chunks
+    # are checked against max_len up front
+    legacy = Server(lm, cfg, ServeConfig(batch=2, max_len=16,
+                                         slot_refill=False), params,
+                    device="cpu")
+    done = legacy.serve([Request(uid=i, prompt=np.zeros(4, np.int64),
+                                 max_new=3) for i in range(3)])
+    assert [r.outcome for r in done] == ["completed"] * 3
+    with pytest.raises(ValueError, match="padded prompt"):
+        legacy.serve([Request(uid=0, prompt=np.zeros(12, np.int64),
+                              max_new=2),
+                      Request(uid=1, prompt=np.zeros(2, np.int64),
+                              max_new=8)])
