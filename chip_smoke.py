@@ -199,6 +199,24 @@ Phases, in order; any failure exits non-zero:
              tp_shards=4 rejected at Server construction, and the ms=4
              ladder (81 tuples) falling back to uniform tuples with a
              warning.
+ 16b. mesh   the sharded decode's grid placed on torch.distributed ranks
+             that share the card (``launch/ranks.py``, gloo: NCCL takes
+             one rank of a communicator a card), each rank keeping its
+             model tiles' rows of the MLP leaves (built a layer at a time)
+             and running its tiles through ``shard_map_apply``, everything
+             else replicated: (a) all 32 layers at ms = 2 on a 1x2 mesh
+             (pallas, the per-tier controller, a bf16 paged pool, batch 4,
+             4 requests, monolithic prefill, whose dense MLP runs as
+             ``dense_apply``'s slices on each rank, their partials
+             gathered); (b) 16 layers at ds = ms = 2 on a 2x2 mesh
+             (gather, the per-tier controller with masked audits); (c) 2
+             layers with int8 MLP weights (qg 128, pallas) on the 1x2 mesh.
+             Each case's tokens and controller EMAs on every rank equal the
+             one-process emulated serve's of the same requests, run first
+             in this process (then freed); launches exact per rank; each
+             rank's peak memory and the decode step's host wall (the hub's
+             decode_step_s) beside the emulated one's; then NCCL tried once
+             with two ranks on the card, its refusal printed.
  17. moe     the moe family (deepseek-moe-16b: a dense first layer on the
              sparse MLP kernels, then MoE layers of 64 experts, top-6, 2
              shared experts; olmoe-1b-7b: MoE layers only, top-8, qk-norm):
@@ -4655,6 +4673,203 @@ def phase_sharded(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+MESH_DEVICE = "cuda"       # the card (a rehearsal on the CPU sets "cpu")
+MESH_REQUESTS = 4          # one request a slot: four batch-1 prefills
+MESH_MAX_NEW = 16
+MESH_LAYERS = 32           # (a): the whole model, 18.3 GB a rank
+MESH_LAYERS_2D = 16        # (b): four ranks' replicated weights fit at 16
+
+
+def _mesh_cases() -> dict:
+    """The mesh phase's cases by mesh: (label, config, serve config, the
+    requests as (uid, prompt, max_new, sla))."""
+    import numpy as np
+    from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
+                                          PagedKVConfig)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime.server import ServeConfig
+
+    base = get_config("prosparse-llama2-7b")
+    rng = np.random.default_rng(32)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [(i, rng.integers(0, base.vocab, size=int(rng.integers(64, 129))),
+             MESH_MAX_NEW, tiers[i % 3]) for i in range(MESH_REQUESTS)]
+    met = MetricsConfig(enabled=True, watchdog=False)
+    ctl = ControllerConfig(enabled=True, per_tier=True, audit_period=4)
+
+    def cfg(layers, strategy, ds, ms, paged=False, **kw):
+        sp = dataclasses.replace(base.sparse, strategy=strategy,
+                                 enabled=True, tp_shards=ms, dp_shards=ds,
+                                 **kw)
+        return base.replace(n_layers=layers, sparse=sp, **(
+            {"kv_cache_dtype": "bfloat16", "paged_attn_kernel": True}
+            if paged else {}))
+    paged = ServeConfig(batch=MAIN_BATCH, max_len=256, controller=ctl,
+                        max_new_tokens=MESH_MAX_NEW, metrics=met,
+                        paged_kv=PagedKVConfig(block_size=PAGE_BLOCK))
+    plain = dataclasses.replace(paged, paged_kv=None)
+    return {
+        ((2,), ("model",)): [
+            (f"(a) {MESH_LAYERS} layers, ms=2 on 1x2, pallas, bf16 paged "
+             "pool", cfg(MESH_LAYERS, "pallas", 1, 2, paged=True), paged,
+             reqs),
+            ("(c) 2 layers, int8 MLP weights, ms=2 on 1x2, pallas",
+             cfg(2, "pallas", 1, 2, weight_dtype="int8",
+                 quant_group_size=QG), plain, reqs)],
+        ((2, 2), ("data", "model")): [
+            (f"(b) {MESH_LAYERS_2D} layers, ds=ms=2 on 2x2, gather",
+             cfg(MESH_LAYERS_2D, "gather", 2, 2), plain, reqs)]}
+
+
+def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None) -> dict:
+    """One case's serve (on a mesh rank when ``mesh`` is given, its
+    weights placed a layer at a time): tokens, the controller's EMAs,
+    launches from load to drain, the peak memory and the decode step's
+    mean host wall."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, Server
+    from repro_torch.sharding import sparse as SSP
+
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    place = None if mesh is None else (
+        lambda blk: SSP.place_serve_params(blk, mesh))
+    params = lm.init_lm(cfg, 0, dev, place=place)
+    ops.reset_launch_counts()
+    srv = Server(lm, cfg, scfg, params, device=dev, mesh=mesh)
+    del params
+    t1 = time.perf_counter()
+    done = srv.serve([Request(uid=u, prompt=np.asarray(p), max_new=m, sla=t)
+                      for u, p, m, t in reqs])
+    if card:
+        torch.cuda.synchronize(dev)
+    ctl = srv.controller
+    out = {"tokens": [np.asarray(r.out) for r in
+                      sorted(done, key=lambda r: r.uid)],
+           "completed": sum(r.outcome == "completed" for r in done),
+           "steps": srv.decode_steps, "launches": ops.launch_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if card
+           else 0.0,
+           "step_ms": 1e3 * srv.metrics.hist_mean("decode_step_s"),
+           "init_s": t1 - t0, "serve_s": time.perf_counter() - t1}
+    for name in ("alphas", "density_ema", "fn_ema", "union_ema",
+                 "predicted_ema"):
+        out[name] = np.array(getattr(ctl.state, name))
+    for name in ("shard_density_ema", "shard_union_ema"):
+        out[name] = np.array(getattr(ctl, name))
+    del srv
+    if card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(mesh, dev, cases: list) -> list:
+    """A rank's serves of ``cases`` (spawned by ``launch.ranks``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [_mesh_serve(*case, dev, mesh) for case in cases]
+
+
+def _nccl_rank(mesh, dev) -> float:
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(1, device=dev)
+    dist.all_reduce(t)
+    return float(t)
+
+
+def _mesh_want(cfg, strategy: str, steps: int, per_d: int,
+               per_m: int) -> dict:
+    """One rank's launches from load to drain: the gate sign pack of its
+    rows at load, then per layer and decode step its per_d x per_m tiles
+    (gather packs x once a data block); paged kernels a layer a step."""
+    L, tiles = cfg.n_layers, per_d * per_m
+    if strategy == "pallas":
+        mlp = ("fused_sparse_mlp_q" if cfg.sparse.weight_dtype
+               else "fused_sparse_mlp")
+        want = {"sign_pack": L, "predict_group_margins": L * steps * tiles,
+                mlp: L * steps * tiles}
+    else:
+        want = {"sign_pack": L + L * steps * per_d,
+                "predict_counts": L * steps * tiles}
+    if cfg.paged_attn_kernel:
+        want.update(paged_attention=L * steps, paged_kv_write=L * steps)
+    return want
+
+
+def phase_mesh(results: dict) -> None:
+    """The sharded decode's grid on ranks that share the card: each mesh's
+    cases served in this process first (the emulated grid), their weights
+    freed, then on the mesh's ranks; tokens and EMAs held bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+
+    dev = torch.device(MESH_DEVICE)
+    for (shape, axes), cases in _mesh_cases().items():
+        t = time.perf_counter()
+        emul = [_mesh_serve(*case, dev) for case in cases]
+        t_emul = time.perf_counter() - t
+        t = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, shape, axes, args=(cases,),
+                          device=MESH_DEVICE, timeout=600)
+        print(f"[mesh] {'x'.join(map(str, shape))} over {axes}: emulated "
+              f"serves {t_emul:.1f} s, ranks {time.perf_counter() - t:.1f} "
+              "s (start, build, serve)", flush=True)
+        sizes = dict(zip(axes, shape))
+        for j, (label, cfg, _, _) in enumerate(cases):
+            e = emul[j]
+            ds, ms = cfg.sparse.dp_shards, cfg.sparse.tp_shards
+            per_d = ds // sizes.get("data", 1)
+            per_m = ms // sizes.get("model", 1)
+            for r, out in enumerate(o[j] for o in ranks):
+                for k in ("tokens", "alphas", "density_ema", "fn_ema",
+                          "union_ema", "predicted_ema", "shard_density_ema",
+                          "shard_union_ema"):
+                    same = (all(np.array_equal(a, b) for a, b in
+                                zip(out[k], e[k])) if k == "tokens"
+                            else np.array_equal(out[k], e[k]))
+                    if not same:
+                        fail(f"mesh {label}: rank {r}'s {k} differ from "
+                             "the emulated serve's")
+                want = _want_launches(out["launches"], **_mesh_want(
+                    cfg, cfg.sparse.strategy, out["steps"], per_d, per_m))
+                if out["launches"] != want or out["steps"] != e["steps"]:
+                    fail(f"mesh {label}: rank {r} launched "
+                         f"{out['launches']} in {out['steps']} steps, want "
+                         f"{want} in {e['steps']}")
+            if e["completed"] != MESH_REQUESTS:
+                fail(f"mesh {label}: {e['completed']} requests completed")
+            print(f"[mesh] {label}: tokens and EMAs of {len(ranks)} ranks "
+                  f"bitwise the emulated serve's ({e['steps']} decode "
+                  f"steps, {MESH_REQUESTS} requests)", flush=True)
+            def per_rank(key, nd):
+                return [round(o[j][key], nd) for o in ranks]
+            print(f"[mesh] {label}: decode step host wall {e['step_ms']:.2f}"
+                  f" ms emulated, ranks {per_rank('step_ms', 2)} ms; peak "
+                  f"memory {e['peak_gb']:.2f} GB emulated, ranks "
+                  f"{per_rank('peak_gb', 2)} GB; serve {e['serve_s']:.1f} s"
+                  f" emulated, ranks {per_rank('serve_s', 1)} s", flush=True)
+            used = [{k: v for k, v in o[j]["launches"].items() if v}
+                    for o in ranks]
+            print(f"[mesh] {label}: launches per rank {used}", flush=True)
+        del emul, ranks
+    try:
+        run_ranks(_nccl_rank, (2,), ("model",), device=MESH_DEVICE,
+                  backend="nccl", timeout=120)
+        print("[mesh] nccl with two ranks on one card: ran", flush=True)
+    except (RuntimeError, TimeoutError) as e:
+        last = [ln for ln in str(e).splitlines() if ln.strip()][-1:]
+        print(f"[mesh] nccl with two ranks on one card refused: {last}",
+              flush=True)
+
+
 def _mlp_kernel_times(label: str, name: str, d: int, k: int, gated: bool,
                       cap: int, gen, flush) -> None:
     """A sparse MLP call's kernels at one arch's served widths (bf16 x,
@@ -6815,6 +7030,7 @@ def main() -> None:
                         (phase_archs, ()), (phase_arch_kernel_times, ()),
                         (phase_serve_gemma2, ()),
                         (phase_sharded, (results,)),
+                        (phase_mesh, (results,)),
                         (phase_moe, (results,)),
                         (phase_cross, (results,)),
                         (phase_recurrent, (results,)),

@@ -201,16 +201,22 @@ def _stats(shape: tuple, device, **kw) -> dict:
     return out
 
 
-def dense_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
-              return_stats: bool = False):
-    """Baseline gated MLP: (act(x Wg) * (x Wu)) Wd (paper eq. 1); a
-    quantized node multiplies its dequantized view."""
+def dense_parts(params: dict, x: torch.Tensor, cfg: SparseInferConfig):
+    """The baseline gated MLP (act(x Wg) * (x Wu)) Wd (paper eq. 1) and
+    its gate activations act(x Wg); a quantized node multiplies its
+    dequantized view."""
     params = Q.dense_view(params)
     g1 = _act(cfg)(x @ params["wg_t"].to(x.dtype).T)
     h1 = g1
     if "wu_t" in params:
         h1 = h1 * (x @ params["wu_t"].to(x.dtype).T)
-    y = h1 @ params["wd_t"].to(x.dtype)
+    return h1 @ params["wd_t"].to(x.dtype), g1
+
+
+def dense_mlp(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
+              return_stats: bool = False):
+    """Baseline gated MLP (``dense_parts``), with its telemetry."""
+    y, g1 = dense_parts(params, x, cfg)
     if return_stats:
         return y, _stats(x.shape[:-1], x.device,
                          predicted_density=1.0, realized_density=1.0,

@@ -35,6 +35,12 @@ the uniform schedule; the report says "scheduler": "chunked" and
 "sla_applied": false), on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch prosparse-llama2-7b --reduced --device cpu --no-slot-refill
+The sparse decode placed on a (data, model) mesh of local ranks (dense
+family; ranks share the card under gloo, or take a card each under NCCL;
+on the CPU add --reduced --device cpu):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch prosparse-llama2-7b --strategy gather --mesh-shape 2x2 \
+        --batch 4
 The cross-attention families take stub frame or image embeddings (drawn
 from ``np.random.default_rng(0)``, (batch, n_frames | n_image_tokens,
 d_model) float32, as the reference's CLI draws them), on the CPU:
@@ -46,7 +52,9 @@ d_model) float32, as the reference's CLI draws them), on the CPU:
 Prints the reference's JSON throughput report (with ``paged``: the pool's
 counters, under --paged-kv; with ``controller``: its report, under
 --controller; with ``metrics``: the hub's snapshot and the watchdog, under
---metrics or any --metrics-* path).
+--metrics or any --metrics-* path; with ``mesh``: the mesh, the grid and
+every rank's kernel launches with their sum, under --mesh-shape, where
+rank 0's report is printed).
 """
 from __future__ import annotations
 
@@ -62,9 +70,15 @@ from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
 from repro_torch.configs.registry import arch_names, get_config, \
     reduced_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.ranks import is_rank_zero, run_ranks
 from repro_torch.launch.specs import model_module
 from repro_torch.runtime.server import Request, Server, ServeConfig, \
     throughput_report
+from repro_torch.sharding import sparse as SSP
+
+# seconds a --mesh-shape run, and each of its collectives, may take before
+# the run fails
+RANK_TIMEOUT = 3600.0
 
 
 def parse_sla_mix(mix: str, n_requests: int) -> list:
@@ -197,9 +211,48 @@ def main(argv=None) -> dict:
                          "serve")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--mesh", default="",
+                    help="the reference's GSPMD weights-TP mesh: not ported "
+                         "(ROADMAP Queue A item 15); use --mesh-shape")
+    ap.add_argument("--mesh-shape", default="",
+                    help="serve the sparse decode on a mesh of local ranks, "
+                         "DxM (data x model), e.g. 2x2 (batch slots split "
+                         "2 ways over 'data', the FFN hidden dim 2 ways "
+                         "over 'model'), or M (model only); tokens and the "
+                         "controller's state are bitwise the one-device "
+                         "serve's of the same grid (dense family)")
     args = ap.parse_args(argv)
+    if args.mesh:
+        if args.mesh_shape:
+            raise SystemExit("--mesh and --mesh-shape are exclusive: the "
+                             "rank mesh owns the placement it runs on")
+        raise NotImplementedError(
+            f"--mesh {args.mesh!r}: the GSPMD mesh is not ported (ROADMAP "
+            "Queue A item 15); use --mesh-shape")
     device = resolve_device(args.device)
+    if args.mesh_shape:
+        try:
+            dims = tuple(int(v) for v in args.mesh_shape.split("x"))
+        except ValueError:
+            raise SystemExit(f"--mesh-shape {args.mesh_shape!r}: want M or "
+                             "DxM") from None
+        axes = ("model",) if len(dims) == 1 else ("data", "model")
+        rep = run_ranks(_serve_rank, dims, axes, args=(args,),
+                        device=args.device, timeout=RANK_TIMEOUT)[0]
+    else:
+        rep = _serve(args, device)
+    if is_rank_zero():
+        print(json.dumps(rep, indent=1))
+    return rep
 
+
+def _serve_rank(mesh, device, args) -> dict:
+    return _serve(args, device, mesh)
+
+
+def _serve(args, device, mesh=None) -> dict:
+    """Build the config, the weights (placed a layer at a time on a mesh
+    rank), the server and the requests of ``args``; serve; the report."""
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.strategy:
         cfg = cfg.replace(sparse=dataclasses.replace(
@@ -225,9 +278,13 @@ def main(argv=None) -> dict:
             prefill_max_tokens=max(cfg.sparse.prefill_max_tokens,
                                    args.prefill_chunk)))
     mod = model_module(cfg)
-    params = mod.init_lm(cfg, args.seed, device)
+    kw, extra = {}, {}
+    if mesh is not None:
+        # a rank's rows of each layer's MLP, kept as the layer is drawn
+        kw["place"] = lambda blk: SSP.place_serve_params(blk, mesh)
+        extra["mesh"] = mesh
+    params = mod.init_lm(cfg, args.seed, device, **kw)
     # the cross-attention families' stub frames or images
-    extra = {}
     if cfg.family in ("vlm", "encdec"):
         name, n = (("images", cfg.n_image_tokens) if cfg.family == "vlm"
                    else ("frames", cfg.n_frames))
@@ -302,7 +359,12 @@ def main(argv=None) -> dict:
                               ("snapshot", args.metrics_snapshot)) if v}
         srv.metrics.close()
     rep["device"] = str(device)
-    print(json.dumps(rep, indent=1))
+    if mesh is not None:
+        sp = srv.cfg.sparse
+        rep["mesh"] = {"shape": list(mesh.shape),
+                       "axes": list(mesh.axis_names),
+                       "grid": [sp.dp_shards, sp.tp_shards],
+                       "launches": srv.mesh_launch_counts()}
     return rep
 
 

@@ -1,13 +1,18 @@
 """MLP block with the SparseInfer hook: counterpart of
 ``repro/layers/mlp.py``.  Prefill runs dense (the paper sparsifies decode
 only, §V-C) unless ``sparse_prefill`` extends the batch-union selection to
-the rows of a prefill chunk; decode dispatches to the configured strategy."""
+the rows of a prefill chunk; decode dispatches to the configured strategy.
+The dense MLP of a tensor-sharded config (``tp_shards`` > 1) is the sum of
+its model shards' partials in ascending order
+(``runtime/distributed.py:dense_apply``), so a rank mesh, whose ranks hold
+their shards' rows only, computes it bitwise as one device does."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import sparse_mlp as SM
 from repro_torch.core.sparse_mlp import SparseInferConfig
+from repro_torch.runtime import distributed as DD
 
 
 def init_mlp(generator: torch.Generator, d: int, k: int, gated: bool = True,
@@ -54,11 +59,18 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig, *,
     if prefill and (cfg.tp_shards or cfg.dp_shards):
         sparse = False    # the reference keeps a sharded prefill dense
     if not sparse:
-        return finish(SM.dense_mlp(params, x, cfg, return_stats=return_stats))
+        return finish(_dense(params, x, cfg, return_stats))
     xf = x.reshape(-1, shape[-1])
     max_rows = cfg.prefill_max_tokens if prefill else cfg.sparse_max_batch
     if xf.shape[0] > max_rows:
-        return finish(SM.dense_mlp(params, xf, cfg,
-                                   return_stats=return_stats))
+        return finish(_dense(params, xf, cfg, return_stats))
     return finish(SM.apply(params, xf, cfg, alpha=alpha, layer_idx=layer_idx,
                            num_layers=num_layers, return_stats=return_stats))
+
+
+def _dense(params: dict, x: torch.Tensor, cfg: SparseInferConfig,
+           return_stats: bool):
+    """The dense MLP: a tensor-sharded config's in its shards' slices."""
+    if cfg.enabled and cfg.tp_shards > 1:
+        return DD.dense_apply(params, x, cfg, return_stats=return_stats)
+    return SM.dense_mlp(params, x, cfg, return_stats=return_stats)

@@ -187,13 +187,20 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, device,
     return blk
 
 
-def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
+            place=None) -> dict:
     """Random weights drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the draws differ from the reference's
     ``jax.random``; tests carry the reference's weights over with
     ``repro_torch.bridge``).  Raises without a GPU unless ``device`` is
-    ``"cpu"``."""
+    ``"cpu"``.  ``place`` (dense family) maps each block as soon as it is
+    drawn, before the next one's draws: a mesh rank's
+    ``sharding.sparse.place_serve_params`` keeps its rows of one layer's
+    MLP at a time, so it never holds the whole tree."""
     _check_family(cfg)
+    if place is not None and cfg.family != "dense":
+        raise ValueError(f"init_lm(place=...): family {cfg.family!r} is not "
+                         "placed on a mesh (dense only)")
     if cfg.n_layers % len(_windows(cfg)):
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
                          f"multiple of local_global_period="
@@ -244,7 +251,9 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                            for _ in range(n_groups * (p - 1))]
         params["slstm"] = [block(XL.init_slstm) for _ in range(n_groups)]
         return params
-    params["blocks"] = [_init_block(gen, cfg, device, _is_moe_layer(cfg, i))
+    place = place or (lambda blk: blk)
+    params["blocks"] = [place(_init_block(gen, cfg, device,
+                                          _is_moe_layer(cfg, i)))
                         for i in range(cfg.n_layers)]
     return params
 

@@ -1,5 +1,5 @@
-"""Sharded sparse decode on one device: the counterpart of the meshless
-half of ``repro/runtime/distributed.py``.
+"""Sharded sparse decode: the counterpart of
+``repro/runtime/distributed.py``.
 
 Two config fields define the semantics, whatever the placement:
 
@@ -23,8 +23,19 @@ tokens.
 the shards in ascending order in float32 (``_combine_gathered``, never an
 atomic), its integer-valued counts summed exactly, so the result is bitwise
 the same in every run.  The rows of each weight leaf a shard reads are a
-view of the layer's leaf, never a copy.  Placing the grid on several
-devices (the reference's ``shard_map_apply``) is not ported.
+view of the layer's leaf, never a copy.
+
+``shard_map_apply`` runs the same grid on a ``launch.mesh.RankMesh`` of
+``torch.distributed`` ranks whose axes divide it: each rank holds its
+model tiles' rows of the MLP leaves (``sharding/sparse.py``), loops over
+its (data block, model tile) tiles through the same ``_local_mlp``, gathers
+the packed partials over its 'model' line in rank order into the same
+``_combine_gathered``, sums the count matrix over that line (exact: the
+counts are integers) and gathers the rows over its 'data' line, so what it
+returns is bitwise ``emulated_apply``'s.  ``sharded_apply`` dispatches to
+it under ``sharding.rules.use_mesh`` of more than one rank.  The dense MLP
+of a tensor-sharded config (the prefill) is ``dense_apply``: the shards'
+partials summed in the same fixed order, on one device or on the mesh.
 
 A moe config's MoE layers run no sparse MLP: they report zero stats with
 zero riders (``models/lm.py``), so its dense first layers' riders stack
@@ -36,11 +47,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import quantize as Q
 from repro_torch.core import selection as S
 from repro_torch.core import sparse_mlp as SM
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import rules as R
+from repro_torch.sharding import sparse as SSP
 
 # summed count columns, in order (each (B,) float32 neuron counts;
 # overflow_frac follows as predicted - realized)
@@ -245,10 +259,8 @@ _SLICE_KEYS = ("wg_t", "wu_t", "wd_t",
                "wg_q", "wg_s", "wu_q", "wu_s", "wd_q", "wd_s")
 
 
-def _slice_params(params: dict, sign_wg: torch.Tensor, s: int,
-                  ms: int) -> tuple:
-    """Shard s's packed gate signs and MLP leaves: row views, no copy."""
-    k_l = Q.mlp_hidden_rows(params) // ms
+def _slice_rows(params: dict, s: int, ms: int) -> dict:
+    """Shard s's rows of the MLP leaves: row views, no copy."""
     local = {}
     for name in _SLICE_KEYS:
         w = params.get(name)
@@ -261,7 +273,14 @@ def _slice_params(params: dict, sign_wg: torch.Tensor, s: int,
                 f"over tp_shards={ms} (int8: k/ms must be a multiple of "
                 "the quant group)")
         local[name] = w[s * r:(s + 1) * r]
-    return sign_wg[s * k_l:(s + 1) * k_l], local
+    return local
+
+
+def _slice_params(params: dict, sign_wg: torch.Tensor, s: int,
+                  ms: int) -> tuple:
+    """Shard s's packed gate signs and MLP leaves: row views, no copy."""
+    k_l = Q.mlp_hidden_rows(params) // ms
+    return sign_wg[s * k_l:(s + 1) * k_l], _slice_rows(params, s, ms)
 
 
 def _check_views(slices: list, x: torch.Tensor, bt: int) -> None:
@@ -284,23 +303,29 @@ def _check_views(slices: list, x: torch.Tensor, bt: int) -> None:
                 "off a 16-byte boundary: d * elem must be a multiple of 16")
 
 
+def _count_matrix_one(counts: dict) -> torch.Tensor:
+    """One tile's count dict -> (B, n), the ``COUNT_COLS`` in order."""
+    return torch.stack([counts[col] for col in COUNT_COLS], dim=-1)
+
+
 def _count_matrix(counts_by_shard: list) -> torch.Tensor:
     """One data block's per-shard count dicts -> (B, n), summed over the
     shards (integer-valued float32: exact in any order)."""
-    cmat = torch.stack(
-        [torch.stack([c[col] for col in COUNT_COLS], dim=-1)
-         for c in counts_by_shard], dim=0)                   # (ms, B, n)
+    cmat = torch.stack([_count_matrix_one(c) for c in counts_by_shard],
+                       dim=0)                                # (ms, B, n)
     return cmat.sum(0)
 
 
 # ------------------------------------------------------------ public API --
 
 def _grid_inputs(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
-                 alpha):
+                 alpha, m_mesh: int = 1):
     """What every grid loop needs: (ds, ms, k, caps, cap_l, clamp, the
-    shards' slices, the block height, the (B,) alphas)."""
+    slices of the model tiles ``params`` holds, the block height, the (B,)
+    alphas).  ``params`` holds 1/``m_mesh`` of the k rows: a rank's
+    ms/m_mesh tiles."""
     ds, ms = semantic_grid(cfg)
-    k = Q.mlp_hidden_rows(params)
+    k = Q.mlp_hidden_rows(params) * m_mesh
     caps, cap_l = shard_caps(cfg, k)
     sign_wg = params.get("sign_wg")
     if sign_wg is None:
@@ -309,7 +334,9 @@ def _grid_inputs(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
     if b % ds:
         raise ValueError(f"batch {b} not divisible by dp_shards={ds}")
     bt = b // ds
-    slices = [_slice_params(params, sign_wg, s, ms) for s in range(ms)]
+    per_m = ms // m_mesh
+    slices = [_slice_params(params, sign_wg, s, per_m)
+              for s in range(per_m)]
     _check_views(slices, x, bt)
     a = torch.as_tensor(alpha, dtype=torch.float32,
                         device=x.device).broadcast_to((b,))
@@ -355,6 +382,125 @@ def emulated_apply(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
     return y, _finalize_stats(totals, torch.cat(real_blocks, dim=0),
                               torch.cat(union_blocks, dim=0), k,
                               cfg.tp_shards)
+
+
+def _mesh_sizes(cfg: SM.SparseInferConfig, mesh) -> tuple[int, int]:
+    """The ('model', 'data') sizes of ``mesh``, which must divide the
+    config's grid; (1, 1) without a mesh."""
+    if mesh is None:
+        return 1, 1
+    d_mesh, m_mesh = SSP.mesh_divides(*semantic_grid(cfg), mesh)
+    return m_mesh, d_mesh
+
+
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The line's ranks' ``t`` concatenated along dim 0 in rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=0)
+
+
+def shard_map_apply(params: dict, x: torch.Tensor,
+                    cfg: SM.SparseInferConfig, alpha, *, mesh,
+                    strategy: str, return_stats: bool = False):
+    """The (ds, ms) semantics on the ranks of ``mesh``, whose 'data' and
+    'model' axes divide them.  ``params`` holds this rank's rows of the MLP
+    leaves (ms/m_mesh contiguous model tiles); x (B, d) and ``alpha`` are
+    every slot's, the same on every rank.  Each rank runs its ds/d_mesh
+    data blocks x its tiles through ``_local_mlp``; three collectives
+    follow: the packed partials gathered over the 'model' line in rank
+    order (then ``_combine_gathered``), the count matrix summed over it,
+    and the rows gathered over the 'data' line.  Returns what
+    ``emulated_apply`` returns, bitwise, on every rank."""
+    m_mesh, d_mesh = _mesh_sizes(cfg, mesh)
+    ds, ms, k, caps, cap_l, clamp, slices, bt, a = _grid_inputs(
+        params, x, cfg, alpha, m_mesh)
+    per_m, per_d = ms // m_mesh, ds // d_mesh
+    m0 = mesh.axis_index("model") * per_m           # first tile's shard
+    d0 = mesh.axis_index("data") * per_d            # first data block
+    parts, counts = [], []
+    with R.shard_local():       # the tiles are this rank's own values
+        for db in range(d0, d0 + per_d):
+            x_t = x[db * bt:(db + 1) * bt]
+            a_t = a[db * bt:(db + 1) * bt]
+            x_signs = kops.sign_pack(x_t) if strategy != "pallas" else None
+            tiles = []
+            for t, (sign_l, params_l) in enumerate(slices):
+                y_s, c_s = _local_mlp(sign_l, params_l, x_t, cfg, a_t,
+                                      strategy, cap_l,
+                                      caps[m0 + t] if clamp else None,
+                                      return_stats, x_signs)
+                tiles.append(_pack_partial(y_s, c_s) if return_stats
+                             else y_s)
+                if return_stats:
+                    counts.append(_count_matrix_one(c_s))
+            parts.append(torch.stack(tiles, dim=0))   # (per_m, bt, d[+2])
+    local = torch.stack(parts, dim=1)          # (per_m, per_d, bt, d[+2])
+    if m_mesh > 1:
+        local = _gather_rows(local, mesh.group("model"))
+    rows = []
+    for j in range(per_d):
+        if not return_stats:
+            rows.append(_combine_gathered(local[:, j], False, k // ms))
+            continue
+        y_t, real_t, union_t = _combine_gathered(local[:, j], True, k // ms)
+        rows.append((y_t, real_t, union_t))
+    if not return_stats:
+        y = torch.cat(rows, dim=0)
+        return _gather_rows(y, mesh.group("data")) if d_mesh > 1 else y
+    # (per_d, bt, n): each block's counts summed over its tiles, then over
+    # the line (integer-valued float32: exact in any order)
+    cm = torch.stack(counts).reshape(per_d, per_m, bt, -1).sum(1)
+    if m_mesh > 1:
+        dist.all_reduce(cm, group=mesh.group("model"))
+    y, real, union = (torch.cat([r[i] for r in rows], dim=0)
+                      for i in range(3))
+    n_y, n_c = y.shape[-1], cm.shape[-1]
+    packed = torch.cat([y, cm.reshape(per_d * bt, n_c), real, union], -1)
+    if d_mesh > 1:
+        packed = _gather_rows(packed, mesh.group("data"))
+    y, totals_mat, shard_real, shard_union = torch.split(
+        packed, [n_y, n_c, ms, ms], dim=-1)
+    totals = {col: totals_mat[:, i] for i, col in enumerate(COUNT_COLS)}
+    return y, _finalize_stats(totals, shard_real, shard_union, k,
+                              cfg.tp_shards)
+
+
+def dense_apply(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
+                return_stats: bool = False):
+    """The dense MLP of a tensor-sharded config: each model shard's
+    partial on its rows (``core.sparse_mlp.dense_parts``) with its count
+    of active rows, summed over the shards in ascending order in float32
+    (the counts exactly).  On one device a loop over the shards' row
+    views; under a current mesh split over 'model' each rank runs its
+    shards on the rows it holds, for every slot (the dense MLP is not
+    split over 'data'), and gathers the partials over its 'model' line,
+    so every placement of the grid gets the same bits.  Returns y float32
+    [and the ``MLP_STAT_KEYS`` of ``dense_mlp``]."""
+    _, ms = semantic_grid(cfg)
+    mesh = R.current_mesh()
+    m_mesh, _ = _mesh_sizes(cfg, mesh)
+    per_m = ms // m_mesh
+    k = Q.mlp_hidden_rows(params) * m_mesh
+    parts = []
+    for s in range(per_m):
+        y_s, g1 = SM.dense_parts(_slice_rows(params, s, per_m), x, cfg)
+        active = (g1 > 0).sum(-1, dtype=torch.float32)
+        parts.append(torch.cat([y_s.float(), active[..., None]], dim=-1))
+    packed = torch.stack(parts)                    # (per_m, ..., d + 1)
+    if m_mesh > 1:
+        packed = _gather_rows(packed, mesh.group("model"))
+    total = packed[0]
+    for s in range(1, ms):
+        total = total + packed[s]
+    y = total[..., :-1]
+    if not return_stats:
+        return y
+    kf = torch.tensor(float(k), device=x.device)
+    return y, SM._stats(y.shape[:-1], x.device, predicted_density=1.0,
+                        realized_density=1.0,
+                        actual_density=total[..., -1] / kf,
+                        union_demand_frac=1.0)
 
 
 def selection_masks(params: dict, x: torch.Tensor,
@@ -405,7 +551,8 @@ def sharded_apply(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
                   alpha, *, strategy: str, return_stats: bool = False):
     """The sharded strategies' entry (from ``core.sparse_mlp.apply``): x is
     (d,) or (B, d); the grouped (G, B, d) layout of the unsharded gather
-    does not compose with a shard grid."""
+    does not compose with a shard grid.  Under a current mesh of more than
+    one rank ``shard_map_apply`` runs the grid, else ``emulated_apply``."""
     squeeze = x.ndim == 1
     xb = x[None] if squeeze else x
     if xb.ndim != 2:
@@ -413,8 +560,13 @@ def sharded_apply(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
             f"tp_shards decode expects (B, d) tokens, got {tuple(x.shape)}: "
             "the grouped (G, B, d) gather layout does not compose with a "
             "shard grid")
-    out = emulated_apply(params, xb, cfg, alpha, strategy=strategy,
-                         return_stats=return_stats)
+    mesh = R.current_mesh()
+    if _mesh_sizes(cfg, mesh) != (1, 1):
+        out = shard_map_apply(params, xb, cfg, alpha, mesh=mesh,
+                              strategy=strategy, return_stats=return_stats)
+    else:
+        out = emulated_apply(params, xb, cfg, alpha, strategy=strategy,
+                             return_stats=return_stats)
     if not squeeze:
         return out
     if return_stats:

@@ -80,8 +80,22 @@ As in the reference, only dense and moe have a paged pool, and hybrid and
 xlstm no chunked prefill: ``prefill_chunk`` set for them warns and admits
 through the monolithic prefill.  hybrid's controller is as wide as its
 shared block's invocations, its alphas padded to n_layers rows for the
-decode step; xlstm has no MLP and refuses the controller.  Not ported
-yet: placing a shard grid on several devices (the reference's ``mesh``).
+decode step; xlstm has no MLP and refuses the controller.
+
+``Server(mesh=...)`` serves a dense config on one rank of a
+``launch.mesh.RankMesh`` (``launch/ranks.py`` starts the ranks; every rank
+builds its own Server and runs the same host loop).  The config's
+``dp_shards``/``tp_shards`` define the grid (unset ones take the mesh's
+axis sizes, which must divide them); the rank keeps its model tiles' rows
+of the MLP leaves (``sharding/sparse.py``) and runs its tiles of each
+sparse MLP call (``runtime/distributed.py:shard_map_apply``) and its
+slices of a prefill's dense MLP (``dense_apply``); everything else
+(embeddings, attention, norms, head, the KV cache or pool) is replicated
+and computed on all B slots.  Tokens and the
+controller's state are then bitwise the one-device server's of the same
+config.  Each decode step's slot arrays are checked against rank 0's
+(``_put_slots``); controller checkpoints are written by rank 0 and the
+hub's file sinks are rank 0's.  Other families raise under a mesh.
 
 ``ServeConfig.slot_refill=False`` selects the reference's legacy chunked
 scheduler instead: fixed chunks of ``batch`` requests, each run to
@@ -101,6 +115,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import (DEFAULT_SLA_TIERS, ControllerConfig,
@@ -110,6 +125,7 @@ from repro_torch.core.predictor import packed_width
 from repro_torch.core.sparse_mlp import DEAD_SLOT_ALPHA
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import predict as KP
 from repro_torch.kernels import sparse_mlp_fused as KF
 from repro_torch.models.common import greedy_sample
@@ -122,6 +138,7 @@ from repro_torch.runtime.controller import (TRAJECTORY_KEEP,
 from repro_torch.runtime.faults import InjectedFault
 from repro_torch.runtime.kv_pool import KVPool, PoolExhausted
 from repro_torch.runtime.metrics import MetricsHub, note_first_use
+from repro_torch.sharding import rules as RR
 from repro_torch.sharding import sparse as SSP
 
 # SMs of the card the shard-grid checks plan for (an H100's); the shapes a
@@ -256,12 +273,18 @@ class Server:
     ``i``, ``generate()`` the whole batch.  A chunked admission of an
     encoder-decoder encodes its row once and passes the states to every
     chunk.  ``device`` defaults to ``cuda`` and raises without a GPU; pass
-    ``device="cpu"`` to serve on the CPU with the plain kernel versions."""
+    ``device="cpu"`` to serve on the CPU with the plain kernel versions.
+
+    ``mesh``: serve on this rank of a ``launch.mesh.RankMesh`` of more than
+    one rank (dense family, a sparse strategy).  ``params`` holds this
+    rank's rows of the MLP leaves (``init_lm(place=...)``); a whole tree
+    raises."""
 
     def __init__(self, model_mod, cfg: ModelConfig, scfg: ServeConfig,
                  params: dict, extra_inputs: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._grids_checked: set = set()   # (bucket, shard) plans asked
         if scfg.prefill_chunk:
             if scfg.prefill_chunk < 1 or scfg.max_len % scfg.prefill_chunk:
@@ -318,17 +341,27 @@ class Server:
                     "reuse lands on chunk boundaries")
         if not scfg.greedy:
             raise NotImplementedError("only greedy decoding is ported")
-        if cfg.sparse.enabled and (cfg.sparse.tp_shards
-                                   or cfg.sparse.dp_shards):
+        if mesh is not None:
+            cfg = self._mesh_config(cfg, scfg, mesh)
+            if mesh.rank:
+                # the hub's file sinks are rank 0's
+                scfg = dataclasses.replace(scfg, metrics=dataclasses.replace(
+                    scfg.metrics, jsonl_path="", trace_path="",
+                    snapshot_path=""))
+        elif cfg.sparse.enabled and (cfg.sparse.tp_shards
+                                     or cfg.sparse.dp_shards):
             # the grid must take the batch, and every shard of a sparse
             # MLP layer whole row groups, int8 quant groups and ladder
             # rungs (a moe config's MoE layers run no sparse MLP)
-            _, ms = SSP.resolve_grid(cfg.sparse, scfg.batch)
+            _, ms = SSP.resolve_grid(cfg.sparse, None, scfg.batch)
             if model_mod.has_sparse_mlp(cfg):
                 SSP.validate_shardable(cfg.sparse, cfg.d_ff, ms)
         self.mod = model_mod
         self.cfg = cfg
         self.scfg = scfg
+        if mesh is not None:
+            # a rank never holds the whole tree: it comes placed
+            SSP.check_placed(params, mesh, cfg.d_ff)
         self.params = (model_mod.prepare_sparse(params, cfg.sparse)
                        if cfg.sparse.enabled else params)
         self.extra = {k: torch.as_tensor(v, device=self.device)
@@ -394,6 +427,83 @@ class Server:
                               prefix_cache=pk.prefix_cache)
         self._pool = self.mod.init_kv_pool(self.cfg, n_blocks, pk.block_size,
                                            self.device)
+
+    @staticmethod
+    def _mesh_config(cfg: ModelConfig, scfg: ServeConfig, mesh):
+        """The reference's mesh checks; returns ``cfg`` with the resolved
+        (ds, ms) grid set."""
+        if mesh.size <= 1:
+            raise ValueError(
+                "mesh serving needs > 1 ranks across the ('data', 'model') "
+                f"axes (got mesh axes {mesh.axis_names}, shape "
+                f"{mesh.shape})")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"mesh serving of family {cfg.family!r} is not ported: only "
+                "dense runs on a rank mesh (ROADMAP Queue A item 15)")
+        if not cfg.sparse.enabled or cfg.sparse.strategy not in (
+                "masked", "gather", "pallas"):
+            raise ValueError(
+                "mesh serving shards the SparseInfer decode strategies; "
+                f"got enabled={cfg.sparse.enabled} "
+                f"strategy={cfg.sparse.strategy!r}")
+        ds, ms = SSP.resolve_grid(cfg.sparse, mesh, scfg.batch)
+        SSP.validate_shardable(cfg.sparse, cfg.d_ff, ms)
+        return cfg.replace(sparse=dataclasses.replace(
+            cfg.sparse, tp_shards=ms, dp_shards=ds))
+
+    def _mesh_ctx(self):
+        """The mesh current for every model call in mesh mode (the sparse
+        MLP's dispatch and the dense MLP read it); a no-op without one."""
+        return RR.use_mesh(self.mesh)
+
+    def _put_slots(self, tok, lengths, alphas=None, table=None):
+        """A decode step's slot arrays on the device: tokens (B, 1),
+        lengths (B,), the block table (B, nbps) or None; the (L, B) alphas
+        stay as given.  In mesh mode every rank's arrays are first held
+        against rank 0's (one gather of their values over the mesh); if any
+        rank's differ, every rank raises, so a host loop that diverged
+        fails at once rather than waiting in a collective."""
+        if self.mesh is not None:
+            self._agree_with_rank0(tok=tok, lengths=lengths, alphas=alphas,
+                                   table=table)
+        dev = self.device
+        return (torch.as_tensor(tok, device=dev),
+                torch.as_tensor(lengths, device=dev), alphas,
+                None if table is None else torch.as_tensor(table, device=dev))
+
+    def _agree_with_rank0(self, **arrays) -> None:
+        names = [k for k, v in arrays.items() if v is not None]
+        words = []
+        for k in names:
+            a = np.asarray(torch.as_tensor(arrays[k]).cpu())
+            if a.dtype.kind == "f":
+                a = a.astype(np.float32).view(np.int32)
+            words.append(a.astype(np.int64).ravel())
+        mine = torch.from_numpy(np.concatenate(words))
+        got = [torch.empty_like(mine) for _ in range(self.mesh.size)]
+        dist.all_gather(got, mine, group=self.mesh.host_group)
+        bad = [r for r in range(1, len(got)) if not torch.equal(got[r],
+                                                                got[0])]
+        if bad:
+            raise ValueError(
+                f"mesh ranks {bad} hold other slot arrays ({', '.join(names)})"
+                " than rank 0 for this decode step: the ranks' host loops "
+                "diverged")
+
+    def mesh_launch_counts(self) -> dict:
+        """Kernel launches (``kernels/ops.py``, counted per process): this
+        process's, or in mesh mode every rank's (``per_rank``) and their
+        sum (``total``).  In mesh mode every rank must call it."""
+        mine = kops.launch_counts()
+        if self.mesh is None:
+            return {"per_rank": [mine], "total": dict(mine)}
+        per_rank = [None] * self.mesh.size
+        dist.all_gather_object(per_rank, mine, group=self.mesh.host_group)
+        total: collections.Counter = collections.Counter()
+        for c in per_rank:
+            total.update(c)
+        return {"per_rank": per_rank, "total": dict(total)}
 
     def reset(self) -> None:
         """Restore the cross-serve state (controller, capacity bucket, KV
@@ -473,10 +583,17 @@ class Server:
 
     def save_controller(self, step: Optional[int] = None) -> Optional[int]:
         """Checkpoint the controller's state (nothing without
-        ``ServeConfig.controller_ckpt``).  Returns the step written."""
+        ``ServeConfig.controller_ckpt``).  Returns the step written.  In
+        mesh mode rank 0 writes (every rank holds the same state) and every
+        rank, which must call it, waits until it has."""
         if self._ckpt_mgr is None or self.controller is None:
             return None
-        return save_controller(self.controller, self._ckpt_mgr, step)
+        out = None
+        if self.mesh is None or self.mesh.rank == 0:
+            out = save_controller(self.controller, self._ckpt_mgr, step)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.host_group)
+        return out
 
     def _serve_epilogue(self) -> None:
         """After a drain: refresh the gauges, record the drain, arm the
@@ -702,10 +819,8 @@ class Server:
         if self._warmed_buckets or len(self._bucket_cfgs) <= 1:
             self._warmed_buckets = True
             return
-        tok = torch.as_tensor(tok, device=self.device)
-        lengths = torch.as_tensor(lengths, device=self.device)
-        if table is not None:
-            table = torch.as_tensor(table, device=self.device)
+        tok, lengths, alphas, table = self._put_slots(tok, lengths, alphas,
+                                                      table)
         for key, cfg_b in self._bucket_cfgs.items():
             loaded = build.n_loaded()
             self.mod.decode_step(self.params, cfg_b, tok,
@@ -812,13 +927,11 @@ class Server:
         """One decode step -> (tokens, caches); with ``cfg`` (a controller
         configuration: a bucket's or the audit's) also the step's (L, B)
         telemetry as numpy."""
-        if table is not None:
-            table = torch.as_tensor(table, device=self.device)
+        tok, lengths, alphas, table = self._put_slots(tok, lengths, alphas,
+                                                      table)
         out = self.mod.decode_step(
-            self.params, cfg or self.cfg,
-            torch.as_tensor(tok, device=self.device), caches,
-            torch.as_tensor(lengths, device=self.device), alphas=alphas,
-            block_table=table, collect_stats=cfg is not None)
+            self.params, cfg or self.cfg, tok, caches, lengths,
+            alphas=alphas, block_table=table, collect_stats=cfg is not None)
         self.decode_steps += 1
         if cfg is None:
             logits, caches = out
@@ -948,7 +1061,7 @@ class Server:
                     "but ServeConfig.sla_tiers has no such tier "
                     f"({sorted(self._tier_index)})")
             bal = 0
-        with torch.inference_mode():
+        with torch.inference_mode(), self._mesh_ctx():
             b, plen = prompts.shape
             logits, caches = self.mod.prefill(
                 self.params, self.cfg,
@@ -1019,7 +1132,7 @@ class Server:
         if not self.scfg.slot_refill:
             self._check_chunks(requests)
             run = self._serve_chunked
-        with torch.inference_mode():
+        with torch.inference_mode(), self._mesh_ctx():
             try:
                 done = run(requests)
             except Exception:

@@ -307,10 +307,10 @@ def test_validate_shardable_and_shard_capacity_match_reference(fields, k,
 
 def test_resolve_grid():
     tc = TSM.SparseInferConfig(tp_shards=2, dp_shards=2)
-    assert TSS.resolve_grid(tc, 4) == (2, 2)
-    assert TSS.resolve_grid(TSM.SparseInferConfig(), 3) == (1, 1)
+    assert TSS.resolve_grid(tc, None, 4) == (2, 2)
+    assert TSS.resolve_grid(TSM.SparseInferConfig(), None, 3) == (1, 1)
     with pytest.raises(ValueError, match="dp_shards"):
-        TSS.resolve_grid(tc, 3)
+        TSS.resolve_grid(tc, None, 3)
 
 
 # -------------------------------------------------------- the controller --
