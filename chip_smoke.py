@@ -126,7 +126,7 @@ Phases, in order; any failure exits non-zero:
              With random weights the union demand stays near 1, so the
              ladder holds its top rung through the serve; a forced low
              demand estimate must then select the lowest rung.
- 13. serve-overload  all 32 layers (bf16 compute, bf16 paged pool, block
+ 13. serve-overload  16 of the 32 layers (bf16 compute, bf16 paged pool, block
              16, the paged kernels, chunked sparse prefill in chunks of 64),
              batch 4, 12 requests of mixed tiers, 40-150-token prompts, 16
              new tokens each, on the fault injector's virtual clock.  Masked
@@ -187,8 +187,8 @@ Phases, in order; any failure exits non-zero:
              per-shard riders held with the selection stats) for masked,
              gather and pallas at (ds, ms) = (2, 2) and (1, 4), int8 MLP
              weights at (1, 2) and per-shard bucket tuples at (2, 2),
-             launches exactly ds * ms a tile kernel; (c) all 32 layers
-             through Server.serve at ds = ms = 2 (pallas, batch 4, 8
+             launches exactly ds * ms a tile kernel; (c) 16 of the 32
+             layers through Server.serve at ds = ms = 2 (pallas, batch 4, 8
              requests of mixed tiers, the per-tier controller over the
              CTRL_BUCKETS ladder: 9 bucket tuples, warmed; a bf16 paged
              pool of 16-token blocks, chunks of 64, dense under sharding):
@@ -199,24 +199,25 @@ Phases, in order; any failure exits non-zero:
              tp_shards=4 rejected at Server construction, and the ms=4
              ladder (81 tuples) falling back to uniform tuples with a
              warning.
- 16b. mesh   the sharded decode's grid placed on torch.distributed ranks
+ 16b. mesh   prosparse-llama2-7b at full width on torch.distributed ranks
              that share the card (``launch/ranks.py``, gloo: NCCL takes
-             one rank of a communicator a card), each rank keeping its
-             model tiles' rows of the MLP leaves (built a layer at a time)
-             and running its tiles through ``shard_map_apply``, everything
-             else replicated: (a) all 32 layers at ms = 2 on a 1x2 mesh
-             (pallas, the per-tier controller, a bf16 paged pool, batch 4,
-             4 requests, monolithic prefill, whose dense MLP runs as
-             ``dense_apply``'s slices on each rank, their partials
-             gathered); (b) 16 layers at ds = ms = 2 on a 2x2 mesh
-             (gather, the per-tier controller with masked audits); (c) 2
-             layers with int8 MLP weights (qg 128, pallas) on the 1x2 mesh.
-             Each case's tokens and controller EMAs on every rank equal the
-             one-process emulated serve's of the same requests, run first
-             in this process (then freed); launches exact per rank; each
-             rank's peak memory and the decode step's host wall (the hub's
-             decode_step_s) beside the emulated one's; then NCCL tried once
-             with two ranks on the card, its refusal printed.
+             one rank of a communicator a card), each rank keeping its part
+             of every leaf by the serve rules (MLP rows, attention heads
+             and KV heads, vocabulary rows; ``init_lm(place=)``, a layer at
+             a time): (a) 16 layers at ms = 2 on a 1x2 mesh (pallas,
+             the per-tier controller, a bf16 paged pool on the paged
+             kernels, batch 4, 4 requests, monolithic prefill); (b) 8
+             layers at ds = ms = 2 on a 2x2 mesh (gather, the per-tier
+             controller with masked audits); (c) 2 layers with int8 MLP
+             weights (qg 128, pallas) on the 1x2 mesh.  Ranks first, then
+             the emulated grid in this process; every rank's tokens, EMAs
+             and teacher-forced logits bitwise rank 0's, launches exact
+             per rank; teacher-forced steps (float32 compute) on a dense
+             cache and, for (a), through the paged kernels on a float32
+             pool, each within 1e-3 of this process's replay fed the
+             ranks' MLP inputs; peaks, parameter bytes and decode-step
+             host walls printed; then NCCL tried once with two ranks on
+             the card, its refusal printed.
  17. moe     the moe family (deepseek-moe-16b: a dense first layer on the
              sparse MLP kernels, then MoE layers of 64 experts, top-6, 2
              shared experts; olmoe-1b-7b: MoE layers only, top-8, qk-norm):
@@ -315,9 +316,10 @@ Phases, in order; any failure exits non-zero:
              S=1024 (median step time, tokens/s, peak memory, a profiled
              step, the model FLOPs' share of the bf16 dense peak), then 4
              steps twice from one seed under deterministic algorithms,
-             their losses equal bit for bit; (c) xlstm-125m whole (B=4,
-             S=64) crashed at step 5 with async checkpoints every 3 steps,
-             resumed by a new Trainer from step 3, steps 4-6 bit for bit an
+             their losses equal bit for bit; (c) xlstm-125m at full width
+             and 4 of its 12 layers (one group: three mLSTM blocks and an
+             sLSTM one; B=4, S=64) crashed at step 5 with async
+             checkpoints every 3 steps, resumed by a new Trainer from step 3, steps 4-6 bit for bit an
              uninterrupted run's (deterministic algorithms on), the
              checkpoint's bytes and write time; (d) zamba2-1.2b,
              seamless-m4t-medium and gemma2-2b whole, olmoe-1b-7b at 2 of
@@ -353,6 +355,24 @@ Phases, in order; any failure exits non-zero:
  22. report  a {"kernels": [...]} line, then {"ok": true, "device": ...}.
 
 It exits non-zero without a GPU, and without the repository beside it.
+
+    python3 chip_smoke.py --cards4
+
+on a host with four cards: the kernels at a rank's shapes of 1x4
+(``--cards4-kernels``), then qwen1.5-32b (64 layers) and granite-34b (88)
+at full depth, granite at 2 layers with int8 MLP weights and
+prosparse-llama2-7b at 16 layers on a 1x4 mesh, a rank a card over NCCL
+(every rank bitwise rank 0, launches exact, tokens/s, peaks, a profiled
+paged decode step), the last case again on four gloo ranks of card 0,
+bitwise the NCCL run.  It ends with the contract line (``count`` 4).
+
+    python3 chip_smoke.py --cards4-kernels
+
+on one card: the kernels at the shapes a rank of ``--cards4`` gives them
+(qwen1.5-32b's, granite-34b's and prosparse-llama2-7b's heads, KV heads
+and k/4 MLP rows; every MLP kernel at granite's, #5 on int8 weights
+among them) against their plain versions, timed.  It ends with the
+contract line.
 
     python3 chip_smoke.py --kv-ab OTHER_SRC
 
@@ -451,6 +471,10 @@ D_PAD = 4000              # a width that is not a multiple of 32
 # the 1376 row groups
 CTRL_BUCKETS = (0.1, 0.2, 0.4)
 OVERLOAD_POOL = 18        # the overload phase's pool: about half the demand
+# the overload phase's depth, a cut of the 7b's 32 layers: its schedule
+# runs on a virtual clock, so its steps, chunks, sheds and preemptions do
+# not depend on it
+OVERLOAD_LAYERS = 16
 # the model-level checks' logits tolerance by KV dtype (``_hold``: card
 # against CPU, each MLP fed the same input): with a float32 cache the two
 # differ in float32 summation order only; a bf16 or int8 cache rounds q
@@ -1988,17 +2012,54 @@ def _hold(label: str, run, tol: float, want: dict | None = None,
     false-negative counts, each of which may move by the gate values of
     its row within rounding of 0.  Then the logits within ``tol``."""
     import torch
-    from repro_torch.core import quantize as Q
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    calls, seen = [], {"n": 0, "y": 0.0, "x": 0.0, "moved": 0}
-    moe_calls, moe_seen = [], {"n": 0, "y": 0.0, "flips": 0}
+    ops.reset_launch_counts()
+    card, calls, moe_calls = _record_calls(lambda: run("cuda"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if want is not None and counts != _want_launches(counts, **want):
+        fail(f"{label}: launches {counts}, want {want}")
+    if not bool(torch.isfinite(card).all()):
+        fail(f"{label}: non-finite logits on the card")
+    _replay_calls(label, card, calls, moe_calls,
+                  ref if ref is not None else (lambda: run("cpu")), tol, t0)
+
+
+def _record_calls(run) -> tuple:
+    """``run()``'s value with every MLP call's (input, output, stats) and
+    every MoE call's (input, output, routing) recorded, on the CPU."""
+    calls, moe_calls = [], []
 
     def record_moe(moe_apply, params, x, cfg):
         out = moe_apply(params, x, cfg)
         moe_calls.append((x.cpu(), out[0].cpu(), _kept(params, x, cfg)))
         return out
+
+    def record(mlp, params, x, cfg, **kw):
+        out = mlp(params, x, cfg, **kw)
+        y, st = out if kw.get("return_stats") else (out, None)
+        calls.append((x.cpu(), y.cpu(), st and {n: v.cpu()
+                                                for n, v in st.items()}))
+        return out
+
+    with _mlp_tap(record), _mlp_tap(record_moe, "moe_apply"):
+        out = run()
+    return out, calls, moe_calls
+
+
+def _replay_calls(label: str, card, calls: list, moe_calls: list, ref,
+                  tol: float, t0: float) -> None:
+    """``ref()`` with every MLP and MoE call fed the input of the same call
+    in ``calls``/``moe_calls`` (``_record_calls``), each output and its
+    stats held as ``_hold`` says, then its logits within ``tol`` of
+    ``card``."""
+    import torch
+    from repro_torch.core import quantize as Q
+
+    seen = {"n": 0, "y": 0.0, "x": 0.0, "moved": 0}
+    moe_seen = {"n": 0, "y": 0.0, "flips": 0}
 
     def replay_moe(moe_apply, params, x, cfg):
         """The CPU's MoE call on the card's input: routing equal up to
@@ -2027,13 +2088,6 @@ def _hold(label: str, run, tol: float, want: dict | None = None,
         if groups:
             y = y_c.to(y.device)
         return y, aux
-
-    def record(mlp, params, x, cfg, **kw):
-        out = mlp(params, x, cfg, **kw)
-        y, st = out if kw.get("return_stats") else (out, None)
-        calls.append((x.cpu(), y.cpu(), st and {n: v.cpu()
-                                                for n, v in st.items()}))
-        return out
 
     def replay(mlp, params, x, cfg, **kw):
         i = seen["n"]
@@ -2067,17 +2121,8 @@ def _hold(label: str, run, tol: float, want: dict | None = None,
             seen["moved"] += int(moved.sum())
         return out
 
-    ops.reset_launch_counts()
-    with _mlp_tap(record), _mlp_tap(record_moe, "moe_apply"):
-        card = run("cuda")
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    if want is not None and counts != _want_launches(counts, **want):
-        fail(f"{label}: launches {counts}, want {want}")
-    if not bool(torch.isfinite(card).all()):
-        fail(f"{label}: non-finite logits on the card")
     with _mlp_tap(replay), _mlp_tap(replay_moe, "moe_apply"):
-        other = ref() if ref is not None else run("cpu")
+        other = ref()
     if seen["n"] != len(calls):
         fail(f"{label}: {seen['n']} MLP calls, {len(calls)} on the card")
     if moe_seen["n"] != len(moe_calls):
@@ -3525,7 +3570,8 @@ def _span_means_ms(trace: dict) -> dict:
 
 
 def phase_serve_overload(results: dict) -> None:
-    """The overload handling and the metrics hub at full width: the masked
+    """The overload handling and the metrics hub at full width and
+    ``OVERLOAD_LAYERS`` layers: the masked
     strategy's bitwise bar under a 2x oversubscribed pool, deadlines,
     queue-depth shedding and injected faults, then the pallas serve with
     every sink, a decode fault and the reset."""
@@ -3541,7 +3587,8 @@ def phase_serve_overload(results: dict) -> None:
     from repro_torch.runtime.server import (Server, ServeConfig,
                                             throughput_report)
 
-    base = get_config("prosparse-llama2-7b")
+    base = get_config("prosparse-llama2-7b").replace(
+        n_layers=OVERLOAD_LAYERS)
     L = base.n_layers
 
     def model(strategy):
@@ -4255,6 +4302,7 @@ def phase_serve_gemma2() -> None:
 # ------------------------------------------------------- phase 16: sharded --
 
 SHARD_GRIDS = ((2, 2), (1, 4))          # (dp_shards, tp_shards) of (b)
+SHARD_SERVE_LAYERS = 16   # (c): a cut of the 7b's 32 layers
 
 
 def _shard_kernel_cases(results: dict, gen, flush) -> None:
@@ -4505,8 +4553,8 @@ def _shard_layers() -> None:
 
 
 def _shard_serve(results: dict) -> None:
-    """(c): all 32 layers, tp_shards=2, dp_shards=2, batch 4, 8 requests of
-    mixed tiers, strategy pallas, the per-tier controller over the
+    """(c): ``SHARD_SERVE_LAYERS`` layers, tp_shards=2, dp_shards=2, batch
+    4, 8 requests of mixed tiers, strategy pallas, the per-tier controller over the
     CTRL_BUCKETS ladder (9 bucket tuples, warmed), a bf16 paged pool of
     16-token blocks, chunks of 64 (the sharded prefill runs dense)."""
     import numpy as np
@@ -4518,7 +4566,8 @@ def _shard_serve(results: dict) -> None:
     from repro_torch.runtime.server import (Request, Server, ServeConfig,
                                             throughput_report)
 
-    base = get_config("prosparse-llama2-7b")
+    base = get_config("prosparse-llama2-7b").replace(
+        n_layers=SHARD_SERVE_LAYERS)
     sp = dataclasses.replace(base.sparse, strategy="pallas", enabled=True,
                              sparse_prefill=True, tp_shards=2, dp_shards=2,
                              capacity_buckets=CTRL_BUCKETS)
@@ -4676,8 +4725,8 @@ def phase_sharded(results: dict) -> None:
 MESH_DEVICE = "cuda"       # the card (a rehearsal on the CPU sets "cpu")
 MESH_REQUESTS = 4          # one request a slot: four batch-1 prefills
 MESH_MAX_NEW = 16
-MESH_LAYERS = 32           # (a): the whole model, 18.3 GB a rank
-MESH_LAYERS_2D = 16        # (b): four ranks' replicated weights fit at 16
+MESH_LAYERS = 16           # (a): half the model's 32 layers
+MESH_LAYERS_2D = 8         # (b)
 
 
 def _mesh_cases() -> dict:
@@ -4721,24 +4770,59 @@ def _mesh_cases() -> dict:
              cfg(MESH_LAYERS_2D, "gather", 2, 2), plain, reqs)]}
 
 
-def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None) -> dict:
-    """One case's serve (on a mesh rank when ``mesh`` is given, its
-    weights placed a layer at a time): tokens, the controller's EMAs,
-    launches from load to drain, the peak memory and the decode step's
-    mean host wall."""
+def _mesh_paged_forced(params, cfg, dev, mesh=None):
+    """``_paged_forced`` through ``cfg``'s paged route on phase 14's
+    fragmented table and lengths over a seeded float32 pool of every KV
+    head: on a rank of ``mesh`` its KV heads of that pool."""
+    import numpy as np
+    import torch
+    from repro_torch.sharding import rules as R
+
+    rng = np.random.default_rng(12)
+    n, table = _fragmented_table(rng, DEC_BATCH, 4)
+    lens0 = np.asarray([20, 17, 33, 47])
+    forced = rng.integers(0, cfg.vocab, size=(DEC_STEPS, DEC_BATCH, 1))
+    alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
+        np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
+    pool = _random_pool(cfg, n, torch.float32, 12)
+    if mesh is not None:
+        s = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+        pool = [{k: v[:, :, s.k0:s.k1].contiguous()
+                 for k, v in layer.items()} for layer in pool]
+    return _paged_forced(params, cfg, dev, pool, table, lens0, forced,
+                         alphas)
+
+
+def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None, forced=None,
+                calls: bool = True, profile: bool = False) -> dict:
+    """One case's serve (on a mesh rank when ``mesh`` is given, its part of
+    every leaf placed a table and a layer at a time): tokens, the
+    controller's EMAs, launches from load to drain, the peak memory, the
+    parameter bytes held and the decode step's mean host wall.  Then
+    teacher-forced steps on the served weights: ``_teacher_forced`` (the
+    dense cache) and, for a config on the paged kernels with ``calls``,
+    ``_mesh_paged_forced`` (the paged route on the kernels); on a rank
+    with its MLP calls recorded (rank 0 keeps them), in one process with
+    ``forced`` (rank 0's result) replayed, every MLP call fed the ranks'
+    input of the same call, the logits within ``LOGIT_TOL["float32"]`` of
+    theirs (float32 compute, cache and pool for these steps; ``calls``
+    False: a rank keeps none and runs the dense steps only).
+    ``profile``: a paged decode step of the served weights profiled (every
+    rank runs it; rank 0 prints it)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.runtime.server import Request, Server
     from repro_torch.sharding import sparse as SSP
+    from repro_torch.tree import tree_bytes
 
     card = dev.type == "cuda"
     if card:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     place = None if mesh is None else (
-        lambda blk: SSP.place_serve_params(blk, mesh))
+        lambda node: SSP.place_serve_params(node, mesh, cfg))
     params = lm.init_lm(cfg, 0, dev, place=place)
     ops.reset_launch_counts()
     srv = Server(lm, cfg, scfg, params, device=dev, mesh=mesh)
@@ -4748,20 +4832,57 @@ def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None) -> dict:
                       for u, p, m, t in reqs])
     if card:
         torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
     ctl = srv.controller
     out = {"tokens": [np.asarray(r.out) for r in
                       sorted(done, key=lambda r: r.uid)],
            "completed": sum(r.outcome == "completed" for r in done),
            "steps": srv.decode_steps, "launches": ops.launch_counts(),
-           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if card
-           else 0.0,
            "step_ms": 1e3 * srv.metrics.hist_mean("decode_step_s"),
-           "init_s": t1 - t0, "serve_s": time.perf_counter() - t1}
-    for name in ("alphas", "density_ema", "fn_ema", "union_ema",
-                 "predicted_ema"):
-        out[name] = np.array(getattr(ctl.state, name))
-    for name in ("shard_density_ema", "shard_union_ema"):
-        out[name] = np.array(getattr(ctl, name))
+           "init_s": t1 - t0, "serve_s": t2 - t1,
+           "tok_s": sum(len(r.out) for r in done) / (t2 - t1),
+           "param_bytes": tree_bytes(srv.params)}
+    if ctl is not None:
+        for name in ("alphas", "density_ema", "fn_ema", "union_ema",
+                     "predicted_ema"):
+            out[name] = np.array(getattr(ctl.state, name))
+        for name in ("shard_density_ema", "shard_union_ema"):
+            out[name] = np.array(getattr(ctl, name))
+    # the teacher-forced steps compute in float32 with a float32 cache,
+    # whatever the serve's, as phase 3 holds card against CPU: in bf16 the
+    # ranks' column-split projections and the sides' other summation
+    # orders round their values a bf16 step apart, and over 32 layers
+    # that drift passes any tolerance that would still catch a fault
+    forced_cfg = srv.cfg.replace(kv_cache_dtype="float32", dtype="float32")
+    tol = LOGIT_TOL["float32"]
+    runs = {"forced": ("dense cache", lambda: _teacher_forced(
+        srv.params, forced_cfg, dev))}
+    if calls and forced_cfg.paged_attn_kernel:
+        runs["forced_paged"] = ("paged kernels, float32 pool",
+                                lambda: _mesh_paged_forced(
+                                    srv.params, forced_cfg, dev, mesh))
+    if mesh is not None:
+        import torch.distributed as dist
+        out["backend"] = dist.get_backend()
+        with srv._mesh_ctx():
+            for key, (_, run) in runs.items():
+                out[key], rec, _ = _record_calls(run)
+                out[f"calls_{key}"] = (rec if calls and mesh.rank == 0
+                                       else None)
+            if profile:
+                quiet = open(os.devnull, "w") if mesh.rank else None
+                with contextlib.redirect_stdout(quiet or sys.stdout):
+                    profile_paged_decode(srv, srv.cfg)
+                if quiet:
+                    quiet.close()
+    elif forced is not None:
+        for key, (what, run) in runs.items():
+            _replay_calls(f"[mesh] {label}: teacher-forced ({what}), one "
+                          "process on the ranks' MLP inputs", forced[key],
+                          forced[f"calls_{key}"], [], run, tol,
+                          time.perf_counter())
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if card
+                      else 0.0)
     del srv
     if card:
         torch.cuda.empty_cache()
@@ -4788,7 +4909,9 @@ def _mesh_want(cfg, strategy: str, steps: int, per_d: int,
                per_m: int) -> dict:
     """One rank's launches from load to drain: the gate sign pack of its
     rows at load, then per layer and decode step its per_d x per_m tiles
-    (gather packs x once a data block); paged kernels a layer a step."""
+    (gather packs x once a data block); paged kernels a layer a step, on
+    the rank's heads.  A tensor-sharded prefill runs the dense MLP, as the
+    reference's, so no chunk kernel launches."""
     L, tiles = cfg.n_layers, per_d * per_m
     if strategy == "pallas":
         mlp = ("fused_sparse_mlp_q" if cfg.sparse.weight_dtype
@@ -4803,10 +4926,51 @@ def _mesh_want(cfg, strategy: str, steps: int, per_d: int,
     return want
 
 
+MESH_STATE = ("tokens", "alphas", "density_ema", "fn_ema", "union_ema",
+              "predicted_ema", "shard_density_ema", "shard_union_ema",
+              "forced", "forced_paged")
+
+
+def _same_state(a: dict, b: dict) -> list:
+    """The keys of ``MESH_STATE`` whose values differ between two runs."""
+    import numpy as np
+    import torch
+
+    def same(x, y):
+        if isinstance(x, list):
+            return len(x) == len(y) and all(map(same, x, y))
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return np.array_equal(x, y)
+    return [k for k in MESH_STATE
+            if k in a and k in b and not same(a[k], b[k])]
+
+
+def _mesh_check(label: str, cfg, ranks: list, sizes: dict) -> None:
+    """Every rank's tokens, EMAs and teacher-forced logits bitwise rank
+    0's, and every rank's launches exact."""
+    ds, ms = cfg.sparse.dp_shards, cfg.sparse.tp_shards
+    per_d = ds // sizes.get("data", 1)
+    per_m = ms // sizes.get("model", 1)
+    for r, out in enumerate(ranks):
+        diff = _same_state(out, ranks[0])
+        if diff:
+            fail(f"mesh {label}: rank {r}'s {diff} differ from rank 0's")
+        want = _want_launches(out["launches"], **_mesh_want(
+            cfg, cfg.sparse.strategy, out["steps"], per_d, per_m))
+        if out["launches"] != want or out["steps"] != ranks[0]["steps"]:
+            fail(f"mesh {label}: rank {r} launched {out['launches']} in "
+                 f"{out['steps']} steps, want {want} in "
+                 f"{ranks[0]['steps']}")
+
+
 def phase_mesh(results: dict) -> None:
-    """The sharded decode's grid on ranks that share the card: each mesh's
-    cases served in this process first (the emulated grid), their weights
-    freed, then on the mesh's ranks; tokens and EMAs held bitwise."""
+    """The model placed on ranks that share the card: each mesh's cases on
+    its ranks first (every leaf split by the serve rules, the attention by
+    heads), then in this process (the emulated grid, replaying the ranks'
+    teacher-forced MLP inputs); tokens, EMAs and teacher-forced logits
+    bitwise between the ranks, the logits within tolerance of one
+    process."""
     import numpy as np
     import torch
     from repro_torch.launch.ranks import run_ranks
@@ -4814,50 +4978,45 @@ def phase_mesh(results: dict) -> None:
     dev = torch.device(MESH_DEVICE)
     for (shape, axes), cases in _mesh_cases().items():
         t = time.perf_counter()
-        emul = [_mesh_serve(*case, dev) for case in cases]
-        t_emul = time.perf_counter() - t
-        t = time.perf_counter()
         ranks = run_ranks(_mesh_rank, shape, axes, args=(cases,),
                           device=MESH_DEVICE, timeout=600)
-        print(f"[mesh] {'x'.join(map(str, shape))} over {axes}: emulated "
-              f"serves {t_emul:.1f} s, ranks {time.perf_counter() - t:.1f} "
-              "s (start, build, serve)", flush=True)
+        t_ranks = time.perf_counter() - t
+        t = time.perf_counter()
+        emul = [_mesh_serve(*case, dev, forced=ranks[0][j])
+                for j, case in enumerate(cases)]
+        print(f"[mesh] {'x'.join(map(str, shape))} over {axes}: ranks "
+              f"{t_ranks:.1f} s (start, build, serve), emulated serves "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
         sizes = dict(zip(axes, shape))
         for j, (label, cfg, _, _) in enumerate(cases):
-            e = emul[j]
-            ds, ms = cfg.sparse.dp_shards, cfg.sparse.tp_shards
-            per_d = ds // sizes.get("data", 1)
-            per_m = ms // sizes.get("model", 1)
-            for r, out in enumerate(o[j] for o in ranks):
-                for k in ("tokens", "alphas", "density_ema", "fn_ema",
-                          "union_ema", "predicted_ema", "shard_density_ema",
-                          "shard_union_ema"):
-                    same = (all(np.array_equal(a, b) for a, b in
-                                zip(out[k], e[k])) if k == "tokens"
-                            else np.array_equal(out[k], e[k]))
-                    if not same:
-                        fail(f"mesh {label}: rank {r}'s {k} differ from "
-                             "the emulated serve's")
-                want = _want_launches(out["launches"], **_mesh_want(
-                    cfg, cfg.sparse.strategy, out["steps"], per_d, per_m))
-                if out["launches"] != want or out["steps"] != e["steps"]:
-                    fail(f"mesh {label}: rank {r} launched "
-                         f"{out['launches']} in {out['steps']} steps, want "
-                         f"{want} in {e['steps']}")
+            e, on = emul[j], [o[j] for o in ranks]
+            _mesh_check(label, cfg, on, sizes)
             if e["completed"] != MESH_REQUESTS:
                 fail(f"mesh {label}: {e['completed']} requests completed")
-            print(f"[mesh] {label}: tokens and EMAs of {len(ranks)} ranks "
-                  f"bitwise the emulated serve's ({e['steps']} decode "
-                  f"steps, {MESH_REQUESTS} requests)", flush=True)
+            moved = [k for k in _same_state(on[0], e)
+                     if not k.startswith("forced")]
+            if moved and sizes.get("model", 1) == 1:
+                fail(f"mesh {label}: {moved} differ from the emulated "
+                     "serve's with no 'model' axis")
+            print(f"[mesh] {label}: tokens, EMAs and teacher-forced logits "
+                  f"of {len(on)} ranks bitwise ({e['steps']} decode steps, "
+                  f"{MESH_REQUESTS} requests); the served "
+                  f"{'state equal to' if not moved else 'state differs from'}"
+                  f" the emulated serve's{f' in {moved}' if moved else ''}",
+                  flush=True)
+
             def per_rank(key, nd):
-                return [round(o[j][key], nd) for o in ranks]
+                return [round(o[key], nd) for o in on]
             print(f"[mesh] {label}: decode step host wall {e['step_ms']:.2f}"
                   f" ms emulated, ranks {per_rank('step_ms', 2)} ms; peak "
                   f"memory {e['peak_gb']:.2f} GB emulated, ranks "
-                  f"{per_rank('peak_gb', 2)} GB; serve {e['serve_s']:.1f} s"
-                  f" emulated, ranks {per_rank('serve_s', 1)} s", flush=True)
-            used = [{k: v for k, v in o[j]["launches"].items() if v}
-                    for o in ranks]
+                  f"{per_rank('peak_gb', 2)} GB; parameters "
+                  f"{e['param_bytes'] / 1e9:.3f} GB one process, ranks "
+                  f"{[round(o['param_bytes'] / 1e9, 3) for o in on]} GB; "
+                  f"serve {e['serve_s']:.1f} s emulated, ranks "
+                  f"{per_rank('serve_s', 1)} s", flush=True)
+            used = [{k: v for k, v in o["launches"].items() if v}
+                    for o in on]
             print(f"[mesh] {label}: launches per rank {used}", flush=True)
         del emul, ranks
     try:
@@ -5003,9 +5162,23 @@ def _mlp_kernel_times(label: str, name: str, d: int, k: int, gated: bool,
               f"{qb[0]:.4f} ms ({qb[1]}; share {qb[0] / t_q:.3f})",
               flush=True)
     del qn, qargs
-    # ---- #10 at B=4
+    _counts_time(label, tag0, sign_wg, x, flush)
+    del wg, wu, wd, sign_wg
+
+
+def _counts_time(label: str, tag0: str, sign_wg, x, flush) -> None:
+    """#10 on ``x`` (B=4) packed against the packed gate weights
+    ``sign_wg``: twice bitwise and equal to its plain version, timed beside
+    its bound and its plain version."""
+    import torch
+    from repro_torch.kernels import predict as KP
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_pack as KS
+
+    b, d = x.shape
+    k = sign_wg.shape[0]
     xp = KS.sign_pack(x)
-    cnt = _same_twice(f"{tag0} B={MAIN_BATCH}",
+    cnt = _same_twice(f"{tag0} B={b}",
                       lambda: KP.predict_counts(sign_wg, xp),
                       name="predict_counts")
     if not torch.equal(cnt, ref.predict_counts_ref(sign_wg, xp)):
@@ -5013,12 +5186,11 @@ def _mlp_kernel_times(label: str, name: str, d: int, k: int, gated: bool,
     t_n = cuda_ms(lambda: KP.predict_counts(sign_wg, xp), flush=flush)
     t_np = cuda_ms(lambda: ref.predict_counts_ref(sign_wg, xp), iters=5,
                    flush=flush)
-    nw = predict_work(MAIN_BATCH, 2, d, k, counts=True)
+    nw = predict_work(b, 2, d, k, counts=True)
     nb = (max(nw[0], nw[1]), "bytes" if nw[0] >= nw[1] else "operations")
-    print(f"[{label}] predict_counts {tag0} B={MAIN_BATCH}: bitwise, "
+    print(f"[{label}] predict_counts {tag0} B={b}: bitwise, "
           f"twice; kernel {t_n:.4f} ms plain {t_np:.4f} ms bound "
           f"{nb[0]:.4f} ms ({nb[1]}; share {nb[0] / t_n:.3f})", flush=True)
-    del wg, wu, wd, sign_wg
 
 
 # ----------------------------------------------------------- phase 17: moe --
@@ -5907,8 +6079,10 @@ TRAIN_LAYERS = 4          # (b): a cut of depth only, every width published
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 12
 # (c): xlstm-125m's time loops are launch-bound (~15 ms a time step and
 # block for a training step's forward, recomputes and backward), so the
-# crash-and-resume runs 64 time steps
+# crash-and-resume runs 64 time steps through one group of its blocks
+# (slstm_every=4: three mLSTM blocks and an sLSTM one), full width
 RESUME_SEQ = 64
+RESUME_LAYERS = 4
 # (d): every other family the card holds whole or at a depth cut, 3 steps
 TRAIN_FAMILIES = (("zamba2-1.2b", {}), ("seamless-m4t-medium", {}),
                   ("gemma2-2b", {}), ("olmoe-1b-7b", {"n_layers": 2}),
@@ -6128,13 +6302,13 @@ def _dir_bytes(path: str) -> int:
 
 
 def _train_resume(tmp: str) -> None:
-    """(c): xlstm-125m crashed at step 5 and resumed from step 3's async
-    checkpoint, bitwise an uninterrupted run, deterministic algorithms
-    on."""
+    """(c): xlstm-125m at ``RESUME_LAYERS`` layers crashed at step 5 and
+    resumed from step 3's async checkpoint, bitwise an uninterrupted run,
+    deterministic algorithms on."""
     import torch
     from repro_torch.configs.registry import get_config
 
-    cfg = get_config("xlstm-125m")
+    cfg = get_config("xlstm-125m").replace(n_layers=RESUME_LAYERS)
     ck = os.path.join(tmp, "xlstm")
     torch.use_deterministic_algorithms(True)
     try:
@@ -6169,7 +6343,8 @@ def _train_resume(tmp: str) -> None:
     finally:
         torch.use_deterministic_algorithms(False)
     got, want = [resumed[s] for s in (4, 5, 6)], [ref[s] for s in (4, 5, 6)]
-    print(f"[train] (c) xlstm-125m B=4 S={RESUME_SEQ}: crashed at step 5 "
+    print(f"[train] (c) xlstm-125m ({RESUME_LAYERS} layers) B=4 "
+          f"S={RESUME_SEQ}: crashed at step 5 "
           f"(step ms {steps_1}), resumed at 3: steps 4-6 {got} / "
           f"uninterrupted {want}; a checkpoint "
           f"(params, mu, nu) {nbytes / 1e9:.3f} GB, a blocking save "
@@ -6982,6 +7157,208 @@ def pred_ab(other_src: str, src: str) -> None:
           "cnt, counts) bitwise equal in all four runs", flush=True)
 
 
+CARDS4_SHAPE = (4,)        # --cards4: one 'model' line of four ranks
+CARDS4_TIMEOUT = 2400      # seconds for every rank's serves together
+
+
+def _cards4_cases() -> list:
+    """--cards4's cases: (label, config, serve config, requests), every
+    config at tp_shards 4 with a bf16 paged pool on the paged kernels and
+    chunked prefill in chunks of 64; batch 4, one request a slot with
+    96-192-token prompts and 16 new tokens."""
+    import numpy as np
+    from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
+                                          PagedKVConfig)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime.server import ServeConfig
+
+    rng = np.random.default_rng(33)
+    tiers = ("latency", "balanced", "quality")
+    met = MetricsConfig(enabled=True, watchdog=False)
+
+    def case(label, arch, layers, strategy, ctl=False, **kw):
+        base = get_config(arch)
+        cfg = base.replace(
+            n_layers=layers, kv_cache_dtype="bfloat16",
+            paged_attn_kernel=True, sparse=dataclasses.replace(
+                base.sparse, strategy=strategy, enabled=True,
+                sparse_prefill=True, tp_shards=CARDS4_SHAPE[0],
+                dp_shards=1, **kw))
+        scfg = ServeConfig(
+            batch=MAIN_BATCH, max_len=256, max_new_tokens=MESH_MAX_NEW,
+            metrics=met, prefill_chunk=MAIN_CHUNK,
+            paged_kv=PagedKVConfig(block_size=PAGE_BLOCK),
+            controller=ControllerConfig(enabled=True, per_tier=True,
+                                        audit_period=4) if ctl
+            else ControllerConfig())
+        reqs = [(i, rng.integers(0, base.vocab,
+                                 size=int(rng.integers(96, 193))),
+                 MESH_MAX_NEW, tiers[i % 3]) for i in range(MAIN_BATCH)]
+        return (label, cfg, scfg, reqs)
+    return [
+        case("(a) qwen1.5-32b, 64 layers, pallas", "qwen1.5-32b", 64,
+             "pallas"),
+        case("(b) granite-34b, 88 layers, pallas", "granite-34b", 88,
+             "pallas"),
+        case("(c) granite-34b, 2 layers, int8 MLP weights, pallas",
+             "granite-34b", 2, "pallas", weight_dtype="int8",
+             quant_group_size=QG),
+        case("(d) prosparse-llama2-7b, 16 layers, gather, per-tier "
+             "controller", "prosparse-llama2-7b", 16, "gather", ctl=True)]
+
+
+def _cards4_rank(mesh, dev, cases: list, profile: bool) -> list:
+    """A rank's serves of ``cases``, no MLP calls kept."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [_mesh_serve(*case, dev, mesh, calls=False, profile=profile)
+            for case in cases]
+
+
+def _cards4_kernel_times() -> None:
+    """The kernels at the shapes a rank of ``_cards4_cases`` gives them,
+    against their plain versions, timed beside their bounds and library
+    yardsticks: #7 and #8 at a rank's heads (qwen1.5-32b: 10 query and 10
+    KV heads; granite-34b: 12 query heads over its one KV head;
+    prosparse-llama2-7b: 8 and 8); #9, #1 and #2 at qwen's rank rows (k/4
+    = 6848, gated); at granite's (6144, ungated) every MLP kernel
+    (``_mlp_kernel_times``: #5 on int8 weights with qg 128 as (c) runs
+    it); at the 7b's (2752, gated) #9, #1, #2 and #10, the route (d)
+    runs (gather: #9 and #10).  Each at the rank's shard capacity."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.kernels import sign_pack as KS
+    from repro_torch.sharding import rules as R
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+    rank0 = RankMesh(("model",), CARDS4_SHAPE, 0)
+    m = CARDS4_SHAPE[0]
+    for name in ("qwen1.5-32b", "granite-34b", "prosparse-llama2-7b"):
+        cfg = get_config(name)
+        split = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, rank0)
+        local = cfg.replace(n_heads=split.q1 - split.q0,
+                            n_kv_heads=split.k1 - split.k0)
+        kp, vp, table, lengths, kv_new = _served_attention(
+            "cards4", f"{name} rank", local, gen, rng, flush)
+        t = write_times(kp, vp, *kv_new, table, lengths.long())
+        tag = f"{name} rank B={MAIN_BATCH} K={local.n_kv_heads} bf16"
+        print(f"[cards4] {write_line(tag, t, MAIN_BATCH)}", flush=True)
+        del kp, vp
+        k_l = cfg.d_ff // m
+        cap = dataclasses.replace(cfg.sparse,
+                                  tp_shards=m).shard_capacity(cfg.d_ff)
+        if name == "granite-34b":
+            _mlp_kernel_times("cards4", f"{name} rank", cfg.d_model, k_l,
+                              cfg.gated_mlp, cap, gen, flush)
+            continue
+        checked = _served_mlp_checks(f"{name} rank", cfg.d_model, k_l,
+                                     cfg.gated_mlp, cap, gen)
+        _served_mlp_time("cards4", f"{name} rank", checked, k_l, cap, flush)
+        if name == "prosparse-llama2-7b":
+            wg, x = checked[0], checked[3]
+            _counts_time("cards4", f"{name} rank d={cfg.d_model} k={k_l}",
+                         KS.sign_pack(wg), x, flush)
+        del checked
+    del flush_buf
+    torch.cuda.empty_cache()
+
+
+def cards4(src: str, serve: bool = True) -> None:
+    """The placed model on four cards of one host, a rank a card over NCCL
+    (``python3 chip_smoke.py --cards4`` on a host with four cards): the
+    kernels at a rank's shapes (``_cards4_kernel_times``), then
+    ``_cards4_cases`` on a 1x4 mesh: every rank's tokens, EMAs and
+    teacher-forced logits bitwise rank 0's, launches exact per rank, the
+    backend NCCL on every rank; each case's tokens/s, peak memory and
+    parameter bytes per rank and a profiled paged decode step (rank 0's).
+    Then (d) again on gloo ranks that all share card 0: its tokens, EMAs
+    and teacher-forced logits bitwise the NCCL run's.  ``serve`` False
+    (``--cards4-kernels``, one card will do): the kernels only."""
+    import torch
+    from repro_torch.launch.ranks import choose_backend, run_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = CARDS4_SHAPE[0]
+    n = torch.cuda.device_count()
+    if serve and n < world:
+        fail(f"--cards4 needs {world} cards, this machine has {n}")
+    backend, why = choose_backend(world, "cuda")
+    if serve and backend != "nccl":
+        fail(f"--cards4: the backend rule gives {backend} ({why}), not nccl")
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    for i, line in enumerate(out):
+        print(f"[gpu] card {i}: {line}", flush=True)
+    t0 = time.perf_counter()
+    phase_build()
+    t = time.perf_counter()
+    _cards4_kernel_times()
+    print(f"[time] cards4 kernel times: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if not serve:
+        return
+    cases = _cards4_cases()
+    t = time.perf_counter()
+    ranks = run_ranks(_cards4_rank, CARDS4_SHAPE, ("model",),
+                      args=(cases, True), device="cuda",
+                      timeout=CARDS4_TIMEOUT)
+    print(f"[time] cards4 ranks over {backend}: "
+          f"{time.perf_counter() - t:.1f} s (start, serves)", flush=True)
+    for j, (label, cfg, _, _) in enumerate(cases):
+        on = [o[j] for o in ranks]
+        backends = {o["backend"] for o in on}
+        if backends != {"nccl"}:
+            fail(f"cards4 {label}: ranks ran on {backends}, not nccl")
+        _mesh_check(label, cfg, on, {"model": world})
+        if on[0]["completed"] != MAIN_BATCH:
+            fail(f"cards4 {label}: {on[0]['completed']} requests completed")
+        used = {k: v for k, v in on[0]["launches"].items() if v}
+        print(f"[cards4] {label}: nccl, {len(on)} ranks; tokens, EMAs and "
+              f"teacher-forced logits bitwise between the ranks; "
+              f"{on[0]['steps']} decode steps, launches exact per rank "
+              f"{used}; tokens/s {[round(o['tok_s'], 2) for o in on]}; "
+              f"decode step host wall "
+              f"{[round(o['step_ms'], 2) for o in on]} ms; peak memory "
+              f"{[round(o['peak_gb'], 2) for o in on]} GB; parameters "
+              f"{[round(o['param_bytes'] / 1e9, 3) for o in on]} GB; init "
+              f"{[round(o['init_s'], 1) for o in on]} s", flush=True)
+    # (d) on gloo ranks that share card 0: the same kernels, the same
+    # combine order, so the same bits
+    t = time.perf_counter()
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    try:
+        glo = run_ranks(_cards4_rank, CARDS4_SHAPE, ("model",),
+                        args=(cases[-1:], False), device="cuda",
+                        backend="gloo", timeout=CARDS4_TIMEOUT)
+    finally:
+        del os.environ["CUDA_VISIBLE_DEVICES"]
+    label = cases[-1][0]
+    for r, (g, o) in enumerate(zip(glo, ranks)):
+        if g[0]["backend"] != "gloo":
+            fail(f"cards4 {label}: the one-card run's rank {r} ran on "
+                 f"{g[0]['backend']}")
+        diff = _same_state(g[0], o[-1])
+        if diff or g[0]["launches"] != o[-1]["launches"]:
+            fail(f"cards4 {label}: rank {r}'s {diff or 'launches'} on "
+                 "gloo ranks sharing card 0 differ from nccl's")
+    print(f"[cards4] {label}: gloo ranks sharing card 0 bitwise the nccl "
+          f"ranks (tokens, EMAs, teacher-forced logits, launches); peak "
+          f"memory {[round(g[0]['peak_gb'], 2) for g in glo]} GB; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[done] cards4 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -6992,6 +7369,14 @@ def main() -> None:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repo")
+    if sys.argv[1:] in (["--cards4"], ["--cards4-kernels"]):
+        sys.path.insert(0, src)
+        cards4(src, serve=sys.argv[1] == "--cards4")
+        print(gpu_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     ab = {"--decode-q-ab": decode_q_ab, "--pred-ab": pred_ab,
           "--decode-ab": decode_ab, "--kv-ab": kv_ab}
     if sys.argv[1:2] and sys.argv[1] in ab and len(sys.argv) == 3:
@@ -7000,9 +7385,9 @@ def main() -> None:
         print(f"[gpu] {gpu_line()}", flush=True)
         return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, --decode-ab "
-             "OTHER_SRC, --decode-q-ab OTHER_SRC, --pred-ab OTHER_SRC or "
-             "--kv-ab OTHER_SRC")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --cards4, "
+             "--cards4-kernels, --decode-ab OTHER_SRC, --decode-q-ab "
+             "OTHER_SRC, --pred-ab OTHER_SRC or --kv-ab OTHER_SRC")
     sys.path.insert(0, src)
     # tolerances are set against full-float32 matrix products: TF32 keeps
     # ~3 decimal digits and would hide (or fake) a kernel fault

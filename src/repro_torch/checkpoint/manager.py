@@ -36,7 +36,9 @@ from repro_torch.tree import flatten, path_str, unflatten
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(numpy array to store, dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        # a copy even of a CPU leaf: ``.cpu()`` returns that leaf itself,
+        # which training would go on updating in place under the write
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return t.numpy(), str(t.dtype).replace("torch.", "")

@@ -31,30 +31,17 @@ import sys
 import time
 import traceback
 
-import torch
-
 from repro_torch.configs.base import SHAPES, ShapeConfig, shape_applicable
 from repro_torch.configs.registry import arch_names, get_config
 from repro_torch.launch import specs as S
 from repro_torch.launch.costs import step_cost
 from repro_torch.launch.mesh import HBM_PER_CARD
 from repro_torch.optim.adamw import init_adamw
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_bytes
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 DEVICE_NAME = "h100x1"
-
-
-def tree_bytes(tree) -> int:
-    """Bytes of every tensor leaf of a nested dict / list / tuple tree."""
-    if isinstance(tree, dict):
-        return sum(tree_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(tree_bytes(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return 0
 
 
 def affine_max(b1: int, t1: float, b2: int, t2: float, limit: float

@@ -89,9 +89,15 @@ def _rank_main(rank: int, world: int, tmp: str, backend: str, shape: tuple,
         # the ranks of one machine talk over its loopback device
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         dev = rank_device(rank, device)
-        _init(backend, rank, world, dev, timeout,
-              dist.FileStore(os.path.join(tmp, "store"), world))
-        out = fn(make_mesh(shape, axes), dev, *args)
+        store = dist.FileStore(os.path.join(tmp, "store"), world)
+        _init(backend, rank, world, dev, timeout, store)
+        mesh = make_mesh(shape, axes)
+        # no rank leaves before every rank has connected every line's
+        # group: a rank that returns at once would close its end of a
+        # group another rank is still connecting to
+        store.set(f"meshed{rank}", "1")
+        store.wait([f"meshed{r}" for r in range(world)])
+        out = fn(mesh, dev, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     except BaseException:

@@ -53,8 +53,10 @@ Prints the reference's JSON throughput report (with ``paged``: the pool's
 counters, under --paged-kv; with ``controller``: its report, under
 --controller; with ``metrics``: the hub's snapshot and the watchdog, under
 --metrics or any --metrics-* path; with ``mesh``: the mesh, the grid and
-every rank's kernel launches with their sum, under --mesh-shape, where
-rank 0's report is printed).
+every rank's kernel launches with their sum, each rank's parameter bytes
+beside the one-device total, each rank's peak device memory (null on the
+CPU) and the backend, under --mesh-shape, where rank 0's report is
+printed).
 """
 from __future__ import annotations
 
@@ -64,6 +66,8 @@ import json
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
                                       PagedKVConfig)
@@ -280,8 +284,8 @@ def _serve(args, device, mesh=None) -> dict:
     mod = model_module(cfg)
     kw, extra = {}, {}
     if mesh is not None:
-        # a rank's rows of each layer's MLP, kept as the layer is drawn
-        kw["place"] = lambda blk: SSP.place_serve_params(blk, mesh)
+        # a rank's part of each table and layer, kept as it is drawn
+        kw["place"] = lambda node: SSP.place_serve_params(node, mesh, cfg)
         extra["mesh"] = mesh
     params = mod.init_lm(cfg, args.seed, device, **kw)
     # the cross-attention families' stub frames or images
@@ -361,10 +365,17 @@ def _serve(args, device, mesh=None) -> dict:
     rep["device"] = str(device)
     if mesh is not None:
         sp = srv.cfg.sparse
+        peaks = [None] * mesh.size
+        dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else None,
+                               group=mesh.host_group)
         rep["mesh"] = {"shape": list(mesh.shape),
                        "axes": list(mesh.axis_names),
+                       "backend": dist.get_backend(),
                        "grid": [sp.dp_shards, sp.tp_shards],
-                       "launches": srv.mesh_launch_counts()}
+                       "launches": srv.mesh_launch_counts(),
+                       "param_bytes": srv.mesh_param_bytes(),
+                       "peak_bytes": peaks}
     return rep
 
 

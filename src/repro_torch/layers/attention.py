@@ -24,6 +24,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.layers.rope import apply_rope
 from repro_torch.layers.scan_utils import fori_loop
+from repro_torch.sharding import rules as R
 
 NEG_INF = -1e30
 
@@ -44,6 +45,10 @@ class AttentionConfig:
     d_kv_input: int = 0             # width of those states (0: d_model)
     # paged decode through the paged-attention kernels (float pools only)
     paged_kernel: bool = False
+    # the heads above are this rank's share of heads split over this many
+    # ranks of the current mesh's 'model' line (``models/common.py:
+    # attn_cfg``): the out projection is a partial sum, combined over it
+    head_shards: int = 1
 
 
 def init_attention(generator: torch.Generator, cfg: AttentionConfig,
@@ -75,6 +80,21 @@ def _promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     mixed operands (float32 image embeddings against bfloat16 weights)."""
     dt = torch.promote_types(a.dtype, w.dtype)
     return a.to(dt) @ w.to(dt)
+
+
+def _out_proj(ctx: torch.Tensor, params: dict, cfg: AttentionConfig,
+              x_dtype) -> torch.Tensor:
+    """(..., H * hd) attention context -> (..., d) through ``wo`` in
+    ``x_dtype``.  With heads split over the mesh (``cfg.head_shards``) a
+    rank's ``wo`` holds its heads' rows: its partial is taken in float32
+    on the operands rounded to ``x_dtype`` (as the whole product rounds
+    them), the line's partials are summed in rank order
+    (``rules.model_sum``) and rounded to ``x_dtype`` once, the same bits
+    on every rank."""
+    if cfg.head_shards == 1:
+        return ctx.to(x_dtype) @ params["wo"].to(x_dtype)
+    part = ctx.to(x_dtype).float() @ params["wo"].to(x_dtype).float()
+    return R.model_sum(part).to(x_dtype)
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
@@ -198,8 +218,8 @@ def attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     out = flash_attention(q, k, v, cfg, positions, kv_positions,
                           kv_chunk)
     b, s = x.shape[0], x.shape[1]
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ \
-        params["wo"].to(x.dtype)
+    out = _out_proj(out.reshape(b, s, cfg.n_heads * cfg.head_dim), params,
+                    cfg, x.dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -290,7 +310,7 @@ def chunk_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     k_pos = torch.arange(ck.shape[1], device=x.device)
     out = flash_attention(q, ck, cv, cfg, q_pos, k_pos, kv_chunk)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"].to(x.dtype), cache
+    return _out_proj(out, params, cfg, x.dtype), cache
 
 
 def _as_compute(t: torch.Tensor) -> torch.Tensor:
@@ -356,8 +376,8 @@ def decode_attend_partial(q, cache_k, cache_v, cfg: AttentionConfig,
 def finalize_decode(o, l, params: dict, x_dtype, cfg: AttentionConfig):
     out = o / torch.clamp(l, min=1e-30)[..., None]
     b = out.shape[0]
-    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_dtype)
-    return out @ params["wo"].to(x_dtype)
+    return _out_proj(out.reshape(b, 1, cfg.n_heads * cfg.head_dim), params,
+                     cfg, x_dtype)
 
 
 def cross_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
@@ -497,8 +517,8 @@ def paged_decode_attend(params: dict, x: torch.Tensor, cfg: AttentionConfig,
         ctx = ops.paged_attention(q[:, 0], pool["k"], pool["v"], table, cl,
                                   softcap=cfg.softcap, window=cfg.window)
         b = x.shape[0]
-        out = ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
-        return out @ params["wo"].to(x.dtype), pool
+        return _out_proj(ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim),
+                         params, cfg, x.dtype), pool
     pool = paged_update_kv(pool, k, v, table, cl)
     dense = paged_gather_kv(pool, table)
     s_max = dense["k"].shape[1]

@@ -15,11 +15,14 @@ init_unembed = init_embedding
 
 
 def embed(params: dict, tokens: torch.Tensor, scale_by_sqrt_d: bool = False,
-          dtype=torch.bfloat16) -> torch.Tensor:
+          dtype=torch.bfloat16, rows=None) -> torch.Tensor:
     """Table rows of ``tokens`` in ``dtype``; ``scale_by_sqrt_d`` (gemma)
     multiplies them by sqrt(d), rounded to ``dtype`` first as the reference
-    does."""
-    x = params["table"][tokens.long()].to(dtype)
+    does.  ``rows``: the rows already looked up (a vocabulary-split
+    table's, ``models/common.py:embed``)."""
+    if rows is None:
+        rows = params["table"][tokens.long()]
+    x = rows.to(dtype)
     if scale_by_sqrt_d:
         x = x * torch.tensor(params["table"].shape[-1] ** 0.5, dtype=dtype,
                              device=x.device)

@@ -5,10 +5,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.layers import embeddings as E
 from repro_torch.layers.attention import AttentionConfig
 from repro_torch.layers.norms import (init_layernorm, init_rmsnorm,
                                       layernorm, rmsnorm)
 from repro_torch.layers.scan_utils import counted_as_forward
+from repro_torch.sharding import rules as R
 
 
 def norm_init(cfg: ModelConfig, device="cpu") -> dict:
@@ -27,13 +29,23 @@ def attn_cfg(cfg: ModelConfig, window: int = 0, cross: bool = False,
              d_kv_input: int = 0) -> AttentionConfig:
     """The attention of a block; ``window`` is the layer's own (gemma2's
     local layers), not ``cfg.window``; ``cross`` takes K/V from encoder
-    states or image embeddings of width ``d_kv_input`` (0: d_model)."""
+    states or image embeddings of width ``d_kv_input`` (0: d_model).
+    Under a current mesh a self-attention holds this rank's heads
+    (``rules.attention_heads``): its projections, caches and kernels run
+    on them, and ``head_shards`` tells the out projection to sum the
+    line's partials."""
+    h, kvh, shards = cfg.n_heads, cfg.n_kv_heads, 1
+    if not cross and R.current_mesh() is not None:
+        split = R.attention_heads(h, kvh)
+        h, kvh, shards = (split.q1 - split.q0, split.k1 - split.k0,
+                          split.shards)
     return AttentionConfig(
-        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        d_model=cfg.d_model, n_heads=h, n_kv_heads=kvh,
         head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
         qk_norm=cfg.qk_norm, softcap=cfg.attn_softcap,
         rope_theta=cfg.rope_theta, window=window, cross=cross,
-        d_kv_input=d_kv_input, paged_kernel=cfg.paged_attn_kernel)
+        d_kv_input=d_kv_input, paged_kernel=cfg.paged_attn_kernel,
+        head_shards=shards)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -70,13 +82,38 @@ def take_layer(stacked, i: int):
 
 
 def head_logits(hidden: torch.Tensor, table: torch.Tensor,
-                softcap: float = 0.0) -> torch.Tensor:
+                softcap: float = 0.0, vocab: int = 0) -> torch.Tensor:
     """Full float32 logits for decode steps: (..., d) -> (..., V), with
-    gemma2's final ``tanh(logits / softcap) * softcap``."""
+    gemma2's final ``tanh(logits / softcap) * softcap``.  A ``table`` of
+    fewer rows than ``vocab`` is this rank's vocabulary share under the
+    current mesh: its logits (softcapped) are gathered over the 'model'
+    line into the full vocabulary, the same on every rank."""
     logits = hidden.float() @ table.float().T
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
+    if vocab > table.shape[0]:
+        logits = R.model_concat(logits)
     return logits
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """The token embeddings in the compute dtype, with gemma's scale.  A
+    table of fewer rows than ``cfg.vocab_padded`` is this rank's
+    vocabulary share under the current mesh: it gives its rows of the
+    tokens in its range and zeros elsewhere, and the line's parts are
+    summed in rank order (one part is non-zero, so the sum is the row)."""
+    table = params["table"]
+    rows = None
+    if cfg.vocab_padded > table.shape[0]:
+        v_l = table.shape[0]
+        local = tokens.long() - R.current_mesh().axis_index("model") * v_l
+        mine = (local >= 0) & (local < v_l)
+        rows = torch.where(mine[..., None], table[local.clamp(0, v_l - 1)],
+                           torch.zeros((), dtype=table.dtype,
+                                       device=table.device))
+        rows = R.model_sum(rows)
+    return E.embed(params, tokens, cfg.embed_scale, compute_dtype(cfg),
+                   rows=rows)
 
 
 def chunked_xent(hidden: torch.Tensor, labels: torch.Tensor,

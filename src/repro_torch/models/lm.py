@@ -193,10 +193,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
     ``seed`` on ``device`` (the draws differ from the reference's
     ``jax.random``; tests carry the reference's weights over with
     ``repro_torch.bridge``).  Raises without a GPU unless ``device`` is
-    ``"cpu"``.  ``place`` (dense family) maps each block as soon as it is
-    drawn, before the next one's draws: a mesh rank's
-    ``sharding.sparse.place_serve_params`` keeps its rows of one layer's
-    MLP at a time, so it never holds the whole tree."""
+    ``"cpu"``.  ``place`` (dense family) maps the embedding and head
+    tables and each block as soon as it is drawn, before the next one's
+    draws: a mesh rank's ``sharding.sparse.place_serve_params`` keeps its
+    part of one layer at a time, so it never holds the whole tree."""
     _check_family(cfg)
     if place is not None and cfg.family != "dense":
         raise ValueError(f"init_lm(place=...): family {cfg.family!r} is not "
@@ -212,14 +212,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
     device = resolve_device(device)
     gen = generator(device, seed)
     pd = C.param_dtype(cfg)
+    place = place or (lambda node: node)
     params: dict[str, Any] = {
-        "embed": E.init_embedding(gen, cfg.vocab_padded, cfg.d_model, pd,
-                                  device),
+        "embed": place(E.init_embedding(gen, cfg.vocab_padded, cfg.d_model,
+                                        pd, device)),
         "final_norm": C.norm_init(cfg, device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = E.init_unembed(gen, cfg.vocab_padded,
-                                           cfg.d_model, pd, device)
+        params["unembed"] = place(E.init_unembed(gen, cfg.vocab_padded,
+                                                 cfg.d_model, pd, device))
     if cfg.family == "hybrid":
         mc = mamba_cfg(cfg)
 
@@ -251,7 +252,6 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
                            for _ in range(n_groups * (p - 1))]
         params["slstm"] = [block(XL.init_slstm) for _ in range(n_groups)]
         return params
-    place = place or (lambda blk: blk)
     params["blocks"] = [place(_init_block(gen, cfg, device,
                                           _is_moe_layer(cfg, i)))
                         for i in range(cfg.n_layers)]
@@ -263,8 +263,13 @@ def _head_table(params: dict) -> torch.Tensor:
 
 
 def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    return E.embed(params["embed"], tokens, cfg.embed_scale,
-                   C.compute_dtype(cfg))
+    return C.embed(params["embed"], tokens, cfg)
+
+
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The head's float32 logits of final hidden states (..., d)."""
+    return C.head_logits(x, _head_table(params), cfg.final_softcap,
+                         cfg.vocab_padded)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -423,8 +428,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             blocks.append(_seed_cache(kv, max_len, cfg))
         caches = {"blocks": blocks}
     x = C.norm_apply(cfg, params["final_norm"], x)
-    logits = C.head_logits(x[:, -1], _head_table(params), cfg.final_softcap)
-    return logits, caches
+    return _logits(params, cfg, x[:, -1]), caches
 
 
 def _seed_cache(kv: tuple, max_len: int, cfg: ModelConfig) -> dict:
@@ -659,7 +663,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             params, x, cfg, caches, cache_len, alphas, collect_stats,
             block_table)
     x = C.norm_apply(cfg, params["final_norm"], x)
-    logits = C.head_logits(x[:, 0], _head_table(params), cfg.final_softcap)
+    logits = _logits(params, cfg, x[:, 0])
     if collect_stats:
         return logits, caches, stats
     return logits, caches
@@ -767,8 +771,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                           collect_stats)
     x = C.norm_apply(cfg, params["final_norm"], x)
     last = torch.clamp(vld - 1 - offset, 0, s - 1)            # (B,)
-    logits = C.head_logits(x[torch.arange(b, device=dev), last],
-                           _head_table(params), cfg.final_softcap)
+    logits = _logits(params, cfg, x[torch.arange(b, device=dev), last])
     if collect_stats:
         return logits, caches, stats
     return logits, caches

@@ -29,9 +29,9 @@ view of the layer's leaf, never a copy.
 ``torch.distributed`` ranks whose axes divide it: each rank holds its
 model tiles' rows of the MLP leaves (``sharding/sparse.py``), loops over
 its (data block, model tile) tiles through the same ``_local_mlp``, gathers
-the packed partials over its 'model' line in rank order into the same
-``_combine_gathered``, sums the count matrix over that line (exact: the
-counts are integers) and gathers the rows over its 'data' line, so what it
+the packed partials with each tile's count matrix over its 'model' line in
+rank order into the same ``_combine_gathered``, sums the counts (exact:
+they are integers) and gathers the rows over its 'data' line, so what it
 returns is bitwise ``emulated_apply``'s.  ``sharded_apply`` dispatches to
 it under ``sharding.rules.use_mesh`` of more than one rank.  The dense MLP
 of a tensor-sharded config (the prefill) is ``dense_apply``: the shards'
@@ -47,7 +47,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import quantize as Q
 from repro_torch.core import selection as S
@@ -393,11 +392,10 @@ def _mesh_sizes(cfg: SM.SparseInferConfig, mesh) -> tuple[int, int]:
     return m_mesh, d_mesh
 
 
-def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """The line's ranks' ``t`` concatenated along dim 0 in rank order."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+def _gather_rows(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The ``axis`` line's ranks' ``t`` concatenated along dim 0 in rank
+    order."""
+    return R.gather_line(t, axis, mesh).flatten(0, 1)
 
 
 def shard_map_apply(params: dict, x: torch.Tensor,
@@ -407,11 +405,12 @@ def shard_map_apply(params: dict, x: torch.Tensor,
     'model' axes divide them.  ``params`` holds this rank's rows of the MLP
     leaves (ms/m_mesh contiguous model tiles); x (B, d) and ``alpha`` are
     every slot's, the same on every rank.  Each rank runs its ds/d_mesh
-    data blocks x its tiles through ``_local_mlp``; three collectives
-    follow: the packed partials gathered over the 'model' line in rank
-    order (then ``_combine_gathered``), the count matrix summed over it,
-    and the rows gathered over the 'data' line.  Returns what
-    ``emulated_apply`` returns, bitwise, on every rank."""
+    data blocks x its tiles through ``_local_mlp``; two collectives
+    follow: the packed partials, each tile's count matrix beside its
+    partial, gathered over the 'model' line in rank order (then
+    ``_combine_gathered``, and the counts summed), and the rows gathered
+    over the 'data' line.  Returns what ``emulated_apply`` returns,
+    bitwise, on every rank."""
     m_mesh, d_mesh = _mesh_sizes(cfg, mesh)
     ds, ms, k, caps, cap_l, clamp, slices, bt, a = _grid_inputs(
         params, x, cfg, alpha, m_mesh)
@@ -436,8 +435,19 @@ def shard_map_apply(params: dict, x: torch.Tensor,
                     counts.append(_count_matrix_one(c_s))
             parts.append(torch.stack(tiles, dim=0))   # (per_m, bt, d[+2])
     local = torch.stack(parts, dim=1)          # (per_m, per_d, bt, d[+2])
+    n_c = len(COUNT_COLS)
+    if return_stats:
+        # each tile's count matrix rides with its partial, so one gather
+        # over the line carries both
+        cm = torch.stack(counts).reshape(per_d, per_m, bt, n_c)
+        local = torch.cat([local, cm.transpose(0, 1)], dim=-1)
     if m_mesh > 1:
-        local = _gather_rows(local, mesh.group("model"))
+        local = _gather_rows(local, mesh, "model")
+    if return_stats:
+        # (per_d, bt, n): each block's counts summed over every tile of
+        # the line (integer-valued float32: exact in any order)
+        cm = local[..., -n_c:].sum(0)
+        local = local[..., :-n_c]
     rows = []
     for j in range(per_d):
         if not return_stats:
@@ -447,18 +457,13 @@ def shard_map_apply(params: dict, x: torch.Tensor,
         rows.append((y_t, real_t, union_t))
     if not return_stats:
         y = torch.cat(rows, dim=0)
-        return _gather_rows(y, mesh.group("data")) if d_mesh > 1 else y
-    # (per_d, bt, n): each block's counts summed over its tiles, then over
-    # the line (integer-valued float32: exact in any order)
-    cm = torch.stack(counts).reshape(per_d, per_m, bt, -1).sum(1)
-    if m_mesh > 1:
-        dist.all_reduce(cm, group=mesh.group("model"))
+        return _gather_rows(y, mesh, "data") if d_mesh > 1 else y
     y, real, union = (torch.cat([r[i] for r in rows], dim=0)
                       for i in range(3))
-    n_y, n_c = y.shape[-1], cm.shape[-1]
+    n_y = y.shape[-1]
     packed = torch.cat([y, cm.reshape(per_d * bt, n_c), real, union], -1)
     if d_mesh > 1:
-        packed = _gather_rows(packed, mesh.group("data"))
+        packed = _gather_rows(packed, mesh, "data")
     y, totals_mat, shard_real, shard_union = torch.split(
         packed, [n_y, n_c, ms, ms], dim=-1)
     totals = {col: totals_mat[:, i] for i, col in enumerate(COUNT_COLS)}
@@ -489,7 +494,7 @@ def dense_apply(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
         parts.append(torch.cat([y_s.float(), active[..., None]], dim=-1))
     packed = torch.stack(parts)                    # (per_m, ..., d + 1)
     if m_mesh > 1:
-        packed = _gather_rows(packed, mesh.group("model"))
+        packed = _gather_rows(packed, mesh, "model")
     total = packed[0]
     for s in range(1, ms):
         total = total + packed[s]

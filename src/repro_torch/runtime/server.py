@@ -86,14 +86,20 @@ decode step; xlstm has no MLP and refuses the controller.
 ``launch.mesh.RankMesh`` (``launch/ranks.py`` starts the ranks; every rank
 builds its own Server and runs the same host loop).  The config's
 ``dp_shards``/``tp_shards`` define the grid (unset ones take the mesh's
-axis sizes, which must divide them); the rank keeps its model tiles' rows
-of the MLP leaves (``sharding/sparse.py``) and runs its tiles of each
-sparse MLP call (``runtime/distributed.py:shard_map_apply``) and its
-slices of a prefill's dense MLP (``dense_apply``); everything else
-(embeddings, attention, norms, head, the KV cache or pool) is replicated
-and computed on all B slots.  Tokens and the
-controller's state are then bitwise the one-device server's of the same
-config.  Each decode step's slot arrays are checked against rank 0's
+axis sizes, which must divide them).  The rank keeps its part of every
+leaf (``sharding/sparse.py``): its model tiles' rows of the MLP leaves,
+its heads of the attention, its vocabulary rows of the embedding and head
+tables.  It runs its tiles of each sparse MLP call
+(``runtime/distributed.py:shard_map_apply``), its slices of a prefill's
+dense MLP (``dense_apply``), the attention on its heads with its KV heads'
+cache or pool, and its vocabulary's logits; partial results are combined
+over the 'model' line in rank order (``sharding/rules.py``), so every rank
+holds the same bits.  Norms and the host state (slots, block tables, the
+prefix trie, the controller) are every rank's, for all B slots.  On a mesh
+with no 'model' axis tokens and the controller's state are bitwise the
+one-device server's of the same grid; over 'model' the attention's and
+the head's sums run in another order, so logits agree to float rounding.
+Each decode step's slot arrays are checked against rank 0's
 (``_put_slots``); controller checkpoints are written by rank 0 and the
 hub's file sinks are rank 0's.  Other families raise under a mesh.
 
@@ -140,6 +146,7 @@ from repro_torch.runtime.kv_pool import KVPool, PoolExhausted
 from repro_torch.runtime.metrics import MetricsHub, note_first_use
 from repro_torch.sharding import rules as RR
 from repro_torch.sharding import sparse as SSP
+from repro_torch.tree import tree_bytes
 
 # SMs of the card the shard-grid checks plan for (an H100's); the shapes a
 # kernel refuses do not depend on it
@@ -277,7 +284,7 @@ class Server:
 
     ``mesh``: serve on this rank of a ``launch.mesh.RankMesh`` of more than
     one rank (dense family, a sparse strategy).  ``params`` holds this
-    rank's rows of the MLP leaves (``init_lm(place=...)``); a whole tree
+    rank's part of every leaf (``init_lm(place=...)``); a whole tree
     raises."""
 
     def __init__(self, model_mod, cfg: ModelConfig, scfg: ServeConfig,
@@ -361,7 +368,7 @@ class Server:
         self.scfg = scfg
         if mesh is not None:
             # a rank never holds the whole tree: it comes placed
-            SSP.check_placed(params, mesh, cfg.d_ff)
+            SSP.check_placed(params, mesh, cfg)
         self.params = (model_mod.prepare_sparse(params, cfg.sparse)
                        if cfg.sparse.enabled else params)
         self.extra = {k: torch.as_tensor(v, device=self.device)
@@ -425,8 +432,9 @@ class Server:
         self.kv_pool = KVPool(n_blocks, pk.block_size,
                               max_sessions=pk.max_sessions,
                               prefix_cache=pk.prefix_cache)
-        self._pool = self.mod.init_kv_pool(self.cfg, n_blocks, pk.block_size,
-                                           self.device)
+        with self._mesh_ctx():          # a rank's pool holds its KV heads
+            self._pool = self.mod.init_kv_pool(self.cfg, n_blocks,
+                                               pk.block_size, self.device)
 
     @staticmethod
     def _mesh_config(cfg: ModelConfig, scfg: ServeConfig, mesh):
@@ -504,6 +512,18 @@ class Server:
         for c in per_rank:
             total.update(c)
         return {"per_rank": per_rank, "total": dict(total)}
+
+    def mesh_param_bytes(self) -> dict:
+        """The parameter bytes this process holds (after ``prepare_sparse``)
+        beside the whole tree's on one device; in mesh mode every rank's
+        (``per_rank``), gathered, so every rank must call it."""
+        mine = tree_bytes(self.params)
+        if self.mesh is None:
+            return {"per_rank": [mine], "one_device": mine}
+        per_rank = [None] * self.mesh.size
+        dist.all_gather_object(per_rank, mine, group=self.mesh.host_group)
+        return {"per_rank": per_rank, "one_device": SSP.one_device_bytes(
+            self.params, self.mesh, self.cfg)}
 
     def reset(self) -> None:
         """Restore the cross-serve state (controller, capacity bucket, KV

@@ -1,20 +1,46 @@
-"""The mesh context of the placed sparse decode: the counterpart of
-``repro/sharding/rules.py:33-90``.
+"""The mesh context and the partition rules of the placed serve path: the
+counterpart of ``repro/sharding/rules.py``.
 
 ``use_mesh`` makes a ``launch.mesh.RankMesh`` the current mesh of this
 process; the sparse MLP's dispatch (``runtime/distributed.py:
-sharded_apply``) and the dense MLP (``layers/mlp.py``) read it.  Inside
-``shard_local`` every helper sees no mesh: the tile loop of
-``shard_map_apply`` works on a rank's own values.  The reference's
-``mesh_axes`` and ``axis_size`` are ``RankMesh.axis_names`` and
-``RankMesh.axis_size`` here; its ``tp_axis`` is always 'model' and its
-``data_axes`` 'data', the only axes a ``RankMesh`` has.  The reference's
-partition-spec rules for GSPMD (``rules.py:91-304``) are not ported
-(ROADMAP Queue A item 15).
+sharded_apply``), the dense MLP (``layers/mlp.py``), the attention's head
+split (``models/common.py:attn_cfg``) and the vocabulary split of the
+embedding and the head read it.  Inside ``shard_local`` every helper sees
+no mesh: the tile loop of ``shard_map_apply`` works on a rank's own
+values.  The reference's ``mesh_axes`` and ``axis_size`` are
+``RankMesh.axis_names`` and ``RankMesh.axis_size`` here; its ``tp_axis``
+is always 'model' and its ``data_axes`` 'data', the only axes a
+``RankMesh`` has.
+
+The reference's name-and-shape rules (``_PARAM_RULES``, ``_filter_spec``,
+``param_spec``) are ported in their serve mode, the only one a placed
+path runs: a spec names, for each dim of a leaf, the mesh axis it is
+split over or None, and a dim the axis does not divide stays whole.
+There is no GSPMD to apply them: a rank keeps its slice of each leaf
+(``sharding/sparse.py:place_serve_params``) and the model code runs on
+it, combining partial results over the 'model' line with ``model_sum``
+and ``model_concat`` (gathers in rank order, so every rank holds the same
+bits on gloo and on NCCL).
+
+Two deliberate differences, both of placement only: attention leaves are
+split by whole heads (``attention_heads``), and the decode caches are
+split by KV heads (``kv_model_axis_entries``; ``models/common.py:
+attn_cfg`` gives the cache makers a rank's KV heads) where the reference
+splits them by sequence; where the KV heads do not split over the 'model'
+axis a rank keeps the one KV head its query heads read (MQA: every rank
+keeps it).  The reference's activation constraints
+(``shard_tokens``, ``shard_heads``, ...) have no counterpart: a rank's
+activations are its own tensors.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import re
+
+import torch
+import torch.distributed as dist
+
 _MESH = None
 _SHARD_LOCAL = False
 
@@ -46,3 +72,159 @@ def shard_local():
 def current_mesh():
     return None if _SHARD_LOCAL else _MESH
 
+
+def model_size(mesh=None) -> int:
+    """The 'model' axis's size (None: the current mesh; 1 without one)."""
+    mesh = mesh or current_mesh()
+    return 1 if mesh is None else mesh.axis_size("model")
+
+
+# ---------------------------------------------------------- param specs --
+
+def _filter_spec(spec, shape, mesh) -> list:
+    """The reference's filter: drop axes absent from the mesh or already
+    used by an earlier dim, and any entry whose axes do not divide its
+    dim."""
+    axes = set(mesh.axis_names)
+    used: set = set()
+    out = []
+    for dim, s in enumerate(spec):
+        if s is None:
+            out.append(None)
+            continue
+        names = (s,) if isinstance(s, str) else tuple(s)
+        names = tuple(n for n in names if n in axes and n not in used)
+        if not names:
+            out.append(None)
+            continue
+        size = 1
+        for n in names:
+            size *= mesh.axis_size(n)
+        if dim < len(shape) and shape[dim] % size != 0:
+            out.append(None)
+            continue
+        used.update(names)
+        out.append(names if len(names) > 1 else names[0])
+    return out
+
+
+# (path regex, spec template), first match wins, as the reference's:
+# 'tp' = the tensor axis, 'fsdp' = the data axes (None in serve mode, the
+# only mode ported), None = whole.  Templates align to the trailing dims.
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"shared/(wg_t|wu_t|wd_t|wg_q|wu_q|wd_q|wg_s|wu_s|wd_s)$",
+     ("tp", "fsdp")),
+    (r"moe/(wg_t|wu_t|wd_t)$", ("tp", None, "fsdp")),
+    (r"(wg_t|wu_t|wd_t|sign_wg|wg_q|wu_q|wd_q|wg_s|wu_s|wd_s)$",
+     ("tp", "fsdp")),
+    (r"router$", (None, None)),
+    (r"lora_a$", ("fsdp", None)),
+    (r"lora_b", (None, "tp")),
+    (r"(wq|wk|wv|up|w_if|in_proj|w)$", ("fsdp", "tp")),
+    (r"(wo|out_proj|down|out)$", ("tp", "fsdp")),
+    (r"(bq|bk|bv|b_if)$", ("tp",)),
+    (r"table$", ("tp", "fsdp")),
+    (r"(A_log|D|dt_bias)$", ("tp",)),
+    (r"conv_w$", (None, "tp")),
+    (r"conv_b$", ("tp",)),
+    (r"r$", ("tp", None, None)),
+    (r".*", None),
+]
+
+
+def param_spec(path: str, shape: tuple, mesh) -> tuple:
+    """One leaf's serve spec, the reference's ``param_spec(path, shape,
+    "serve", mesh)``: a tuple with an entry a dim ('model' or None);
+    weights stay whole over 'data'."""
+    template = None
+    for pat, tmpl in _PARAM_RULES:
+        if re.search(pat, path):
+            template = tmpl
+            break
+    if template is None or len(shape) == 0:
+        return ()
+    pad = len(shape) - len(template)
+    if pad > 0:
+        template = (None,) * pad + tuple(template)
+    elif pad < 0:
+        template = tuple(template[:len(shape)])
+    tp = "model" if "model" in mesh.axis_names else None
+    resolved = [tp if t == "tp" else None for t in template[:len(shape)]]
+    return tuple(_filter_spec(resolved, shape, mesh))
+
+
+# ------------------------------------------------------------- the heads --
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """This rank's attention heads: query heads [q0, q1) and KV heads
+    [k0, k1) of the config's, the heads split over ``shards`` ranks (1:
+    every rank keeps every head)."""
+    q0: int
+    q1: int
+    k0: int
+    k1: int
+    shards: int
+
+
+def attention_heads(n_heads: int, n_kv_heads: int, mesh=None) -> HeadSplit:
+    """The heads a rank of ``mesh`` (None: the current mesh) keeps.  Query
+    heads split into 'model'-axis-many contiguous runs when the axis
+    divides them, else the attention stays whole.  KV heads split the same
+    way when the axis divides them; else, when the KV head count divides
+    the axis (MQA's 1 among them), a rank keeps the one KV head its run of
+    query heads reads, which ranks then share; else the attention stays
+    whole."""
+    mesh = mesh or current_mesh()
+    m = model_size(mesh)
+    whole = HeadSplit(0, n_heads, 0, n_kv_heads, 1)
+    if m == 1 or n_heads % m:
+        return whole
+    i = mesh.axis_index("model")
+    q0, q1 = i * n_heads // m, (i + 1) * n_heads // m
+    if kv_model_axis_entries(n_kv_heads, 0, mesh)[0] == "model":
+        k0, k1 = i * n_kv_heads // m, (i + 1) * n_kv_heads // m
+    elif m % n_kv_heads == 0:
+        k0 = i // (m // n_kv_heads)
+        k1 = k0 + 1
+    else:
+        return whole
+    return HeadSplit(q0, q1, k0, k1, m)
+
+
+def kv_model_axis_entries(k_heads: int, head_dim: int, mesh=None) -> tuple:
+    """The ('K', 'hd') entries of a KV cache's spec: 'model' on the KV-head
+    dim when the axis divides it, else none (the reference falls back to
+    the head dim; a rank here keeps its query heads' KV head instead)."""
+    m = model_size(mesh)
+    return ("model", None) if m > 1 and k_heads % m == 0 else (None, None)
+
+
+# ------------------------------------------------ combines over 'model' --
+
+def gather_line(t: torch.Tensor, axis: str = "model",
+                mesh=None) -> torch.Tensor:
+    """(n, ...): ``t`` of every rank of this rank's line along ``axis`` of
+    ``mesh`` (None: the current mesh), stacked in rank order."""
+    mesh = mesh or current_mesh()
+    group = mesh.group(axis)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def model_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The 'model' line's partials summed in ascending rank order in
+    float32, one add at a time (``runtime/distributed.py:
+    _combine_gathered``'s order), cast back to ``t``'s dtype."""
+    parts = gather_line(t, "model", mesh).float()
+    total = parts[0]
+    for s in range(1, parts.shape[0]):
+        total = total + parts[s]
+    return total.to(t.dtype)
+
+
+def model_concat(t: torch.Tensor, mesh=None, dim: int = -1) -> torch.Tensor:
+    """The 'model' line's pieces concatenated along ``dim`` in rank
+    order."""
+    return torch.cat(gather_line(t, "model", mesh).unbind(0), dim=dim)

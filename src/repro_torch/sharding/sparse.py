@@ -8,12 +8,15 @@ with its own unions (``runtime/distributed.py`` runs that grid).  The
 checks decide whether a config can run at all, on one device or on a rank
 mesh (``launch/mesh.py``) whose axes divide the grid.
 
-Placement keeps, on each rank of a mesh, its model tiles' rows of the
-sparse-MLP leaves (``SPARSE_MLP_KEYS``: the sign bits are packed along d,
-so a tile's margins, union and selection need nothing from other ranks);
-every other leaf is replicated.  ``place_serve_params`` slices one node at
-a time, so ``models.lm.init_lm(place=...)`` builds a rank's tree a layer at
-a time and never holds every layer's full MLP.
+Placement keeps, on each rank of a mesh, its part of every leaf by the
+reference's serve rules (``rules.param_spec``): its model tiles' rows of
+the sparse-MLP leaves (the sign bits are packed along d, so a tile's
+margins, union and selection need nothing from other ranks), its heads
+of the attention's in-projections, biases and ``wo``
+(``rules.attention_heads``), its vocabulary rows of the embedding and head
+tables; norms stay whole.  ``place_serve_params`` slices one node at a
+time, so ``models.lm.init_lm(place=...)`` builds a rank's tree a layer at
+a time and never holds every layer whole.
 """
 from __future__ import annotations
 
@@ -22,12 +25,7 @@ from typing import Optional
 
 from repro_torch.core import quantize as Q
 from repro_torch.sharding import rules as R
-
-# the neuron-major sparse-MLP leaves, row-sharded over 'model': every one's
-# dim 0 is proportional to k (int8 tiles k rows, wd's scales k/qg), so a
-# rank's share of a leaf of r rows is r/m_mesh rows
-SPARSE_MLP_KEYS = ("wg_t", "wu_t", "wd_t", "sign_wg",
-                   "wg_q", "wg_s", "wu_q", "wu_s", "wd_q", "wd_s")
+from repro_torch.tree import tree_bytes
 
 
 def mesh_shard_count(mesh=None) -> int:
@@ -100,88 +98,142 @@ def validate_shardable(sparse, k: int, ms: int) -> None:
 
 # ------------------------------------------------------------ placement --
 
-def mlp_param_spec(name: str, shape: tuple) -> tuple:
-    """A leaf's placement: ``("model", None)`` row-shards a sparse-MLP
-    leaf over 'model' (leading stack dims stay whole); ``()`` replicates
-    every other leaf."""
-    if name not in SPARSE_MLP_KEYS or len(shape) < 2:
-        return ()
-    return (None,) * (len(shape) - 2) + ("model", None)
+# the attention leaves split by whole heads (``rules.attention_heads``):
+# name -> (which heads, the dim they lie along)
+_HEAD_LEAVES = {"wq": ("q", -1), "bq": ("q", 0), "wo": ("q", 0),
+                "wk": ("k", -1), "bk": ("k", 0), "wv": ("k", -1),
+                "bv": ("k", 0)}
 
 
-def _rows_kept(spec: tuple, shape: tuple, mesh) -> Optional[tuple]:
-    """The index of the part of a leaf this rank keeps under ``spec``
-    (None: all of it)."""
+def _leaf_index(path: str, shape: tuple, mesh, cfg) -> Optional[tuple]:
+    """The index of the part of a whole leaf this rank keeps (None: all of
+    it): an attention leaf's heads (``cfg``'s), else the dim the
+    reference's serve rules split over 'model', this rank's contiguous
+    share of it."""
+    name = path.rsplit("/", 1)[-1]
+    if name in _HEAD_LEAVES and "attn" in path.split("/"):
+        if cfg is None:
+            raise ValueError(f"{path}: placing an attention leaf needs the "
+                             "model config (its heads)")
+        split = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+        if split.shards == 1:
+            return None
+        which, dim = _HEAD_LEAVES[name]
+        lo, hi = ((split.q0, split.q1) if which == "q"
+                  else (split.k0, split.k1))
+        hd = cfg.resolved_head_dim
+        dim %= len(shape)
+        return (slice(None),) * dim + (slice(lo * hd, hi * hd),)
+    spec = R.param_spec(path, shape, mesh)
     if "model" not in spec:
         return None
-    m = mesh_shard_count(mesh)
-    dim = spec.index("model")
-    rows = shape[dim]
-    if rows % m:
-        raise ValueError(f"{rows} rows do not split over the mesh's "
-                         f"'model' axis ({m} ranks)")
-    i = mesh.axis_index("model") if m > 1 else 0
-    return (slice(None),) * dim + (slice(i * rows // m,
-                                         (i + 1) * rows // m),)
+    m, dim = mesh.axis_size("model"), spec.index("model")
+    i = mesh.axis_index("model")
+    return (slice(None),) * dim + (slice(i * shape[dim] // m,
+                                         (i + 1) * shape[dim] // m),)
 
 
-def serve_param_shardings(params, mesh=None):
-    """The tree of ``params`` with, for each leaf, the index of the rows
-    this rank of ``mesh`` keeps (a sparse-MLP leaf's share over 'model')
-    or None (replicated: the whole leaf)."""
+def serve_param_shardings(params, mesh=None, cfg=None):
+    """The tree of ``params`` (a whole tree, or any node of one: paths are
+    relative, and the rules match their ends) with, for each leaf, the
+    index of the part this rank of ``mesh`` keeps, or None (the whole
+    leaf): the reference's serve rules (``rules.param_spec``), the
+    attention leaves by ``cfg``'s heads."""
     mesh = mesh or R.current_mesh()
 
-    def walk(node, name=""):
+    def walk(node, path):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, name) for v in node)
-        if node is None or mesh is None:
-            return None
-        return _rows_kept(mlp_param_spec(name, tuple(node.shape)),
-                          tuple(node.shape), mesh)
-    return walk(params)
-
-
-def place_serve_params(params, mesh=None):
-    """Keep this rank's rows of every sparse-MLP leaf of a whole tree (a
-    copy, so the whole leaf can be freed) and every other leaf as it is."""
-    mesh = mesh or R.current_mesh()
-    if mesh_shard_count(mesh) == 1:
-        return params
-
-    def walk(node):
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        if not isinstance(node, dict):
-            return node
-        if "wg_t" in node or "wg_q" in node:
-            keep = serve_param_shardings(node, mesh)
-            return {k: (v if keep[k] is None else v[keep[k]].clone())
+            return {k: walk(v, f"{path}/{k}" if path else k)
                     for k, v in node.items()}
-        return {k: walk(v) for k, v in node.items()}
-    return walk(params)
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, f"{path}/{i}" if path else str(i))
+                              for i, v in enumerate(node))
+        if node is None or mesh is None or R.model_size(mesh) == 1:
+            return None
+        return _leaf_index(path, tuple(node.shape), mesh, cfg)
+    return walk(params, "")
 
 
-def check_placed(params, mesh, d_ff: int) -> None:
-    """Raise unless every MLP node of ``params`` holds this rank's share
-    of the d_ff hidden rows: d_ff / the 'model' axis's size."""
-    want = d_ff // mesh_shard_count(mesh)
+def place_serve_params(params, mesh=None, cfg=None):
+    """This rank's part of every leaf of ``params`` (a whole tree or a node
+    of one; ``cfg`` places the attention leaves by heads): a copy of each
+    split leaf, so the whole one can be freed, and every other leaf as it
+    is."""
+    mesh = mesh or R.current_mesh()
+    keep = serve_param_shardings(params, mesh, cfg)
+
+    def walk(node, idx):
+        if isinstance(node, dict):
+            return {k: walk(v, idx[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, i) for v, i in zip(node, idx))
+        return node if idx is None else node[idx].clone()
+    return walk(params, keep)
+
+
+def _split_leaves(params, mesh, cfg):
+    """(path, node or leaf, its extent, this rank's extent, the whole
+    extent) of everything a rank of ``mesh`` holds a part of in a dense
+    tree (whole or placed), by the extents ``cfg`` gives: an MLP node by
+    its hidden rows (every leaf of it scales with them), the attention's
+    head leaves along their head dim, the tables by vocabulary.  The
+    other leaves are whole on every rank."""
+    m = R.model_size(mesh)
+    # every rank's parts have the same extents: a mesh made without a
+    # process group (no rank) answers as its rank 0
+    probe = mesh if mesh.rank is not None else dataclasses.replace(mesh,
+                                                                   rank=0)
+    split = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, probe)
+    hd = cfg.resolved_head_dim
+    heads = {"q": ((split.q1 - split.q0) * hd, cfg.n_heads * hd),
+             "k": ((split.k1 - split.k0) * hd, cfg.n_kv_heads * hd)}
+    vocab = cfg.vocab_padded
+    tables = (vocab // m if vocab % m == 0 else vocab, vocab)
 
     def walk(node, path):
         if isinstance(node, list):
             for i, v in enumerate(node):
-                walk(v, f"{path}/{i}")
-        elif isinstance(node, dict):
-            if "wg_t" in node or "wg_q" in node:
-                rows = Q.mlp_hidden_rows(node)
-                if rows != want:
-                    raise ValueError(
-                        f"MLP node {path or '/'} holds {rows} hidden rows, "
-                        f"not this rank's {want} of d_ff={d_ff}: place the "
-                        "tree first (init_lm(place=...) or "
-                        "place_serve_params)")
-                return
-            for k, v in node.items():
-                walk(v, f"{path}/{k}")
-    walk(params, "")
+                yield from walk(v, f"{path}/{i}")
+            return
+        if not isinstance(node, dict):
+            return
+        if "wg_t" in node or "wg_q" in node:
+            yield (path or "/", node, Q.mlp_hidden_rows(node),
+                   cfg.d_ff // m, cfg.d_ff)
+            return
+        for k, v in node.items():
+            if isinstance(v, (dict, list)):
+                yield from walk(v, f"{path}/{k}")
+            elif k in _HEAD_LEAVES and path.endswith("attn"):
+                dim = _HEAD_LEAVES[k][1] % v.ndim
+                yield (f"{path}/{k}", v, v.shape[dim]) + heads[
+                    _HEAD_LEAVES[k][0]]
+            elif k == "table":
+                yield (f"{path}/{k}", v, v.shape[0]) + tables
+    yield from walk(params, "")
+
+
+def check_placed(params, mesh, cfg) -> None:
+    """Raise unless ``params`` holds this rank's part of every leaf the
+    mesh splits: d_ff / the 'model' axis's hidden rows of each MLP node,
+    its heads' columns and rows of the attention, its vocabulary rows of
+    the tables."""
+    for path, v, held, part, _ in _split_leaves(params, mesh, cfg):
+        if held != part:
+            what = ("hidden rows" if isinstance(v, dict)
+                    else "along its split dim")
+            raise ValueError(
+                f"{path} holds {held} {what}, not this rank's {part}: a rank "
+                "holds its part of every leaf (d_ff / "
+                f"{R.model_size(mesh)} hidden rows of each MLP node among "
+                "them); place the tree first (init_lm(place=...) or "
+                "place_serve_params)")
+
+
+def one_device_bytes(params, mesh, cfg) -> int:
+    """The bytes of the whole tree of which ``params`` is this rank's
+    part (a split node or leaf counted at its whole extent)."""
+    total = tree_bytes(params)
+    for _, v, held, _, whole in _split_leaves(params, mesh, cfg):
+        total += tree_bytes(v) * (whole - held) // held
+    return total

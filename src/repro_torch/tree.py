@@ -51,6 +51,18 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in flatten(tree)]
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a nested dict / list / tuple tree
+    (``meta`` tensors too: their shapes and dtypes)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 def path_str(path: tuple) -> str:
     """``("blocks", 0, "attn", "wq")`` -> ``"blocks/0/attn/wq"``."""
     return "/".join(str(p) for p in path)

@@ -4,10 +4,13 @@ only torch, numpy and ``repro_torch`` (a spawned rank never imports JAX).
 Each returns numpy values the test process holds against its own."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from repro_torch.core import sparse_mlp as TSM
+from repro_torch.layers import attention as A
 from repro_torch.layers.mlp import mlp_apply
 from repro_torch.models import lm as tlm
 from repro_torch.runtime.server import Request, Server
@@ -85,8 +88,8 @@ def serve_cases(mesh, device, cases: list, save_step: int = 0,
     raised when rank 1 handed ``_put_slots`` other tokens."""
     out = []
     for cfg, scfg, spec in cases:
-        params = tlm.init_lm(cfg, 0, "cpu", place=lambda blk: (
-            TSS.place_serve_params(blk, mesh)))
+        params = tlm.init_lm(cfg, 0, "cpu", place=lambda node: (
+            TSS.place_serve_params(node, mesh, cfg)))
         srv = Server(tlm, cfg, scfg, params, device="cpu", mesh=mesh)
         restored = _state(srv, [])
         done = srv.serve(_requests(spec))
@@ -118,3 +121,226 @@ def fail_on_rank1(mesh, device, how: str) -> int:
             raise RuntimeError("rank 1 failed on purpose")
         time.sleep(600)
     return mesh.rank
+
+
+# ----------------------------------------------- the placed model, forced --
+
+FORCED_B, FORCED_PLEN, FORCED_STEPS, FORCED_CHUNK = 4, 11, 3, 8
+FORCED_MAX_LEN, FORCED_BLOCK = 32, 8
+FORCED_LENS = (5, 9, 12, 20)          # the paged kind's slot lengths
+
+
+@contextlib.contextmanager
+def mlp_inputs(record=None, replay=None):
+    """Every MLP call of ``models.lm`` appends its input to ``record`` or
+    takes its input from the front of ``replay`` (numpy arrays), so a
+    second run selects what the first one's inputs select."""
+    orig = tlm.mlp_apply
+
+    def tapped(params, x, cfg, **kw):
+        if replay is not None:
+            x = torch.from_numpy(replay.pop(0)).to(x.device, x.dtype)
+        if record is not None:
+            record.append(x.cpu().numpy().copy())
+        return orig(params, x, cfg, **kw)
+    tlm.mlp_apply = tapped
+    try:
+        yield
+    finally:
+        tlm.mlp_apply = orig
+
+
+@contextlib.contextmanager
+def kv_codes(record=None, replay=None):
+    """Every int8 K/V quantization of ``layers.attention`` appends its
+    (codes, float32 scales) to ``record``, or returns the front of
+    ``replay`` (numpy), so a second run stores the codes the first one
+    stored, also where a value lies within rounding of a code boundary.
+    A replayed quantization still computes its own: its codes must lie
+    within one code step of the replayed ones and its scales within one
+    bfloat16 step (2^-7 of themselves), or it raises, so a fault in the
+    K/V the first run quantized cannot hide in the replay."""
+    orig = A._quantize_kv
+
+    def tapped(x):
+        q, sc = orig(x)
+        if replay is not None:
+            q_r, sc_r = replay.pop(0)
+            code = (q.int() - torch.from_numpy(q_r).int()).abs()
+            gap = np.abs(sc.float().numpy() - sc_r)
+            if int(code.max()) > 1 or bool((gap > 2.0 ** -7
+                                            * np.abs(sc_r)).any()):
+                raise AssertionError(
+                    f"int8 K/V quantization: own codes up to "
+                    f"{int(code.max())} steps and scales up to "
+                    f"{float(gap.max()):.3e} from the replayed ones")
+            return torch.from_numpy(q_r), torch.from_numpy(sc_r).to(
+                torch.bfloat16)
+        if record is not None:
+            record.append((q.numpy().copy(), sc.float().numpy().copy()))
+        return q, sc
+    A._quantize_kv = tapped
+    try:
+        yield
+    finally:
+        A._quantize_kv = orig
+
+
+def whole_pool(cfg) -> dict:
+    """A seeded random paged pool of the whole model (every KV head):
+    float values, or int8 codes with positive bfloat16 scales."""
+    gen = torch.Generator().manual_seed(9)
+    n_blocks = FORCED_B * FORCED_MAX_LEN // FORCED_BLOCK + 2
+    pool = tlm.init_kv_pool(cfg, n_blocks, FORCED_BLOCK, "cpu")
+    for layer in pool["blocks"]:
+        for name, leaf in layer.items():
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape,
+                                         generator=gen, dtype=torch.int8))
+            elif name.endswith("_scale"):
+                leaf.copy_((torch.rand(leaf.shape, generator=gen) * 0.02
+                            + 0.001).to(leaf.dtype))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    return pool
+
+
+def perturbed(place=None):
+    """A ``place`` for ``init_lm`` that first draws every norm scale and QKV
+    bias of the node from one seeded generator (ones and zeros would hide
+    their placement), then places it with ``place`` (None: as it is).
+    ``init_lm`` hands the same nodes over in the same order in every
+    process, so every process draws the same values."""
+    gen = torch.Generator().manual_seed(1)
+
+    def walk(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k in ("scale", "bq", "bk", "bv"):
+                node[k] = (torch.randn(v.shape, generator=gen) * 0.3).to(
+                    v.dtype)
+
+    def fn(node):
+        walk(node)
+        return node if place is None else place(node)
+    return fn
+
+
+def forced_table() -> torch.Tensor:
+    """(B, nbps) int32: each slot's blocks, interleaved across slots."""
+    nbps = FORCED_MAX_LEN // FORCED_BLOCK
+    ids = np.arange(FORCED_B * nbps).reshape(nbps, FORCED_B).T + 2
+    return torch.as_tensor(ids, dtype=torch.int32)
+
+
+def forced_steps(params, cfg, kind: str, pool=None) -> dict:
+    """A batch of 4 through the decode model of ``cfg``, teacher-forced:
+    ``kind`` "dense" (a monolithic prefill, then decode steps), "chunk"
+    (``prefill_chunk`` in chunks of 8, then decode steps) or "paged"
+    (decode steps against ``pool`` with ``forced_table``).  Per-slot
+    alphas, stats on.  Returns the float32 logits (the prefill's, if any,
+    then every step's) and the stats of every step, numpy."""
+    rng = np.random.default_rng(5)
+    b, plen = FORCED_B, FORCED_PLEN
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (b, plen)))
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (FORCED_STEPS, b, 1)))
+    alphas = (cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None]
+              + np.asarray([0.0, -0.02, 0.02, 0.05], np.float32)[None])
+    logits, stats, table = [], [], None
+    with torch.inference_mode():
+        if kind == "dense":
+            lg, caches = tlm.prefill(params, cfg, prompt, FORCED_MAX_LEN)
+            logits.append(lg)
+            lengths = torch.full((b,), plen)
+        elif kind == "chunk":
+            caches = tlm.init_caches(cfg, b, FORCED_MAX_LEN, "cpu")
+            pad = -(-plen // FORCED_CHUNK) * FORCED_CHUNK
+            toks = torch.zeros((b, pad), dtype=prompt.dtype)
+            toks[:, :plen] = prompt
+            for off in range(0, pad, FORCED_CHUNK):
+                lg, caches, _ = tlm.prefill_chunk(
+                    params, cfg, toks[:, off:off + FORCED_CHUNK], caches,
+                    off, plen, alphas=alphas, collect_stats=True)
+            logits.append(lg)
+            lengths = torch.full((b,), plen)
+        else:
+            caches, table = pool, forced_table()
+            lengths = torch.as_tensor(FORCED_LENS)
+        for t in range(FORCED_STEPS):
+            lg, caches, st = tlm.decode_step(
+                params, cfg, forced[t], caches, lengths + t, alphas=alphas,
+                collect_stats=True, block_table=table)
+            logits.append(lg)
+            stats.append(st)
+    return {"logits": torch.stack(logits).float().numpy(),
+            "stats": {k: torch.stack([s[k] for s in stats]).numpy()
+                      for k in stats[0]}}
+
+
+def forced_cases(mesh, device, cases: list) -> list:
+    """For each case (config with its grid, kind): the weights of
+    ``init_lm(cfg, 0)`` with ``perturbed`` scales and biases, placed a
+    table and a layer at a time, prepared,
+    ``forced_steps`` under the mesh (the paged kind on this rank's KV
+    heads of ``whole_pool``), with the MLP inputs recorded on rank 0 and
+    every rank's int8 K/V codes of its KV heads."""
+    out = []
+    for cfg, kind in cases:
+        params = tlm.init_lm(cfg, 0, "cpu", place=perturbed(
+            lambda node: TSS.place_serve_params(node, mesh, cfg)))
+        params = tlm.prepare_sparse(params, cfg.sparse)
+        pool = None
+        if kind == "paged":
+            # this rank's KV heads: dim 2 of every pool leaf (N, block, K,
+            # hd) and (N, block, K)
+            split = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+            pool = {"blocks": [
+                {k: v[:, :, split.k0:split.k1].clone()
+                 for k, v in layer.items()}
+                for layer in whole_pool(cfg)["blocks"]]}
+        rec, codes = [], []
+        with R.use_mesh(mesh), mlp_inputs(record=rec), \
+                kv_codes(record=codes):
+            got = forced_steps(params, cfg, kind, pool)
+        got["inputs"] = rec if mesh.rank == 0 else None
+        got["kv_codes"] = codes
+        out.append(got)
+    return out
+
+
+def placed_cases(mesh, device, plan: list) -> list:
+    """One spawn's work for the placement tests, for each entry of
+    ``plan``: (mesh shape over ('data', 'model'), forced cases, steps,
+    serves).  A shape other than the spawn's is laid over the same ranks
+    (``launch.mesh.make_mesh``: every rank makes it, in plan order), so one
+    spawn of four ranks serves 1x4 and 2x2.  Per entry: ``forced_cases``
+    of the forced cases; for each step (config with its grid, prompts (B,
+    S)) a prefill and one decode step with stats on ``perturbed``
+    weights, their logits and stats (what the JAX package's mesh decode
+    test runs); ``serve_cases`` of the serves."""
+    from repro_torch.launch.mesh import make_mesh
+    results = []
+    for shape, forced, steps, serves in plan:
+        m = (mesh if tuple(shape) == tuple(mesh.shape)
+             else make_mesh(shape, ("data", "model")))
+        out = []
+        for cfg, prompt in steps:
+            params = tlm.prepare_sparse(tlm.init_lm(
+                cfg, 0, "cpu", place=perturbed(
+                    lambda node: TSS.place_serve_params(node, m, cfg))),
+                cfg.sparse)
+            toks = torch.as_tensor(prompt)
+            with torch.inference_mode(), R.use_mesh(m):
+                lg0, caches = tlm.prefill(params, cfg, toks, FORCED_MAX_LEN)
+                lg, _, st = tlm.decode_step(params, cfg, toks[:, -1:],
+                                            caches, toks.shape[1],
+                                            collect_stats=True)
+            out.append({"prefill": lg0.numpy(), "logits": lg.numpy(),
+                        "stats": _np(st)})
+        results.append({
+            "forced": forced_cases(m, device, list(forced)), "steps": out,
+            "serves": serve_cases(m, device, list(serves))["cases"]
+            if serves else []})
+    return results

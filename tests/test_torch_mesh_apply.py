@@ -166,8 +166,9 @@ def test_shard_map_apply_matches_reference(i):
 
 def test_grid_checks_and_placement_in_process():
     """What needs no rank: the mesh of a shape alone, ``resolve_grid`` and
-    ``sharded_apply`` against the reference's messages, ``mlp_param_spec``,
-    the backend rule, and a mesh whose axes do not divide the grid."""
+    ``sharded_apply`` against the reference's messages, the serve rules'
+    spec of a sparse-MLP leaf and of a norm, the backend rule, and a mesh
+    whose axes do not divide the grid."""
     mesh = make_mesh((2, 2), ("data", "model"))
     assert mesh.rank is None and mesh.size == 4
     assert TSS.mesh_shard_count(mesh) == TSS.mesh_data_count(mesh) == 2
@@ -185,10 +186,10 @@ def test_grid_checks_and_placement_in_process():
                              (dict(dp_shards=4), 6, "batch 6")):
         with pytest.raises(ValueError, match=what):
             TSS.resolve_grid(TSM.SparseInferConfig(**bad), mesh, batch)
-    assert TSS.mlp_param_spec("wd_q", (512, 128)) == ("model", None)
-    assert TSS.mlp_param_spec("sign_wg", (3, 512, 4)) == (
+    assert TR.param_spec("mlp/wd_q", (512, 128), mesh) == ("model", None)
+    assert TR.param_spec("mlp/sign_wg", (3, 512, 4), mesh) == (
         None, "model", None)
-    assert TSS.mlp_param_spec("table", (512, 128)) == ()
+    assert TR.param_spec("ln_f/scale", (128,), mesh) == ()
     assert choose_backend(4, "cpu")[0] == "gloo"
     _, tc = _sparse_cfgs("gather", 3, 2)
     tp = _mlp_params(0, False)[1]

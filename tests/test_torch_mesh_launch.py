@@ -76,7 +76,9 @@ def test_failed_or_hung_rank_fails_the_run():
 
 def test_serve_cli_mesh_shape(capsys):
     """``--mesh-shape 2x2`` on the CPU: rank 0's report with the mesh, the
-    grid and every rank's launches; every request served."""
+    grid, every rank's launches, the backend, every rank's parameter
+    bytes (a 'model' line's two ranks each hold less than one device, the
+    'data' ranks the same) and no device peak; every request served."""
     rep = serve_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                           "--strategy", "gather", "--mesh-shape", "2x2",
                           "--batch", "4", "--requests", "4", "--max-new",
@@ -84,6 +86,11 @@ def test_serve_cli_mesh_shape(capsys):
     assert rep["mesh"]["shape"] == [2, 2]
     assert rep["mesh"]["grid"] == [2, 2]
     assert len(rep["mesh"]["launches"]["per_rank"]) == 4
+    assert rep["mesh"]["backend"] == "gloo"
+    held = rep["mesh"]["param_bytes"]
+    assert len(set(held["per_rank"])) == 1
+    assert held["one_device"] / 2 <= held["per_rank"][0] < held["one_device"]
+    assert rep["mesh"]["peak_bytes"] == [None] * 4
     assert rep["completed"] == 4 and rep["tokens"] == 16
     assert '"mesh"' in capsys.readouterr().out
 

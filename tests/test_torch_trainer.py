@@ -20,6 +20,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import warnings
 
 import jax
@@ -47,7 +48,8 @@ from repro_torch.core.sparse_mlp import MLP_STAT_KEYS, SHARD_STAT_KEY
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lm
-from repro_torch.optim.adamw import AdamWConfig, cosine_lr, init_adamw
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update, cosine_lr,
+                                    init_adamw)
 from repro_torch.optim.compress import init_ef
 from repro_torch.runtime import controller as tctl
 from repro_torch.runtime import trainer as ttrainer
@@ -107,6 +109,35 @@ def test_checkpoint_roundtrip(tmp_path, blocking):
     np.testing.assert_array_equal(
         bits, tree["blocks"][1]["s"].view(torch.int16).numpy().view(
             np.uint16))
+
+
+def test_async_checkpoint_keeps_pre_step_values(tmp_path, monkeypatch):
+    """An async save of CPU params holds the values they had at ``save``:
+    the writer thread is held until an AdamW step has updated the params
+    in place, and the checkpoint still restores the pre-step tree."""
+    from repro_torch.checkpoint import manager as mgr_mod
+    released, savez = threading.Event(), np.savez
+
+    def held_savez(*args, **kw):
+        assert released.wait(30), "the step never released the writer"
+        savez(*args, **kw)
+    monkeypatch.setattr(mgr_mod.np, "savez", held_savez)
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(3, 4, generator=g),
+              "blocks": [{"s": torch.randn(5, generator=g)}]}
+    want = {path: leaf.clone() for path, leaf in flatten(params)}
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, params, blocking=False)
+    grads = {"w": torch.ones(3, 4), "blocks": [{"s": torch.ones(5)}]}
+    adamw_update(AdamWConfig(lr_peak=0.1, warmup_steps=0), params, grads,
+                 init_adamw(params))
+    assert any(not torch.equal(leaf, want[path])
+               for path, leaf in flatten(params)), "the step moved nothing"
+    released.set()
+    m.wait()
+    got, _ = m.restore(params)
+    for path, leaf in flatten(got):
+        assert torch.equal(leaf, want[path]), path
 
 
 def test_checkpoint_latest_gc_and_tmp_ignored(tmp_path):
