@@ -208,15 +208,19 @@ Phases, in order; any failure exits non-zero:
              the per-tier controller, a bf16 paged pool on the paged
              kernels, batch 4, 4 requests, monolithic prefill); (b) 8
              layers at ds = ms = 2 on a 2x2 mesh (gather, the per-tier
-             controller with masked audits); (c) 2 layers with int8 MLP
+             controller with masked audits; the slots split over 'data',
+             each line decoding and caching 2 of the 4, then a two-turn
+             session whose turn 2 lands on the other line, its chain
+             blocks bitwise between the lines); (c) 2 layers with int8 MLP
              weights (qg 128, pallas) on the 1x2 mesh.  Ranks first, then
              the emulated grid in this process; every rank's tokens, EMAs
              and teacher-forced logits bitwise rank 0's, launches exact
              per rank; teacher-forced steps (float32 compute) on a dense
              cache and, for (a), through the paged kernels on a float32
              pool, each within 1e-3 of this process's replay fed the
-             ranks' MLP inputs; peaks, parameter bytes and decode-step
-             host walls printed; then NCCL tried once with two ranks on
+             ranks' MLP inputs; each rank's slot range, decode rows and KV
+             bytes held; peaks, parameter bytes and decode-step host
+             walls printed; then NCCL tried once with two ranks on
              the card, its refusal printed.
  17. moe     the moe family (deepseek-moe-16b: a dense first layer on the
              sparse MLP kernels, then MoE layers of 64 experts, top-6, 2
@@ -264,8 +268,8 @@ Phases, in order; any failure exits non-zero:
              teacher-forced decode steps (pallas, masked, gather; int8 MLP
              weights) and a 160-token chunked sparse prefill (the frames
              encoded once); launches exact; (c) seamless at full depth (12
-             + 12 layers, 2.46 GB float32) and the vlm at full width and 10
-             layers (38.4 GB; its 100 do not fit) through Server.serve with
+             + 12 layers, 2.46 GB float32) and the vlm at full width and 5
+             layers (19.2 GB; its 100 do not fit) through Server.serve with
              their frames or images: the per-tier controller on pallas,
              chunked sparse prefill in chunks of 64, batch 4, 8 requests of
              mixed tiers with 96-192-token prompts, dense bf16 caches;
@@ -364,14 +368,20 @@ at full depth, granite at 2 layers with int8 MLP weights and
 prosparse-llama2-7b at 16 layers on a 1x4 mesh, a rank a card over NCCL
 (every rank bitwise rank 0, launches exact, tokens/s, peaks, a profiled
 paged decode step), the last case again on four gloo ranks of card 0,
-bitwise the NCCL run.  It ends with the contract line (``count`` 4).
+bitwise the NCCL run; then on a 2x2 mesh over NCCL (the slots split over
+'data', four of eight a line) prosparse-llama2-13b at full depth (40
+layers, pallas, bf16 paged pool) and at 8 layers (gather, the per-tier
+controller, float32 dense caches, a session across the lines, its
+teacher-forced logits held against one process on card 0).  It ends
+with the contract line (``count`` 4).
 
     python3 chip_smoke.py --cards4-kernels
 
 on one card: the kernels at the shapes a rank of ``--cards4`` gives them
 (qwen1.5-32b's, granite-34b's and prosparse-llama2-7b's heads, KV heads
 and k/4 MLP rows; every MLP kernel at granite's, #5 on int8 weights
-among them) against their plain versions, timed.  It ends with the
+among them; prosparse-llama2-13b's 2x2 rank: 20 heads, k/2 rows, 4
+slots) against their plain versions, timed.  It ends with the
 contract line.
 
     python3 chip_smoke.py --kv-ab OTHER_SRC
@@ -2153,18 +2163,23 @@ def _teacher_forced(params, cfg, dev, extra=None):
     """Prefill a seeded batch of 4 prompts (with ``extra``, the frames or
     images of a cross-attention family), then 8 teacher-forced decode
     steps with per-slot alphas (the schedule plus SLA-like offsets) and
-    the MLP stats on -> logits (steps, B, V) on the CPU."""
+    the MLP stats on -> logits (steps, B, V) on the CPU.  Under a current
+    mesh with a 'data' axis the model runs the rank's line's slots
+    (``rules.slot_range``) and the logits of every line are gathered."""
     import numpy as np
     import torch
     from repro_torch.launch.specs import model_module
+    from repro_torch.sharding import rules as R
     mod = model_module(cfg)
     ex = () if extra is None else (extra.to(dev),)
-    b, plen, steps = DEC_BATCH, DEC_PLEN, DEC_STEPS
+    rows = list(R.slot_range(DEC_BATCH))
+    b, plen, steps = len(rows), DEC_PLEN, DEC_STEPS
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab, size=(b, plen))
-    forced = rng.integers(0, cfg.vocab, size=(steps, b, 1))
-    alphas = cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] + \
-        np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
+    prompt = rng.integers(0, cfg.vocab, size=(DEC_BATCH, plen))[rows]
+    forced = rng.integers(0, cfg.vocab, size=(steps, DEC_BATCH, 1))[:, rows]
+    alphas = (cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None] +
+              np.asarray([0.0, -0.02, 0.02, 0.0], np.float32)[None, :]
+              )[:, rows]
     with torch.inference_mode():
         lg, caches = mod.prefill(params, cfg,
                                  torch.as_tensor(prompt, device=dev), *ex,
@@ -2175,7 +2190,7 @@ def _teacher_forced(params, cfg, dev, extra=None):
                 params, cfg, torch.as_tensor(forced[t], device=dev), caches,
                 torch.full((b,), plen + t, device=dev), alphas=alphas,
                 collect_stats=True)
-            out.append(lg.float().cpu())
+            out.append(R.gather_slots(lg.float()).cpu())
     return torch.stack(out)
 
 
@@ -3378,24 +3393,45 @@ def phase_serve_paged(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_paged_decode(srv, cfg, tok=None) -> None:
-    """Where one full-depth paged decode step's time goes: B=4, every slot
-    at length 64 over its own 16 pool blocks (a pool of its own), token 0
-    in every slot unless ``tok`` (B, 1) tokens are given."""
+def _paged_step(srv, cfg, tok=None) -> tuple:
+    """(label, one full-depth paged decode step): the server's batch,
+    every slot at length 64 over its own pool blocks (a pool of its own,
+    max_len / 16 blocks a slot), token 0 in every slot unless ``tok`` (B,
+    1) tokens are given.  On a mesh rank the step is the server's own
+    (``Server._decode``: the slot check against rank 0, the model on the
+    rank's line's slots, the gather of every line's tokens)."""
     import torch
     from repro_torch.models import lm
 
-    b, nbps = srv.scfg.batch, srv._nbps
-    pool = lm.init_kv_pool(cfg, b * nbps + 2, PAGE_BLOCK, "cuda")
-    table = (torch.arange(b * nbps, dtype=torch.int32, device="cuda")
+    b, nbps, dev = srv.scfg.batch, srv.scfg.max_len // PAGE_BLOCK, srv.device
+    pool = lm.init_kv_pool(cfg, b * nbps + 2, PAGE_BLOCK, dev)
+    table = (torch.arange(b * nbps, dtype=torch.int32, device=dev)
              + 2).reshape(b, nbps)
-    tok = (torch.zeros((b, 1), dtype=torch.int32, device="cuda")
-           if tok is None else torch.as_tensor(tok, device="cuda"))
-    lengths = torch.full((b,), 64, device="cuda")
-    profile_step(f"paged decode step (B={b}, {cfg.n_layers} layers, "
-                 f"{cfg.kv_cache_dtype} pool, paged kernels)",
-                 lambda: lm.decode_step(srv.params, cfg, tok, pool, lengths,
-                                        block_table=table))
+    tok = (torch.zeros((b, 1), dtype=torch.int32, device=dev)
+           if tok is None else torch.as_tensor(tok, device=dev))
+    lengths = torch.full((b,), 64, device=dev)
+    label = (f"paged decode step (B={b}, {cfg.n_layers} layers, "
+             f"{cfg.kv_cache_dtype} pool, paged kernels)")
+    if srv.mesh is None:
+        return label, lambda: lm.decode_step(srv.params, cfg, tok, pool,
+                                             lengths, block_table=table)
+    host = [t.cpu().numpy() for t in (tok, lengths, table)]
+    return (f"{label}, the server's step on {len(srv._rows)} slots a "
+            "line", lambda: srv._decode(host[0], pool, host[1],
+                                        table=host[2]))
+
+
+def profile_paged_decode(srv, cfg, tok=None) -> None:
+    """Where one full-depth paged decode step's time goes
+    (``_paged_step``)."""
+    profile_step(*_paged_step(srv, cfg, tok))
+
+
+def _mesh_step(srv) -> None:
+    """One server decode step of ``_paged_step``, unprofiled."""
+    import torch
+    with torch.inference_mode():
+        _paged_step(srv, srv.cfg)[1]()
 
 
 def phase_serve_controller(results: dict) -> None:
@@ -4729,9 +4765,103 @@ MESH_LAYERS = 16           # (a): half the model's 32 layers
 MESH_LAYERS_2D = 8         # (b)
 
 
+def _crossing_session(scfg, vocab: int, seed: int) -> tuple:
+    """``_mesh_session``'s (serve config, turn 1, tail, max_new) for a
+    server of ``scfg``'s batch B on two 'data' lines: ``scfg`` with a
+    paged pool of PAGE_BLOCK-token blocks, chunked prefill of one block,
+    no controller and no hub.  Turn 1 fills slots 0..B/2-1 (line 0) with
+    short requests and puts the session's request (a 70-token prompt, 16
+    new tokens: its blocks 4 and 5 hold decode-written KV) in slot B/2,
+    line 1's first; turn 2 (slot 0, line 0) adds 20 tokens and decodes 8,
+    adopting the chain's first 5 blocks.  The owner lines broadcast 3
+    blocks: 2 after turn 1, 1 after turn 2."""
+    import numpy as np
+    from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
+                                          PagedKVConfig)
+
+    rng = np.random.default_rng(seed)
+    b = scfg.batch
+    turn1 = [(i, rng.integers(0, vocab, size=24), 4, "balanced")
+             for i in range(b // 2)]
+    turn1.append((b // 2, rng.integers(0, vocab, size=70), 16, "balanced"))
+    paged = dataclasses.replace(
+        scfg, controller=ControllerConfig(), metrics=MetricsConfig(),
+        prefill_chunk=PAGE_BLOCK,
+        paged_kv=PagedKVConfig(block_size=PAGE_BLOCK))
+    return paged, turn1, rng.integers(0, vocab, size=20), 8
+
+
+SESSION_SHARED = 3         # blocks ``_crossing_session``'s owners broadcast
+SESSION_REUSED = 5         # blocks its turn 2 adopts
+
+
+def _check_session(label: str, on: list, e: dict, m: int) -> None:
+    """``_crossing_session`` on the ranks (``on``, rank order, 'model'
+    axis of ``m``) against one process (``e``): every rank's tokens and
+    chain equal, turn 2's reuse, the bytes broadcast (3 blocks of a
+    rank's every pool leaf), the chain's blocks bitwise between the lines
+    (ranks of one 'model' index); where the free-running tokens equal one
+    process's, each rank's blocks within the pool dtype's tolerance of
+    one process's at its KV heads."""
+    import numpy as np
+    import torch
+
+    s0, se = on[0]["session"], e["session"]
+    for r, o in enumerate(on):
+        s = o["session"]
+        same = (s["chain"] == s0["chain"] and set(s["tokens"]) ==
+                set(s0["tokens"]) and all(np.array_equal(
+                    s["tokens"][u], s0["tokens"][u]) for u in s0["tokens"]))
+        if not same or s["reused"] != SESSION_REUSED:
+            fail(f"mesh {label} session: rank {r}'s tokens or chain differ "
+                 f"from rank 0's, or it reused {s['reused']} blocks, not "
+                 f"{SESSION_REUSED}")
+        block = sum(v[0].numel() * v.element_size()
+                    for layer in s["blocks"] for v in layer.values())
+        if s["shared_bytes"] != SESSION_SHARED * block:
+            fail(f"mesh {label} session: rank {r} broadcast "
+                 f"{s['shared_bytes']} bytes, not {SESSION_SHARED} blocks "
+                 f"of {block}")
+        if r >= m:
+            twin = on[r % m]["session"]["blocks"]
+            for lg, lt in zip(s["blocks"], twin):
+                for n in lg:
+                    if not torch.equal(lg[n], lt[n]):
+                        fail(f"mesh {label} session: rank {r}'s chain "
+                             f"blocks ({n}) differ from line 0's rank "
+                             f"{r % m}")
+    free = all(np.array_equal(s0["tokens"][u], se["tokens"][u])
+               for u in se["tokens"]) and s0["chain"] == se["chain"]
+    gap = float("nan")
+    if free:
+        gap = 0.0
+        for r, o in enumerate(on):
+            for lg, lw in zip(o["session"]["blocks"], se["blocks"]):
+                for n, v in lw.items():
+                    kv_l = v.shape[2] // m
+                    w = v[:, :, (r % m) * kv_l:(r % m + 1) * kv_l].float()
+                    g = lg[n].float()
+                    tol = LOGIT_TOL.get(str(v.dtype).split(".")[-1], 5e-2)
+                    rel = float((g - w).abs().max()) / max(
+                        float(w.abs().max()), 1e-30)
+                    gap = max(gap, rel)
+                    if rel > tol:
+                        fail(f"mesh {label} session: rank {r}'s {n} blocks "
+                             f"{rel:.3e} x max from one process's "
+                             f"(tolerance {tol})")
+    print(f"[mesh] {label} session across lines: turn 1 in slot "
+          f"{len(s0['tokens']) - 2} (line 1), turn 2 in slot 0 (line 0) "
+          f"adopting {s0['reused']} blocks; {s0['shared_bytes']} bytes "
+          f"broadcast a rank; chain blocks bitwise between the lines; "
+          + (f"tokens equal to one process's, blocks within {gap:.3e} x max"
+             if free else "free-running tokens differ from one process's "
+             "(blocks not compared)"), flush=True)
+
+
 def _mesh_cases() -> dict:
     """The mesh phase's cases by mesh: (label, config, serve config, the
-    requests as (uid, prompt, max_new, sla))."""
+    requests as (uid, prompt, max_new, sla), ``_crossing_session``'s
+    arguments or None)."""
     import numpy as np
     from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
                                           PagedKVConfig)
@@ -4761,13 +4891,14 @@ def _mesh_cases() -> dict:
         ((2,), ("model",)): [
             (f"(a) {MESH_LAYERS} layers, ms=2 on 1x2, pallas, bf16 paged "
              "pool", cfg(MESH_LAYERS, "pallas", 1, 2, paged=True), paged,
-             reqs),
+             reqs, None),
             ("(c) 2 layers, int8 MLP weights, ms=2 on 1x2, pallas",
              cfg(2, "pallas", 1, 2, weight_dtype="int8",
-                 quant_group_size=QG), plain, reqs)],
+                 quant_group_size=QG), plain, reqs, None)],
         ((2, 2), ("data", "model")): [
-            (f"(b) {MESH_LAYERS_2D} layers, ds=ms=2 on 2x2, gather",
-             cfg(MESH_LAYERS_2D, "gather", 2, 2), plain, reqs)]}
+            (f"(b) {MESH_LAYERS_2D} layers, ds=ms=2 on 2x2 (slots split "
+             "over 'data'), gather", cfg(MESH_LAYERS_2D, "gather", 2, 2),
+             plain, reqs, _crossing_session(plain, base.vocab, 34))]}
 
 
 def _mesh_paged_forced(params, cfg, dev, mesh=None):
@@ -4789,26 +4920,118 @@ def _mesh_paged_forced(params, cfg, dev, mesh=None):
         s = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
         pool = [{k: v[:, :, s.k0:s.k1].contiguous()
                  for k, v in layer.items()} for layer in pool]
-    return _paged_forced(params, cfg, dev, pool, table, lens0, forced,
-                         alphas)
+    # a rank's line's slots, every line's logits gathered
+    rows = list(R.slot_range(DEC_BATCH, mesh))
+    lg = _paged_forced(params, cfg, dev, pool, table[rows], lens0[rows],
+                       forced[:, rows], alphas[:, rows])
+    return R.gather_slots(lg.movedim(1, 0).to(dev), mesh).movedim(
+        0, 1).cpu()
+
+
+def _gather_calls(calls: list) -> list:
+    """Recorded MLP calls (``_record_calls``) of a rank's line's slots made
+    every slot's: each input, output and stat gathered over the current
+    mesh's 'data' axis along its slot dim (every rank takes part)."""
+    import torch
+    from repro_torch.sharding import rules as R
+
+    def every(t):
+        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        return R.gather_slots(t.to(dev)).cpu()
+    return [(every(x), every(y), st and {n: every(v) for n, v in st.items()})
+            for x, y, st in calls]
+
+
+@contextlib.contextmanager
+def _count_lines(counts: dict):
+    """Every gather over a line of ranks (``rules.gather_line``) inside
+    the block adds one to ``counts[axis]``."""
+    from repro_torch.sharding import rules as R
+    orig = R.gather_line
+
+    def counted(t, axis="model", mesh=None):
+        counts[axis] = counts.get(axis, 0) + 1
+        return orig(t, axis, mesh)
+    R.gather_line = counted
+    try:
+        yield
+    finally:
+        R.gather_line = orig
+
+
+@contextlib.contextmanager
+def _decode_rows(seen: set):
+    """Every ``models.lm.decode_step`` inside the block adds (its token
+    rows, its first layer's K cache or pool shape) to ``seen``."""
+    from repro_torch.models import lm
+    orig = lm.decode_step
+
+    def tapped(params, cfg, token, caches, cache_len, **kw):
+        seen.add((token.shape[0], tuple(caches["blocks"][0]["k"].shape)))
+        return orig(params, cfg, token, caches, cache_len, **kw)
+    lm.decode_step = tapped
+    try:
+        yield
+    finally:
+        lm.decode_step = orig
+
+
+def _mesh_session(srv, scfg, turn1: list, tail, max_new: int) -> dict:
+    """A two-turn session on a server over ``srv``'s weights and mesh with
+    the paged serve config ``scfg``: turn 1 (the requests as (uid,
+    prompt, max_new, sla), the last kept under session "s" in the last
+    slot they fill), then one request of the session whose prompt is turn
+    1's history and ``tail``, decoding ``max_new`` tokens; it
+    takes slot 0, on another 'data' line than turn 1's slot, and adopts
+    the chain.  Returns both turns' tokens, the final chain, its blocks
+    of every pool leaf (CPU), the blocks reused and the bytes the owner
+    lines broadcast."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, Server
+
+    sess = Server(lm, srv.cfg, scfg, srv.params, device=srv.device,
+                  mesh=srv.mesh)
+    reqs = [Request(uid=u, prompt=np.asarray(p), max_new=m, sla=t)
+            for u, p, m, t in turn1]
+    reqs[-1].session_id = "s"
+    toks = {r.uid: np.asarray(r.out) for r in sess.serve(reqs)}
+    hist = sess.kv_pool.lookup_session("s")["history"]
+    toks[-1] = np.asarray(sess.serve([Request(
+        uid=-1, prompt=np.concatenate([hist, tail]), max_new=max_new,
+        session_id="s")])[0].out)
+    chain = list(sess.kv_pool.lookup_session("s")["chain"])
+    out = {"tokens": toks, "chain": chain,
+           "blocks": [{k: v[chain].cpu() for k, v in layer.items()}
+                      for layer in sess._pool["blocks"]],
+           "reused": sess.paged_stats()["reused_blocks"],
+           "shared_bytes": sess.shared_block_bytes}
+    del sess
+    return out
 
 
 def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None, forced=None,
-                calls: bool = True, profile: bool = False) -> dict:
+                calls: bool = True, profile: bool = False,
+                session=None) -> dict:
     """One case's serve (on a mesh rank when ``mesh`` is given, its part of
     every leaf placed a table and a layer at a time): tokens, the
     controller's EMAs, launches from load to drain, the peak memory, the
-    parameter bytes held and the decode step's mean host wall.  Then
-    teacher-forced steps on the served weights: ``_teacher_forced`` (the
-    dense cache) and, for a config on the paged kernels with ``calls``,
-    ``_mesh_paged_forced`` (the paged route on the kernels); on a rank
-    with its MLP calls recorded (rank 0 keeps them), in one process with
-    ``forced`` (rank 0's result) replayed, every MLP call fed the ranks'
-    input of the same call, the logits within ``LOGIT_TOL["float32"]`` of
-    theirs (float32 compute, cache and pool for these steps; ``calls``
-    False: a rank keeps none and runs the dense steps only).
-    ``profile``: a paged decode step of the served weights profiled (every
-    rank runs it; rank 0 prints it)."""
+    parameter bytes held, every rank's slot range and KV bytes, each
+    decode step's (token rows, cache shape) and the decode step's mean
+    host wall.  Then teacher-forced steps on the served weights:
+    ``_teacher_forced`` (the dense cache) and, for a config on the paged
+    kernels with ``calls``, ``_mesh_paged_forced`` (the paged route on the
+    kernels), each on a rank's line's slots with every line's logits
+    gathered; on a rank with its MLP calls recorded and gathered over
+    'data' (rank 0 keeps them), in one process with ``forced`` (rank 0's
+    result) replayed, every MLP call fed the ranks' input of the same
+    call, the logits within ``LOGIT_TOL["float32"]`` of theirs (float32
+    compute, cache and pool for these steps; ``calls`` False: a rank
+    keeps none and runs the dense steps only).  ``profile``: the server's
+    paged decode step on the served weights profiled (every rank runs it;
+    rank 0 prints it) and one step's gathers counted by axis.
+    ``session``: (paged serve config, turn 1, tail, max_new) through
+    ``_mesh_session`` on the same weights."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -4828,8 +5051,10 @@ def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None, forced=None,
     srv = Server(lm, cfg, scfg, params, device=dev, mesh=mesh)
     del params
     t1 = time.perf_counter()
-    done = srv.serve([Request(uid=u, prompt=np.asarray(p), max_new=m, sla=t)
-                      for u, p, m, t in reqs])
+    shapes: set = set()
+    with _decode_rows(shapes):
+        done = srv.serve([Request(uid=u, prompt=np.asarray(p), max_new=m,
+                                  sla=t) for u, p, m, t in reqs])
     if card:
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
@@ -4841,7 +5066,8 @@ def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None, forced=None,
            "step_ms": 1e3 * srv.metrics.hist_mean("decode_step_s"),
            "init_s": t1 - t0, "serve_s": t2 - t1,
            "tok_s": sum(len(r.out) for r in done) / (t2 - t1),
-           "param_bytes": tree_bytes(srv.params)}
+           "param_bytes": tree_bytes(srv.params),
+           "slots": srv.mesh_slots(), "shapes": sorted(shapes)}
     if ctl is not None:
         for name in ("alphas", "density_ema", "fn_ema", "union_ema",
                      "predicted_ema"):
@@ -4867,20 +5093,26 @@ def _mesh_serve(label, cfg, scfg, reqs, dev, mesh=None, forced=None,
         with srv._mesh_ctx():
             for key, (_, run) in runs.items():
                 out[key], rec, _ = _record_calls(run)
-                out[f"calls_{key}"] = (rec if calls and mesh.rank == 0
-                                       else None)
+                rec = _gather_calls(rec) if calls else None
+                out[f"calls_{key}"] = rec if mesh.rank == 0 else None
             if profile:
                 quiet = open(os.devnull, "w") if mesh.rank else None
                 with contextlib.redirect_stdout(quiet or sys.stdout):
                     profile_paged_decode(srv, srv.cfg)
                 if quiet:
                     quiet.close()
+                out["collectives"] = {}
+                with _count_lines(out["collectives"]):
+                    _mesh_step(srv)
     elif forced is not None:
         for key, (what, run) in runs.items():
             _replay_calls(f"[mesh] {label}: teacher-forced ({what}), one "
                           "process on the ranks' MLP inputs", forced[key],
                           forced[f"calls_{key}"], [], run, tol,
                           time.perf_counter())
+    if session is not None:
+        with srv._mesh_ctx():
+            out["session"] = _mesh_session(srv, *session)
     out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if card
                       else 0.0)
     del srv
@@ -4894,7 +5126,8 @@ def _mesh_rank(mesh, dev, cases: list) -> list:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return [_mesh_serve(*case, dev, mesh) for case in cases]
+    return [_mesh_serve(*case[:4], dev, mesh, session=case[4])
+            for case in cases]
 
 
 def _nccl_rank(mesh, dev) -> float:
@@ -4964,6 +5197,44 @@ def _mesh_check(label: str, cfg, ranks: list, sizes: dict) -> None:
                  f"{ranks[0]['steps']}")
 
 
+def _check_split(label: str, cfg, scfg, on: list, sizes: dict) -> None:
+    """Each rank's slot range is its 'data' line's contiguous share of the
+    batch, every decode step ran on B/D token rows against caches of B/D
+    slots (a paged pool: every block) at the rank's KV heads, and its KV
+    bytes are that share of the one-device KV's (``Server.mesh_slots``);
+    prints them."""
+    d, m = sizes.get("data", 1), sizes.get("model", 1)
+    b, dense = scfg.batch, scfg.paged_kv is None
+    one = on[0]["slots"]["one_device_kv_bytes"]
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    for r, o in enumerate(on):
+        line = r // m
+        if o["slots"]["per_rank"][r]["slots"] != [line * b // d,
+                                                  (line + 1) * b // d]:
+            fail(f"mesh {label}: rank {r} owns slots "
+                 f"{o['slots']['per_rank'][r]['slots']}, not line {line}'s "
+                 f"share of {b}")
+        if not o["shapes"]:
+            fail(f"mesh {label}: rank {r} ran no decode step")
+        for rows, sh in o["shapes"]:
+            want = ((b // d, scfg.max_len) if dense
+                    else (sh[0], scfg.paged_kv.block_size)) + (sh[2], hd)
+            if rows != b // d or tuple(sh) != want or kvh % sh[2]:
+                fail(f"mesh {label}: rank {r} decoded {rows} slots on a "
+                     f"{sh} K leaf, not its line's {b // d} on {want}")
+        kv, kv_l = o["slots"]["per_rank"][r]["kv_bytes"], o["shapes"][0][1][2]
+        if kv * kvh * (d if dense else 1) != one * kv_l:
+            fail(f"mesh {label}: rank {r} holds {kv} KV bytes, not "
+                 f"{kv_l}/{kvh} of the heads"
+                 f"{f' and 1/{d} of the slots' if dense else ''} of one "
+                 f"device's {one}")
+    print(f"[mesh] {label}: slots a rank "
+          f"{[p['slots'] for p in on[0]['slots']['per_rank']]}, KV bytes a "
+          f"rank {[p['kv_bytes'] for p in on[0]['slots']['per_rank']]} "
+          f"(one device {one}); decode rows and K leaf {on[0]['shapes']}",
+          flush=True)
+
+
 def phase_mesh(results: dict) -> None:
     """The model placed on ranks that share the card: each mesh's cases on
     its ranks first (every leaf split by the serve rules, the attention by
@@ -4982,22 +5253,26 @@ def phase_mesh(results: dict) -> None:
                           device=MESH_DEVICE, timeout=600)
         t_ranks = time.perf_counter() - t
         t = time.perf_counter()
-        emul = [_mesh_serve(*case, dev, forced=ranks[0][j])
+        emul = [_mesh_serve(*case[:4], dev, forced=ranks[0][j],
+                            session=case[4])
                 for j, case in enumerate(cases)]
         print(f"[mesh] {'x'.join(map(str, shape))} over {axes}: ranks "
               f"{t_ranks:.1f} s (start, build, serve), emulated serves "
               f"{time.perf_counter() - t:.1f} s", flush=True)
         sizes = dict(zip(axes, shape))
-        for j, (label, cfg, _, _) in enumerate(cases):
+        for j, (label, cfg, scfg, *_) in enumerate(cases):
             e, on = emul[j], [o[j] for o in ranks]
             _mesh_check(label, cfg, on, sizes)
+            _check_split(label, cfg, scfg, on, sizes)
             if e["completed"] != MESH_REQUESTS:
                 fail(f"mesh {label}: {e['completed']} requests completed")
+            # free-running state is not held to one process: every mesh
+            # here splits heads over 'model' or slots over 'data', so its
+            # GEMMs round otherwise; the teacher-forced logits above are
             moved = [k for k in _same_state(on[0], e)
                      if not k.startswith("forced")]
-            if moved and sizes.get("model", 1) == 1:
-                fail(f"mesh {label}: {moved} differ from the emulated "
-                     "serve's with no 'model' axis")
+            if "session" in e:
+                _check_session(label, on, e, sizes.get("model", 1))
             print(f"[mesh] {label}: tokens, EMAs and teacher-forced logits "
                   f"of {len(on)} ranks bitwise ({e['steps']} decode steps, "
                   f"{MESH_REQUESTS} requests); the served "
@@ -5466,7 +5741,7 @@ def phase_moe(results: dict) -> None:
 # family -> (arch, the extra input's name, the config field of its length)
 CROSS_ARCHS = {"encdec": ("seamless-m4t-medium", "frames", "n_frames"),
                "vlm": ("llama-3.2-vision-90b", "images", "n_image_tokens")}
-VLM_SERVE_LAYERS = 10     # two groups of cross_every=5: 38.4 GB of float32
+VLM_SERVE_LAYERS = 5      # one group of cross_every=5: 19.2 GB of float32
 
 
 def _cross_extra(cfg, b: int, seed: int):
@@ -5737,7 +6012,7 @@ def phase_cross(results: dict) -> None:
     seamless-m4t-medium's and llama-3.2-vision-90b's FFN widths, (b) two
     full-width layers of each (a decoder layer and a gated cross block
     among them) card against CPU, (c) seamless served at full depth and
-    the vlm at full width and 10 layers."""
+    the vlm at full width and ``VLM_SERVE_LAYERS`` layers."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(37)
@@ -7207,6 +7482,129 @@ def _cards4_cases() -> list:
              "controller", "prosparse-llama2-7b", 16, "gather", ctl=True)]
 
 
+CARDS4_2D = (2, 2)         # --cards4's second spawn: two lines of two
+CARDS4_2D_BATCH = 8        # four slots a line
+CARDS4_2D_ARCH = "prosparse-llama2-13b"
+
+
+def _cards4_2d_cases() -> list:
+    """--cards4's 2x2 cases, prosparse-llama2-13b at ds = ms = 2, batch 8
+    (four slots a 'data' line), one request a slot with 96-192-token
+    prompts and 16 new tokens: (label, config, serve config, requests,
+    session).  (e) the whole model (40 layers), pallas, a bf16 paged pool
+    on the paged kernels, chunked prefill in chunks of 64; (f) 8 layers,
+    float32 dense caches, gather with masked audits and the per-tier
+    controller, then ``_crossing_session`` (turn 2 on the other line)."""
+    import numpy as np
+    from repro_torch.configs.base import (ControllerConfig, MetricsConfig,
+                                          PagedKVConfig)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime.server import ServeConfig
+
+    base = get_config(CARDS4_2D_ARCH)
+    rng = np.random.default_rng(35)
+    tiers = ("latency", "balanced", "quality")
+    reqs = [(i, rng.integers(0, base.vocab, size=int(rng.integers(96, 193))),
+             MESH_MAX_NEW, tiers[i % 3]) for i in range(CARDS4_2D_BATCH)]
+    met = MetricsConfig(enabled=True, watchdog=False)
+
+    def sparse(strategy):
+        return dataclasses.replace(
+            base.sparse, strategy=strategy, enabled=True, sparse_prefill=True,
+            tp_shards=CARDS4_2D[1], dp_shards=CARDS4_2D[0])
+    e_scfg = ServeConfig(batch=CARDS4_2D_BATCH, max_len=256,
+                         max_new_tokens=MESH_MAX_NEW, metrics=met,
+                         prefill_chunk=MAIN_CHUNK,
+                         paged_kv=PagedKVConfig(block_size=PAGE_BLOCK))
+    f_scfg = ServeConfig(batch=CARDS4_2D_BATCH, max_len=256,
+                         max_new_tokens=MESH_MAX_NEW, metrics=met,
+                         controller=ControllerConfig(
+                             enabled=True, per_tier=True, audit_period=4))
+    return [
+        (f"(e) {CARDS4_2D_ARCH}, {base.n_layers} layers, pallas, 2x2",
+         base.replace(kv_cache_dtype="bfloat16", paged_attn_kernel=True,
+                      sparse=sparse("pallas")), e_scfg, reqs, None),
+        (f"(f) {CARDS4_2D_ARCH}, 8 layers, gather, per-tier controller, "
+         "float32 dense caches, 2x2",
+         base.replace(n_layers=8, kv_cache_dtype="float32",
+                      sparse=sparse("gather")), f_scfg, reqs,
+         _crossing_session(f_scfg, base.vocab, 36))]
+
+
+def _cards4_2d_rank(mesh, dev, cases: list) -> list:
+    """A rank's serves of ``_cards4_2d_cases``: (e) profiled with one
+    step's collectives counted, no MLP calls kept; (f) with its
+    teacher-forced MLP calls kept and its session."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [_mesh_serve(*case[:4], dev, mesh, calls=case[4] is not None,
+                        profile=case[4] is None, session=case[4])
+            for case in cases]
+
+
+def _cards4_2d() -> None:
+    """--cards4's second spawn: ``_cards4_2d_cases`` on a 2x2 mesh over
+    NCCL, a card a rank; every rank's tokens, EMAs and teacher-forced
+    logits bitwise rank 0's, launches exact, the slot split
+    (``_check_split``), per rank its weights, peak, KV bytes, decode step
+    host wall, tokens/s and one step's gathers by axis; then (f) in this
+    process on card 0 (the emulated grid) replaying the ranks'
+    teacher-forced MLP inputs, and its session against the ranks'
+    (``_check_session``)."""
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+
+    cases = _cards4_2d_cases()
+    sizes = dict(zip(("data", "model"), CARDS4_2D))
+    t = time.perf_counter()
+    ranks = run_ranks(_cards4_2d_rank, CARDS4_2D, ("data", "model"),
+                      args=(cases,), device=MESH_DEVICE,
+                      timeout=CARDS4_TIMEOUT)
+    print(f"[time] cards4 2x2 ranks over nccl: "
+          f"{time.perf_counter() - t:.1f} s (start, serves)", flush=True)
+    for j, (label, cfg, scfg, _, _) in enumerate(cases):
+        on = [o[j] for o in ranks]
+        if {o["backend"] for o in on} != {"nccl"}:
+            fail(f"cards4 {label}: ranks ran on "
+                 f"{ {o['backend'] for o in on} }, not nccl")
+        _mesh_check(label, cfg, on, sizes)
+        _check_split(label, cfg, scfg, on, sizes)
+        if on[0]["completed"] != CARDS4_2D_BATCH:
+            fail(f"cards4 {label}: {on[0]['completed']} requests completed")
+        used = {k: v for k, v in on[0]["launches"].items() if v}
+        coll = on[0].get("collectives")
+        # over 'model': the embedding's and the head's a step, the rest
+        # the layers'
+        per_layer = (coll.get("model", 0) - 2) / cfg.n_layers if coll \
+            else None
+        print(f"[cards4] {label}: nccl, {len(on)} ranks; tokens, EMAs and "
+              f"teacher-forced logits bitwise between the ranks; "
+              f"{on[0]['steps']} decode steps, launches exact per rank "
+              f"{used}; tokens/s {[round(o['tok_s'], 2) for o in on]} at "
+              f"B={scfg.batch}; decode step host wall "
+              f"{[round(o['step_ms'], 2) for o in on]} ms; peak memory "
+              f"{[round(o['peak_gb'], 2) for o in on]} GB; parameters "
+              f"{[round(o['param_bytes'] / 1e9, 3) for o in on]} GB; KV "
+              f"{[round(p['kv_bytes'] / 1e9, 4) for p in on[0]['slots']['per_rank']]}"
+              f" GB a rank (one device "
+              f"{on[0]['slots']['one_device_kv_bytes'] / 1e9:.4f} GB); init "
+              f"{[round(o['init_s'], 1) for o in on]} s"
+              + (f"; gathers in one server step {coll} ('model': "
+                 f"{per_layer} a layer beside the embedding's and the "
+                 "head's; plus the host slot check)" if coll else ""),
+              flush=True)
+    label, cfg, scfg, reqs, sess = cases[1]
+    t = time.perf_counter()
+    e = _mesh_serve(label, cfg, scfg, reqs, torch.device(MESH_DEVICE, 0),
+                    forced=ranks[0][1], session=sess)
+    _check_session(label, [o[1] for o in ranks], e, sizes["model"])
+    print(f"[cards4] {label}: one process on card 0 (the emulated grid): "
+          f"teacher-forced logits of the ranks held; decode step host wall "
+          f"{e['step_ms']:.2f} ms, peak {e['peak_gb']:.2f} GB; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
 def _cards4_rank(mesh, dev, cases: list, profile: bool) -> list:
     """A rank's serves of ``cases``, no MLP calls kept."""
     import torch
@@ -7225,7 +7623,10 @@ def _cards4_kernel_times() -> None:
     = 6848, gated); at granite's (6144, ungated) every MLP kernel
     (``_mlp_kernel_times``: #5 on int8 weights with qg 128 as (c) runs
     it); at the 7b's (2752, gated) #9, #1, #2 and #10, the route (d)
-    runs (gather: #9 and #10).  Each at the rank's shard capacity."""
+    runs (gather: #9 and #10); at a 2x2 rank of prosparse-llama2-13b
+    (``_cards4_2d_cases``: 20 query and 20 KV heads, k/2 = 6912 rows) #7,
+    #8, #9, #1 and #2, at B/D = 4 slots a line.  Each at the rank's shard
+    capacity."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
@@ -7240,10 +7641,14 @@ def _cards4_kernel_times() -> None:
 
     def flush():
         flush_buf.zero_()
-    rank0 = RankMesh(("model",), CARDS4_SHAPE, 0)
-    m = CARDS4_SHAPE[0]
-    for name in ("qwen1.5-32b", "granite-34b", "prosparse-llama2-7b"):
+    one_line = (("model",), CARDS4_SHAPE)
+    for name, (axes, shape) in (
+            ("qwen1.5-32b", one_line), ("granite-34b", one_line),
+            ("prosparse-llama2-7b", one_line),
+            (CARDS4_2D_ARCH, (("data", "model"), CARDS4_2D))):
         cfg = get_config(name)
+        rank0 = RankMesh(axes, shape, 0)
+        m = rank0.axis_size("model")
         split = R.attention_heads(cfg.n_heads, cfg.n_kv_heads, rank0)
         local = cfg.replace(n_heads=split.q1 - split.q0,
                             n_kv_heads=split.k1 - split.k0)
@@ -7281,7 +7686,9 @@ def cards4(src: str, serve: bool = True) -> None:
     backend NCCL on every rank; each case's tokens/s, peak memory and
     parameter bytes per rank and a profiled paged decode step (rank 0's).
     Then (d) again on gloo ranks that all share card 0: its tokens, EMAs
-    and teacher-forced logits bitwise the NCCL run's.  ``serve`` False
+    and teacher-forced logits bitwise the NCCL run's; then the 2x2 spawn
+    (``_cards4_2d``: prosparse-llama2-13b whole and at 8 layers, the slots
+    split over 'data').  ``serve`` False
     (``--cards4-kernels``, one card will do): the kernels only."""
     import torch
     from repro_torch.launch.ranks import choose_backend, run_ranks
@@ -7356,6 +7763,7 @@ def cards4(src: str, serve: bool = True) -> None:
           f"ranks (tokens, EMAs, teacher-forced logits, launches); peak "
           f"memory {[round(g[0]['peak_gb'], 2) for g in glo]} GB; "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    _cards4_2d()
     print(f"[done] cards4 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 

@@ -54,9 +54,9 @@ counters, under --paged-kv; with ``controller``: its report, under
 --controller; with ``metrics``: the hub's snapshot and the watchdog, under
 --metrics or any --metrics-* path; with ``mesh``: the mesh, the grid and
 every rank's kernel launches with their sum, each rank's parameter bytes
-beside the one-device total, each rank's peak device memory (null on the
-CPU) and the backend, under --mesh-shape, where rank 0's report is
-printed).
+beside the one-device total, each rank's slot range and KV bytes beside
+the one-device KV's, each rank's peak device memory (null on the CPU) and
+the backend, under --mesh-shape, where rank 0's report is printed).
 """
 from __future__ import annotations
 
@@ -221,10 +221,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--mesh-shape", default="",
                     help="serve the sparse decode on a mesh of local ranks, "
                          "DxM (data x model), e.g. 2x2 (batch slots split "
-                         "2 ways over 'data', the FFN hidden dim 2 ways "
-                         "over 'model'), or M (model only); tokens and the "
-                         "controller's state are bitwise the one-device "
-                         "serve's of the same grid (dense family)")
+                         "2 ways over 'data': each line decodes and keeps "
+                         "the KV of its B/D slots; the FFN hidden dim, the "
+                         "heads and the vocabulary 2 ways over 'model'), "
+                         "or M (model only); the report gives every rank's "
+                         "slot range and KV bytes (dense family)")
     args = ap.parse_args(argv)
     if args.mesh:
         if args.mesh_shape:
@@ -375,6 +376,7 @@ def _serve(args, device, mesh=None) -> dict:
                        "grid": [sp.dp_shards, sp.tp_shards],
                        "launches": srv.mesh_launch_counts(),
                        "param_bytes": srv.mesh_param_bytes(),
+                       "slots": srv.mesh_slots(),
                        "peak_bytes": peaks}
     return rep
 

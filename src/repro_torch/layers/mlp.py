@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import sparse_mlp as SM
 from repro_torch.core.sparse_mlp import SparseInferConfig
 from repro_torch.runtime import distributed as DD
+from repro_torch.sharding import sparse as SSP
 
 
 def init_mlp(generator: torch.Generator, d: int, k: int, gated: bool = True,
@@ -62,7 +63,10 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: SparseInferConfig, *,
         return finish(_dense(params, x, cfg, return_stats))
     xf = x.reshape(-1, shape[-1])
     max_rows = cfg.prefill_max_tokens if prefill else cfg.sparse_max_batch
-    if xf.shape[0] > max_rows:
+    # a decode step on a mesh holds its 'data' line's slots: the limit
+    # reads the whole batch, as on one device
+    rows = xf.shape[0] * (1 if prefill else SSP.mesh_data_count())
+    if rows > max_rows:
         return finish(_dense(params, xf, cfg, return_stats))
     return finish(SM.apply(params, xf, cfg, alpha=alpha, layer_idx=layer_idx,
                            num_layers=num_layers, return_stats=return_stats))

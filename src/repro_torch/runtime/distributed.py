@@ -27,12 +27,15 @@ view of the layer's leaf, never a copy.
 
 ``shard_map_apply`` runs the same grid on a ``launch.mesh.RankMesh`` of
 ``torch.distributed`` ranks whose axes divide it: each rank holds its
-model tiles' rows of the MLP leaves (``sharding/sparse.py``), loops over
-its (data block, model tile) tiles through the same ``_local_mlp``, gathers
-the packed partials with each tile's count matrix over its 'model' line in
-rank order into the same ``_combine_gathered``, sums the counts (exact:
-they are integers) and gathers the rows over its 'data' line, so what it
-returns is bitwise ``emulated_apply``'s.  ``sharded_apply`` dispatches to
+model tiles' rows of the MLP leaves (``sharding/sparse.py``) and gets the
+rows of its 'data' line's slots (``sharding/rules.py:slot_range``), loops
+over its (data block, model tile) tiles through the same ``_local_mlp``,
+gathers the packed partials with each tile's count matrix over its 'model'
+line in rank order into the same ``_combine_gathered`` and sums the counts
+(exact: they are integers), so what it returns is bitwise the line's rows
+of ``emulated_apply``'s.  Nothing is gathered over 'data': the server
+gathers a decode step's tokens and telemetry over it once a step
+(``runtime/server.py``).  ``sharded_apply`` dispatches to
 it under ``sharding.rules.use_mesh`` of more than one rank.  The dense MLP
 of a tensor-sharded config (the prefill) is ``dense_apply``: the shards'
 partials summed in the same fixed order, on one device or on the mesh.
@@ -318,21 +321,24 @@ def _count_matrix(counts_by_shard: list) -> torch.Tensor:
 # ------------------------------------------------------------ public API --
 
 def _grid_inputs(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
-                 alpha, m_mesh: int = 1):
+                 alpha, m_mesh: int = 1, d_mesh: int = 1):
     """What every grid loop needs: (ds, ms, k, caps, cap_l, clamp, the
-    slices of the model tiles ``params`` holds, the block height, the (B,)
-    alphas).  ``params`` holds 1/``m_mesh`` of the k rows: a rank's
-    ms/m_mesh tiles."""
+    slices of the model tiles ``params`` holds, the block height, the
+    alphas of x's rows).  ``params`` holds 1/``m_mesh`` of the k rows: a
+    rank's ms/m_mesh tiles; x holds 1/``d_mesh`` of the slots: a rank's
+    ds/d_mesh data blocks."""
     ds, ms = semantic_grid(cfg)
     k = Q.mlp_hidden_rows(params) * m_mesh
     caps, cap_l = shard_caps(cfg, k)
     sign_wg = params.get("sign_wg")
     if sign_wg is None:
         sign_wg = kops.sign_pack(params["wg_t"])
-    b = x.shape[0]
-    if b % ds:
-        raise ValueError(f"batch {b} not divisible by dp_shards={ds}")
-    bt = b // ds
+    b, per_d = x.shape[0], ds // d_mesh
+    if b % per_d:
+        raise ValueError(f"batch {b} not divisible by dp_shards={ds}"
+                         + (f" over {d_mesh} 'data' lines" if d_mesh > 1
+                            else ""))
+    bt = b // per_d
     per_m = ms // m_mesh
     slices = [_slice_params(params, sign_wg, s, per_m)
               for s in range(per_m)]
@@ -403,23 +409,24 @@ def shard_map_apply(params: dict, x: torch.Tensor,
                     strategy: str, return_stats: bool = False):
     """The (ds, ms) semantics on the ranks of ``mesh``, whose 'data' and
     'model' axes divide them.  ``params`` holds this rank's rows of the MLP
-    leaves (ms/m_mesh contiguous model tiles); x (B, d) and ``alpha`` are
-    every slot's, the same on every rank.  Each rank runs its ds/d_mesh
-    data blocks x its tiles through ``_local_mlp``; two collectives
-    follow: the packed partials, each tile's count matrix beside its
-    partial, gathered over the 'model' line in rank order (then
-    ``_combine_gathered``, and the counts summed), and the rows gathered
-    over the 'data' line.  Returns what ``emulated_apply`` returns,
-    bitwise, on every rank."""
+    leaves (ms/m_mesh contiguous model tiles); x (B/d_mesh, d) and
+    ``alpha`` are the slots of this rank's 'data' line
+    (``rules.slot_range``): its ds/d_mesh data blocks, the same on every
+    rank of the line.  Each rank runs its blocks x its tiles through
+    ``_local_mlp``; one collective follows: the packed partials, each
+    tile's count matrix beside its partial, gathered over the 'model' line
+    in rank order (then ``_combine_gathered``, and the counts summed).
+    Nothing crosses the 'data' axis: a line's rows and counts stay on it.
+    Returns the line's rows of what ``emulated_apply`` returns for every
+    slot, bitwise, on every rank of the line."""
     m_mesh, d_mesh = _mesh_sizes(cfg, mesh)
     ds, ms, k, caps, cap_l, clamp, slices, bt, a = _grid_inputs(
-        params, x, cfg, alpha, m_mesh)
+        params, x, cfg, alpha, m_mesh, d_mesh)
     per_m, per_d = ms // m_mesh, ds // d_mesh
     m0 = mesh.axis_index("model") * per_m           # first tile's shard
-    d0 = mesh.axis_index("data") * per_d            # first data block
     parts, counts = [], []
     with R.shard_local():       # the tiles are this rank's own values
-        for db in range(d0, d0 + per_d):
+        for db in range(per_d):
             x_t = x[db * bt:(db + 1) * bt]
             a_t = a[db * bt:(db + 1) * bt]
             x_signs = kops.sign_pack(x_t) if strategy != "pallas" else None
@@ -456,16 +463,10 @@ def shard_map_apply(params: dict, x: torch.Tensor,
         y_t, real_t, union_t = _combine_gathered(local[:, j], True, k // ms)
         rows.append((y_t, real_t, union_t))
     if not return_stats:
-        y = torch.cat(rows, dim=0)
-        return _gather_rows(y, mesh, "data") if d_mesh > 1 else y
-    y, real, union = (torch.cat([r[i] for r in rows], dim=0)
-                      for i in range(3))
-    n_y = y.shape[-1]
-    packed = torch.cat([y, cm.reshape(per_d * bt, n_c), real, union], -1)
-    if d_mesh > 1:
-        packed = _gather_rows(packed, mesh, "data")
-    y, totals_mat, shard_real, shard_union = torch.split(
-        packed, [n_y, n_c, ms, ms], dim=-1)
+        return torch.cat(rows, dim=0)
+    y, shard_real, shard_union = (torch.cat([r[i] for r in rows], dim=0)
+                                  for i in range(3))
+    totals_mat = cm.reshape(per_d * bt, n_c)
     totals = {col: totals_mat[:, i] for i, col in enumerate(COUNT_COLS)}
     return y, _finalize_stats(totals, shard_real, shard_union, k,
                               cfg.tp_shards)
@@ -478,8 +479,9 @@ def dense_apply(params: dict, x: torch.Tensor, cfg: SM.SparseInferConfig,
     of active rows, summed over the shards in ascending order in float32
     (the counts exactly).  On one device a loop over the shards' row
     views; under a current mesh split over 'model' each rank runs its
-    shards on the rows it holds, for every slot (the dense MLP is not
-    split over 'data'), and gathers the partials over its 'model' line,
+    shards on the rows it holds, for the token rows it is given (a
+    replicated prefill's, or its 'data' line's slots: nothing crosses
+    'data'), and gathers the partials over its 'model' line,
     so every placement of the grid gets the same bits.  Returns y float32
     [and the ``MLP_STAT_KEYS`` of ``dense_mlp``]."""
     _, ms = semantic_grid(cfg)

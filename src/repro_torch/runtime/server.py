@@ -94,12 +94,22 @@ tables.  It runs its tiles of each sparse MLP call
 dense MLP (``dense_apply``), the attention on its heads with its KV heads'
 cache or pool, and its vocabulary's logits; partial results are combined
 over the 'model' line in rank order (``sharding/rules.py``), so every rank
-holds the same bits.  Norms and the host state (slots, block tables, the
-prefix trie, the controller) are every rank's, for all B slots.  On a mesh
-with no 'model' axis tokens and the controller's state are bitwise the
-one-device server's of the same grid; over 'model' the attention's and
-the head's sums run in another order, so logits agree to float rounding.
-Each decode step's slot arrays are checked against rank 0's
+of a line holds the same bits.  The host state (slots, block tables, the
+KV pool's allocator, the prefix trie, sessions, the controller) is every
+rank's, for all B slots; the device state is its 'data' line's: line j
+owns slots [j*B/D, (j+1)*B/D) (``rules.slot_range``), its decode step runs
+on their B/D rows and its dense caches hold them.  One gather over 'data'
+a step brings every line's sampled tokens, with the step's (L, B/D)
+telemetry when it collects stats, so every rank's host loop reads all B
+tokens and the same (L, B) stats.  A slot's batch-1 prefill runs on every
+rank (a batch of 1 does not split), and only the owner line keeps its
+dense cache.  The paged pool stays whole on every rank: prefill-origin
+blocks are written by every line, decode-written blocks only by the owner
+line, so a session's kept chain is broadcast from its owner line
+(``_share_blocks``) before another line's slot can adopt it.  Logits agree
+with the one-device server's to float rounding (a line's GEMMs run on B/D
+rows, and over 'model' the attention's and the head's sums run in another
+order).  Each decode step's full slot arrays are checked against rank 0's
 (``_put_slots``); controller checkpoints are written by rank 0 and the
 hub's file sinks are rank 0's.  Other families raise under a mesh.
 
@@ -369,6 +379,10 @@ class Server:
         if mesh is not None:
             # a rank never holds the whole tree: it comes placed
             SSP.check_placed(params, mesh, cfg)
+        # the slots this rank's 'data' line owns: every slot off a mesh
+        # or on one with no 'data' axis
+        self._rows = np.asarray(RR.slot_range(scfg.batch, mesh), np.int64)
+        self._split = len(self._rows) < scfg.batch
         self.params = (model_mod.prepare_sparse(params, cfg.sparse)
                        if cfg.sparse.enabled else params)
         self.extra = {k: torch.as_tensor(v, device=self.device)
@@ -382,6 +396,8 @@ class Server:
                                           # (paged KV pool only)
         self.kv_pool: Optional[KVPool] = None
         self._pool: Optional[dict] = None
+        self.shared_block_bytes = 0       # session blocks broadcast over
+                                          # 'data' (``_share_blocks``)
         # ---- overload accounting and fault injection
         self.faults = None                # runtime.faults.FaultInjector
         self.preempt_count = 0            # victims parked and requeued
@@ -468,17 +484,79 @@ class Server:
     def _put_slots(self, tok, lengths, alphas=None, table=None):
         """A decode step's slot arrays on the device: tokens (B, 1),
         lengths (B,), the block table (B, nbps) or None; the (L, B) alphas
-        stay as given.  In mesh mode every rank's arrays are first held
-        against rank 0's (one gather of their values over the mesh); if any
-        rank's differ, every rank raises, so a host loop that diverged
-        fails at once rather than waiting in a collective."""
+        stay on the host.  In mesh mode every rank's full arrays are first
+        held against rank 0's (one gather of their values over the mesh);
+        if any rank's differ, every rank raises, so a host loop that
+        diverged fails at once rather than waiting in a collective.  Then
+        the model gets this rank's line's rows of each (the alphas'
+        columns; per-layer (L,) alphas stay whole)."""
         if self.mesh is not None:
             self._agree_with_rank0(tok=tok, lengths=lengths, alphas=alphas,
                                    table=table)
         dev = self.device
-        return (torch.as_tensor(tok, device=dev),
-                torch.as_tensor(lengths, device=dev), alphas,
-                None if table is None else torch.as_tensor(table, device=dev))
+        if alphas is not None and np.ndim(alphas) == 2:
+            alphas = self._line(alphas, dim=1)
+        return (self._line(torch.as_tensor(tok, device=dev)),
+                self._line(torch.as_tensor(lengths, device=dev)), alphas,
+                None if table is None
+                else self._line(torch.as_tensor(table, device=dev)))
+
+    def _line(self, a, dim: int = 0):
+        """The rows (along ``dim``) of this rank's line's slots of a
+        B-slot array, numpy or torch; the array itself when the line owns
+        every slot."""
+        if not self._split:
+            return a
+        if isinstance(a, torch.Tensor):
+            return a.index_select(dim, torch.as_tensor(self._rows,
+                                                       device=a.device))
+        return np.take(np.asarray(a), self._rows, axis=dim)
+
+    def _gather_step(self, tok: torch.Tensor, stats: Optional[dict]):
+        """Every line's sampled tokens (B/D,) int32 and, when the step
+        collected them, its (L, B/D, ...) stats, gathered over 'data' in
+        one collective: the tokens' bits ride beside the stats' float32
+        columns.  Returns the (B,) tokens and the (L, B, ...) stats in slot
+        order, the same on every rank."""
+        n = tok.shape[0]
+        keys = sorted(stats or {})
+        cols = [tok.to(torch.int32).view(torch.float32)[:, None]]
+        cols += [stats[k].float().movedim(1, 0).reshape(n, -1) for k in keys]
+        full = RR.gather_slots(torch.cat(cols, dim=-1), self.mesh)
+        tok = full[:, 0].contiguous().view(torch.int32)
+        parts = full[:, 1:].split([stats[k][:, 0].numel() for k in keys], -1)
+        return tok, stats and {
+            k: p.reshape((-1,) + stats[k][:, 0].shape).movedim(0, 1)
+            for k, p in zip(keys, parts)}
+
+    def _share_blocks(self, slot: int, ids: list, pool: dict) -> None:
+        """Copy the pool blocks ``ids`` from the 'data' line that owns
+        ``slot`` into every other line's pool, in place: one broadcast of
+        their bytes (every layer's K and V, an int8 pool's scales too, of
+        this rank's KV heads) over this rank's 'data' line.  A decode step
+        writes only its line's slots' blocks, so the rest of the pool
+        holds them stale until then."""
+        if not self._split or not ids:
+            return
+        mesh = self.mesh
+        coords = mesh.coords()
+        coords["data"] = slot // len(self._rows)          # the owner line
+        src = int(np.ravel_multi_index(
+            [coords[a] for a in mesh.axis_names], mesh.shape))
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        leaves = [buf for layer in pool["blocks"] for buf in layer.values()]
+        parts = [buf[idx].reshape(-1).view(torch.uint8) for buf in leaves]
+        flat = torch.cat(parts)
+        dist.broadcast(flat, src=src, group=mesh.group("data"))
+        self.shared_block_bytes += flat.numel()
+        if mesh.rank == src:
+            return
+        off = 0
+        for buf, part in zip(leaves, parts):
+            n = part.numel()
+            buf[idx] = flat[off:off + n].view(buf.dtype).reshape(
+                (len(ids),) + buf.shape[1:])
+            off += n
 
     def _agree_with_rank0(self, **arrays) -> None:
         names = [k for k, v in arrays.items() if v is not None]
@@ -525,6 +603,36 @@ class Server:
         return {"per_rank": per_rank, "one_device": SSP.one_device_bytes(
             self.params, self.mesh, self.cfg)}
 
+    def kv_bytes(self, one_device: bool = False) -> int:
+        """The bytes of this rank's KV: its paged pool (whole on every
+        rank, its KV heads), or its line's slots' dense caches at
+        ``max_len``; ``one_device``: the same on one device (every head,
+        every slot)."""
+        if self._pool is not None and not one_device:
+            return tree_bytes(self._pool)
+        with RR.use_mesh(None) if one_device else self._mesh_ctx():
+            if self._pool is not None:        # the same blocks, every head
+                return tree_bytes(self.mod.init_kv_pool(
+                    self.cfg, self._pool["blocks"][0]["k"].shape[0],
+                    self.scfg.paged_kv.block_size, "meta"))
+            return tree_bytes(self.mod.init_caches(
+                self.cfg, self.scfg.batch if one_device else len(self._rows),
+                self.scfg.max_len, "meta"))
+
+    def mesh_slots(self) -> dict:
+        """Every rank's slot range [lo, hi) and KV bytes (``per_rank``)
+        beside the one-device server's KV bytes; gathered, so in mesh mode
+        every rank must call it."""
+        mine = {"slots": [int(self._rows[0]), int(self._rows[-1]) + 1],
+                "kv_bytes": self.kv_bytes()}
+        per_rank = [mine]
+        if self.mesh is not None:
+            per_rank = [None] * self.mesh.size
+            dist.all_gather_object(per_rank, mine,
+                                   group=self.mesh.host_group)
+        return {"per_rank": per_rank,
+                "one_device_kv_bytes": self.kv_bytes(one_device=True)}
+
     def reset(self) -> None:
         """Restore the cross-serve state (controller, capacity bucket, KV
         pool, admission and overload counters) to its fresh-construction
@@ -544,6 +652,7 @@ class Server:
         self.preempt_count = 0
         self.shed_count = 0
         self.admissions_deferred = 0
+        self.shared_block_bytes = 0
         self.metrics.flush()
 
     # ------------------------------------------------------ fault plumbing --
@@ -944,7 +1053,8 @@ class Server:
 
     def _decode(self, tok, caches, lengths, alphas=None, table=None,
                 cfg: Optional[ModelConfig] = None):
-        """One decode step -> (tokens, caches); with ``cfg`` (a controller
+        """One decode step on this rank's line's slots -> (every slot's
+        tokens (B,), the line's caches); with ``cfg`` (a controller
         configuration: a bucket's or the audit's) also the step's (L, B)
         telemetry as numpy."""
         tok, lengths, alphas, table = self._put_slots(tok, lengths, alphas,
@@ -953,12 +1063,15 @@ class Server:
             self.params, cfg or self.cfg, tok, caches, lengths,
             alphas=alphas, block_table=table, collect_stats=cfg is not None)
         self.decode_steps += 1
+        logits, caches = out[:2]
+        ntok, stats = greedy_sample(logits), (out[2] if cfg else None)
+        if self._split:
+            # the step's one collective over 'data': every line's tokens
+            # (and telemetry) for every rank's host loop
+            ntok, stats = self._gather_step(ntok, stats)
         if cfg is None:
-            logits, caches = out
-            return greedy_sample(logits), caches
-        logits, caches, stats = out
-        return greedy_sample(logits), caches, {
-            k: v.cpu().numpy() for k, v in stats.items()}
+            return ntok, caches
+        return ntok, caches, {k: v.cpu().numpy() for k, v in stats.items()}
 
     def _decode_ctrl(self, audit: bool, tok, caches, lengths, alphas,
                      table=None):
@@ -1083,12 +1196,17 @@ class Server:
             bal = 0
         with torch.inference_mode(), self._mesh_ctx():
             b, plen = prompts.shape
+            # a rank prefills and decodes its line's rows of the batch
             logits, caches = self.mod.prefill(
                 self.params, self.cfg,
-                torch.as_tensor(np.asarray(prompts, np.int32),
+                torch.as_tensor(self._line(np.asarray(prompts, np.int32)),
                                 device=self.device),
-                *self.extra.values(), max_len=self.scfg.max_len)
-            tok = greedy_sample(logits)[:, None]
+                *(self._line(e) for e in self.extra.values()),
+                max_len=self.scfg.max_len)
+            tok = greedy_sample(logits)
+            if self._split:
+                tok = self._gather_step(tok, None)[0]
+            tok = tok[:, None]
             out = [tok]
             lengths = np.full(b, plen, np.int32)
             tiers = np.full(b, bal)
@@ -1244,8 +1362,9 @@ class Server:
             table = np.full((B, nbps), KVPool.TRASH, np.int32)
             slot_meta: list[Optional[dict]] = [None] * B
         else:
-            caches = self.mod.init_caches(self.cfg, B, scfg.max_len,
-                                          self.device)
+            # this rank's line's slots only
+            caches = self.mod.init_caches(self.cfg, len(self._rows),
+                                          scfg.max_len, self.device)
             table = None
         tok = np.zeros((B, 1), np.int32)
         lengths = np.zeros(B, np.int32)
@@ -1397,6 +1516,10 @@ class Server:
                      np.asarray(slot_out[i], np.int32)])[:written]
                 tier = self.scfg.sla_tiers[meta["tier"]].name
                 pool_mgr.store_session(sid, chain, hist, tier)
+                # blocks a decode step wrote (from the first one past the
+                # full prompt blocks) are current on the owner line alone;
+                # a later turn may adopt the chain in another line's slot
+                self._share_blocks(i, chain[n_prompt_full:], caches)
             else:
                 for b in chain:
                     pool_mgr.release(b)
@@ -1474,8 +1597,11 @@ class Server:
                 meta["plen"] = plen
                 meta["tier"] = t
                 slot_meta[i] = meta
-            else:
-                _splice_slot(caches, one, i)
+            elif i in self._rows:
+                # the owner line keeps the replicated prefill's cache in
+                # its local slot; the other lines drop it
+                _splice_slot(caches, one, int(np.flatnonzero(
+                    self._rows == i)[0]))
             alpha_mat = None
             return True
 

@@ -31,6 +31,13 @@ axis a rank keeps the one KV head its query heads read (MQA: every rank
 keeps it).  The reference's activation constraints
 (``shard_tokens``, ``shard_heads``, ...) have no counterpart: a rank's
 activations are its own tensors.
+
+The batch slots split over 'data' as the reference's ``slot_sharding``
+places them: a rank's 'data' line owns the contiguous slots of
+``slot_range``, its decode step runs on those B/D rows only and its dense
+caches hold those slots; ``gather_slots`` brings every line's rows
+together in line order.  The model code never reads the 'data' axis: its
+tensors simply have B/D rows, and the combines above run over 'model'.
 """
 from __future__ import annotations
 
@@ -211,6 +218,29 @@ def gather_line(t: torch.Tensor, axis: str = "model",
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
+
+
+def slot_range(batch: int, mesh=None) -> range:
+    """The batch slots this rank's 'data' line owns, the reference's
+    ``slot_sharding`` as a range: line j of D holds slots [j*B/D,
+    (j+1)*B/D), the contiguous blocks ``dp_shards`` splits the slots into.
+    Without a mesh, or with no 'data' axis, every slot."""
+    mesh = mesh or current_mesh()
+    d = 1 if mesh is None else mesh.axis_size("data")
+    if batch % d:
+        raise ValueError(f"batch {batch} does not split over the 'data' "
+                         f"axis's {d} lines")
+    j = 0 if d == 1 else mesh.axis_index("data")
+    return range(j * batch // d, (j + 1) * batch // d)
+
+
+def gather_slots(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A (B/D, ...) tensor of every 'data' line, in line order along dim
+    0: (B, ...), the same on every rank.  Without a 'data' axis, ``t``."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.axis_size("data") == 1:
+        return t
+    return gather_line(t, "data", mesh).flatten(0, 1)
 
 
 def model_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:

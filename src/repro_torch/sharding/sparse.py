@@ -6,7 +6,9 @@ contiguous row slices, each with its own batch union and top-C/ms
 selection; ``dp_shards`` (ds) splits the batch slots into ds blocks, each
 with its own unions (``runtime/distributed.py`` runs that grid).  The
 checks decide whether a config can run at all, on one device or on a rank
-mesh (``launch/mesh.py``) whose axes divide the grid.
+mesh (``launch/mesh.py``) whose axes divide the grid.  On a mesh of D
+'data' lines, line j owns the slots of ``rules.slot_range`` (block db lies
+on line db // (ds/D)) and runs its decode step on them alone.
 
 Placement keeps, on each rank of a mesh, its part of every leaf by the
 reference's serve rules (``rules.param_spec``): its model tiles' rows of

@@ -28,26 +28,58 @@ def _np(tree):
     return tree
 
 
+@contextlib.contextmanager
+def line_axes(axes: list):
+    """Every gather over a line of ranks (``rules.gather_line``) inside
+    the block appends the axis it crosses to ``axes``."""
+    orig = R.gather_line
+
+    def tapped(t, axis="model", mesh=None):
+        axes.append(axis)
+        return orig(t, axis, mesh)
+    R.gather_line = tapped
+    try:
+        yield
+    finally:
+        R.gather_line = orig
+
+
 def apply_cases(mesh, device, cases: list) -> list:
     """``core.sparse_mlp.apply`` under the mesh for each case: (params
     (numpy, whole), x, alpha, port config, return_stats); an x of (B, S, d)
     goes through ``mlp_apply`` as a prefill's rows (the sharded config's
-    dense MLP).  The rank places the params itself; per case it returns y,
-    the stats (or None) and the rows of the gate leaf it kept."""
+    dense MLP, every row on every rank).  A decode's (B, d) x and per-slot
+    alphas give the rank its 'data' line's slots (``rules.slot_range``).
+    The rank places the params itself; per case it returns y and the
+    stats (or None) of every slot, gathered over 'data' here, the axes
+    the call itself gathered over and the rows of the gate leaf it
+    kept."""
     out = []
     for params, x, alpha, cfg, stats in cases:
         whole = {k: torch.from_numpy(v) for k, v in params.items()}
         mine = TSS.place_serve_params(whole, mesh)
+        axes: list = []
         with torch.inference_mode(), R.use_mesh(mesh):
             if x.ndim == 3:             # a prefill's rows: the dense MLP
-                got = mlp_apply(mine, torch.from_numpy(x), cfg, prefill=True,
-                                return_stats=stats)
+                with line_axes(axes):
+                    got = mlp_apply(mine, torch.from_numpy(x), cfg,
+                                    prefill=True, return_stats=stats)
             else:
-                got = TSM.apply(mine, torch.from_numpy(x), cfg,
-                                alpha=torch.from_numpy(np.asarray(alpha)),
-                                return_stats=stats)
+                rows = list(R.slot_range(x.shape[0], mesh))
+                a = np.asarray(alpha)
+                with line_axes(axes):
+                    got = TSM.apply(mine, torch.from_numpy(x[rows]), cfg,
+                                    alpha=torch.from_numpy(
+                                        a[rows] if a.ndim else a),
+                                    return_stats=stats)
+                if stats:
+                    got = (R.gather_slots(got[0], mesh),
+                           {k: R.gather_slots(v, mesh)
+                            for k, v in got[1].items()})
+                else:
+                    got = R.gather_slots(got, mesh)
         y, st = _np(got) if stats else (_np(got), None)
-        out.append({"y": y, "stats": st,
+        out.append({"y": y, "stats": st, "axes": sorted(set(axes)),
                     "rows": mine.get("wg_t", mine.get("wg_q")).shape[0]})
     return out
 
@@ -76,32 +108,135 @@ def _state(srv: Server, done: list) -> dict:
     return st
 
 
+@contextlib.contextmanager
+def decode_shapes(seen: set):
+    """Every ``models.lm.decode_step`` call inside the block adds (its
+    token rows, the shape of its first layer's K cache or pool leaf) to
+    ``seen``."""
+    orig = tlm.decode_step
+
+    def tapped(params, cfg, token, caches, cache_len, **kw):
+        seen.add((token.shape[0], tuple(caches["blocks"][0]["k"].shape)))
+        return orig(params, cfg, token, caches, cache_len, **kw)
+    tlm.decode_step = tapped
+    try:
+        yield
+    finally:
+        tlm.decode_step = orig
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, value):
+    """``owner.name`` is ``value`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def shifted_slots():
+    """A mutation: every 'data' line reads the slots one past its own
+    (``rules.slot_range`` shifted by one slot, cyclically)."""
+    orig = R.slot_range
+    return patched(R, "slot_range", lambda batch, mesh=None: [
+        (s + 1) % batch for s in orig(batch, mesh)])
+
+
+def _server(mesh, cfg, scfg) -> Server:
+    params = tlm.init_lm(cfg, 0, "cpu", place=None if mesh is None else (
+        lambda node: TSS.place_serve_params(node, mesh, cfg)))
+    return Server(tlm, cfg, scfg, params, device="cpu", mesh=mesh)
+
+
+SESSION = "s"
+
+
+def session_turns(srv: Server, turn1: list, tail, max_new: int) -> dict:
+    """Two serves on ``srv`` (a paged pool, chunked prefill): ``turn1``
+    ((uid, prompt, max_new, sla); its last request, in slot
+    len(turn1) - 1, under session ``SESSION``), then one request of the
+    session whose prompt is turn 1's history (its prompt and the tokens
+    whose KV it wrote) and ``tail``: admitted first, it takes slot 0 and
+    adopts the chain's blocks.  Returns both turns' tokens, the session's
+    final chain, those blocks of every layer's pool leaves (numpy), the
+    blocks reused and the bytes ``_share_blocks`` broadcast."""
+    reqs = _requests(turn1)
+    reqs[-1].session_id = SESSION
+    toks = {r.uid: np.asarray(r.out) for r in srv.serve(reqs)}
+    hist = srv.kv_pool.lookup_session(SESSION)["history"]
+    r2 = Request(uid=-1, prompt=np.concatenate([hist, tail]),
+                 max_new=max_new, session_id=SESSION)
+    toks[-1] = np.asarray(srv.serve([r2])[0].out)
+    chain = list(srv.kv_pool.lookup_session(SESSION)["chain"])
+    return {"tokens": toks, "chain": chain,
+            "blocks": [{k: v[chain].numpy() for k, v in layer.items()}
+                       for layer in srv._pool["blocks"]],
+            "reused": srv.paged_stats()["reused_blocks"],
+            "shared_bytes": srv.shared_block_bytes}
+
+
+def _raised(run) -> dict:
+    """``run()``, or the message of the ValueError it raised (every rank
+    raises when the ranks' host loops diverge)."""
+    try:
+        return run()
+    except ValueError as e:
+        return {"raised": str(e)}
+
+
 def serve_cases(mesh, device, cases: list, save_step: int = 0,
-                mismatch: bool = False) -> dict:
+                mismatch: bool = False, forced=(), session=None,
+                shifted=None) -> dict:
     """A mesh server for each case: (model config, serve config, requests
     as (uid, prompt, max_new, sla)), weights from ``init_lm(cfg, 0)``,
     built placed a layer at a time.  Returns each serve's tokens and
     controller state (with the controller as restored at construction,
     ``restored``), the rows of the gate leaf the rank kept, the mesh's
-    launch counts, with ``save_step`` what ``save_controller(save_step)``
+    launch counts, every rank's slot range and KV bytes
+    (``Server.mesh_slots``) and each decode step's (token rows, cache
+    shape), with ``save_step`` what ``save_controller(save_step)``
     returned on this rank, and with ``mismatch`` the message every rank
-    raised when rank 1 handed ``_put_slots`` other tokens."""
+    raised when rank 1 handed ``_put_slots`` other tokens.  ``forced``:
+    ``forced_cases`` of them (``forced``).  ``session``: (config, serve
+    config, turn 1, tail, max_new) through ``session_turns``
+    (``session``), then again with ``Server._share_blocks`` a no-op
+    (``session_unshared``).  ``shifted``: a case (as ``cases``') served
+    under ``shifted_slots`` (``shifted``).  A mutation's run gives its
+    state or the message every rank raised."""
     out = []
     for cfg, scfg, spec in cases:
-        params = tlm.init_lm(cfg, 0, "cpu", place=lambda node: (
-            TSS.place_serve_params(node, mesh, cfg)))
-        srv = Server(tlm, cfg, scfg, params, device="cpu", mesh=mesh)
+        srv = _server(mesh, cfg, scfg)
         restored = _state(srv, [])
-        done = srv.serve(_requests(spec))
+        shapes: set = set()
+        with decode_shapes(shapes):
+            done = srv.serve(_requests(spec))
         st = _state(srv, done)
         st["restored"] = restored
         mlp = srv.params["blocks"][0]["mlp"]
         st["rows"] = mlp.get("wg_t", mlp.get("wg_q")).shape[0]
         st["launches"] = srv.mesh_launch_counts()
+        st["slots"] = srv.mesh_slots()
+        st["shapes"] = sorted(shapes)
         if save_step:
             st["saved"] = srv.save_controller(save_step)
         out.append(st)
     res = {"cases": out}
+    if forced:
+        res["forced"] = forced_cases(mesh, device, list(forced))
+    if session is not None:
+        cfg, scfg, *turns = session
+        res["session"] = session_turns(_server(mesh, cfg, scfg), *turns)
+        with patched(Server, "_share_blocks", lambda *a: None):
+            res["session_unshared"] = _raised(lambda: session_turns(
+                _server(mesh, cfg, scfg), *turns))
+    if shifted is not None:
+        def run(cfg, scfg, spec):
+            mut = _server(mesh, cfg, scfg)
+            return _state(mut, mut.serve(_requests(spec)))
+        with shifted_slots():
+            res["shifted"] = _raised(lambda: run(*shifted))
     if mismatch:
         tok = np.zeros((srv.scfg.batch, 1), np.int32)
         tok[0, 0] = int(mesh.rank == 1)
@@ -234,20 +369,27 @@ def forced_table() -> torch.Tensor:
     return torch.as_tensor(ids, dtype=torch.int32)
 
 
-def forced_steps(params, cfg, kind: str, pool=None) -> dict:
+def forced_steps(params, cfg, kind: str, pool=None, mesh=None) -> dict:
     """A batch of 4 through the decode model of ``cfg``, teacher-forced:
     ``kind`` "dense" (a monolithic prefill, then decode steps), "chunk"
     (``prefill_chunk`` in chunks of 8, then decode steps) or "paged"
     (decode steps against ``pool`` with ``forced_table``).  Per-slot
-    alphas, stats on.  Returns the float32 logits (the prefill's, if any,
-    then every step's) and the stats of every step, numpy."""
+    alphas, stats on.  On a rank of ``mesh`` the model gets the slots of
+    the rank's 'data' line (``rules.slot_range``): their prompts, tokens,
+    alphas, lengths and table rows.  Returns the float32 logits (the
+    prefill's, if any, then every step's) and the stats of every step of
+    the model's slots, numpy."""
     rng = np.random.default_rng(5)
-    b, plen = FORCED_B, FORCED_PLEN
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (b, plen)))
+    rows = list(R.slot_range(FORCED_B, mesh))
+    b, plen = len(rows), FORCED_PLEN
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (FORCED_B, plen)))[rows]
     forced = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                          (FORCED_STEPS, b, 1)))
+                                          (FORCED_STEPS, FORCED_B, 1)))
+    forced = forced[:, rows]
     alphas = (cfg.sparse.alpha_schedule().alphas(cfg.n_layers)[:, None]
               + np.asarray([0.0, -0.02, 0.02, 0.05], np.float32)[None])
+    alphas = alphas[:, rows]
     logits, stats, table = [], [], None
     with torch.inference_mode():
         if kind == "dense":
@@ -266,8 +408,8 @@ def forced_steps(params, cfg, kind: str, pool=None) -> dict:
             logits.append(lg)
             lengths = torch.full((b,), plen)
         else:
-            caches, table = pool, forced_table()
-            lengths = torch.as_tensor(FORCED_LENS)
+            caches, table = pool, forced_table()[rows]
+            lengths = torch.as_tensor(FORCED_LENS)[rows]
         for t in range(FORCED_STEPS):
             lg, caches, st = tlm.decode_step(
                 params, cfg, forced[t], caches, lengths + t, alphas=alphas,
@@ -303,11 +445,30 @@ def forced_cases(mesh, device, cases: list) -> list:
         rec, codes = [], []
         with R.use_mesh(mesh), mlp_inputs(record=rec), \
                 kv_codes(record=codes):
-            got = forced_steps(params, cfg, kind, pool)
-        got["inputs"] = rec if mesh.rank == 0 else None
-        got["kv_codes"] = codes
-        out.append(got)
+            got = forced_steps(params, cfg, kind, pool, mesh)
+        out.append(gather_forced(got, rec, codes, mesh))
     return out
+
+
+def _gather_np(a: np.ndarray, mesh, dim: int = 0) -> np.ndarray:
+    """``a``'s slot dim ``dim`` gathered over 'data' in line order."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).movedim(dim, 0)
+    return R.gather_slots(t, mesh).movedim(0, dim).numpy()
+
+
+def gather_forced(got: dict, rec: list, codes: list, mesh) -> dict:
+    """``forced_steps``' outputs of a line's slots, its MLP inputs and
+    int8 K/V codes made every slot's: each gathered over 'data' along its
+    slot dim (logits (n, b, V), stats (steps, L, b, ...), inputs and codes
+    (b, ...)), the same on every rank; the inputs kept on rank 0."""
+    got = {"logits": _gather_np(got["logits"], mesh, 1),
+           "stats": {k: _gather_np(v, mesh, 2)
+                     for k, v in got["stats"].items()}}
+    rec = [_gather_np(x, mesh) for x in rec]
+    got["inputs"] = rec if mesh.rank == 0 else None
+    got["kv_codes"] = [tuple(_gather_np(c, mesh) for c in qs)
+                       for qs in codes]
+    return got
 
 
 def placed_cases(mesh, device, plan: list) -> list:
@@ -331,12 +492,17 @@ def placed_cases(mesh, device, plan: list) -> list:
                 cfg, 0, "cpu", place=perturbed(
                     lambda node: TSS.place_serve_params(node, m, cfg))),
                 cfg.sparse)
-            toks = torch.as_tensor(prompt)
+            # the rank's 'data' line's sequences, every slot's gathered
+            toks = torch.as_tensor(prompt)[list(R.slot_range(len(prompt),
+                                                             m))]
             with torch.inference_mode(), R.use_mesh(m):
                 lg0, caches = tlm.prefill(params, cfg, toks, FORCED_MAX_LEN)
                 lg, _, st = tlm.decode_step(params, cfg, toks[:, -1:],
                                             caches, toks.shape[1],
                                             collect_stats=True)
+                lg0, lg = R.gather_slots(lg0, m), R.gather_slots(lg, m)
+                st = {k: R.gather_slots(v.movedim(1, 0), m).movedim(0, 1)
+                      for k, v in st.items()}
             out.append({"prefill": lg0.numpy(), "logits": lg.numpy(),
                         "stats": _np(st)})
         results.append({

@@ -2,7 +2,9 @@
 ``shard_map_apply`` on gloo ranks of the CPU (``launch/ranks.py``, one
 thread a rank) against its one-process ``emulated_apply``, bitwise, and
 against the JAX package's ``shard_map_apply`` on host-device meshes of the
-same shapes.
+same shapes.  A rank gets its 'data' line's slots of a decode's x
+(``rules.slot_range``) and gathers nothing over 'data' (its outputs are
+gathered over 'data' afterwards, for the comparison).
 
 The MLP is ``tests/test_torch_distributed.py``'s: d=128, k=512 (64 row
 groups of 8), capacity_frac 0.1, so every shard's clamp binds.  The grid
@@ -114,6 +116,8 @@ def check_bitwise_emulated(i: int) -> None:
             msg = f"{IDS[i]} rank {r} {label}"
             assert torch.equal(torch.from_numpy(o["y"]), y), msg
             assert o["rows"] == 512 // m_mesh, msg
+            # a decode's rows stay on their 'data' line
+            assert o["axes"] == (["model"] if m_mesh > 1 else []), msg
             if not stats:
                 assert o["stats"] is None, msg
                 continue

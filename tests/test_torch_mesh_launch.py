@@ -78,19 +78,41 @@ def test_serve_cli_mesh_shape(capsys):
     """``--mesh-shape 2x2`` on the CPU: rank 0's report with the mesh, the
     grid, every rank's launches, the backend, every rank's parameter
     bytes (a 'model' line's two ranks each hold less than one device, the
-    'data' ranks the same) and no device peak; every request served."""
+    'data' ranks the same), every rank's slot range (its 'data' line's two
+    of the four slots) and KV bytes (its line's slots at its KV heads: a
+    quarter of one device's) and no device peak; every request served."""
+    check_serve_cli(capsys, "2x2")
+
+
+def test_serve_cli_mesh_shape_2x1(capsys):
+    """``--mesh-shape 2x1``: as 2x2, every rank holding the whole tree and
+    half of one device's KV (its line's slots, every head)."""
+    check_serve_cli(capsys, "2x1")
+
+
+def check_serve_cli(capsys, shape: str) -> None:
+    d, m = (int(v) for v in shape.split("x"))
     rep = serve_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                          "--strategy", "gather", "--mesh-shape", "2x2",
+                          "--strategy", "gather", "--mesh-shape", shape,
                           "--batch", "4", "--requests", "4", "--max-new",
                           "4", "--controller"])
-    assert rep["mesh"]["shape"] == [2, 2]
-    assert rep["mesh"]["grid"] == [2, 2]
-    assert len(rep["mesh"]["launches"]["per_rank"]) == 4
+    assert rep["mesh"]["shape"] == [d, m]
+    assert rep["mesh"]["grid"] == [d, m]
+    assert len(rep["mesh"]["launches"]["per_rank"]) == d * m
     assert rep["mesh"]["backend"] == "gloo"
     held = rep["mesh"]["param_bytes"]
     assert len(set(held["per_rank"])) == 1
-    assert held["one_device"] / 2 <= held["per_rank"][0] < held["one_device"]
-    assert rep["mesh"]["peak_bytes"] == [None] * 4
+    if m > 1:
+        assert held["one_device"] / 2 <= held["per_rank"][0] \
+            < held["one_device"]
+    else:
+        assert held["per_rank"][0] == held["one_device"]
+    slots = rep["mesh"]["slots"]
+    assert [p["slots"] for p in slots["per_rank"]] == [
+        [r // m * 2, r // m * 2 + 2] for r in range(d * m)]
+    assert [p["kv_bytes"] for p in slots["per_rank"]] == [
+        slots["one_device_kv_bytes"] // (d * m)] * (d * m)
+    assert rep["mesh"]["peak_bytes"] == [None] * (d * m)
     assert rep["completed"] == 4 and rep["tokens"] == 16
     assert '"mesh"' in capsys.readouterr().out
 

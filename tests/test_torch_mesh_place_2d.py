@@ -2,7 +2,9 @@
 rows and vocabulary split four ways; qwen3's and gemma2's 2 KV heads
 shared by two ranks each, granite's one by all four) and 2x2 (two 'model'
 lines, each holding what 1x2 holds, the slots split between the 'data'
-ranks' MLP tiles), both laid over one spawn of four ranks:
+lines: a rank's model runs its line's two of the four slots, and its
+logits, stats, MLP inputs and int8 K/V codes are gathered over 'data'),
+both laid over one spawn of four ranks:
 
 - teacher-forced cases of ``tests/test_torch_mesh_place.py`` (``FORCED``;
   1x2 runs every one): every rank bitwise rank 0, rank 0 against one
@@ -45,12 +47,14 @@ PROMPT = np.random.default_rng(41).integers(0, 512, (2, 8))
 STEPS = {(1, 4): "masked", (2, 2): "gather"}
 # the teacher-forced cases each mesh runs (1x2 runs every one): on 1x4
 # the KV heads that do not split four ways (granite's one, qwen3's and
-# gemma2's two), on 2x2 a 'data' axis under pallas and the QKV biases
+# gemma2's two), on 2x2 a 'data' axis under pallas, the QKV biases and a
+# line's block-table rows on the paged kernels' route
 FORCED = {(1, 4): ("granite mqa pallas paged-kernel",
                    "qwen3 qk-norm int8-weights chunk",
                    "gemma2 gather paged int8-pool"),
           (2, 2): ("7b pallas dense f32",
-                   "qwen1.5 bias gather dense int8-kv")}
+                   "qwen1.5 bias gather dense int8-kv",
+                   "7b masked paged-kernel")}
 SERVE_MESH = (1, 4)
 REQS = [(i, np.random.default_rng(50 + i).integers(0, 512, size=6 + i), 5,
          "balanced") for i in range(3)]

@@ -18,6 +18,15 @@ bucket sequence, controller report and every EMA (``alphas``,
 server's, and each rank kept d_ff/m_mesh rows.  Then a checkpoint written
 on one placement (rank 0 only) resumes on another.  The rejections and the
 launcher are ``tests/test_torch_mesh_launch.py``'s.
+
+The 'data' axis splits the slots (2x2 and 2x1: two lines of two slots
+each): every rank reports its line's slot range and KV bytes, and every
+decode step ran on the line's 2 rows against caches of 2 slots (a paged
+pool stays whole).  The same spawns run teacher-forced decode on 2x1
+(``tests/test_torch_mesh_place.py``'s cases against one process), a
+two-turn session whose turn 2 lands on the other line (tokens, chain and
+pool blocks against one process), and two mutations that must fail: the
+slot range shifted by one slot, and the session's blocks not broadcast.
 """
 import dataclasses
 import functools
@@ -32,6 +41,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.runtime.server import Server, ServeConfig
 
 import _torch_mesh_ranks as MR
+from test_torch_mesh_place import TOL, check_forced, forced_args
 
 ARCH = "prosparse-llama2-7b"
 B, D_FF = 4, 512
@@ -111,6 +121,45 @@ def _same(got, want, path=""):
         assert got == want, (path, got, want)
 
 
+# what the placements with a 'data' axis run besides CASES: teacher-forced
+# decode (2x1; place_2d runs 2x2's), the session across lines and the
+# mutations
+FORCED_2X1 = ("7b pallas dense f32", "7b gather chunk int8-kv",
+              "7b masked paged-kernel")
+SESSION_CFG = (_cfg("gather"), _scfg(controller=False, prefill_chunk=8,
+                                     paged_kv=PagedKVConfig(block_size=8)))
+# turn 1: the session's request in slot 2 (line 1), 10 prompt tokens and
+# 8 new (17 tokens' KV: block 1 holds decode-written KV); turn 2 (slot 0,
+# line 0) adopts blocks 0 and 1 and prefills 6 more tokens
+SESSION_TURN1 = [(0, _spec(11, 1)[0][1], 3, "balanced"),
+                 (1, _spec(12, 1)[0][1], 4, "balanced"),
+                 (2, np.random.default_rng(13).integers(0, 512, 10), 8,
+                  "balanced")]
+SESSION_TAIL, SESSION_NEW = np.random.default_rng(14).integers(0, 512, 6), 6
+SHIFTED = (_cfg("gather"), _scfg(controller=False), _spec(15, 4))
+
+
+def _lines(i: int) -> int:
+    shape, axes = PLACEMENTS[i]
+    return dict(zip(axes, shape)).get("data", 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _ranked(i: int) -> list:
+    """Every rank's ``MR.serve_cases`` of placement ``i``, one spawn: the
+    CASES, and on a 'data' axis the session, the mutations and (2x1) the
+    teacher-forced cases."""
+    shape, axes = PLACEMENTS[i]
+    extras = (0, shape == (2, 2))
+    if _lines(i) > 1:
+        extras += (forced_args(shape, FORCED_2X1) if shape == (2, 1)
+                   else (), SESSION_CFG + (SESSION_TURN1, SESSION_TAIL,
+                                           SESSION_NEW), SHIFTED)
+    return run_ranks(MR.serve_cases, shape, axes,
+                     args=([c[1:] for c in CASES],) + extras,
+                     threads=1, timeout=240)
+
+
 @pytest.mark.parametrize("i", range(len(PLACEMENTS)), ids=IDS)
 def test_mesh_server_bitwise_one_process(i):
     """Every case on every rank of the placement: everything equal to the
@@ -118,19 +167,131 @@ def test_mesh_server_bitwise_one_process(i):
     raise (2x2 only)."""
     shape, axes = PLACEMENTS[i]
     mismatch = shape == (2, 2)
-    outs = run_ranks(MR.serve_cases, shape, axes,
-                     args=([c[1:] for c in CASES], 0, mismatch),
-                     threads=1, timeout=240)
+    outs = _ranked(i)
     m_mesh = dict(zip(axes, shape)).get("model", 1)
     for r, out in enumerate(outs):
         for (label, *_), got, want in zip(CASES, out["cases"], _wants()):
             msg = f"{IDS[i]} rank {r} {label}"
+            got = dict(got)
             assert got.pop("rows") == D_FF // m_mesh, msg
             launches = got.pop("launches")
             assert len(launches["per_rank"]) == len(outs), msg
+            for k in ("slots", "shapes"):
+                got.pop(k)
             _same(got, want, msg)
         if mismatch:
             assert "ranks [1] hold other slot arrays" in out["mismatch"], r
+
+
+@pytest.mark.parametrize("i", range(len(PLACEMENTS)), ids=IDS)
+def test_slot_ranges_caches_and_kv_bytes(i):
+    """Each rank's line owns the contiguous slots [j*B/D, (j+1)*B/D);
+    every decode step ran on B/D token rows against dense caches of B/D
+    slots at the rank's KV heads (a paged pool: every block, the rank's
+    heads); the reported KV bytes are the one-device KV's share: 1/D of
+    the slots (dense) times the rank's heads."""
+    shape, axes = PLACEMENTS[i]
+    d, m = _lines(i), dict(zip(axes, shape)).get("model", 1)
+    cfg0 = CASES[0][1]
+    hd, kvh = cfg0.resolved_head_dim, cfg0.n_kv_heads
+    for r, out in enumerate(_ranked(i)):
+        line = r // m if "data" in axes else 0
+        want_slots = [line * B // d, (line + 1) * B // d]
+        for (label, cfg, scfg, _), got in zip(CASES, out["cases"]):
+            msg = f"{IDS[i]} rank {r} {label}"
+            slots = got["slots"]
+            assert [p["slots"] for p in slots["per_rank"]] == [
+                [q * B // d, (q + 1) * B // d]
+                for q in ((k // m if "data" in axes else 0)
+                          for k in range(len(slots["per_rank"])))], msg
+            assert slots["per_rank"][r]["slots"] == want_slots, msg
+            paged = scfg.paged_kv is not None
+            share = (kvh // m) / kvh / (1 if paged else d)
+            assert slots["per_rank"][r]["kv_bytes"] == \
+                slots["one_device_kv_bytes"] * share, msg
+            for rows, kshape in got["shapes"]:
+                assert rows == B // d, msg
+                want = ((None, 8) if paged
+                        else (B // d, scfg.max_len)) + (kvh // m, hd)
+                assert kshape[1:] == want[1:], msg
+                assert paged or kshape[0] == B // d, msg
+
+
+def _session_want() -> dict:
+    cfg, scfg = SESSION_CFG
+    return MR.session_turns(MR._server(None, cfg, scfg), SESSION_TURN1,
+                            SESSION_TAIL, SESSION_NEW)
+
+
+@pytest.mark.parametrize("i", [0, 2], ids=[IDS[0], IDS[2]])
+def test_session_across_lines_matches_one_process(i):
+    """A session kept by slot 2 (line 1) continued in slot 0 (line 0):
+    every rank's tokens of both turns and the session's final chain equal
+    one process's, its blocks of every pool leaf within ``TOL`` of the
+    one process's at the rank's KV heads, after the owner lines
+    broadcast the decode-written blocks of both turns (2 blocks each)."""
+    shape, axes = PLACEMENTS[i]
+    m = dict(zip(axes, shape))["model"]
+    want = _session_want()
+    assert want["reused"] == 2
+    cfg = SESSION_CFG[0]
+    kv_l = cfg.n_kv_heads // m
+    for r, out in enumerate(_ranked(i)):
+        got, msg = out["session"], f"{IDS[i]} rank {r}"
+        _same(got["tokens"], want["tokens"], msg)
+        assert got["chain"] == want["chain"] and got["reused"] == 2, msg
+        k0 = (r % m) * kv_l
+        block = 0
+        for lg, lw in zip(got["blocks"], want["blocks"]):
+            for name, v in lw.items():
+                np.testing.assert_allclose(
+                    lg[name], v[:, :, k0:k0 + kv_l], **TOL,
+                    err_msg=f"{msg} {name}")
+                block += lg[name][0].nbytes
+        assert got["shared_bytes"] == 4 * block, msg
+
+
+@pytest.mark.parametrize("i", [0, 2], ids=[IDS[0], IDS[2]])
+def test_mutations_fail(i):
+    """Two deliberately broken runs on the same ranks: the lines reading
+    the slots one past their own (tokens land in the wrong slots), and
+    the session's decode-written blocks not broadcast (turn 2's line
+    prefills over stale blocks: its first token diverges between the
+    lines, or its tokens or chain blocks leave one process's)."""
+    cfg, scfg, spec = SHIFTED
+    srv = MR._server(None, cfg, scfg)
+    want = MR._state(srv, srv.serve(MR._requests(spec)))["tokens"]
+    sess = _session_want()
+    for r, out in enumerate(_ranked(i)):
+        msg = f"{IDS[i]} rank {r}"
+        shifted = out["shifted"]
+        assert "raised" in shifted or any(
+            not np.array_equal(shifted["tokens"][u], want[u])
+            for u in want), msg
+        un = out["session_unshared"]
+        if "raised" in un:
+            assert "hold other slot arrays" in un["raised"], msg
+            continue
+        m = dict(zip(PLACEMENTS[i][1], PLACEMENTS[i][0]))["model"]
+        kv_l = cfg.n_kv_heads // m
+        k0 = (r % m) * kv_l
+        close = all(np.allclose(lg[n], lw[n][:, :, k0:k0 + kv_l], **TOL)
+                    for lg, lw in zip(un["blocks"], sess["blocks"])
+                    for n in lw)
+        same = all(np.array_equal(un["tokens"][u], sess["tokens"][u])
+                   for u in sess["tokens"])
+        # the stale blocks sit in line 0's pools; line 1's are current
+        assert not (close and same) or r // m == 1, msg
+        if r // m == 0:
+            assert not close, msg
+
+
+def test_forced_decode_2x1_matches_one_process():
+    """Teacher-forced decode on 2x1: each line's slots through the model,
+    gathered over 'data' (dense, chunked prefill with int8 KV, the paged
+    kernels' route): logits within ``TOL`` of one process fed the ranks'
+    MLP inputs, every rank bitwise rank 0, tokens and stats equal."""
+    check_forced((2, 1), [o["forced"] for o in _ranked(2)], FORCED_2X1)
 
 
 def test_controller_checkpoint_resumes_on_another_placement(tmp_path):
@@ -157,13 +318,13 @@ def test_controller_checkpoint_resumes_on_another_placement(tmp_path):
     for o in outs1:
         got = dict(o["cases"][0])
         assert got.pop("saved") in (saved, None)
-        for k in ("rows", "launches"):
+        for k in ("rows", "launches", "slots", "shapes"):
             got.pop(k)
         _same(got, want1, "first")
     for k in ("shard_density_ema", "shard_union_ema", "active_cap"):
         _same(want2["restored"][k], want1[k], k)
     for o in outs2:
         got = dict(o["cases"][0])
-        for k in ("rows", "launches"):
+        for k in ("rows", "launches", "slots", "shapes"):
             got.pop(k)
         _same(got, want2, "resumed")
