@@ -329,8 +329,17 @@ Phases, in order; any failure exits non-zero:
              seamless-m4t-medium and gemma2-2b whole, olmoe-1b-7b at 2 of
              16 layers and deepseek-moe-16b with its dense first layer and
              one MoE layer: 3 steps each at B=2, S=256, loss and grad norm
-             finite, the peak memory.  No serving kernel launches in the
-             phase.
+             finite, the peak memory; (e) the same 7b at full width and 2
+             layers, float32 compute, on a 2x2 mesh of gloo ranks that
+             share the card (FSDP over the two data lines, the tensor
+             split over 'model', ``sharding/train.py``), 2 Trainer steps
+             at B=4, S=256: every rank's losses, grad norms and step times
+             bitwise rank 0's; each step held against one process's step
+             from the ranks' state before it (params and moments gathered
+             whole): loss within 1e-5 relative, grad norm within 1e-4,
+             every param leaf after it within 1e-4 x its max but for
+             1% of ties (each within 2 lr).  No serving kernel launches
+             in the phase.
  21. shapes  the reference's shape matrix (``configs.base.SHAPES``) on one
              card, prosparse-llama2-7b at full width unless stated, each
              peak memory beside the dry run's bytes
@@ -372,8 +381,23 @@ bitwise the NCCL run; then on a 2x2 mesh over NCCL (the slots split over
 'data', four of eight a line) prosparse-llama2-13b at full depth (40
 layers, pallas, bf16 paged pool) and at 8 layers (gather, the per-tier
 controller, float32 dense caches, a session across the lines, its
-teacher-forced logits held against one process on card 0).  It ends
-with the contract line (``count`` 4).
+teacher-forced logits held against one process on card 0); then training
+on a 2x2 mesh over NCCL (``_cards4_train``): (g) prosparse-llama2-7b at
+full depth (32 layers, remat, B=8, S=1024, 3 steps; every rank's history
+bitwise rank 0's; a rank's parameter and moment bytes against one
+device's, its peak after placing the weights and overall, neither
+holding the whole parameter tree; step ms, tokens/s, one step's
+collectives by axis, the model FLOPs' share of four cards' bf16 peak)
+and (h) the same model at 4 layers, float32 compute (B=8, S=256, 4
+steps), its first 2 steps held against one process on card 0 as phase
+20 (e) holds them, with a checkpoint of step 2 that one process resumes
+for steps 3-4 (within 1e-5 of the ranks' losses).  It ends with the contract
+line (``count`` 4).
+
+    python3 chip_smoke.py --cards4-train
+
+on a host with four cards: ``--cards4``'s training, (g) and (h), alone.
+It ends with the contract line.
 
     python3 chip_smoke.py --cards4-kernels
 
@@ -6657,10 +6681,291 @@ def _train_families(tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
+# (e): a 2x2 of gloo ranks sharing the card against one process, as
+# (a) holds the card against the CPU: full width, float32 compute
+MESH_TRAIN = (2, 2)
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 256
+# The ranks' steps against one process's, each step held from the ranks'
+# own state before it (params and moments gathered whole), as the serving
+# mesh is held teacher-forced: a placed step differs from one process's by
+# summation order only, so its loss is within this relative gap, its
+# grad norm within 1e-4, and every param leaf after it within 1e-4 x its
+# max but for ties, at most this share of the tree's elements (the share
+# phase 20 (a) allows): an element whose gradient lies within rounding of 0 (or
+# near Adam's eps) takes a different step, up to 2 lr apart; a gate
+# pre-activation within rounding of 0 makes its MLP rows such elements.
+# Float32 compute: the one process's bf16 GEMMs may reduce in bf16
+# (cuBLAS's reduced-precision reductions), the ranks' partials in float32
+MESH_LOSS_REL, MESH_PARAM_REL, MESH_TIE_SHARE = 1e-5, 1e-4, 1e-2
+MESH_HELD_STEPS = 2
+
+
+@contextlib.contextmanager
+def _count_collectives(counts: dict):
+    """``_count_lines`` plus every gather over all the ranks
+    (``sharding.train``'s tree sums and whole leaves) as "world"."""
+    from repro_torch.sharding import train as ST
+    world = ST._world_parts
+
+    def on_world(vec):
+        counts["world"] = counts.get("world", 0) + 1
+        return world(vec)
+    ST._world_parts = on_world
+    try:
+        with _count_lines(counts):
+            yield
+    finally:
+        ST._world_parts = world
+
+
+def _mesh_train_cfg(spec: dict):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(spec["arch"]).replace(n_layers=spec["layers"],
+                                           remat=True)
+    return cfg.replace(dtype=spec["dtype"]) if spec.get("dtype") else cfg
+
+
+def _mesh_trainer(cfg, spec: dict, dev, mesh=None, ckpt_dir: str = "",
+                  seed: int = 0):
+    import tempfile
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.specs import model_module
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    t = Trainer(model_module(cfg), cfg, TrainerConfig(
+        ckpt_dir=ckpt_dir or tempfile.mkdtemp(prefix="chip_smoke_mesh_"),
+        ckpt_every=10 ** 9), _train_opt(),
+        DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                   global_batch=spec["batch"]), device=dev, mesh=mesh)
+    t.init_state(seed)
+    return t
+
+
+def _param_gaps(got: dict, want: dict) -> tuple:
+    """(leaves wholly within ``MESH_PARAM_REL`` x their max, leaves, the
+    share of the tree's elements beyond it, the largest gap, the leaf
+    with most elements beyond)."""
+    within, beyond, total, worst, most, where = 0, 0, 0, 0.0, -1, ""
+    for path, w in want.items():
+        gap = (got[path].float() - w.float()).abs()
+        n = int((gap > MESH_PARAM_REL * w.abs().max()).sum())
+        within += n == 0
+        beyond, total = beyond + n, total + w.numel()
+        if n > most:
+            most, where = n, f"{path}: {n} of {w.numel()}"
+        worst = max(worst, float(gap.max()))
+    return within, len(want), beyond / total, worst, where
+
+
+def _held_step(cfg, spec: dict, dev, before: dict, step: int) -> tuple:
+    """One process's step ``step`` from ``before`` (whole params, mu, nu
+    by path): (loss, grad norm, params after it by path)."""
+    import torch
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import flatten, path_str
+    one = _mesh_trainer(cfg, spec, dev)
+    with torch.no_grad():
+        for name, tree in (("params", one.params), ("mu", one.opt_state.mu),
+                           ("nu", one.opt_state.nu)):
+            for p, v in flatten(tree):
+                v.copy_(before[name][path_str(p)])
+    one.opt_state = AdamWState(step - 1, one.opt_state.mu, one.opt_state.nu)
+    one.global_step = step - 1
+    one.data.skip_to(step - 1)
+    h = one.run(steps=1)[-1]
+    return h["loss"], h["grad_norm"], {path_str(p): v.detach() for p, v
+                                       in flatten(one.params)}
+
+
+def _train_mesh_rank(mesh, dev, spec: dict) -> dict:
+    """A rank's mesh training of ``spec`` (arch, layers, batch, seq,
+    steps; profile: one more step profiled, rank 0's printed; dtype: a
+    compute dtype for the config's; compare: rank 0 holds
+    one process's first ``MESH_HELD_STEPS`` steps, each from the ranks'
+    state before it, to the ranks' (``_held_step``); ckpt: a directory
+    every rank shares, where a blocking checkpoint of step 2 goes and from
+    which rank 0 resumes one process for the remaining steps).  Returns
+    the backend, the history, the rank's parameter and moment bytes, its
+    peak memory after init and overall, step 2's collectives by axis, the
+    serving kernels launched, and on rank 0 the comparisons."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import param_shapes
+    from repro_torch.sharding import train as ST
+    from repro_torch.tree import flatten, path_str, tree_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _mesh_train_cfg(spec)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    t = _mesh_trainer(cfg, spec, dev, mesh, spec.get("ckpt", ""))
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    out = {"backend": dist.get_backend(), "init_s": init_s,
+           "init_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "param_bytes": tree_bytes(t.params),
+           "opt_bytes": tree_bytes(t.opt_state.mu)
+           + tree_bytes(t.opt_state.nu),
+           "whole_param_bytes": tree_bytes(param_shapes(cfg)), "held": []}
+
+    def whole(tree) -> dict:
+        return {path_str(p): ST.whole_leaf(v.detach(), s)
+                for (p, v), (_, s) in zip(flatten(tree), flatten(t.layout))}
+    ops.reset_launch_counts()
+    for step in range(1, MESH_HELD_STEPS + 1):
+        before = ({"params": whole(t.params), "mu": whole(t.opt_state.mu),
+                   "nu": whole(t.opt_state.nu)} if spec.get("compare")
+                  else None)
+        counts: dict = {}
+        with _count_collectives(counts):
+            hist = t.run(steps=1)
+        out["collectives"] = counts
+        if before is None:
+            continue
+        after = whole(t.params)
+        if mesh.rank == 0:
+            # the other ranks wait at the next collective meanwhile
+            loss, norm, params = _held_step(cfg, spec, dev, before, step)
+            out["held"].append((loss, norm, _param_gaps(after, params)))
+        del before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+    if spec.get("ckpt"):
+        t.save(blocking=True)
+    hist = t.run(steps=spec["steps"] - MESH_HELD_STEPS)
+    torch.cuda.synchronize(dev)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["history"] = [{k: h[k] for k in ("step", "loss", "grad_norm",
+                                          "time_s")} for h in hist]
+    if spec.get("profile"):
+        # one more step on every rank, rank 0's profile printed
+        quiet = open(os.devnull, "w") if mesh.rank else None
+        with contextlib.redirect_stdout(quiet or sys.stdout):
+            profile_step(f"train step on the {mesh.shape[0]}x"
+                         f"{mesh.shape[1]} mesh, rank 0 ({cfg.name}, "
+                         f"{cfg.n_layers} layers, B={spec['batch']}, "
+                         f"S={spec['seq']})", lambda: t.run(steps=1),
+                         steps=1, grad=True, warm=False)
+        if quiet:
+            quiet.close()
+    if mesh.rank != 0 or not spec.get("ckpt"):
+        return out
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = _mesh_trainer(cfg, spec, dev, ckpt_dir=spec["ckpt"])
+    if res.maybe_resume() and res.global_step == MESH_HELD_STEPS:
+        out["resumed"] = {h["step"]: h["loss"] for h in res.run(
+            steps=spec["steps"] - MESH_HELD_STEPS)}
+    else:
+        out["resumed"] = None
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_mesh(label: str, shape: tuple, spec: dict, device: str,
+                backend: str = "") -> list:
+    """``_train_mesh_rank`` of ``spec`` on a (data, model) mesh of
+    ``shape`` over ``backend`` (the rule's when ""): every rank's history
+    (losses, grad norms, step times) bitwise rank 0's, no serving kernel
+    launched; with ``compare``, rank 0's held steps of one process
+    (``MESH_LOSS_REL``, grad norms within 1e-4, ``MESH_PARAM_REL`` with
+    ``MESH_TIE_SHARE``), and with ``ckpt`` its resume from the ranks'
+    checkpoint of step 2 held to their later steps.  Returns the ranks'
+    outputs."""
+    import math
+
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.optim.adamw import cosine_lr
+
+    t = time.perf_counter()
+    outs = run_ranks(_train_mesh_rank, shape, ("data", "model"),
+                     args=(spec,), device=device, timeout=CARDS4_TIMEOUT,
+                     backend=backend)
+    wall = time.perf_counter() - t
+    hist = outs[0]["history"]
+    for r, o in enumerate(outs):
+        if o["history"] != hist:
+            fail(f"train {label}: rank {r}'s history differs from rank 0's")
+        if o["launches"]:
+            fail(f"train {label}: rank {r} launched serving kernels "
+                 f"{o['launches']}")
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train {label}: step {h['step']} loss {h['loss']}")
+    print(f"[train] {label}: {len(outs)} ranks over "
+          f"{sorted({o['backend'] for o in outs})}, "
+          f"{wall:.1f} s (start, init, {spec['steps']} steps); every rank's "
+          f"losses, grad norms and step times bitwise rank 0's: losses "
+          f"{[h['loss'] for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 5) for h in hist]}; step ms "
+          f"{[round(h['time_s'] * 1e3, 1) for h in hist]}; a rank "
+          f"{outs[0]['param_bytes'] / 1e9:.3f} GB params and "
+          f"{outs[0]['opt_bytes'] / 1e9:.3f} GB moments, peak "
+          f"{[round(o['peak_gb'], 2) for o in outs]} GB; collectives in "
+          f"step {MESH_HELD_STEPS} {outs[0]['collectives']}", flush=True)
+    if not spec.get("compare"):
+        return outs
+    for step, (loss, norm, gaps) in enumerate(outs[0]["held"], 1):
+        want = hist[step - 1]
+        rel = abs(loss - want["loss"]) / abs(loss)
+        nrel = abs(norm - want["grad_norm"]) / abs(norm)
+        within, n, share, worst, where = gaps
+        bound = 2 * float(cosine_lr(_train_opt(), step)) + 1e-6
+        print(f"[train] {label}: step {step} of one process from the ranks' "
+              f"state before it: loss {loss} (relative gap {rel:.2e}), "
+              f"grad norm relative gap {nrel:.2e}; params after it: "
+              f"{within} of {n} leaves wholly within {MESH_PARAM_REL} x "
+              f"their max, {share:.2e} of the elements beyond (most in "
+              f"{where}), the largest gap {worst:.2e} (2 lr: {bound:.2e})",
+              flush=True)
+        if rel > MESH_LOSS_REL or nrel > 1e-4:
+            fail(f"train {label}: step {step}'s loss ({rel:.2e}) or grad "
+                 f"norm ({nrel:.2e}) off one process's")
+        if share > MESH_TIE_SHARE or worst > bound:
+            fail(f"train {label}: params after step {step} off one "
+                 f"process's: {share:.2e} of the elements beyond "
+                 f"{MESH_PARAM_REL} x their leaf's max (most in {where}), "
+                 f"largest gap {worst:.2e}")
+    if spec.get("ckpt"):
+        res = outs[0]["resumed"]
+        if res is None:
+            fail(f"train {label}: one process did not resume at step 2 "
+                 "from the ranks' checkpoint")
+        rr = [abs(res[h["step"]] - h["loss"]) / abs(h["loss"])
+              for h in hist[MESH_HELD_STEPS:]]
+        print(f"[train] {label}: the ranks' checkpoint of step 2 resumed "
+              f"by one process: steps 3-{spec['steps']} {list(res.values())}"
+              f" (relative gaps {[f'{x:.2e}' for x in rr]} to the ranks' "
+              "uninterrupted steps)", flush=True)
+        if max(rr) > MESH_LOSS_REL:
+            fail(f"train {label}: the resumed run is {max(rr):.2e} off the "
+                 "ranks' uninterrupted steps")
+    return outs
+
+
+def _train_mesh_gloo() -> None:
+    """(e): ``MESH_TRAIN`` gloo ranks sharing the card, 2 layers at full
+    width, float32 compute, held to one process."""
+    _train_mesh(f"(e) {TRAIN_ARCH}, {MESH_TRAIN_LAYERS} layers, float32 "
+                f"compute, B={MESH_TRAIN_BATCH} S={MESH_TRAIN_SEQ}, 2x2 "
+                "gloo ranks sharing the card", MESH_TRAIN,
+                {"arch": TRAIN_ARCH, "layers": MESH_TRAIN_LAYERS,
+                 "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ,
+                 "steps": 2, "dtype": "float32", "compare": True},
+                TRAIN_DEVICE, backend="gloo")
+
+
 def phase_train(results: dict) -> None:
     """The training path on the card: (a) card against CPU, (b) full-width
     training and its deterministic double run, (c) crash and resume, (d)
-    every other family.  No serving kernel launches."""
+    every other family, (e) a 2x2 mesh of gloo ranks sharing the card
+    against one process.  No serving kernel launches."""
     import shutil
     import tempfile
 
@@ -6672,7 +6977,8 @@ def phase_train(results: dict) -> None:
         for step, fn in (("a", _train_cpu_vs_card),
                          ("b", lambda: _train_full_width(tmp)),
                          ("c", lambda: _train_resume(tmp)),
-                         ("d", lambda: _train_families(tmp))):
+                         ("d", lambda: _train_families(tmp)),
+                         ("e", _train_mesh_gloo)):
             ops.reset_launch_counts()
             t = time.perf_counter()
             fn()
@@ -7605,6 +7911,90 @@ def _cards4_2d() -> None:
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
 
+CARDS4_TRAIN = {"arch": "prosparse-llama2-7b", "layers": 32, "batch": 8,
+                "seq": 1024, "steps": 3, "profile": True}
+# (h): the same against one process on card 0, at 4 layers
+CARDS4_TRAIN_CHECK = {"arch": "prosparse-llama2-7b", "layers": 4,
+                      "batch": 8, "seq": 256, "steps": 4, "compare": True,
+                      "dtype": "float32"}
+
+
+def _cards4_train() -> None:
+    """--cards4's training: (g) ``CARDS4_TRAIN`` on a 2x2 mesh over NCCL,
+    a card a rank (FSDP over the two data lines, the tensor split over
+    'model'): every rank's history bitwise rank 0's; per rank its
+    parameter and moment bytes against one device's, its peak after init
+    and overall (no rank ever holds the whole parameter tree beside its
+    own state), step ms and tokens/s over the steps after the first, one
+    step's collectives by axis, and the model FLOPs over the step time as
+    a share of four cards' bf16 dense peak; (h) ``CARDS4_TRAIN_CHECK``
+    against one process on card 0 from the same seed and batches, with a
+    checkpoint of step 2 that one process resumes."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.launch.specs import param_shapes
+
+    spec = CARDS4_TRAIN
+    label = (f"(g) {spec['arch']}, {spec['layers']} layers, remat, B="
+             f"{spec['batch']} S={spec['seq']}, 2x2 over nccl")
+    outs = _train_mesh(label, CARDS4_2D, spec, "cuda")
+    if {o["backend"] for o in outs} != {"nccl"}:
+        fail(f"cards4 {label}: ranks ran on "
+             f"{ {o['backend'] for o in outs} }, not nccl")
+    cfg = _mesh_train_cfg(spec)
+    whole = outs[0]["whole_param_bytes"]
+    hist = outs[0]["history"]
+    ms = statistics.median(h["time_s"] for h in hist[1:]) * 1e3
+    tokens = spec["batch"] * spec["seq"]
+    model, recompute = _step_flops(cfg, param_shapes(cfg), tokens,
+                                   spec["batch"], spec["seq"])
+    share = model / (ms / 1e3) / (4 * BF16_OPS_PER_S)
+    print(f"[cards4] {label}: backend {[o['backend'] for o in outs]}; "
+          f"parameters {[round(o['param_bytes'] / 1e9, 3) for o in outs]} "
+          f"GB and moments {[round(o['opt_bytes'] / 1e9, 3) for o in outs]}"
+          f" GB a rank against one device's {whole / 1e9:.3f} and "
+          f"{2 * whole / 1e9:.3f} GB; peak memory after init "
+          f"{[round(o['init_peak_gb'], 2) for o in outs]} GB, overall "
+          f"{[round(o['peak_gb'], 2) for o in outs]} GB; init "
+          f"{[round(o['init_s'], 1) for o in outs]} s; step ms "
+          f"{[round(h['time_s'] * 1e3, 1) for h in hist]} (median after "
+          f"the first {ms:.1f}), {tokens / ms * 1e3:.0f} tokens/s; "
+          f"collectives in one step {outs[0]['collectives']} (gathers "
+          "over each line, 'world' over all ranks; plus the step time's "
+          "host gather); model FLOPs a step "
+          f"{model / 1e12:.2f} T (+{recompute / 1e12:.2f} T recomputed), "
+          f"{model / (ms / 1e3) / 1e12:.1f} TFLOP/s, {share:.4f} of four "
+          f"cards' bf16 dense peak", flush=True)
+    for r, o in enumerate(outs):
+        # placing the weights and making the moments never reach the
+        # whole tree's bytes; in a step the rank's params, gradients and
+        # moments stay resident, so a peak under them plus the whole tree
+        # never held it
+        own = o["param_bytes"] * 2 + o["opt_bytes"]
+        if o["init_peak_gb"] * 1e9 >= whole:
+            fail(f"cards4 {label}: rank {r} peaked at "
+                 f"{o['init_peak_gb']:.2f} GB while placing the weights, "
+                 f"not under the whole tree's {whole / 1e9:.2f} GB")
+        if o["peak_gb"] * 1e9 >= own + whole:
+            fail(f"cards4 {label}: rank {r}'s peak {o['peak_gb']:.2f} GB "
+                 "would hold the whole parameter tree beside its own "
+                 "params, gradients and moments")
+        if o["param_bytes"] * 2 > whole:
+            fail(f"cards4 {label}: rank {r} holds {o['param_bytes']} of "
+                 f"{whole} parameter bytes")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards4_ckpt_")
+    try:
+        spec = dict(CARDS4_TRAIN_CHECK, ckpt=tmp)
+        _train_mesh(f"(h) {spec['arch']}, {spec['layers']} layers, float32 "
+                    f"compute, B={spec['batch']} S={spec['seq']}, 2x2 over "
+                    "nccl",
+                    CARDS4_2D, spec, "cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _cards4_rank(mesh, dev, cases: list, profile: bool) -> list:
     """A rank's serves of ``cases``, no MLP calls kept."""
     import torch
@@ -7677,7 +8067,7 @@ def _cards4_kernel_times() -> None:
     torch.cuda.empty_cache()
 
 
-def cards4(src: str, serve: bool = True) -> None:
+def cards4(src: str, serve: bool = True, train_only: bool = False) -> None:
     """The placed model on four cards of one host, a rank a card over NCCL
     (``python3 chip_smoke.py --cards4`` on a host with four cards): the
     kernels at a rank's shapes (``_cards4_kernel_times``), then
@@ -7688,8 +8078,9 @@ def cards4(src: str, serve: bool = True) -> None:
     Then (d) again on gloo ranks that all share card 0: its tokens, EMAs
     and teacher-forced logits bitwise the NCCL run's; then the 2x2 spawn
     (``_cards4_2d``: prosparse-llama2-13b whole and at 8 layers, the slots
-    split over 'data').  ``serve`` False
-    (``--cards4-kernels``, one card will do): the kernels only."""
+    split over 'data'), then the training of ``_cards4_train``.
+    ``serve`` False (``--cards4-kernels``, one card will do): the kernels
+    only; ``train_only`` (``--cards4-train``): the training only."""
     import torch
     from repro_torch.launch.ranks import choose_backend, run_ranks
 
@@ -7708,6 +8099,11 @@ def cards4(src: str, serve: bool = True) -> None:
     for i, line in enumerate(out):
         print(f"[gpu] card {i}: {line}", flush=True)
     t0 = time.perf_counter()
+    if train_only:
+        _cards4_train()
+        print(f"[done] cards4 training in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return
     phase_build()
     t = time.perf_counter()
     _cards4_kernel_times()
@@ -7764,6 +8160,10 @@ def cards4(src: str, serve: bool = True) -> None:
           f"memory {[round(g[0]['peak_gb'], 2) for g in glo]} GB; "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     _cards4_2d()
+    t = time.perf_counter()
+    _cards4_train()
+    print(f"[time] cards4 training (g), (h): {time.perf_counter() - t:.1f} "
+          "s", flush=True)
     print(f"[done] cards4 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -7777,9 +8177,11 @@ def main() -> None:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repo")
-    if sys.argv[1:] in (["--cards4"], ["--cards4-kernels"]):
+    if sys.argv[1:] in (["--cards4"], ["--cards4-kernels"],
+                        ["--cards4-train"]):
         sys.path.insert(0, src)
-        cards4(src, serve=sys.argv[1] == "--cards4")
+        cards4(src, serve=sys.argv[1] != "--cards4-kernels",
+               train_only=sys.argv[1] == "--cards4-train")
         print(gpu_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7794,7 +8196,7 @@ def main() -> None:
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --cards4, "
-             "--cards4-kernels, --decode-ab OTHER_SRC, --decode-q-ab "
+             "--cards4-kernels, --cards4-train, --decode-ab OTHER_SRC, --decode-q-ab "
              "OTHER_SRC, --pred-ab OTHER_SRC or --kv-ab OTHER_SRC")
     sys.path.insert(0, src)
     # tolerances are set against full-float32 matrix products: TF32 keeps

@@ -14,8 +14,17 @@ list indices (``blocks/0/attn/wq``).  Leaves are tensors (copied to the
 host before ``save`` returns, so training may update them in place next)
 or numpy arrays.  A bfloat16 tensor is stored as its raw 16 bits
 (uint16) with the dtype name "bfloat16" in the manifest, and viewed back
-on restore: no ``ml_dtypes`` is needed.  The reference's ``shardings=``
-(its mesh path) has no counterpart; ``restore`` takes ``device=``.
+on restore: no ``ml_dtypes`` is needed.  ``restore`` takes ``device=``.
+
+On a rank mesh (``mesh=``, with ``layout=`` at ``save`` and ``restore``:
+the tree's ``sharding.train.LeafShard``s, the reference's ``shardings=``)
+the layout is still the reference's, "leaves stored unsharded per-host":
+``save`` gathers each placed leaf whole, one leaf at a time, in rank
+order, and rank 0 alone writes; ``restore`` slices each stored leaf onto
+whatever mesh is current, so a checkpoint of one mesh resumes on another
+or on one process, and the reverse.  A save or restore is a collective:
+every rank calls it, and ``wait`` holds every rank until rank 0's write
+is on disk.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.sharding import train as ST
 from repro_torch.tree import flatten, path_str, unflatten
 
 
@@ -62,24 +73,39 @@ def _from_host(arr: np.ndarray, saved_dtype: str, like, device):
 
 class CheckpointManager:
     def __init__(self, directory: str, host_id: int = 0, n_hosts: int = 1,
-                 keep: int = 3):
+                 keep: int = 3, mesh=None):
         self.dir = directory
         self.host_id = host_id
         self.n_hosts = n_hosts
         self.keep = keep
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     # ------------------------------------------------------------- write --
     def save(self, step: int, tree, extra: Optional[dict] = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, layout=None) -> None:
         """Copy every leaf to host memory now, then write to disk (in a
         background thread unless ``blocking``).  A failed write surfaces
-        on the next ``wait()``."""
+        on the next ``wait()``.  ``layout``: ``tree``'s leaves are this
+        rank's parts (a mesh); each is gathered whole first."""
         self.wait()                    # one write in flight at a time
         flat = flatten(tree)
-        host = [_to_host(leaf) for _, leaf in flat]
+        if layout is not None:
+            shards = [sh for _, sh in flatten(layout)]
+            host = []
+            for (_, leaf), sh in zip(flat, shards):
+                whole = ST.whole_leaf(leaf.detach(), sh)
+                host.append(None if whole is None else _to_host(whole))
+                del whole
+            if not self.writer:
+                if blocking:
+                    self.wait()
+                return
+        else:
+            host = [_to_host(leaf) for _, leaf in flat]
         manifest = {
             "step": step,
             "paths": [path_str(p) for p, _ in flat],
@@ -113,7 +139,7 @@ class CheckpointManager:
 
         if blocking:
             write()
-            self._raise_if_failed()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -123,6 +149,9 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
         self._raise_if_failed()
+        if self.mesh is not None:
+            # no rank reads on before rank 0's write is on disk
+            dist.barrier(group=self.mesh.host_group)
 
     def _raise_if_failed(self) -> None:
         if self._error is not None:
@@ -149,7 +178,8 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like, step: Optional[int] = None,
-                device=None, strict_shapes: bool = True) -> tuple:
+                device=None, strict_shapes: bool = True,
+                layout=None) -> tuple:
         """Restore into the structure of ``tree_like`` (latest step by
         default).  Each leaf comes back in its ``tree_like`` counterpart's
         dtype: a tensor on ``device`` (default: that counterpart's
@@ -157,7 +187,9 @@ class CheckpointManager:
         saved ones is refused.  ``strict_shapes=False`` lets a leaf whose
         saved shape differs pass through at the saved shape (the caller
         reshapes it, as ``restore_controller`` does across shard grids).
-        Returns (tree, extra)."""
+        ``layout``: ``tree_like`` holds this rank's parts (a mesh); each
+        stored whole leaf is sliced to this rank's part.  Returns (tree,
+        extra)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -171,10 +203,18 @@ class CheckpointManager:
         if want != manifest["paths"]:
             raise ValueError("checkpoint tree mismatch: "
                              f"{set(want) ^ set(manifest['paths'])}")
+        shards = ([sh for _, sh in flatten(layout)] if layout is not None
+                  else [None] * len(flat))
         leaves = []
         with np.load(os.path.join(d, f"shard_{self.host_id}.npz")) as data:
             for i, (_, like) in enumerate(flat):
                 arr = data[str(i)]
+                if shards[i] is not None:
+                    if tuple(arr.shape) != shards[i].whole:
+                        raise ValueError(
+                            f"shape mismatch at {want[i]}: {arr.shape} vs "
+                            f"the whole leaf {shards[i].whole}")
+                    arr = ST.take(arr, shards[i])
                 if strict_shapes and tuple(arr.shape) != tuple(like.shape):
                     raise ValueError(f"shape mismatch at {want[i]}: "
                                      f"{arr.shape} vs {tuple(like.shape)}")

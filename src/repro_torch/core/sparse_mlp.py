@@ -201,15 +201,22 @@ def _stats(shape: tuple, device, **kw) -> dict:
     return out
 
 
+def dense_hidden(params: dict, x: torch.Tensor, cfg: SparseInferConfig):
+    """The baseline MLP's hidden activations act(x Wg) * (x Wu) and its
+    gate activations act(x Wg), of the float node (``Q.dense_view``)."""
+    g1 = _act(cfg)(x @ params["wg_t"].to(x.dtype).T)
+    h1 = g1
+    if "wu_t" in params:
+        h1 = h1 * (x @ params["wu_t"].to(x.dtype).T)
+    return h1, g1
+
+
 def dense_parts(params: dict, x: torch.Tensor, cfg: SparseInferConfig):
     """The baseline gated MLP (act(x Wg) * (x Wu)) Wd (paper eq. 1) and
     its gate activations act(x Wg); a quantized node multiplies its
     dequantized view."""
     params = Q.dense_view(params)
-    g1 = _act(cfg)(x @ params["wg_t"].to(x.dtype).T)
-    h1 = g1
-    if "wu_t" in params:
-        h1 = h1 * (x @ params["wu_t"].to(x.dtype).T)
+    h1, g1 = dense_hidden(params, x, cfg)
     return h1 @ params["wd_t"].to(x.dtype), g1
 
 

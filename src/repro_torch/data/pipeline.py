@@ -5,8 +5,11 @@ Batch content is a pure function of (seed, step, host_id), drawn with
 numpy exactly as the reference draws it, so a restarted or straggling host
 regenerates the batch it owes for any step and the port trains on the
 reference's tokens bit for bit.  ``DataIterator`` hands each batch over as
-tensors on the trainer's device.  ``make_batch_specs`` gives one host
-batch's shapes and dtypes as tensors on the ``meta`` device (the
+tensors on the trainer's device.  On a rank mesh every rank draws the
+whole global batch, as the reference's single-host run does (host 0 of
+1), and keeps its data line's contiguous rows (``rules.slot_range``: line
+j of D takes rows [j·B/D, (j+1)·B/D); B must divide by the lines).
+``make_batch_specs`` gives one host batch's shapes and dtypes as tensors on the ``meta`` device (the
 reference's ``ShapeDtypeStruct``s), for the dry run.
 """
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import rules as R
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +64,17 @@ class SyntheticSource:
 
 class DataIterator:
     """Stateful iterator with exact skip-ahead (resume, straggler catch-up):
-    each ``next`` is ``batch_at(step)`` as int64 tensors on ``device``."""
+    each ``next`` is ``batch_at(step)`` as int64 tensors on ``device``,
+    this rank's data line's rows of it on a ``mesh``."""
 
-    def __init__(self, cfg: DataConfig, start_step: int = 0, device="cpu"):
+    def __init__(self, cfg: DataConfig, start_step: int = 0, device="cpu",
+                 mesh=None):
         self.source = SyntheticSource(cfg)
         self.step = start_step
         self.device = torch.device(device)
+        rows = R.slot_range(cfg.global_batch // cfg.n_hosts, mesh) \
+            if mesh is not None else None
+        self.rows = None if rows is None else slice(rows.start, rows.stop)
 
     def skip_to(self, step: int) -> None:
         """O(1) seek: the contract resume and stragglers rely on."""
@@ -76,8 +86,10 @@ class DataIterator:
     def __next__(self) -> dict:
         batch = self.source.batch_at(self.step)
         self.step += 1
-        return {k: torch.from_numpy(v).to(device=self.device,
-                                          dtype=torch.int64)
+        if self.rows is not None:
+            batch = {k: v[self.rows] for k, v in batch.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    device=self.device, dtype=torch.int64)
                 for k, v in batch.items()}
 
 

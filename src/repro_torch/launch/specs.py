@@ -3,10 +3,14 @@
 ``repro/launch/specs.py``.
 
 The reference builds ``jax.ShapeDtypeStruct``s with their shardings; the
-port builds tensors on the ``meta`` device (shapes and dtypes, no memory)
-and places nothing: one card holds every leaf whole (placement over
-several cards is ROADMAP item 15).  The same functions build real tensors
-on ``cuda`` or ``cpu``.  Parameters are in the dtypes the port holds them
+port builds tensors on the ``meta`` device (shapes and dtypes, no memory).
+The same functions build real tensors on ``cuda`` or ``cpu``.  Its
+shardings are ``param_shardings``: for a rank of a ``launch.mesh.
+RankMesh``, each leaf's ``sharding.train.LeafShard`` (the whole extent,
+this rank's part of it, every rank's), which ``opt_state_specs`` gives
+AdamW's moments and ``train_params`` places an ``init_lm`` tree by, one
+layer at a time.  The dry run places nothing: it costs one card's whole
+tree (ROADMAP item 15.4).  Parameters are in the dtypes the port holds them
 in, the config's ``param_dtype`` (the reference's serve shapes cast every
 float leaf to bfloat16; the port's server keeps them as loaded).
 """
@@ -19,7 +23,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, make_batch_specs
 from repro_torch.models import encdec, lm, vision_lm
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_update
+from repro_torch.sharding import train as ST
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
@@ -68,6 +73,44 @@ def param_shapes(cfg: ModelConfig, serve: bool = False,
     if serve and cfg.sparse.enabled:
         params = mod.prepare_sparse(params, cfg.sparse)
     return params
+
+
+def param_shardings(cfg: ModelConfig, mesh, mode: str = "train"):
+    """The tree of ``sharding.train.LeafShard`` of the model's parameters
+    on this rank of ``mesh`` by the reference's train rules ('model' and
+    the data lines): each leaf's whole extent and every rank's part of it
+    (the reference's ``param_shardings``; dense family).  The serve
+    placement is ``sharding.sparse.serve_param_shardings``."""
+    if mode != "train":
+        raise ValueError(f"param_shardings mode {mode!r}: train (the serve "
+                         "placement is sharding.sparse's)")
+    _check_placed_family(cfg)
+    return ST.layout_of(param_shapes(cfg), mesh, cfg)
+
+
+def opt_state_specs(param_shards) -> AdamWState:
+    """AdamW's state placed like its params: ``mu`` and ``nu`` take their
+    param's ``LeafShard``, ``step`` (a host int) is the same on every
+    rank (the reference's ``opt_state_specs``)."""
+    return AdamWState(None, param_shards, param_shards)
+
+
+def train_params(cfg: ModelConfig, mesh, seed: int = 0, device="cuda"):
+    """``init_lm(cfg, seed)``'s weights, this rank's part of each leaf by
+    the train rules, drawn and placed one node (a table, a block) at a
+    time: the whole tree is never on the rank's device."""
+    _check_placed_family(cfg)
+    return model_module(cfg).init_lm(
+        cfg, seed, device,
+        place=lambda node: ST.place_train_params(node, mesh, cfg))
+
+
+def _check_placed_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not placed on a mesh: "
+            "training and serving on a mesh run the dense family (ROADMAP "
+            "Queue A item 15.5)")
 
 
 def cache_structs(cfg: ModelConfig, shape: ShapeConfig, device="meta"):

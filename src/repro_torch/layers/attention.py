@@ -106,6 +106,10 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     attention), with the weights in ``x``'s dtype."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.head_shards > 1:
+        # the replicated x enters this rank's heads: its gradient is the
+        # line's
+        x = R.model_entry(x)
     src = x if kv_x is None else kv_x
     q = x @ params["wq"].to(x.dtype)
     k = _promoted_matmul(src, params["wk"].to(x.dtype))

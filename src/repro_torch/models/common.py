@@ -118,18 +118,29 @@ def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
 
 def chunked_xent(hidden: torch.Tensor, labels: torch.Tensor,
                  table: torch.Tensor, softcap: float = 0.0,
-                 chunk: int = 2048) -> torch.Tensor:
+                 chunk: int = 2048, vocab: int = 0) -> torch.Tensor:
     """Mean token cross-entropy without the whole (B, S, vocab) logits.
 
     hidden (B, S, d); labels (B, S) integer, -100 (any negative) ignored;
     table (V, d).  The sequence axis is cut in chunks of the largest
     divisor of S not above ``chunk``; each chunk's logits are float32,
     with the softcap; the loss is the sum over valid labels divided by
-    ``max(count, 1)``."""
+    ``max(count, 1)``.
+
+    Under a current mesh a ``table`` of fewer rows than ``vocab`` is this
+    rank's vocabulary share: the chunk's logits are joined over the
+    'model' line (``rules.model_concat``) and the hidden states enter it
+    through ``rules.model_entry``.  On a mesh of several data lines the
+    rows are the line's: the count is the global one (every line's, in
+    line order) and the lines' sums over it are summed in line order, the
+    global mean on every rank."""
     b, s, _ = hidden.shape
     chunk = max(1, min(chunk, s))
     while s % chunk:
         chunk -= 1
+    split = vocab > table.shape[0]
+    if split:
+        hidden = R.model_entry(hidden)
     tab = table.float()
     losses, counts = [], []
     for c0 in range(0, s, chunk):
@@ -137,6 +148,8 @@ def chunked_xent(hidden: torch.Tensor, labels: torch.Tensor,
                               hidden[:, c0:c0 + chunk].float(), tab)
         if softcap > 0.0:
             logits = torch.tanh(logits / softcap) * softcap
+        if split:
+            logits = R.model_concat(logits)
         yb = labels[:, c0:c0 + chunk].long()
         lse = torch.logsumexp(logits, dim=-1)                    # (B, c)
         picked = torch.gather(logits, -1,
@@ -144,8 +157,20 @@ def chunked_xent(hidden: torch.Tensor, labels: torch.Tensor,
         valid = yb >= 0
         losses.append(torch.where(valid, lse - picked, 0.0).sum())
         counts.append(valid.sum())
-    return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(),
-                                                   min=1)
+    count = torch.stack(counts).sum()
+    lines = R.data_lines()
+    if lines > 1:
+        count = R.gather_line(count, R.data_axis()).sum()
+    loss = torch.stack(losses).sum() / torch.clamp(count, min=1)
+    return R.line_sum(loss, R.data_axis()) if lines > 1 else loss
+
+
+def mlp_shards(cfg: ModelConfig) -> int:
+    """How many ways the dense MLP's rows split over the current mesh's
+    'model' line: its size where it divides ``d_ff`` (the rules' split of
+    the MLP leaves), else 1."""
+    m = R.model_size()
+    return m if m > 1 and cfg.d_ff % m == 0 else 1
 
 
 def remat(cfg: ModelConfig, fn, *args):

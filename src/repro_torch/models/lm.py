@@ -70,6 +70,7 @@ from repro_torch.layers import xlstm as XL
 from repro_torch.layers.mlp import init_mlp, mlp_apply
 from repro_torch.layers.moe import MoEConfig, init_moe, moe_apply
 from repro_torch.models import common as C
+from repro_torch.sharding import train as ST
 
 
 # families whose prefill runs in fixed-size chunks against the decode cache
@@ -360,9 +361,19 @@ def _block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
         h, a = moe_apply(blk["moe"], h, moe_cfg(cfg))
         aux = aux + a
     else:
-        h = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg))
+        h = mlp_apply(blk["mlp"], h, _mlp_sparse_cfg(cfg),
+                      row_shards=C.mlp_shards(cfg))
     x = x + _post_norm(cfg, blk, "ln2_post", h)
     return x, kv, aux
+
+
+def _placed_block_fwd(blk: dict, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor, window: int, aux, i: int):
+    """``_block_fwd`` of block ``i``, its leaves gathered first under a
+    current training layout (``sharding/train.py:gather``; inside the
+    recomputed region, so the backward gathers them again)."""
+    return _block_fwd(ST.gather(blk, "blocks", i), x, cfg, positions,
+                      window, None, aux)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -373,10 +384,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     moe run every block, hybrid each group's shared-block invocation with
     its LoRA and then its Mamba2 layers, then the tail (not recomputed, as
     the reference's), xlstm its blocks in the group order; each block is
-    recomputed in the backward pass when ``cfg.remat``."""
+    recomputed in the backward pass when ``cfg.remat``.  Under a current
+    training layout (``sharding/train.py:use_layout``, dense family) each
+    node is a rank's part, gathered right before its use."""
     _check_family(cfg)
     dev = tokens.device
-    x = _embed_in(params, cfg, tokens)
+    x = C.embed(ST.gather(params["embed"], "embed"), tokens, cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -393,19 +406,25 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     elif cfg.family == "xlstm":
         x, _ = _xlstm_fwd(params, x, cfg)
     else:
-        for blk, window in zip(params["blocks"], _layer_windows(cfg)):
-            x, _, aux = C.remat(cfg, _block_fwd, blk, x, cfg, positions,
-                                window, None, aux)
-    return C.norm_apply(cfg, params["final_norm"], x), aux
+        for i, (blk, window) in enumerate(zip(params["blocks"],
+                                              _layer_windows(cfg))):
+            x, _, aux = C.remat(cfg, _placed_block_fwd, blk, x, cfg,
+                                positions, window, aux, i)
+    return C.norm_apply(cfg, ST.gather(params["final_norm"], "final_norm"),
+                        x), aux
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict):
     """batch ``{"tokens", "labels"}`` (B, S) -> (loss, ``{"xent",
     "aux"}``): the chunked cross-entropy (labels of -100 ignored) plus the
-    MoE load-balance loss."""
+    MoE load-balance loss.  On a mesh (a current training layout) the
+    batch is the data line's rows and the loss is the global mean
+    (``common.chunked_xent``), the same on every rank."""
     hidden, aux = forward(params, cfg, batch["tokens"])
-    xent = C.chunked_xent(hidden, batch["labels"], _head_table(params),
-                          cfg.final_softcap, cfg.loss_chunk)
+    name = "unembed" if "unembed" in params else "embed"
+    table = ST.gather(params[name], name)["table"]
+    xent = C.chunked_xent(hidden, batch["labels"], table, cfg.final_softcap,
+                          cfg.loss_chunk, cfg.vocab_padded)
     return xent + aux, {"xent": xent, "aux": aux}
 
 

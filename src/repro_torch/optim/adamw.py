@@ -14,6 +14,12 @@ layout, which stacks every layer's leaves along a leading axis; so a
 block's norm scale (L, d) is decayed while ``final_norm`` (d,) is not.  The
 port keeps one dict a layer, so a leaf inside one of the per-layer lists
 (``tree.LAYER_LISTS``) counts its rank plus one.
+
+On a rank mesh each rank holds its part of every leaf (``sharding/
+train.py``): ``layout=`` (the params' tree of ``LeafShard``) makes the
+gradient norm the whole tree's, each distinct part's sum of squares
+counted once and summed over the ranks in rank order, the same on every
+rank; the clip scale and the update are then local to each part.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.sharding import train as ST
 from repro_torch.tree import flatten, reference_ndim, tree_map
 
 @dataclasses.dataclass(frozen=True)
@@ -66,17 +73,23 @@ def init_adamw(params) -> AdamWState:
     return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares;
+    with ``layout`` (on a mesh), of each whole leaf's (``sharding.train.
+    tree_sum``)."""
     sq = [x.float().square().sum() for _, x in flatten(tree)]
+    if layout is not None:
+        return ST.tree_sum(sq, layout).sum().sqrt()
     return torch.stack(sq).sum().sqrt()
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState):
+def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState,
+                 layout=None):
     """One step.  Returns (params, state, metrics ``{"grad_norm", "lr"}``);
     ``params`` and the moments are the caller's tensors, updated in
-    place.  ``grads`` are not kept."""
-    gnorm = global_norm(grads)
+    place.  ``grads`` are not kept.  ``layout``: the params' placement on
+    a mesh (the norm is the whole tree's)."""
+    gnorm = global_norm(grads, layout)
     # clip / norm as a true division (a Python scalar over a tensor would
     # multiply by the norm's reciprocal)
     scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm)

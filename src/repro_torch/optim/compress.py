@@ -7,7 +7,11 @@ beside the optimizer state; on one card the round trip is the same
 function of the gradients (no reduction between).  Per tensor of the
 reference's layer-stacked layout: the gradient plus the residual is
 quantized to int8 with one float32 scale, and what the quantization lost
-is the next residual.
+is the next residual.  On a rank mesh (``layout=``: the grads' tree of
+``sharding.train.LeafShard``) the scale is the whole leaf's: the max of
+its parts' maxima over every rank (exact in any order), so the codes
+equal one process's where the gradients do; the residual is placed like
+its gradient.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding import train as ST
 from repro_torch.tree import (flatten, leaves, reference_groups,
                               tree_map, unflatten)
 
@@ -44,7 +49,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_grads(grads, ef: EFState):
+def compress_grads(grads, ef: EFState, layout=None):
     """Quantize (grads + residual) to int8, keeping the new residual.
     Returns (a tree of (q, scale) tuples, new EFState).  The scale is the
     reference's per-tensor one in its stacked layout: the layers of a
@@ -57,6 +62,10 @@ def compress_grads(grads, ef: EFState):
     for key, c in zip(groups, corrected):
         m = c.abs().max()
         amax[key] = m if key not in amax else torch.maximum(amax[key], m)
+    if layout is not None:
+        keys = list(amax)
+        amax = dict(zip(keys, ST.world_max(torch.stack(
+            [amax[k] for k in keys])).unbind()))
     qs, res = [], []
     for key, c in zip(groups, corrected):
         scale = (amax[key] + 1e-12) / 127.0

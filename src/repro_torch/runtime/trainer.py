@@ -1,6 +1,12 @@
 """Training runtime: counterpart of ``repro/runtime/trainer.py``.  A train
 step (loss, backward, optional int8 gradient compression, AdamW), async
-checkpoints, exact resume and the straggler watchdog, on one device.
+checkpoints, exact resume and the straggler watchdog, on one device or on
+a rank mesh (``mesh=``, dense family): each rank holds its part of every
+leaf and of AdamW's moments by the reference's train rules (FSDP over
+the data lines, a tensor split over 'model': ``sharding/train.py``),
+trains on its data line's rows of each batch, and gathers what it needs
+in rank order, so the loss, the gradient norm and the step time of its
+``history`` are the same on every rank.
 
 Fault-tolerance contract (held by ``tests/test_torch_trainer.py``):
   * a checkpoint at step N and the deterministic data give a resume whose
@@ -10,9 +16,9 @@ Fault-tolerance contract (held by ``tests/test_torch_trainer.py``):
     step times, and the data iterator skips ahead in O(1).
 
 The reference jit-compiles the step over a mesh; the port runs it eagerly
-on one device (no ``torch.compile``), and a step's time is taken after
+(no ``torch.compile``), and a step's time is taken after
 ``torch.cuda.synchronize()`` on the card, as the reference blocks on the
-loss.
+loss; on a mesh it is the slowest rank's.
 """
 from __future__ import annotations
 
@@ -23,14 +29,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.device import resolve_device
+from repro_torch.launch import specs
 from repro_torch.optim import compress as GC
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      init_adamw)
+from repro_torch.sharding import rules as R
+from repro_torch.sharding import train as ST
 from repro_torch.tree import flatten, unflatten
 
 
@@ -77,23 +87,29 @@ def make_loss_fn(model_mod, cfg: ModelConfig) -> Callable:
 
 
 def make_train_step(model_mod, cfg: ModelConfig, opt: AdamWConfig,
-                    grad_compression: bool = False) -> Callable:
+                    grad_compression: bool = False, mesh=None,
+                    layout=None) -> Callable:
     """(params, opt_state, ef_state, batch) -> (params, opt_state,
     ef_state, metrics).  ``params``' leaves must require grad; they and
     the moments are updated in place.  A leaf the loss does not reach gets
-    a zero gradient, as ``jax.grad`` gives it."""
+    a zero gradient, as ``jax.grad`` gives it.  On a ``mesh`` the params
+    are this rank's parts by ``layout`` and the batch is its data line's
+    rows; the backward runs under the mesh too (the recomputed blocks
+    gather again)."""
     loss_fn = make_loss_fn(model_mod, cfg)
 
     def step(params, opt_state: AdamWState, ef_state, batch):
         flat = flatten(params)
         leaves = [p for _, p in flat]
-        loss, metrics = loss_fn(params, batch)
-        grads = unflatten(params, torch.autograd.grad(
-            loss, leaves, allow_unused=True, materialize_grads=True))
+        with R.use_mesh(mesh), ST.use_layout(layout):
+            loss, metrics = loss_fn(params, batch)
+            grads = unflatten(params, torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True))
         if grad_compression:
-            qgrads, ef_state = GC.compress_grads(grads, ef_state)
+            qgrads, ef_state = GC.compress_grads(grads, ef_state, layout)
             grads = GC.decompress_grads(qgrads)
-        params, opt_state, om = adamw_update(opt, params, grads, opt_state)
+        params, opt_state, om = adamw_update(opt, params, grads, opt_state,
+                                             layout)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in dict(metrics, loss=loss, **om).items()}
         return params, opt_state, ef_state, metrics
@@ -109,23 +125,37 @@ def _trainable(params):
 
 
 class Trainer:
-    """The training loop of one device.  ``device`` defaults to ``cuda``
-    and raises without a GPU unless it is ``"cpu"``."""
+    """The training loop of one device, or of this rank of ``mesh`` (a
+    ``launch.mesh.RankMesh`` of more than one rank; dense family: the
+    others raise).  ``device`` defaults to ``cuda`` and raises without a
+    GPU unless it is ``"cpu"``."""
 
     def __init__(self, model_mod, cfg: ModelConfig, tcfg: TrainerConfig,
                  opt: AdamWConfig, data_cfg: DataConfig, device="cuda",
-                 extra_batch: Optional[Callable[[int], dict]] = None):
+                 extra_batch: Optional[Callable[[int], dict]] = None,
+                 mesh=None):
         self.model_mod = model_mod
         self.cfg = cfg
         self.tcfg = tcfg
         self.opt = opt
         self.device = resolve_device(device)
-        self.data = DataIterator(data_cfg, device=self.device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # each leaf's part on this rank: the params', the moments' (placed
+        # like their params) and the checkpoint's
+        self.layout = (specs.param_shardings(cfg, self.mesh, "train")
+                       if self.mesh is not None else None)
+        self.data = DataIterator(data_cfg, device=self.device,
+                                 mesh=self.mesh)
         self.extra_batch = extra_batch
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir or tempfile.mkdtemp(
-                                          prefix="repro_ckpt_"),
-                                      host_id=data_cfg.host_id,
-                                      n_hosts=data_cfg.n_hosts)
+        ckpt_dir = tcfg.ckpt_dir
+        if not ckpt_dir:
+            if self.mesh is not None:
+                raise ValueError("training on a mesh needs a ckpt_dir every "
+                                 "rank shares")
+            ckpt_dir = tempfile.mkdtemp(prefix="repro_ckpt_")
+        self.ckpt = CheckpointManager(ckpt_dir, host_id=data_cfg.host_id,
+                                      n_hosts=data_cfg.n_hosts,
+                                      mesh=self.mesh)
         self.watchdog = StepWatchdog(tcfg.straggler_z, tcfg.straggler_window)
         self.step_fn = None
         self.params = None
@@ -136,13 +166,25 @@ class Trainer:
 
     # ----------------------------------------------------------- setup ---
     def init_state(self, seed: int = 0) -> None:
-        self.params = _trainable(self.model_mod.init_lm(self.cfg, seed,
-                                                        self.device))
+        if self.mesh is not None:
+            params = specs.train_params(self.cfg, self.mesh, seed,
+                                        self.device)
+        else:
+            params = self.model_mod.init_lm(self.cfg, seed, self.device)
+        self.params = _trainable(params)
         self.opt_state = init_adamw(self.params)
         self.ef_state = (GC.init_ef(self.params)
                          if self.tcfg.grad_compression else ())
         self.step_fn = make_train_step(self.model_mod, self.cfg, self.opt,
-                                       self.tcfg.grad_compression)
+                                       self.tcfg.grad_compression,
+                                       self.mesh, self.layout)
+
+    def _state_layout(self):
+        """The checkpointed state's layout (None off a mesh)."""
+        if self.layout is None:
+            return None
+        return {"params": self.layout, "mu": self.layout,
+                "nu": self.layout}
 
     def maybe_resume(self) -> bool:
         """Resume from the latest checkpoint if one exists."""
@@ -152,7 +194,8 @@ class Trainer:
         state = {"params": self.params, "mu": self.opt_state.mu,
                  "nu": self.opt_state.nu}
         restored, extra = self.ckpt.restore(state, latest,
-                                            device=self.device)
+                                            device=self.device,
+                                            layout=self._state_layout())
         self.params = _trainable(restored["params"])
         self.opt_state = AdamWState(int(extra["opt_step"]), restored["mu"],
                                     restored["nu"])
@@ -166,7 +209,8 @@ class Trainer:
         self.ckpt.save(self.global_step, state,
                        extra={"global_step": self.global_step,
                               "opt_step": int(self.opt_state.step)},
-                       blocking=blocking or not self.tcfg.async_ckpt)
+                       blocking=blocking or not self.tcfg.async_ckpt,
+                       layout=self._state_layout())
 
     # ------------------------------------------------------------ train ---
     def run(self, steps: Optional[int] = None,
@@ -184,7 +228,7 @@ class Trainer:
                              batch)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
+            dt = self._slowest(time.perf_counter() - t0)
             self.global_step += 1
             self.watchdog.observe(self.global_step, dt)
             rec = {"step": self.global_step,
@@ -200,3 +244,12 @@ class Trainer:
                                    f"{self.global_step}")
         self.ckpt.wait()
         return self.history
+
+    def _slowest(self, dt: float) -> float:
+        """The step time of the slowest rank (``dt`` off a mesh)."""
+        if self.mesh is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t, group=self.mesh.host_group)
+        return float(torch.cat(parts).max())

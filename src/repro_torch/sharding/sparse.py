@@ -107,7 +107,7 @@ _HEAD_LEAVES = {"wq": ("q", -1), "bq": ("q", 0), "wo": ("q", 0),
                 "bv": ("k", 0)}
 
 
-def _leaf_index(path: str, shape: tuple, mesh, cfg) -> Optional[tuple]:
+def leaf_index(path: str, shape: tuple, mesh, cfg) -> Optional[tuple]:
     """The index of the part of a whole leaf this rank keeps (None: all of
     it): an attention leaf's heads (``cfg``'s), else the dim the
     reference's serve rules split over 'model', this rank's contiguous
@@ -152,7 +152,7 @@ def serve_param_shardings(params, mesh=None, cfg=None):
                               for i, v in enumerate(node))
         if node is None or mesh is None or R.model_size(mesh) == 1:
             return None
-        return _leaf_index(path, tuple(node.shape), mesh, cfg)
+        return leaf_index(path, tuple(node.shape), mesh, cfg)
     return walk(params, "")
 
 

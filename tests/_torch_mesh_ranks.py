@@ -5,6 +5,7 @@ Each returns numpy values the test process holds against its own."""
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -510,3 +511,136 @@ def placed_cases(mesh, device, plan: list) -> list:
             "serves": serve_cases(m, device, list(serves))["cases"]
             if serves else []})
     return results
+
+
+# ------------------------------------------------------------- training --
+
+def _whole(tree, layout):
+    """Every leaf of a rank's ``tree`` gathered whole (on rank 0; None on
+    the others)."""
+    from repro_torch.sharding import train as ST
+    from repro_torch.tree import flatten, unflatten
+    shards = [s for _, s in flatten(layout)]
+    got = [ST.whole_leaf(t.detach(), s)
+           for (_, t), s in zip(flatten(tree), shards)]
+    return None if got[0] is None else unflatten(tree, got)
+
+
+def _placed_trainer(mesh, cfg, weights, dkw: dict, okw: dict, tkw: dict):
+    """A mesh ``Trainer`` on the reference's ``weights`` (numpy, its
+    layout), each rank holding its part."""
+    from repro_torch import bridge
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+    from repro_torch.optim.compress import init_ef
+    from repro_torch.runtime import trainer as TT
+    from repro_torch.sharding import train as ST
+    t = TT.Trainer(tlm, cfg, TT.TrainerConfig(**tkw), AdamWConfig(**okw),
+                   DataConfig(**dkw), device="cpu", mesh=mesh)
+    t.init_state(seed=0)
+    if weights is not None:
+        t.params = TT._trainable(ST.place_train_params(
+            bridge.params_from_numpy(weights, cfg, "cpu"), mesh, cfg))
+        t.opt_state = init_adamw(t.params)
+        t.ef_state = init_ef(t.params) if tkw.get("grad_compression") \
+            else ()
+    return t
+
+
+def train_suite(mesh, device, suite: dict) -> dict:
+    """The training checks of one mesh spawn, each part of ``suite``
+    optional:
+
+    - "grads": (meshes, [(cfg, reference weights, batch (numpy, B
+      rows))]): on each mesh ((shape, axes) over the spawn's ranks, made
+      in turn by every rank) the loss and every gradient leaf of
+      ``lm_loss`` on the rank's part of the weights and its line's rows;
+      per mesh and case the loss of every rank and the whole gradients
+      (rank 0);
+    - "codes": (cfg, a whole gradient tree): ``compress_grads`` of the
+      rank's parts; the whole codes and scales (rank 0);
+    - "train": [(cfg, weights, data, opt and trainer kwargs)]: a mesh
+      ``Trainer`` run; its history and whole params after it (rank 0);
+    - "resume": (cfg, data, opt, trainer kwargs, steps): a fresh mesh
+      ``Trainer`` resumed from the checkpoint directory; whether every
+      restored leaf equals its part of the stored whole leaf bit for bit,
+      the step it resumed at and the history of ``steps`` more."""
+    from repro_torch import bridge
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import compress as GC
+    from repro_torch.sharding import train as ST
+    from repro_torch.tree import flatten, unflatten
+    out: dict = {}
+    meshes, cases = suite.get("grads", ((), ()))
+    for shape, axes in meshes:
+        on = make_mesh(shape, axes)
+        got = out.setdefault("grads", {})[
+            "x".join(str(n) for n in shape)] = []
+        for cfg, weights, batch in cases:
+            layout = specs.param_shardings(cfg, on, "train")
+            params = ST.place_train_params(
+                bridge.params_from_numpy(weights, cfg, "cpu"), on, cfg)
+            leaves = [p.requires_grad_(True) for _, p in flatten(params)]
+            rows = R.slot_range(batch["tokens"].shape[0], on)
+            mine = {k: torch.from_numpy(v[rows.start:rows.stop])
+                    for k, v in batch.items()}
+            with R.use_mesh(on), ST.use_layout(layout):
+                loss, _ = tlm.lm_loss(params, cfg, mine)
+                grads = torch.autograd.grad(loss, leaves)
+            got.append((float(loss),
+                        _whole(unflatten(params, grads), layout)))
+    if "codes" in suite:
+        cfg, whole = suite["codes"]
+        layout = specs.param_shardings(cfg, mesh, "train")
+        mine = unflatten(layout, [ST.take(torch.from_numpy(g), s) for g, s
+                                  in zip((g for _, g in flatten(whole)),
+                                         (s for _, s in flatten(layout)))])
+        q, _ = GC.compress_grads(mine, GC.init_ef(mine), layout)
+        flat_q = [v for _, v in flatten(q)]     # (codes, scale) leaves
+        qs = unflatten(layout, [c for c, _ in flat_q])
+        scales = [float(s) for _, s in flat_q]
+        out["codes"] = (_whole(qs, layout), scales)
+    for cfg, weights, dkw, okw, tkw in suite.get("train", ()):
+        t = _placed_trainer(mesh, cfg, weights, dkw, okw, tkw)
+        hist = t.run()
+        out.setdefault("train", []).append(
+            ([{k: h[k] for k in ("step", "loss", "grad_norm", "time_s")}
+              for h in hist], _whole(t.params, t.layout)))
+    if "resume" in suite:
+        cfg, dkw, okw, tkw, steps = suite["resume"]
+        t = _placed_trainer(mesh, cfg, None, dkw, okw, tkw)
+        assert t.maybe_resume()
+        step = t.ckpt.latest_step()
+        with np.load(os.path.join(tkw["ckpt_dir"], f"step_{step:08d}",
+                                  "shard_0.npz")) as data:
+            stored = [data[str(i)] for i in range(len(data.files))]
+        state = {"params": t.params, "mu": t.opt_state.mu,
+                 "nu": t.opt_state.nu}
+        same = all(
+            np.array_equal(ST.take(w, s), v.detach().numpy())
+            for w, (_, v), (_, s) in zip(stored, flatten(state),
+                                          flatten(t._state_layout())))
+        out["resume"] = {"bitwise": same, "at": t.global_step,
+                         "history": [{k: h[k] for k in ("step", "loss")}
+                                     for h in t.run(steps)]}
+    return out
+
+
+def pipe_block(w_stage: torch.Tensor, xm: torch.Tensor) -> torch.Tensor:
+    """One stage of the GPipe test's stack: relu(x @ w) a layer."""
+    for w in w_stage:
+        xm = torch.relu(xm @ w)
+    return xm
+
+
+def pipeline_cases(mesh, device, ws, x, microbatches: list) -> list:
+    """``pipeline_apply`` of ``pipe_block`` over the 'pipe' ranks, the
+    rank holding its stage of the (n_layers, d, d) weights ``ws``; its
+    output per microbatch count."""
+    from repro_torch.sharding import pipeline as PP
+    local = PP.local_stage(PP.stage_params(torch.from_numpy(ws),
+                                           mesh.axis_size("pipe")), mesh)
+    return [PP.pipeline_apply(pipe_block, local, torch.from_numpy(x),
+                              mesh=mesh, n_microbatches=m).numpy()
+            for m in microbatches]

@@ -329,10 +329,17 @@ def test_checkpoint_dirs_are_never_shared(tmp_path, monkeypatch):
 
 
 def test_train_cli_refuses_a_mesh(tmp_path):
+    """A mesh trains the dense family only (``tests/
+    test_torch_mesh_train.py`` trains it): another family raises, naming
+    itself, before any rank starts; a mesh of four axes is refused."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train.main(["--arch", "prosparse-llama2-7b", "--reduced",
+    with pytest.raises(NotImplementedError, match="'xlstm'.*item 15.5"):
+        train.main(["--arch", "xlstm-125m", "--reduced",
                     "--device", "cpu", "--mesh", "2x2",
+                    "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "prosparse-llama2-7b", "--reduced",
+                    "--device", "cpu", "--mesh", "2x2x2x2",
                     "--ckpt-dir", str(tmp_path)])
 
 
